@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source in ``repro_torch/csrc`` compiles on its own into a shared
+library with a plain ``extern "C"`` interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+at first use, into ``build/kernels/`` at the repository root, keyed by a
+hash of the source and the flags (a changed source never loads a stale
+library). ``build()`` starts one nvcc per missing library, all at once, and
+waits for them together. Nothing here runs at import time: a machine
+without nvcc or a card imports the package and uses the kernels' plain
+versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = {
+    "paged_attention": "paged_attention.cu",
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME, else PATH, else the toolkit's default prefix."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, dict]:
+    """Compile every missing library among ``names`` (default: all), one
+    nvcc process per source, all started together. Returns per-kernel
+    ``{"seconds": wall seconds (0.0 when already built), "log": nvcc's
+    output}``. Raises with nvcc's output when a build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path() if any(
+        not library_path(n).exists() for n in names) else None
+    procs = {}
+    out: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    for n in names:
+        target = library_path(n)
+        if target.exists():
+            out[n] = {"seconds": 0.0, "log": ""}
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, target)
+    failed = []
+    for n, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        out[n] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built first if missing."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = _libs[name] = ctypes.CDLL(str(path))
+    return lib
