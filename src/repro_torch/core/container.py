@@ -118,9 +118,21 @@ class Container:
         raise NotImplementedError(_TRAINING)
 
     # -- serving: slot-granular cache + built serve steps ----------------------
+    def cache_leaf_dtype(self, d) -> torch.dtype:
+        """The dtype of one (layer-stacked) cache leaf, by the JAX package's
+        ``_abstract_cache`` rule: recurrent states stay float32 -- a 3-dim
+        leaf whose last axis is ``rnn`` (the RG-LRU state) or a 5-dim leaf
+        with ``heads`` at axis 2 (the SSM state); KV slabs and conv tails
+        take the compute dtype."""
+        if d.shape and d.logical and (
+                d.logical[-1] == "rnn" and len(d.shape) == 3
+                or (len(d.shape) == 5 and d.logical[2] == "heads")):
+            return torch.float32
+        return self.cache_dtype
+
     def _zeros(self, defs):
-        return tree_map(lambda d: torch.zeros(d.shape, dtype=self.cache_dtype,
-                                              device=self.device), defs)
+        return tree_map(lambda d: torch.zeros(
+            d.shape, dtype=self.cache_leaf_dtype(d), device=self.device), defs)
 
     def init_slot_cache(self, n_slots: int, max_len: int):
         """Zero-initialised contiguous slot cache on this device."""

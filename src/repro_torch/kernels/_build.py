@@ -29,6 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "paged_attention": "paged_attention.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "ssd": "ssd.cu",
+    "rglru_scan": "rglru_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -1,0 +1,104 @@
+"""Public entry point for the chunked Mamba-2 SSD scan.
+
+Dispatch is on the tensors' device, nothing else: a CPU tensor runs the
+plain chunked version (``ref._ssd_chunked``, the same algorithm,
+exponents clipped the same way); a CUDA tensor launches the
+hand-written kernel ``repro_torch/csrc/ssd.cu`` or raises. There is no
+fallback between the two. Forward only, as serving needs.
+
+Unlike the TPU kernel, which returns y alone, both paths also return the
+final state: the prefill hands it to decode.
+
+``launches`` counts kernel launches (CPU calls do not count), so a run can
+show that its prefill path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._launch import raise_on_error, require, stream_ptr
+from repro_torch.kernels.ssd.ref import _ssd_chunked
+
+MAX_CHUNK = 256        # the kernel's shared-memory arrays of one chunk
+MAX_STATE = 128        # state rows N one block holds
+P_BLOCKS = (32, 16)    # head-dim columns one block owns (compiled widths)
+
+launches = 0
+_bound = False
+
+
+def _lib():
+    global _bound
+    lib = _build.load("ssd")
+    if not _bound:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_launch.argtypes = [
+            p, p, p, p, p,                  # x, dt, A, B, C
+            p, p, p,                        # y, final state, scores scratch
+            i, i, i, i, i, i, i, p]         # b, S, H, P, N, chunk, pb, stream
+        lib.ssd_launch.restype = i
+        lib.ssd_error_string.argtypes = [i]
+        lib.ssd_error_string.restype = ctypes.c_char_p
+        _bound = True
+    return lib
+
+
+def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int):
+    """Launch the CUDA kernel. x (b,S,H,P), dt (b,S,H), A (H,), B and C
+    (b,S,N): float32, contiguous, on one CUDA device; S % chunk == 0,
+    chunk <= 256, N <= 128, P a multiple of 16.
+    Returns (y (b,S,H,P), final state (b,H,N,P)), both float32."""
+    global launches
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        require(t.is_cuda and t.device == x.device,
+                f"ssd: {name} must be on {x.device}, got {t.device}")
+        require(t.is_contiguous(), f"ssd: {name} must be contiguous")
+        require(t.dtype == torch.float32,
+                f"ssd: {name} must be float32, got {t.dtype}")
+    require(tuple(dt.shape) == (b, S, H) and tuple(A.shape) == (H,)
+            and tuple(B.shape) == (b, S, N) and tuple(C.shape) == (b, S, N),
+            f"ssd: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+            f"{tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)} "
+            "disagree")
+    require(0 < chunk <= MAX_CHUNK and S % chunk == 0,
+            f"ssd: chunk {chunk} must divide S={S} and be at most "
+            f"{MAX_CHUNK}")
+    require(0 < N <= MAX_STATE, f"ssd: state size {N} exceeds {MAX_STATE}")
+    pb = next((w for w in P_BLOCKS if P % w == 0), None)
+    require(pb is not None, f"ssd: head dim {P} is not a multiple of 16")
+    require(b <= 65535 and H <= 65535, "ssd: b or H exceeds the grid")
+    lib = _lib()
+    y = torch.empty_like(x)
+    state = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
+    if b == 0 or S == 0 or H == 0:
+        return y, state.zero_()
+    nc = S // chunk
+    scores = torch.empty((b * nc, chunk, chunk), dtype=torch.float32,
+                         device=x.device)
+    rc = lib.ssd_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        y.data_ptr(), state.data_ptr(), scores.data_ptr(),
+        b, S, H, P, N, chunk, pb, stream_ptr(x.device))
+    raise_on_error(rc, lib, "ssd_error_string", "ssd")
+    launches += 1
+    return y, state
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int):
+    """Chunked SSD; shapes as ``ssd_ref``, S % chunk == 0.
+    Returns (y (b,S,H,P), final state (b,H,N,P)), float32."""
+    if x.device.type == "cpu":
+        require(chunk > 0 and x.shape[1] % chunk == 0,
+                f"ssd: chunk {chunk} must divide S={x.shape[1]}")
+        return _ssd_chunked(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no kernel for device {x.device}")
+    return ssd_cuda(x, dt, A, B, C, chunk)

@@ -8,12 +8,13 @@ Kernels
 -------
 ``attend`` is the plain path (``_sdpa_dense``, or ``_sdpa_chunked`` above
 ``CHUNKED_KV_THRESHOLD`` keys). On a CUDA tensor with more than one query
-(prefill, and the prefix-cached suffix prefill whose causal offset is
-``Sk - Sq = prefix_len``) it calls the flash-attention forward kernel --
-where the JAX package's design puts its Pallas kernel. Decode over a
-paged pool goes through the paged-attention kernel
-(``paged_decode_attn``). Contiguous slot decode keeps the plain path: it
-ran through XLA, not a Pallas kernel, in the JAX package too.
+(prefill, local-window prefill, and the prefix-cached suffix prefill whose
+causal offset is ``Sk - Sq = prefix_len``) it calls the flash-attention
+forward kernel -- where the JAX package's design puts its Pallas kernel.
+Decode over a paged pool goes through the paged-attention kernel
+(``paged_decode_attn``). Contiguous slot decode, full or over a window's
+ring buffer, keeps the plain path: it ran through XLA, not a Pallas
+kernel, in the JAX package too.
 """
 
 from __future__ import annotations
@@ -302,19 +303,27 @@ def decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
     """One-token decode over contiguous per-slot slabs. x: (B,1,D);
     layer_cache k/v: (B,S,n_kv,hd); idx: (B,) per-row positions (every row
     an independent request at its own depth). Row b's new K/V is written IN
-    PLACE at position idx[b]. Returns (out, cache)."""
-    if window:
-        raise NotImplementedError(
-            "ring-buffer (windowed) decode is not ported yet (ROADMAP.md "
-            "Queue 1 item 10: other model families)")
+    PLACE at position idx[b]. Returns (out, cache).
+
+    For ``window`` caches the slab is a ring of S = min(window, max_len)
+    slots: position p lives at slot ``p % S``, and the true position of
+    slot j, seen from the write at idx, is ``idx - ((idx % S - j) mod S)``
+    (negative for slots not written yet, which the mask hides)."""
     B = x.shape[0]
     positions = idx[:, None].to(torch.int32)
     q, k, v = project_qkv(p, x, cfg, geom, positions)
     ck, cv = layer_cache["k"], layer_cache["v"]
+    S = ck.shape[1]
+    idx_l = idx.long()
+    slot = torch.remainder(idx_l, S) if window else idx_l
     rows = torch.arange(B, device=x.device)
-    ck[rows, idx.long()] = k[:, 0].to(ck.dtype)
-    cv[rows, idx.long()] = v[:, 0].to(cv.dtype)
-    k_pos = torch.arange(ck.shape[1], device=x.device).expand(B, -1)
-    ctx = attend(q, ck, cv, positions, k_pos,
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    ring = torch.arange(S, device=x.device)
+    if window:
+        k_pos = idx_l[:, None] - torch.remainder(slot[:, None] - ring[None, :], S)
+    else:
+        k_pos = ring.expand(B, -1)
+    ctx = attend(q, ck, cv, positions, k_pos, window,
                  score_dtype=getattr(torch, cfg.attn_score_dtype))
     return attn_out(p, ctx), {"k": ck, "v": cv}

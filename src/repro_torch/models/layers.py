@@ -40,6 +40,15 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.
     raise ValueError(kind)
 
 
+def rms_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2 gated RMSNorm: rmsnorm(x * silu(z)) * scale."""
+    dt = x.dtype
+    y = x.float() * F.silu(z.float())
+    y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings (with partial-rotary support: stablelm 25%, nemotron 50%)
 # ---------------------------------------------------------------------------

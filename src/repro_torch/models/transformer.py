@@ -1,15 +1,17 @@
-"""Decoder-only LM assembly (dense GQA blocks).
+"""Decoder-only LM assembly.
 
 Layers are grouped into *stages* exactly as in ``repro.models.transformer``
 (each stage a stack of identical *units*, its params stacked on a leading
-(L, ...) axis), so parameter and cache trees line up with the JAX
-package's leaf for leaf. Where the JAX package scans over the stacked
-params, the port runs a Python ``for`` over the layer axis.
+(L, ...) axis; recurrentgemma's cycle (rec, rec, attn) is one unit of three
+blocks), so parameter and cache trees line up with the JAX package's leaf
+for leaf. Where the JAX package scans over the stacked params, the port
+runs a Python ``for`` over the layer axis.
 
-Block kinds: ``attn`` (full attention + MLP). The other kinds of the zoo
-are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP.md item: ``moe``, ``ssm``, ``rec`` and ``local`` (Queue 1 item 10,
-other model families), as do frontend embeddings (same item).
+Block kinds: ``attn`` (full or local-window attention + MLP; a local
+window keeps a ring-buffer cache), ``ssm`` (Mamba-2 SSD) and ``rec``
+(RG-LRU + MLP). ``moe`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md item (Queue 1 item 10, other
+model families), as do frontend embeddings (same item).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rec_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnGeometry, resolve_geometry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -70,11 +74,19 @@ def build_stages(cfg: ModelConfig) -> tuple[Stage, ...]:
     return tuple(stages)
 
 
-def _check_ported(kind: str, cfg: ModelConfig) -> None:
-    if kind != "attn":
+_PORTED_KINDS = ("attn", "local", "ssm", "rec")
+
+
+def _check_ported(kind: str) -> None:
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(_NOT_PORTED.format(kind))
-    if cfg.attn_kind == "local" and cfg.window:
-        raise NotImplementedError(_NOT_PORTED.format("local"))
+
+
+def _window(kind: str, cfg: ModelConfig) -> int:
+    """The attention window of a block: local-window blocks (a ``local``
+    kind, or any attention of an ``attn_kind="local"`` arch) keep a ring
+    of ``cfg.window`` positions; 0 is full attention."""
+    return cfg.window if (kind == "local" or cfg.attn_kind == "local") else 0
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +94,16 @@ def _check_ported(kind: str, cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def block_defs(kind: str, cfg: ModelConfig, geom: AttnGeometry) -> dict:
-    _check_ported(kind, cfg)
+    _check_ported(kind)
+    if kind == "ssm":
+        return {"ln1": norm_defs(cfg), "ssm": ssm_mod.ssm_defs(cfg)}
+    if kind == "rec":
+        return {
+            "ln1": norm_defs(cfg),
+            "rec": rec_mod.rec_defs(cfg),
+            "ln2": norm_defs(cfg),
+            "mlp": mlp_defs(cfg),
+        }
     d = {"ln1": norm_defs(cfg), "attn": attn_mod.attn_defs(cfg, geom)}
     if not cfg.parallel_block:
         d["ln2"] = norm_defs(cfg)
@@ -104,7 +125,7 @@ class Model:
         self.stages = build_stages(cfg)
         for st in self.stages:
             for kind in st.unit:
-                _check_ported(kind, cfg)
+                _check_ported(kind)
         self.act_dtype = act_dtype
 
     # -- params ---------------------------------------------------------
@@ -121,38 +142,72 @@ class Model:
 
     # -- caches -----------------------------------------------------------
     def cache_defs(self, batch: int, max_len: int) -> dict:
-        """Contiguous per-slot KV slabs: per attention layer (batch,
-        max_len, n_kv, hd), stacked over the stage's layers."""
-        g = self.geom
-        spec = ("batch", "kv_seq", "kv_heads", None)
+        """Contiguous per-slot caches, stacked over each stage's layers: KV
+        slabs (batch, S, n_kv, hd) with S = max_len, or the ring
+        min(window, max_len) for local attention; conv tails and recurrent
+        states for ``ssm`` and ``rec`` blocks."""
         d: dict = {}
         for si, st in enumerate(self.stages):
             d[f"stage{si}"] = {
-                f"b{bi}": stack_defs({
-                    "k": ParamDef((batch, max_len, g.n_kv, g.head_dim), spec,
-                                  "zeros"),
-                    "v": ParamDef((batch, max_len, g.n_kv, g.head_dim), spec,
-                                  "zeros"),
-                }, st.count)
-                for bi, _ in enumerate(st.unit)}
+                f"b{bi}": stack_defs(
+                    self._block_cache_defs(kind, batch, max_len), st.count)
+                for bi, kind in enumerate(st.unit)}
         return d
+
+    def _block_cache_defs(self, kind: str, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        if kind in ("attn", "local"):
+            g = self.geom
+            window = _window(kind, cfg)
+            S = min(window, max_len) if window else max_len
+            spec = ("batch", "kv_seq", "kv_heads", None)
+            return {
+                "k": ParamDef((batch, S, g.n_kv, g.head_dim), spec, "zeros"),
+                "v": ParamDef((batch, S, g.n_kv, g.head_dim), spec, "zeros"),
+            }
+        if kind == "ssm":
+            di, ds = cfg.d_inner, cfg.ssm_state
+            return {
+                "conv": ParamDef((batch, cfg.conv_kernel - 1, di + 2 * ds),
+                                 ("batch", None, "rnn"), "zeros"),
+                "state": ParamDef((batch, cfg.ssm_heads, ds, cfg.ssm_headdim),
+                                  ("batch", "heads", None, None), "zeros"),
+            }
+        R = cfg.rnn_width_                                    # rec
+        return {
+            "conv": ParamDef((batch, cfg.conv_kernel - 1, R),
+                             ("batch", None, "rnn"), "zeros"),
+            "state": ParamDef((batch, R), ("batch", "rnn"), "zeros"),
+        }
 
     def paged_cache_defs(self, n_pages: int, page_size: int) -> dict:
         """Cache defs for PAGED serving: per attention layer one global page
         pool ``(n_kv, n_pages, page_size, hd)`` shared by every slot through
-        the host-side page table (one table for all layers)."""
+        the host-side page table (one table for all layers). Ring-buffer
+        (windowed) and recurrent caches are per-slot state, not pageable
+        history: they raise."""
+        cfg = self.cfg
+        if cfg.attn_kind == "local" and cfg.window:
+            raise NotImplementedError(
+                "paged KV cache does not support sliding-window attention "
+                "(ring-buffer caches stay contiguous)")
         g = self.geom
         spec = ("kv_heads", None, None, None)
         d: dict = {}
         for si, st in enumerate(self.stages):
-            d[f"stage{si}"] = {
-                f"b{bi}": stack_defs({
+            unit: dict = {}
+            for bi, kind in enumerate(st.unit):
+                if kind in ("ssm", "rec", "local"):
+                    raise NotImplementedError(
+                        f"paged KV cache does not support {kind!r} blocks "
+                        "(windowed/recurrent caches stay contiguous)")
+                unit[f"b{bi}"] = stack_defs({
                     "k": ParamDef((g.n_kv, n_pages, page_size, g.head_dim),
                                   spec, "zeros"),
                     "v": ParamDef((g.n_kv, n_pages, page_size, g.head_dim),
                                   spec, "zeros"),
                 }, st.count)
-                for bi, _ in enumerate(st.unit)}
+            d[f"stage{si}"] = unit
         return d
 
     # -- forward (prefill) ----------------------------------------------------
@@ -218,8 +273,29 @@ class Model:
                      collect_cache: bool, cache_len: int,
                      prefix_kv=None, prefix_pages=None, prefix_len: int = 0):
         cfg, geom = self.cfg, self.geom
-        _check_ported(kind, cfg)
         entry = None
+        window = _window(kind, cfg)
+        if prefix_len and (window or kind in ("ssm", "rec")):
+            raise NotImplementedError(
+                "prefix-cached suffix prefill supports full attention only")
+        if kind == "ssm":
+            h = apply_norm(p["ln1"], x, cfg.norm)
+            if collect_cache:
+                out, entry = ssm_mod.ssm_forward(p["ssm"], h, cfg,
+                                                 return_cache=True)
+            else:
+                out = ssm_mod.ssm_forward(p["ssm"], h, cfg)
+            return x + out, entry
+        if kind == "rec":
+            h = apply_norm(p["ln1"], x, cfg.norm)
+            if collect_cache:
+                out, entry = rec_mod.rec_forward(p["rec"], h, cfg,
+                                                 return_cache=True)
+            else:
+                out = rec_mod.rec_forward(p["rec"], h, cfg)
+            x = x + out
+            h2 = apply_norm(p["ln2"], x, cfg.norm)
+            return x + apply_mlp(p["mlp"], h2, cfg.mlp), entry
         h = apply_norm(p["ln1"], x, cfg.norm)
         q, k, v = attn_mod.project_qkv(p["attn"], h, cfg, geom, positions)
         k_all, v_all, kv_pos = k, v, positions
@@ -240,14 +316,14 @@ class Model:
             v_all = torch.cat([_gather(prefix_kv["v"]).to(v.dtype), v], dim=1)
             kv_pos = torch.arange(prefix_len + k.shape[1], dtype=torch.int32,
                                   device=x.device)[None, :]
-        ctx = attn_mod.attend(q, k_all, v_all, positions, kv_pos, 0,
+        ctx = attn_mod.attend(q, k_all, v_all, positions, kv_pos, window,
                               score_dtype=getattr(torch, cfg.attn_score_dtype),
                               q_chunk=cfg.attn_q_chunk,
                               kv_chunk=cfg.attn_kv_chunk,
                               q_offset=prefix_len)
         out = attn_mod.attn_out(p["attn"], ctx)
         if collect_cache:
-            entry = self._prefill_cache_entry(k, v, cache_len)
+            entry = self._prefill_cache_entry(k, v, window, cache_len)
         if cfg.parallel_block:
             x = x + out + apply_mlp(p["mlp"], h, cfg.mlp)
         else:
@@ -256,13 +332,22 @@ class Model:
             x = x + apply_mlp(p["mlp"], h2, cfg.mlp)
         return x, entry
 
-    def _prefill_cache_entry(self, k, v, cache_len: int):
-        """Store the first ``cache_len`` positions into the cache, right-
-        padded with zeros when the prompt is shorter."""
+    def _prefill_cache_entry(self, k, v, window: int, cache_len: int):
+        """Store the last ``cache_len`` (or window) positions into the cache,
+        right-padded with zeros when the prompt is shorter.
+
+        Windowed caches are *ring buffers* with the invariant that position p
+        lives at slot ``p % ring``; the kept tail is rolled into that layout
+        or the first decoded tokens attend to permuted history."""
         S = k.shape[1]
-        if S >= cache_len:
-            return {"k": k[:, S - cache_len:], "v": v[:, S - cache_len:]}
-        pad = (0, 0, 0, 0, 0, cache_len - S)
+        keep = min(window, cache_len) if window else cache_len
+        if S >= keep:
+            k_, v_ = k[:, S - keep:], v[:, S - keep:]
+            if window:
+                k_ = torch.roll(k_, S % keep, dims=1)
+                v_ = torch.roll(v_, S % keep, dims=1)
+            return {"k": k_, "v": v_}
+        pad = (0, 0, 0, 0, 0, keep - S)
         return {"k": torch.nn.functional.pad(k, pad),
                 "v": torch.nn.functional.pad(v, pad)}
 
@@ -276,7 +361,8 @@ class Model:
         pools (see paged_cache_defs) and decode routes through the paged
         kernel; without it they are contiguous per-slot slabs. Either way
         the cache is updated IN PLACE (per-layer views of the stacked
-        tensors) and returned."""
+        tensors; a recurrent block's new conv tail and state are copied
+        into them, cast to the cache's dtype) and returned."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype)
         for si, st in enumerate(self.stages):
@@ -286,23 +372,44 @@ class Model:
                 unit_params = tree_map(lambda a: a[li], sp)
                 unit_cache = tree_map(lambda a: a[li], sc)
                 for bi, kind in enumerate(st.unit):
-                    _check_ported(kind, cfg)
-                    p = unit_params[f"b{bi}"]
-                    c = unit_cache[f"b{bi}"]
-                    h = apply_norm(p["ln1"], x, cfg.norm)
-                    if page_table is not None:
-                        out, _ = attn_mod.paged_decode_attn(
-                            p["attn"], h, c, idx, page_table, cfg,
-                            self.geom, 0)
-                    else:
-                        out, _ = attn_mod.decode_attn(p["attn"], h, c, idx,
-                                                      cfg, self.geom, 0)
-                    if cfg.parallel_block:
-                        x = x + out + apply_mlp(p["mlp"], h, cfg.mlp)
-                    else:
-                        x = x + out
-                        h2 = apply_norm(p["ln2"], x, cfg.norm)
-                        x = x + apply_mlp(p["mlp"], h2, cfg.mlp)
+                    x = self._decode_block(kind, unit_params[f"b{bi}"],
+                                           unit_cache[f"b{bi}"], x, idx,
+                                           page_table)
         x = apply_norm(params["final_norm"], x, cfg.norm)
         logits = lm_logits(params["embed"], x, cfg)
         return logits, cache
+
+    def _decode_block(self, kind: str, p: dict, c: dict, x, idx, page_table):
+        cfg = self.cfg
+        h = apply_norm(p["ln1"], x, cfg.norm)
+        if kind == "ssm":
+            out, new = ssm_mod.ssm_decode(p["ssm"], h, c, cfg)
+            _write_state(c, new)
+            return x + out
+        if kind == "rec":
+            out, new = rec_mod.rec_decode(p["rec"], h, c, cfg)
+            _write_state(c, new)
+            x = x + out
+            h2 = apply_norm(p["ln2"], x, cfg.norm)
+            return x + apply_mlp(p["mlp"], h2, cfg.mlp)
+        window = _window(kind, cfg)
+        if page_table is not None:
+            out, _ = attn_mod.paged_decode_attn(
+                p["attn"], h, c, idx, page_table, cfg, self.geom, window)
+        else:
+            out, _ = attn_mod.decode_attn(p["attn"], h, c, idx, cfg,
+                                          self.geom, window)
+        if cfg.parallel_block:
+            return x + out + apply_mlp(p["mlp"], h, cfg.mlp)
+        x = x + out
+        h2 = apply_norm(p["ln2"], x, cfg.norm)
+        return x + apply_mlp(p["mlp"], h2, cfg.mlp)
+
+
+def _write_state(cache: dict, new: dict) -> None:
+    """Copy a recurrent block's new conv tail and state into its cache
+    views, IN PLACE, cast to the cache's dtype (where the JAX package's
+    decode writes ``new.astype(buf.dtype)`` into the scan carry)."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+

@@ -7,7 +7,13 @@ runs on a machine that has only PyTorch:
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
 Tolerances: 1e-4 in float32 (the kernel sums in another order), 3e-2 in
-bfloat16 (as the JAX kernel suites).
+bfloat16 (as the JAX kernel suites). The scans are float32 only: the SSD
+kernel within 1e-4 of its plain chunked version relative to the output's
+max (the JAX suite's bound: at mamba2-2.7b's widths each output sums 128
+state and 256 time products, and the two versions round them in other
+orders), the RG-LRU kernel within 1e-5 absolute of the sequential version
+scaled by max(1, max |h|) (its chunk carries fold the recurrence in
+another order).
 """
 
 import numpy as np
@@ -18,6 +24,10 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import _ssd_chunked
 
 pytestmark = pytest.mark.cuda
 
@@ -44,7 +54,26 @@ FA_CASES = [
     (1, 24, 8, 128, 328, 128, True, 0, "float32"),   # ragged suffix prefill
     (1, 4, 2, 40, 40, 16, True, 0, "float32"),       # smoke width, ragged
     (1, 4, 1, 33, 97, 256, True, 0, "bfloat16"),     # d=256, ragged
+    # recurrentgemma-2b's local-attention prefill: 2304 tokens past the
+    # 2048 window, so later query tiles start their key loop late
+    (1, 10, 1, 2304, 2304, 256, True, 2048, "float32"),
+    (1, 10, 1, 2304, 2304, 256, True, 2048, "bfloat16"),
+    (2, 10, 1, 100, 137, 256, True, 48, "float32"),  # its widths, ragged
 ]
+
+
+# tests/test_kernels.py:93 (B, S, R), plus recurrentgemma-2b's prefill
+# widths: a 2304-token prompt and a ragged batch of 3. (3, 32, 512) runs
+# as one time chunk (no summary pass), the others as several.
+RG_CASES = [(2, 64, 128), (1, 100, 256), (3, 32, 512), (1, 128, 128),
+            (1, 2304, 2560), (3, 100, 2560)]
+
+# tests/test_kernels.py:121 (b, S, H, P, N, chunk), plus mamba2-2.7b's
+# prefill widths (H 80, P 64, N 128, chunk 256) and a ragged chunk
+SSD_CASES = [(2, 64, 4, 32, 32, 16), (1, 128, 8, 64, 128, 32),
+             (2, 96, 2, 16, 64, 32), (1, 256, 4, 64, 128, 64),
+             (1, 512, 80, 64, 128, 256), (2, 256, 80, 64, 128, 256),
+             (1, 100, 3, 32, 48, 100)]
 
 
 @pytest.fixture
@@ -109,6 +138,41 @@ def test_flash_kernel_vs_plain(case, cuda):
     assert float((out.float() - ref.float()).abs().max()) < _tol(dt)
 
 
+@pytest.mark.parametrize("case", RG_CASES, ids=str)
+def test_rglru_kernel_vs_plain(case, cuda):
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy((1.0 / (1.0 + np.exp(-rng.standard_normal(case))))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(case).astype(np.float32)).to(cuda)
+    before = rg_ops.launches
+    out = rg_ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rg_ops.launches == before + 1
+    ref = rglru_scan_ref(a, b)
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_kernel_vs_plain(case, cuda):
+    b, S, H, P, N, chunk = case
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    x = t(rng.standard_normal((b, S, H, P)))
+    dt = t(np.log1p(np.exp(rng.standard_normal((b, S, H)))))
+    A = t(-np.exp(0.5 * rng.standard_normal(H)))
+    B = t(rng.standard_normal((b, S, N)))
+    C = t(rng.standard_normal((b, S, N)))
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    ry, rstate = _ssd_chunked(x, dt, A, B, C, chunk)
+    assert float((y - ry).abs().max()) <= 1e-4 * float(ry.abs().max())
+    assert float((state - rstate).abs().max()) <= \
+        1e-4 * float(rstate.abs().max())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 4, 16, device=cuda, dtype=torch.float16)
     pages = torch.zeros(2, 3, 8, 16, device=cuda, dtype=torch.float16)
@@ -122,3 +186,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         y = torch.zeros(1, 8, 2, 16, device=cuda).transpose(1, 2)
         fa_ops.flash_attention(y, y, y)
+    a = torch.zeros(1, 8, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        rg_ops.rglru_scan(a, a)
+    z = torch.zeros
+    with pytest.raises(ValueError, match="must divide"):
+        ssd_ops.ssd(z(1, 12, 2, 16, device=cuda), z(1, 12, 2, device=cuda),
+                    z(2, device=cuda), z(1, 12, 8, device=cuda),
+                    z(1, 12, 8, device=cuda), 8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_ops.ssd(z(1, 8, 2, 24, device=cuda), z(1, 8, 2, device=cuda),
+                    z(2, device=cuda), z(1, 8, 8, device=cuda),
+                    z(1, 8, 8, device=cuda), 8)

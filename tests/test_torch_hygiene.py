@@ -183,10 +183,77 @@ def test_flash_wrapper_with_cuda_tensors_never_falls_back(monkeypatch):
                             torch.empty(1, 2, 4, 16, device="meta"))
 
 
+def test_scan_wrappers_with_cuda_tensors_never_fall_back(monkeypatch):
+    """The SSD and RG-LRU wrappers, handed CUDA tensors, build and launch
+    their kernels or raise: neither reaches its plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernels run instead")
+    calls = []
+    monkeypatch.setattr(rg_ops, "rglru_scan_ref",
+                        lambda *a, **k: calls.append("rg"))
+    monkeypatch.setattr(ssd_ops, "_ssd_chunked",
+                        lambda *a, **k: calls.append("ssd"))
+
+    def no_library(name):
+        raise RuntimeError(f"cannot build {name}: no nvcc")
+    monkeypatch.setattr(_build, "load", no_library)
+    a, b = _fake_cuda(((2, 40, 128), torch.float32),
+                      ((2, 40, 128), torch.float32))
+    before = rg_ops.launches
+    with pytest.raises(RuntimeError, match="cannot build rglru_scan"):
+        rg_ops.rglru_scan(a, b)
+    x, dt, A, B, C = _fake_cuda(((1, 16, 2, 16), torch.float32),
+                                ((1, 16, 2), torch.float32),
+                                ((2,), torch.float32),
+                                ((1, 16, 8), torch.float32),
+                                ((1, 16, 8), torch.float32))
+    with pytest.raises(RuntimeError, match="cannot build ssd"):
+        ssd_ops.ssd(x, dt, A, B, C, 8)
+    assert not calls and rg_ops.launches == before
+    # the wrappers' own checks run before any build or launch
+    with pytest.raises(ValueError, match="must be on"):
+        rg_ops.rglru_scan_cuda(torch.zeros(2, 40, 128), b)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_cuda(*_fake_cuda(((1, 16, 2, 16), torch.bfloat16)),
+                         dt, A, B, C, 8)
+    with pytest.raises(ValueError, match="at most 256"):
+        ssd_ops.ssd_cuda(*_fake_cuda(((1, 512, 2, 16), torch.float32),
+                                     ((1, 512, 2), torch.float32)), A,
+                         *_fake_cuda(((1, 512, 8), torch.float32),
+                                     ((1, 512, 8), torch.float32)), 512)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        rg_ops.rglru_scan(torch.empty(1, 4, 8, device="meta"),
+                          torch.empty(1, 4, 8, device="meta"))
+
+
+def test_recurrent_archs_need_cuda_unless_cpu_is_asked(tmp_path):
+    """Runtime, Container and Pod for mamba2 and recurrentgemma: the card
+    by default (raising without one), the CPU only when asked."""
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.orchestrator import Pod
+    rt = Runtime(tmp_path / "rt")
+    for arch in ("mamba2-2.7b-smoke", "recurrentgemma-2b-smoke"):
+        rt.build(IMAGEFILE.replace("llama3.2-3b-smoke", arch), tag=arch)
+        if torch.cuda.is_available():
+            assert rt.run(arch).device.type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            rt.run(arch)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Pod(rt, arch, replicas=1, n_slots=1, max_len=16)
+        pod = Pod(rt, arch, replicas=1, n_slots=1, max_len=16,
+                  platform="cpu")
+        assert pod.engines[0].container.device == torch.device("cpu")
+
+
 def test_build_needs_nvcc_and_writes_under_build(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
-    assert set(_build.SOURCES) == {"paged_attention", "flash_attention_fwd"}
+    assert set(_build.SOURCES) == {"paged_attention", "flash_attention_fwd",
+                                   "ssd", "rglru_scan"}
     for src in _build.SOURCES.values():
         text = (_build.CSRC / src).read_text()
         assert "Replaces: src/repro/kernels/" in text
