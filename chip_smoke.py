@@ -13,11 +13,21 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             median, L2 flushed before each sample), the least time the card
             could take (bound) and the plain version's and a library call's
             times
+  fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
+            on the card: the blocked matmul called natively (blocks named:
+            platform "h100") and through a container bound from an
+            Imagefile (blocks resolved from the tensor's device when the
+            call is made), host microseconds a call, outputs bit for bit
+            equal; at the benchmark's 256^3 float32 shape and llama3.2-3b's
+            prefill MLP products (bf16 and f32); flash attention through K2
+            against its plain version at the benchmark's shape
   parity    the smoke reductions in float32, served on the card and on the
             CPU with the same weights, per-request tokens identical:
             llama3.2-3b-smoke (12-request paged trace, prefix cache on),
             mamba2-2.7b-smoke and recurrentgemma-2b-smoke (contiguous
-            slots; recurrentgemma's prompts pass its 16-token window)
+            slots; recurrentgemma's prompts pass its 16-token window);
+            and llama3.2-3b-smoke served on the card by launch/serve.main
+            in continuous and in static mode, tokens identical
   serve     three full-width pods, bfloat16, random weights from seed 0,
             behind Runtime -> Pod -> ContinuousScheduler, 32 new tokens a
             request, no EOS:
@@ -29,12 +39,23 @@ Every phase runs, in order; any failure -> exit 1, no result line:
                 prompts past the 2048 window;
             each pod's kernel launch counts must match the dispatches its
             scheduler ran
+  cli       the user's entry points in process (``repro_torch.cli.main``)
+            on full-width llama3.2-3b (bf16, random weights from seed 0) in
+            a temporary root: build, images, inspect; serve with two pods
+            behind the prefix-hash router (paged, prefix cache, a 256-token
+            shared prompt, 32 requests of up to 512 + 256 prompt tokens, a
+            Chrome trace); serve --mode static (16 requests in waves of 8);
+            ps, top, and the trace validator. Every command exits 0, every
+            request completes, the prefix cache hits, and K1/K2 launches
+            equal layers x the dispatches the engines ran
 
-The kernel counters are set to 0 just before each pod of the serve phase
-is driven and read just after. Output ends with a JSON line of kernel
-records, the card line, and ``{"ok": true, "device": {...}}``. Without
-CUDA, or without the port beside this file, it exits non-zero and prints no
-result. ``chip_profile.py`` breaks the llama pod's time down by operator.
+The kernel counters are set to 0 just before each main path is driven
+(each pod of the serve phase, the fig5 calls, each CLI serve) and read just
+after; a kernel's launches are their sum. Output ends with a JSON line of
+kernel records, the card line, and ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the port beside this file, it exits non-zero and
+prints no result. ``chip_profile.py`` breaks the llama pod's time down by
+operator.
 """
 
 from __future__ import annotations
@@ -49,7 +70,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "parity", "serve")
+PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "cli")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and operations per second by input type (float32 outside tensor cores)
@@ -78,6 +99,11 @@ KERNELS = {
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:48",
     },
+    "matmul": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul/kernel.py:43",
+    },
 }
 
 # the scans run in float32 only (as the models call them): K5 within 1e-4 of
@@ -86,6 +112,10 @@ KERNELS = {
 # scaled by max(1, max |h|)
 SSD_REL_TOL = 1e-4
 RGLRU_TOL = 1e-5
+# K3 relative to max |ref|: its FMA chain sums K products in another order
+# than the plain version (cuBLAS), so float32 within 1e-4; bfloat16 within
+# one bf16 rounding of the float32 sum
+MM_REL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 
 SMOKE_IMAGEFILE = """\
 FROM scratch
@@ -347,6 +377,7 @@ def phase_kernels(torch, state, timer) -> None:
 
     failures += _kernels_ssd(torch, state, timer)
     failures += _kernels_rglru(torch, state, timer)
+    failures += _kernels_matmul(torch, state, timer)
     check(not failures, "kernel mismatches: " + "; ".join(failures))
 
 
@@ -458,14 +489,166 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
     return failures
 
 
+# K3 (M, K, N, dtype): tests/test_kernels.py:159's MM_CASES, a ragged shape
+# no block divides, then llama3.2-3b's prefill MLP products for a 512-token
+# prompt (gate/up, then down; the kernel's record is the first bf16 one)
+K3_CASES = ((256, 256, 256, "float32"), (128, 384, 256, "bfloat16"),
+            (64, 64, 64, "float32"), (512, 128, 256, "bfloat16"),
+            (100, 200, 300, "bfloat16"))
+K3_LLAMA = ((512, 3072, 8192), (512, 8192, 3072))
+
+
+def _mm_inputs(torch, M, K, N, dt, device="cuda"):
+    import numpy as np
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    return (torch.from_numpy(a).to(device, dt),
+            torch.from_numpy(b).to(device, dt))
+
+
+def _kernels_matmul(torch, state, timer) -> list[str]:
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = list(K3_CASES) + [(M, K, N, d) for M, K, N in K3_LLAMA
+                              for d in ("bfloat16", "float32")]
+    failures = []
+    for M, K, N, dname in cases:
+        a, b = _mm_inputs(torch, M, K, N, dts[dname])
+        blocks = mm_ops.blocks(M, N, K, "h100")
+        out = mm_ops.matmul_cuda(a, b)
+        ref = matmul_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = MM_REL_TOL[dname] * float(ref.float().abs().max())
+        ok = bool(torch.isfinite(out).all()) and err <= tol
+        log(f"kernels: matmul M={M} K={K} N={N} {dname} (JAX wrapper's "
+            f"blocks {blocks}, kernel tile {mm_ops.BLOCK_TABLE['h100']}): "
+            f"max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"matmul {(M, K, N, dname)}")
+        ms = timer(lambda: mm_ops.matmul_cuda(a, b))
+        plain = timer(lambda: matmul_ref(a, b))
+        lib = timer(lambda: torch.matmul(a, b))
+        isz = a.element_size()
+        nbytes = (M * K + K * N + M * N) * isz
+        flops = 2.0 * M * N * K
+        bms, by = bound_ms(nbytes, flops, dname)
+        if "matmul" not in state["records"] and (M, K, N) in K3_LLAMA:
+            state["records"]["matmul"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+        log(f"kernels: matmul M={M} K={K} N={N} {dname} time {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), library (torch.matmul) {lib:.4f} ms "
+            f"[{state['card']}]")
+    return failures
+
+
+def _host_us(torch, fn, reps: int) -> float:
+    """Host microseconds a call over ``reps`` calls, ended by a device
+    synchronise (the fig5 benchmark's timing, with torch for jax)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+# fig5: the benchmark's own shape, then llama3.2-3b's prefill MLP products
+FIG5_CASES = ((256, 256, 256, "float32", 50),
+              (512, 3072, 8192, "bfloat16", 10),
+              (512, 8192, 3072, "bfloat16", 10),
+              (512, 3072, 8192, "float32", 10),
+              (512, 8192, 3072, "float32", 10))
+
+
+def phase_fig5(torch, state, workdir: Path) -> None:
+    """benchmarks/fig5_tuned_kernel.py on the card: its rows under its
+    names (the 256^3 float32 rows first; full-width rows name their
+    shape), native and container-bound matmul outputs equal bit for bit."""
+    import numpy as np
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    rt = Runtime(workdir / "fig5")
+    rt.build(SMOKE_IMAGEFILE.format(arch="llama3.2-3b-smoke"), tag="fig5")
+    device = rt.run("fig5").device           # MESH local, resolved here
+    check(device.type == "cuda", f"fig5: container bound to {device}")
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    failures = []
+
+    def row(name, val, extra=""):
+        log(f"fig5: {name},{val:.1f},{extra}")
+
+    _reset_counts()
+    calls = 0
+    for M, K, N, dname, reps in FIG5_CASES:
+        a, b = _mm_inputs(torch, M, K, N, dts[dname], device)
+        native = _host_us(torch, lambda: mm_ops.matmul(
+            a, b, platform="h100"), reps)
+        container = _host_us(torch, lambda: mm_ops.matmul(a, b), reps)
+        out_n = mm_ops.matmul(a, b, platform="h100")
+        out_c = mm_ops.matmul(a, b)
+        calls += 2 * (reps + 3) + 2
+        ref = matmul_ref(a, b)
+        torch.cuda.synchronize()
+        same = torch.equal(out_n, out_c)
+        err = float((out_c.float() - ref.float()).abs().max())
+        tol = MM_REL_TOL[dname] * float(ref.float().abs().max())
+        shape = ("" if (M, K, N) == (256, 256, 256)
+                 else f"M={M} K={K} N={N} {dname} ")
+        row("fig5/matmul_native_us", native, shape.strip())
+        row("fig5/matmul_container_us", container,
+            f"{shape}overhead={(container - native) / native * 100:+.1f}% "
+            f"err={err:.1e} native==container bitwise: {same}")
+        if not (same and err <= tol):
+            failures.append(f"matmul {(M, K, N, dname)}: bitwise {same}, "
+                            f"err {err:.3e} (tol {tol:.3e})")
+
+    rng = np.random.default_rng(2)
+    t = lambda *s: torch.from_numpy(                            # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    q, k, v = t(1, 4, 128, 64), t(1, 2, 128, 64), t(1, 2, 128, 64)
+    t_kernel = _host_us(torch, lambda: fa_ops.flash_attention_fwd_cuda(
+        q, k, v, causal=True), 50)
+    t_ref = _host_us(torch, lambda: flash_attention_ref(q, k, v, causal=True),
+                     50)
+    out = fa_ops.flash_attention_fwd_cuda(q, k, v, causal=True)
+    err = float((out - flash_attention_ref(q, k, v, causal=True)).abs().max())
+    row("fig5/flash_attn_kernel_us", t_kernel, f"K2 on {device}")
+    row("fig5/flash_attn_ref_us", t_ref, f"err={err:.1e}")
+    row("fig5/block_table_entries", float(len(mm_ops.BLOCK_TABLE)),
+        "per-platform run-time binding")
+    counts = _main_path_counts(state)
+    log(f"fig5: launches {counts} [{state['card']}]")
+    if err > TOL["float32"]:
+        failures.append(f"flash attention err {err:.3e}")
+    check(counts["matmul"] == calls and counts["flash_attention_fwd"] == 54,
+          f"fig5: launches {counts}, expected matmul {calls}, "
+          "flash_attention_fwd 54")
+    check(not failures, "fig5: " + "; ".join(failures))
+
+
 def _ops_modules() -> dict:
     """Kernel name -> its wrapper module (each keeps ``launches``)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"paged_attention": pa_ops, "flash_attention_fwd": fa_ops,
-            "ssd": ssd_ops, "rglru_scan": rg_ops}
+            "ssd": ssd_ops, "rglru_scan": rg_ops, "matmul": mm_ops}
 
 
 def _launch_counts() -> dict:
@@ -475,6 +658,15 @@ def _launch_counts() -> dict:
 def _reset_counts() -> None:
     for m in _ops_modules().values():
         m.launches = 0
+
+
+def _main_path_counts(state) -> dict:
+    """The counts since ``_reset_counts``, added to the run's main-path
+    launches (a kernel's reported launches sum over its main paths)."""
+    counts = _launch_counts()
+    for name, n in counts.items():
+        state["launches"][name] = state["launches"].get(name, 0) + n
+    return counts
 
 
 def _serve(Pod, ContinuousScheduler, rt, tag, reqs, **kw):
@@ -573,7 +765,26 @@ def phase_parity(torch, state, workdir: Path) -> None:
         if not same:
             failures.append(f"{arch}\n card {tokens['cuda']}\n "
                             f"cpu  {tokens['cpu']}")
+    failures += _parity_static_continuous(workdir)
     check(not failures, "parity: tokens differ: " + "; ".join(failures))
+
+
+def _parity_static_continuous(workdir: Path) -> list[str]:
+    """llama3.2-3b-smoke (f32) served on the card by launch/serve.main in
+    continuous and in static mode: the same tokens request for request."""
+    from repro_torch.launch.serve import main as serve_main
+    argv = ["--image", "llama3.2-3b-smoke", "--root", str(workdir / "smoke"),
+            "--replicas", "1", "--slots", "4", "--requests", "12",
+            "--prompt-len", "24", "--gen", "12"]
+    cont = serve_main(argv)
+    static = serve_main(argv + ["--mode", "static"])
+    same = static["request_tokens"] == cont["request_tokens"]
+    log(f"parity: llama3.2-3b-smoke launch/serve.main on the card, "
+        f"{cont['requests']} requests: static vs continuous tokens "
+        f"identical: {same}")
+    return [] if same and cont["requests"] == 12 else [
+        f"static vs continuous\n static {static['request_tokens']}\n "
+        f"continuous {cont['request_tokens']}"]
 
 
 def _drive_pod(torch, state, rt, arch, reqs, expect, **kw):
@@ -598,9 +809,7 @@ def _drive_pod(torch, state, rt, arch, reqs, expect, **kw):
     sched.run(max_ticks=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _launch_counts()
-    for k, v in counts.items():
-        state["launches"][k] = state["launches"].get(k, 0) + v
+    counts = _main_path_counts(state)
 
     done = [r for r in reqs if r.state == "done"]
     ntok = [len(r.tokens) for r in reqs]
@@ -717,6 +926,139 @@ def phase_serve(torch, state, workdir: Path) -> None:
     check(not failures, "; ".join(failures))
 
 
+# the cli phase's serve commands (full-width llama3.2-3b)
+CLI_SERVE = ("--pods", "2", "--replicas", "1", "--slots", "8", "--requests",
+             "32", "--prompt-len", "512", "--gen", "32", "--paged",
+             "--page-size", "16", "--prefix-cache", "--shared-prefix", "256",
+             "--policy", "prefix-hash")
+CLI_STATIC = ("--mode", "static", "--slots", "8", "--requests", "16",
+              "--prompt-len", "512", "--gen", "32")
+
+
+def _flag(argv, name: str) -> int:
+    return int(argv[argv.index(name) + 1])
+
+
+def phase_cli(torch, state, workdir: Path) -> None:
+    """The user's entry points, in process so the kernel counters can be
+    read: ``repro_torch.cli.main`` for build/images/inspect/serve/ps/top,
+    the obs validator for the exported trace. The serve driver's pods and
+    its result are recorded by wrapping ``_make_pod`` and ``main`` of
+    ``repro_torch.launch.serve`` (the CLI imports ``main`` when it runs)."""
+    from repro_torch import cli
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.orchestrator.obs import validate
+
+    root = workdir / "cli"
+    root.mkdir()
+    imagefile = root / "Imagefile"
+    imagefile.write_text(FULL_IMAGEFILE.format(arch="llama3.2-3b"))
+    trace = root / "t.json"
+    layers = get_config("llama3.2-3b").n_layers
+
+    def run(*argv):
+        log(f"cli: stevedore {' '.join(argv)}")
+        rc = cli.main(["--root", str(root / "rt"), *argv])
+        check(rc == 0, f"cli: {argv[0]} exited {rc}")
+
+    pods, outs = [], []
+    real_make, real_main = serve_mod._make_pod, serve_mod.main
+
+    def make_pod(*a, **k):
+        pods.append(real_make(*a, **k))
+        return pods[-1]
+
+    def serve_main(argv=None):
+        outs.append(real_main(argv))
+        return outs[-1]
+
+    def serve(*argv):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        run("serve", "stable", *argv)
+        torch.cuda.synchronize()
+        counts = _main_path_counts(state)
+        return outs[-1], counts, torch.cuda.max_memory_allocated()
+
+    run("build", "-t", "stable", str(imagefile))
+    run("images")
+    run("inspect", "stable")
+    serve_mod._make_pod, serve_mod.main = make_pod, serve_main
+    try:
+        out, counts, peak = serve(*CLI_SERVE, "--trace", str(trace))
+        engines = [e for p in pods for e in p.engines]
+        steps = sum(e.decode_ticks for e in engines)
+        prefills = sum(e._c_prefill_disp.value for e in engines)
+        want = {"paged_attention": layers * steps,
+                "flash_attention_fwd": layers * prefills}
+        pre_s = sum(e.prefill_s for e in engines)
+        per_pod = [sum(e._c_prefill_disp.value for e in p.engines)
+                   for p in pods]
+        d = out["decomposition"]
+        n_req = _flag(CLI_SERVE, "--requests")
+        log(f"cli: serve --pods 2 --policy prefix-hash: {out['requests']}/"
+            f"{n_req} requests, {out['tokens']} tokens in "
+            f"{out['wall_s']:.2f} s; prefills per pod {per_pod}; "
+            f"prefix hits {out['prefix_cache']['hits']} / misses "
+            f"{out['prefix_cache']['misses']}; launches {counts}, expected "
+            f"K1 {layers} x {steps} decode steps, K2 {layers} x {prefills} "
+            "prefills")
+        log(f"cli: serve decode {out['decode_tok_per_s']:.1f} tokens/s, "
+            f"prefill {out['prefill_positions']} positions in {pre_s:.3f} s "
+            f"= {out['prefill_positions'] / pre_s:.1f} tokens/s; ttft p50 "
+            f"{d['ttft_p50_ticks']} / p99 {d['ttft_p99_ticks']} ticks, itl "
+            f"p50 {d['itl_p50_ticks']:.3f} / p99 {d['itl_p99_ticks']:.3f} "
+            f"ticks/token; latency p50 {out['p50_latency_ticks']} / p99 "
+            f"{out['p99_latency_ticks']} ticks; peak memory "
+            f"{peak / 2**30:.2f} GiB [{state['card']}]")
+        check(out["requests"] == n_req, f"cli: {out['requests']} of {n_req} "
+                                        "requests completed")
+        check(out["prefix_cache"]["hits"] >= 1, "cli: no prefix hit")
+        # placement, as a CPU run of the same command on llama3.2-3b-smoke
+        # predicts (the router works on ticks, not widths): the trace is one
+        # prefix family, so prefix-hash puts every request on the pod that
+        # owns its digest (which pod depends on the random pod ids), with
+        # no spillover, 31 prefix hits and the one miss that fills the cache
+        placed = (sorted(per_pod), out["fleet"]["spilled"],
+                  out["prefix_cache"]["hits"], out["prefix_cache"]["misses"])
+        check(placed == ([0, n_req], 0, n_req - 1, 1),
+              f"cli: (prefills per pod, spilled, prefix hits, misses) "
+              f"{placed} != the CPU prediction {([0, n_req], 0, n_req - 1, 1)}")
+        for name, n in counts.items():
+            check(n == want.get(name, 0),
+                  f"cli: serve {name} launches {n} != {want.get(name, 0)}")
+        for e in engines:
+            e.release()
+        pods.clear()
+        del engines          # the last references to the pods' weights
+
+        out, counts, peak = serve(*CLI_STATIC)
+        n_req, slots = _flag(CLI_STATIC, "--requests"), _flag(CLI_STATIC,
+                                                               "--slots")
+        waves = -(-n_req // slots)
+        log(f"cli: serve --mode static: {out['requests']} requests, "
+            f"{out['tokens']} useful tokens; decode "
+            f"{out['decode_tok_per_s']:.1f} tokens/s ({out['decode_s']:.3f} "
+            f"s), prefill {out['prefill_s']:.3f} s for {waves} waves of "
+            f"{slots}; launches {counts}, expected K2 {layers} x {waves} "
+            f"waves; peak memory {peak / 2**30:.2f} GiB [{state['card']}]")
+        check(out["requests"] == n_req, "cli: static run lost requests")
+        for name, n in counts.items():
+            want_n = layers * waves if name == "flash_attention_fwd" else 0
+            check(n == want_n, f"cli: static {name} launches {n} != {want_n}")
+    finally:
+        serve_mod._make_pod, serve_mod.main = real_make, real_main
+        pods.clear()
+        outs.clear()
+        torch.cuda.empty_cache()
+    run("ps")
+    run("top")
+    rc = validate.main([str(trace)])
+    check(rc == 0, f"cli: the exported trace does not validate ({rc})")
+
+
 def main() -> int:
     try:
         import torch
@@ -748,10 +1090,14 @@ def main() -> int:
                 elif phase == "kernels":
                     timer = timer or Timer(torch)
                     phase_kernels(torch, state, timer)
+                elif phase == "fig5":
+                    phase_fig5(torch, state, workdir)
                 elif phase == "parity":
                     phase_parity(torch, state, workdir)
                 elif phase == "serve":
                     phase_serve(torch, state, workdir)
+                elif phase == "cli":
+                    phase_cli(torch, state, workdir)
             except Exception as e:          # report every phase, then fail
                 failed.append(phase)
                 log(f"FAIL {phase}: {type(e).__name__}: {e}")

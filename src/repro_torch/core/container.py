@@ -152,10 +152,15 @@ class Container:
                          page_size: int | None = None,
                          max_pages: int | None = None,
                          frontend_len: int | None = None,
-                         prefix_len: int | None = None) -> Callable:
+                         prefix_len: int | None = None,
+                         per_row: bool | None = None) -> Callable:
         """A serving step at the given shapes (the ``lower_serve_step``
         counterpart; the shapes the eager step does not need are accepted
-        so the keys stay those of the JAX package). Runs under no_grad."""
+        so the keys stay those of the JAX package). ``generate`` is the
+        greedy loop of ``gen_steps`` steps over a (batch, cache_len) cache;
+        with ``per_row`` it takes a (batch,) vector of start positions, as
+        for mixed-length waves, else one scalar start. Runs under
+        no_grad."""
         b = ServeStepBuilder(self.model)
         if kind == "prefill_slot":
             fn = b.build_prefill_slot(cache_len, frontend_len or 0)
@@ -171,6 +176,8 @@ class Container:
             fn = b.build_decode_slots_paged()
         elif kind == "decode_chunk_paged":
             fn = b.build_decode_chunk_paged(gen_steps)
+        elif kind == "generate":
+            fn = b.build_generate_loop(gen_steps, bool(per_row))
         else:
             raise ValueError(f"unknown serve step kind {kind!r}")
         return torch.no_grad()(fn)

@@ -31,6 +31,7 @@ SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "ssd": "ssd.cu",
     "rglru_scan": "rglru_scan.cu",
+    "matmul": "matmul.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -5,6 +5,7 @@ slot-granular variants that power the orchestrator's continuous batching.
 ``prefill_slot`` : (params, tokens (B,P), length)      -> (first_tokens (B,), cache)
 ``decode_slots`` : (params, cache, tokens (B,1), pos (B,))
                                                 -> (next_tokens (B,), cache)
+``generate``     : (params, cache, first (B,1), start) -> (toks (B,G), cache)
 
 The slot variants treat the batch dimension as a bank of independent
 *KV-cache slots*: each row is one in-flight request at its own depth.
@@ -13,8 +14,8 @@ pool + per-slot page table (kernels/paged_attention).
 
 Same signatures and semantics as ``repro.serve.serve_step``, with two
 PyTorch differences: a decode step updates the cache IN PLACE and returns
-the same tensors, and the multi-step decode is a Python loop where the JAX
-package scans.
+the same tensors, and the multi-step decodes are Python loops where the
+JAX package scans.
 
 Sampling masks physically-padded vocab columns so padded ids are never
 emitted.
@@ -249,3 +250,31 @@ class ServeStepBuilder:
             return torch.stack(toks, dim=1), tok, pos, cache
 
         return decode_chunk_paged
+
+    def build_generate_loop(self, n_steps: int,
+                            per_row: bool = False) -> Callable:
+        """Greedy autoregressive loop of ``n_steps`` decode steps (the
+        static serving driver's decode): ``build_decode_chunk``'s loop from
+        ``start_idx``, one scalar position for every row, or with
+        ``per_row`` a (B,) tensor of per-row start positions (a wave of
+        mixed-length prompts). A start of the other rank raises.
+
+        (params, cache, first_token (B,1), start_idx) ->
+            (toks (B, n_steps), cache)
+        """
+        chunk = self.build_decode_chunk(n_steps)
+
+        def generate(params, cache, first_token, start_idx):
+            idx = torch.as_tensor(start_idx, dtype=torch.int32,
+                                  device=first_token.device)
+            want = (first_token.shape[0],) if per_row else ()
+            if tuple(idx.shape) != want:
+                raise ValueError(
+                    f"generate: start_idx of shape {tuple(idx.shape)}, "
+                    f"expected {want} (per_row={per_row})")
+            toks, _, _, cache = chunk(params, cache, first_token,
+                                      idx.reshape(-1).expand(
+                                          first_token.shape[0]))
+            return toks, cache
+
+        return generate

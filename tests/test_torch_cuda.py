@@ -7,7 +7,10 @@ runs on a machine that has only PyTorch:
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
 Tolerances: 1e-4 in float32 (the kernel sums in another order), 3e-2 in
-bfloat16 (as the JAX kernel suites). The scans are float32 only: the SSD
+bfloat16 (as the JAX kernel suites). The matmul within 1e-4 x max |ref| in
+float32 (its FMA chain sums K products in another order than cuBLAS) and
+2^-7 x max |ref| in bfloat16 (one bf16 rounding of the float32 sum). The
+scans are float32 only: the SSD
 kernel within 1e-4 of its plain chunked version relative to the output's
 max (the JAX suite's bound: at mamba2-2.7b's widths each output sums 128
 state and 256 time products, and the two versions round them in other
@@ -22,6 +25,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.matmul import ops as mm_ops
+from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
@@ -74,6 +79,15 @@ SSD_CASES = [(2, 64, 4, 32, 32, 16), (1, 128, 8, 64, 128, 32),
              (2, 96, 2, 16, 64, 32), (1, 256, 4, 64, 128, 64),
              (1, 512, 80, 64, 128, 256), (2, 256, 80, 64, 128, 256),
              (1, 100, 3, 32, 48, 100)]
+
+# tests/test_kernels.py:159 (M, K, N, dtype), a ragged shape no block
+# divides, and llama3.2-3b's prefill MLP products for a 512-token prompt
+# (gate/up, then down)
+MM_CASES = [(256, 256, 256, "float32"), (128, 384, 256, "bfloat16"),
+            (64, 64, 64, "float32"), (512, 128, 256, "bfloat16"),
+            (100, 200, 300, "bfloat16"), (100, 200, 300, "float32"),
+            (512, 3072, 8192, "bfloat16"), (512, 8192, 3072, "bfloat16"),
+            (512, 3072, 8192, "float32"), (512, 8192, 3072, "float32")]
 
 
 @pytest.fixture
@@ -198,3 +212,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ssd_ops.ssd(z(1, 8, 2, 24, device=cuda), z(1, 8, 2, device=cuda),
                     z(2, device=cuda), z(1, 8, 8, device=cuda),
                     z(1, 8, 8, device=cuda), 8)
+    with pytest.raises(TypeError, match="not supported"):
+        h = z(4, 4, device=cuda, dtype=torch.float16)
+        mm_ops.matmul(h, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        mm_ops.matmul(z(8, 4, device=cuda).T, z(8, 3, device=cuda))
+    with pytest.raises(ValueError, match="are for cpu tensors"):
+        mm_ops.matmul(z(4, 4, device=cuda), z(4, 4, device=cuda), "cpu")
+
+
+@pytest.mark.parametrize("case", MM_CASES, ids=str)
+def test_matmul_kernel_vs_plain(case, cuda):
+    M, K, N, dt = case
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
+    a, b = t(M, K), t(K, N)
+    before = mm_ops.launches
+    out = mm_ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm_ops.launches == before + 1
+    ref = matmul_ref(a, b).float()
+    assert out.dtype == a.dtype and bool(torch.isfinite(out).all())
+    rel = 2.0 ** -7 if dt == "bfloat16" else 1e-4
+    assert float((out.float() - ref).abs().max()) <= \
+        rel * float(ref.abs().max())
+
+
+def test_matmul_native_equals_container_bound(cuda, tmp_path):
+    """The fig5 pair: blocks named natively (``platform="h100"``) and
+    resolved from the device of a container bound from an Imagefile give
+    the same bits."""
+    from repro_torch.core.runtime import Runtime
+    rt = Runtime(tmp_path / "rt")
+    rt.build("FROM scratch\nARCH llama3.2-3b-smoke\nMESH local\n"
+             "PRECISION compute=float32 params=float32\n", tag="stable")
+    device = rt.run("stable").device
+    assert device.type == "cuda"
+    for M, K, N, dt in ((256, 256, 256, "float32"),
+                        (512, 3072, 8192, "bfloat16")):
+        g = torch.Generator(device=device).manual_seed(0)
+        a = torch.randn(M, K, generator=g, device=device).to(getattr(torch, dt))
+        b = torch.randn(K, N, generator=g, device=device).to(getattr(torch, dt))
+        assert torch.equal(mm_ops.matmul(a, b, platform="h100"),
+                           mm_ops.matmul(a, b))

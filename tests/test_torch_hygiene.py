@@ -229,6 +229,40 @@ def test_scan_wrappers_with_cuda_tensors_never_fall_back(monkeypatch):
                           torch.empty(1, 4, 8, device="meta"))
 
 
+def test_matmul_wrapper_with_cuda_tensors_never_falls_back(monkeypatch):
+    """K3's wrapper, handed CUDA tensors, builds and launches its kernel or
+    raises: it never reaches the plain version (nor torch.matmul)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul import ops
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernel runs instead")
+    calls = []
+    monkeypatch.setattr(ops, "matmul_ref", lambda *a, **k: calls.append(1))
+
+    def no_library(name):
+        raise RuntimeError(f"cannot build {name}: no nvcc")
+    monkeypatch.setattr(_build, "load", no_library)
+    # resolving the platform of a CUDA tensor reads its capability
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
+    a, b = _fake_cuda(((64, 32), torch.float32), ((32, 48), torch.float32))
+    before = ops.launches
+    with pytest.raises(RuntimeError, match="cannot build matmul"):
+        ops.matmul(a, b)
+    with pytest.raises(RuntimeError, match="cannot build matmul"):
+        ops.matmul(a, b, platform="h100")
+    assert not calls and ops.launches == before
+    # the wrapper's own checks run before any build or launch
+    with pytest.raises(ValueError, match="must be on"):
+        ops.matmul_cuda(torch.zeros(64, 32), b)
+    with pytest.raises(ValueError, match=r"\(M, K\) and \(K, N\)"):
+        ops.matmul_cuda(a, a)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (8, 0))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.matmul(a, b)
+
+
 def test_recurrent_archs_need_cuda_unless_cpu_is_asked(tmp_path):
     """Runtime, Container and Pod for mamba2 and recurrentgemma: the card
     by default (raising without one), the CPU only when asked."""
@@ -253,7 +287,7 @@ def test_build_needs_nvcc_and_writes_under_build(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
     assert set(_build.SOURCES) == {"paged_attention", "flash_attention_fwd",
-                                   "ssd", "rglru_scan"}
+                                   "ssd", "rglru_scan", "matmul"}
     for src in _build.SOURCES.values():
         text = (_build.CSRC / src).read_text()
         assert "Replaces: src/repro/kernels/" in text
