@@ -38,7 +38,7 @@ def profile_pod(torch, card: str, workdir: Path) -> None:
     from repro_torch.orchestrator import ContinuousScheduler, GenRequest, Pod
 
     rt = Runtime(workdir / "full")
-    rt.build(FULL_IMAGEFILE, tag="stable")
+    rt.build(FULL_IMAGEFILE.format(arch="llama3.2-3b"), tag="stable")
     pod = Pod(rt, "stable", replicas=1, n_slots=8, max_len=1024, paged=True,
               page_size=16, prefix_cache=True, decode_chunk=4, seed=0)
     vocab = pod.engines[0].container.arch.vocab_size
@@ -83,6 +83,13 @@ def profile_pod(torch, card: str, workdir: Path) -> None:
     for t, key, n in device[:10]:
         log(f"pod: device {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
             f"x{n:<6d} {key[:90]}")
+    # the port's kernels by their csrc entry points (K2: both flash kernels)
+    for label, prefix in (("K1 paged_attention", "paged_attention"),
+                          ("K2 flash_attention_fwd", "flash_")):
+        t = sum(t for t, key, _ in device if prefix in key)
+        n = sum(n for t, key, n in device if prefix in key)
+        log(f"pod: {label}: {t / 1e3:.3f} ms = {100 * t / busy_us:.1f}% of "
+            f"device busy time, {n} kernel runs")
     host = sorted(((float(e.self_cpu_time_total), e.key, e.count)
                    for e in events if e.device_type == DeviceType.CPU),
                   reverse=True)

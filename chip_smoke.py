@@ -12,7 +12,9 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             the shapes the serving paths give it, with times (CUDA events,
             median, L2 flushed before each sample), the least time the card
             could take (bound) and the plain version's and a library call's
-            times
+            times; each K3 row names the kernel (wgmma or fma) and tile
+            ``kernel_choice`` took, and at llama3.2-3b's MLP products the
+            kernel's other tile is timed beside it
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
             on the card: the blocked matmul called natively (blocks named:
             platform "h100") and through a container bound from an
@@ -333,8 +335,9 @@ def phase_kernels(torch, state, timer) -> None:
             err = float((out.float() - ref.float()).abs().max())
             finite = bool(torch.isfinite(out).all())
             ok = finite and err <= TOL[dname]
+            kind = "tensor cores" if dname == "bfloat16" else "fma"
             log(f"kernels: flash_attention_fwd B=1 Hq={Hq} Hkv={Hkv} d={d} "
-                f"Sq={Sq} Sk={Sk} causal window={window} {dname}: "
+                f"Sq={Sq} Sk={Sk} causal window={window} {dname} ({kind}): "
                 f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -490,11 +493,13 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
 
 
 # K3 (M, K, N, dtype): tests/test_kernels.py:159's MM_CASES, a ragged shape
-# no block divides, then llama3.2-3b's prefill MLP products for a 512-token
-# prompt (gate/up, then down; the kernel's record is the first bf16 one)
+# no block divides (N 300: the FMA kernel in bf16 too), a ragged M with K
+# and N multiples of 8 (TMA's zero-filled edges on the tensor cores), then
+# llama3.2-3b's prefill MLP products for a 512-token prompt (gate/up, then
+# down; the kernel's record is the first bf16 one)
 K3_CASES = ((256, 256, 256, "float32"), (128, 384, 256, "bfloat16"),
             (64, 64, 64, "float32"), (512, 128, 256, "bfloat16"),
-            (100, 200, 300, "bfloat16"))
+            (100, 200, 300, "bfloat16"), (100, 200, 304, "bfloat16"))
 K3_LLAMA = ((512, 3072, 8192), (512, 8192, 3072))
 
 
@@ -518,15 +523,16 @@ def _kernels_matmul(torch, state, timer) -> list[str]:
     for M, K, N, dname in cases:
         a, b = _mm_inputs(torch, M, K, N, dts[dname])
         blocks = mm_ops.blocks(M, N, K, "h100")
+        kernel, bm, bn = mm_ops.kernel_choice(M, N, K, dts[dname])
         out = mm_ops.matmul_cuda(a, b)
         ref = matmul_ref(a, b)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = MM_REL_TOL[dname] * float(ref.float().abs().max())
         ok = bool(torch.isfinite(out).all()) and err <= tol
-        log(f"kernels: matmul M={M} K={K} N={N} {dname} (JAX wrapper's "
-            f"blocks {blocks}, kernel tile {mm_ops.BLOCK_TABLE['h100']}): "
-            f"max_abs_err {err:.3e} "
+        log(f"kernels: matmul M={M} K={K} N={N} {dname} (kernel {kernel}, "
+            f"tile {bm} x {bn}, {-(-M // bm) * -(-N // bn)} blocks; JAX "
+            f"wrapper's blocks {blocks}): max_abs_err {err:.3e} "
             f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"matmul {(M, K, N, dname)}")
@@ -546,6 +552,25 @@ def _kernels_matmul(torch, state, timer) -> list[str]:
             f"{bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.2f} MB), library (torch.matmul) {lib:.4f} ms "
             f"[{state['card']}]")
+        if (M, K, N) not in K3_LLAMA:
+            continue
+        # the kernel's other tile at this shape (its launches count, and
+        # are reset before the main paths): the evidence for
+        # kernel_choice's MIN_BLOCKS
+        for tile in mm_ops.TILES[kernel]:
+            if tile == (bm, bn):
+                continue
+            alt = mm_ops.launch_tile(a, b, kernel, *tile)
+            torch.cuda.synchronize()
+            alt_err = float((alt.float() - ref.float()).abs().max())
+            alt_ms = timer(lambda: mm_ops.launch_tile(a, b, kernel, *tile))
+            log(f"kernels: matmul M={M} K={K} N={N} {dname} {kernel} tile "
+                f"{tile[0]} x {tile[1]} "
+                f"({-(-M // tile[0]) * -(-N // tile[1])} blocks, not chosen): "
+                f"{alt_ms:.4f} ms, max_abs_err {alt_err:.3e} "
+                f"[{state['card']}]")
+            if not alt_err <= tol:
+                failures.append(f"matmul {(M, K, N, dname)} tile {tile}")
     return failures
 
 

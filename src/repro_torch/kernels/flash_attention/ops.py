@@ -1,9 +1,16 @@
 """Public entry point for the flash-attention forward.
 
 Dispatch is on the tensors' device, nothing else: a CPU tensor runs the
-plain version (``ref.py``); a CUDA tensor launches the hand-written kernel
+plain version (``ref.py``); a CUDA tensor launches a hand-written kernel of
 ``repro_torch/csrc/flash_attention_fwd.cu`` or raises. There is no fallback
-between the two. Forward only: the backward and its
+between the two. Which kernel runs is decided by the dtype alone:
+
+- bfloat16: the tensor-core kernel (``mma.sync`` m16n8k16, FlashAttention-2
+  schedule, 64-row query tiles, KV tiles of 64 rows, 32 at d 256);
+- float32: the FMA kernel (tensor cores would mean TF32, outside the
+  float32 tolerance).
+
+Both take head dims ``HEAD_DIMS``. Forward only: the backward and its
 ``torch.autograd.Function`` come with the training slice.
 
 ``launches`` counts kernel launches (CPU calls do not count), so a run can
@@ -21,7 +28,7 @@ from repro_torch.kernels._launch import (dtype_code, raise_on_error, require,
                                          stream_ptr)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernel's compiled tile shapes
+HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernels' compiled head dims
 
 launches = 0
 _bound = False
@@ -71,6 +78,10 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     require(d in HEAD_DIMS, f"flash_attention: head dim {d} not in "
             f"{HEAD_DIMS}")
     require(B * Hq <= 65535, "flash_attention: B*Hq exceeds the grid")
+    if q.dtype == torch.bfloat16:
+        require((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0,
+                "flash_attention: the bfloat16 kernel's 16-byte loads need "
+                "16-byte aligned q, k and v")
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)

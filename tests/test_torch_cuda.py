@@ -64,6 +64,14 @@ FA_CASES = [
     (1, 10, 1, 2304, 2304, 256, True, 2048, "float32"),
     (1, 10, 1, 2304, 2304, 256, True, 2048, "bfloat16"),
     (2, 10, 1, 100, 137, 256, True, 48, "float32"),  # its widths, ragged
+    # the same in bf16: a short window, where a one-column slip of the
+    # tensor-core kernel's boundary-tile mask shows
+    (2, 10, 1, 100, 137, 256, True, 48, "bfloat16"),
+    # the tensor-core kernel at every head dim, ragged, and bidirectional
+    (1, 4, 2, 40, 40, 16, True, 0, "bfloat16"),      # smoke width, ragged
+    (1, 8, 1, 256, 256, 32, True, 0, "bfloat16"),    # MQA
+    (1, 24, 8, 128, 328, 128, True, 0, "bfloat16"),  # ragged suffix prefill
+    (1, 2, 2, 128, 128, 128, False, 0, "bfloat16"),  # bidirectional
 ]
 
 
@@ -82,12 +90,16 @@ SSD_CASES = [(2, 64, 4, 32, 32, 16), (1, 128, 8, 64, 128, 32),
 
 # tests/test_kernels.py:159 (M, K, N, dtype), a ragged shape no block
 # divides, and llama3.2-3b's prefill MLP products for a 512-token prompt
-# (gate/up, then down)
+# (gate/up, then down), which reach every compiled tile
+# (test_mm_cases_cover_every_kernel_and_tile); then TMA's ragged edges (M,
+# N and K off every tile, K and N multiples of 8), and bfloat16 that TMA
+# cannot describe (N, then K, not a multiple of 8: the FMA kernel)
 MM_CASES = [(256, 256, 256, "float32"), (128, 384, 256, "bfloat16"),
             (64, 64, 64, "float32"), (512, 128, 256, "bfloat16"),
             (100, 200, 300, "bfloat16"), (100, 200, 300, "float32"),
             (512, 3072, 8192, "bfloat16"), (512, 8192, 3072, "bfloat16"),
-            (512, 3072, 8192, "float32"), (512, 8192, 3072, "float32")]
+            (512, 3072, 8192, "float32"), (512, 8192, 3072, "float32"),
+            (100, 200, 304, "bfloat16"), (96, 100, 136, "bfloat16")]
 
 
 @pytest.fixture
@@ -219,6 +231,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         mm_ops.matmul(z(8, 4, device=cuda).T, z(8, 3, device=cuda))
     with pytest.raises(ValueError, match="are for cpu tensors"):
         mm_ops.matmul(z(4, 4, device=cuda), z(4, 4, device=cuda), "cpu")
+
+
+def test_mm_cases_cover_every_kernel_and_tile():
+    """MM_CASES reach every (kernel, tile) csrc/matmul.cu compiles, and both
+    kernels in bfloat16 (runs without a card: the choice is shape only)."""
+    seen = {mm_ops.kernel_choice(M, N, K, getattr(torch, dt))
+            for M, K, N, dt in MM_CASES}
+    want = {(k, *t) for k, tiles in mm_ops.TILES.items() for t in tiles}
+    assert seen == want
+    bf16 = {mm_ops.kernel_choice(M, N, K, torch.bfloat16)[0]
+            for M, K, N, dt in MM_CASES if dt == "bfloat16"}
+    assert bf16 == {"wgmma", "fma"}
 
 
 @pytest.mark.parametrize("case", MM_CASES, ids=str)
