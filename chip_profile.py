@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Two measurements, each printed beside the card's name and power limit:
+Three measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -11,10 +11,18 @@ Two measurements, each printed beside the card's name and power limit:
             prompt tokens and 16 new tokens under torch.profiler: the
             device's busy and idle share of the window, device time by
             kernel, host time by operator
-  split-K   the paged-attention kernel at chip_smoke.py's decode shape
-            (bfloat16), in one pass (n_split=1) and with the split it picks
-            itself (a second kernel merges the splits), each held against
-            the plain version; CUDA-event medians, L2 flushed
+  mamba2    the full-width mamba2-2.7b pod of the serve phase (bfloat16,
+            random seeded weights, contiguous slots): its prefill step of a
+            512-token prompt (the step a prefill dispatch runs), warmed
+            twice, then 4 calls under torch.profiler: the device's busy
+            and idle share of that prefill window and the SSD kernel's
+            (K5's three device kernels) share of busy time
+  spans     the paged-attention kernel at chip_smoke.py's decode shape
+            and at the llama pod's (bfloat16): the tensor-core kernel with
+            the span plan ``span_pages`` picks, with spans of 4, 8, 16 and
+            32 pages, with one span a block (no merge kernel), and the FMA
+            kernel with the plan, each held against the plain version;
+            CUDA-event medians, L2 flushed
 
 Exits non-zero without a card, or when a check fails.
 """
@@ -27,7 +35,43 @@ import time
 from pathlib import Path
 
 from chip_smoke import (FULL_IMAGEFILE, K1_SHAPE, SRC, TOL, Timer, check,
-                        k1_case, log, phase_device)
+                        k1_case, k1_pod_case, log, phase_device)
+
+
+def dev_us(e) -> float:
+    """An event's own device time, whichever name this torch gives it."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_summary(prof, wall_us: float, card: str, tag: str,
+                   kernels: tuple) -> list:
+    """Log the window's device busy and idle share, its top kernels and
+    the share of each (label, name part) in ``kernels``; return the
+    device kernels as (us, name, runs), largest first."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    # device kernels only (host operators also carry their kernels' time)
+    device = sorted(((dev_us(e), e.key, e.count) for e in events
+                     if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                    reverse=True)
+    check(bool(device), f"{tag}: the profiler recorded no device time")
+    busy_us = sum(t for t, _, _ in device)
+    log(f"{tag}: window {wall_us / 1e3:.1f} ms wall, device busy "
+        f"{busy_us / 1e3:.1f} ms = {100 * busy_us / wall_us:.1f}% "
+        f"(idle {100 - 100 * busy_us / wall_us:.1f}%) [{card}]")
+    for t, key, n in device[:10]:
+        log(f"{tag}: device {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
+            f"x{n:<6d} {key[:90]}")
+    for label, name in kernels:
+        t = sum(t for t, key, _ in device if name in key)
+        n = sum(n for t, key, n in device if name in key)
+        log(f"{tag}: {label}: {t / 1e3:.3f} ms = {100 * t / busy_us:.1f}% of "
+            f"device busy time, {n} kernel runs")
+    return device
 
 
 def profile_pod(torch, card: str, workdir: Path) -> None:
@@ -63,33 +107,11 @@ def profile_pod(torch, card: str, workdir: Path) -> None:
     check(all(r.state == "done" for r in warm + reqs),
           "pod: requests unfinished")
 
-    def dev_us(e):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            v = getattr(e, name, None)
-            if v is not None:
-                return float(v)
-        return 0.0
-
-    events = prof.key_averages()
-    # device kernels only (host operators also carry their kernels' time)
-    device = sorted(((dev_us(e), e.key, e.count) for e in events
-                     if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                    reverse=True)
-    busy_us = sum(t for t, _, _ in device)
-    check(bool(device), "pod: the profiler recorded no device time")
-    log(f"pod: window {wall_us / 1e3:.1f} ms wall, device busy "
-        f"{busy_us / 1e3:.1f} ms = {100 * busy_us / wall_us:.1f}% "
-        f"(idle {100 - 100 * busy_us / wall_us:.1f}%) [{card}]")
-    for t, key, n in device[:10]:
-        log(f"pod: device {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
-            f"x{n:<6d} {key[:90]}")
     # the port's kernels by their csrc entry points (K2: both flash kernels)
-    for label, prefix in (("K1 paged_attention", "paged_attention"),
-                          ("K2 flash_attention_fwd", "flash_")):
-        t = sum(t for t, key, _ in device if prefix in key)
-        n = sum(n for t, key, n in device if prefix in key)
-        log(f"pod: {label}: {t / 1e3:.3f} ms = {100 * t / busy_us:.1f}% of "
-            f"device busy time, {n} kernel runs")
+    device_summary(prof, wall_us, card, "pod",
+                   (("K1 paged_attention", "paged_attention"),
+                    ("K2 flash_attention_fwd", "flash_")))
+    events = prof.key_averages()
     host = sorted(((float(e.self_cpu_time_total), e.key, e.count)
                    for e in events if e.device_type == DeviceType.CPU),
                   reverse=True)
@@ -100,28 +122,76 @@ def profile_pod(torch, card: str, workdir: Path) -> None:
             f"x{n:<6d} {key[:90]}")
 
 
-def split_k(torch, card: str) -> None:
+def profile_mamba2(torch, card: str, workdir: Path) -> None:
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.orchestrator import Pod
+
+    rt = Runtime(workdir / "mamba2")
+    rt.build(FULL_IMAGEFILE.format(arch="mamba2-2.7b"), tag="mamba2")
+    pod = Pod(rt, "mamba2", replicas=1, n_slots=8, max_len=1024,
+              paged=False, seed=0)
+    eng = pod.engines[0]
+    c = eng.container
+    prompt_len = 512
+    prefill = c.compile_serve_step("prefill_slot", prompt_len=prompt_len,
+                                   cache_len=eng.max_len)
+    rng = np.random.default_rng(14)
+    toks = [torch.as_tensor(rng.integers(0, c.arch.vocab_size,
+                                         (1, prompt_len), dtype=np.int32),
+                            device=c.device) for _ in range(6)]
+    with torch.no_grad():
+        for t in toks[:2]:       # kernel builds, cuBLAS handles, allocator
+            prefill(eng.params, t, prompt_len)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in toks[2:]:
+                prefill(eng.params, t, prompt_len)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"mamba2: 4 prefills of {prompt_len} tokens, "
+        f"{c.arch.n_layers} layers")
+    device_summary(prof, wall_us, card, "mamba2",
+                   (("K5 ssd (state, pass and output kernels)",
+                     "ssd_"),))
+    for e in pod.engines:
+        e.release()
+
+
+def spans(torch, card: str) -> None:
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    args, _ = k1_case(torch, torch.bfloat16)
-    q, k = args[0], args[1]
-    auto = ops._lib().paged_attention_num_splits(
-        K1_SHAPE["B"], K1_SHAPE["n_kv"], args[3].shape[1], K1_SHAPE["ps"],
-        K1_SHAPE["hd"], ops._sms(q.device))
-    ref = paged_attention_ref(*args).float()
     timer = Timer(torch)
-    for n_split in (1, auto):
-        out = ops.paged_attention_cuda(*args, n_split=n_split)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref).abs().max())
-        check(bool(torch.isfinite(out).all()) and err <= TOL["bfloat16"],
-              f"split-K: n_split={n_split} max_abs_err {err:.3e}")
-        ms = timer(lambda: ops.paged_attention_cuda(*args, n_split=n_split))
-        log(f"split-K: paged_attention {K1_SHAPE} lengths 1..2048 bfloat16 "
-            f"n_split={n_split}: {ms:.4f} ms, max_abs_err {err:.3e} "
-            f"({K1_SHAPE['B'] * K1_SHAPE['n_kv'] * n_split} blocks on "
-            f"{ops._sms(q.device)} SMs; pool {tuple(k.shape)}) [{card}]")
+    for name, (args, _) in (("lengths 1..2048", k1_case(torch,
+                                                         torch.bfloat16)),
+                            ("the llama pod's decode", k1_pod_case(torch))):
+        q, k, table = args[0], args[1], args[3]
+        mp = table.shape[1]
+        plan = ops.span_pages(K1_SHAPE["B"], K1_SHAPE["n_kv"], mp,
+                              K1_SHAPE["ps"], ops._sms(q.device))
+        ref = paged_attention_ref(*args).float()
+        runs = [("mma", plan)] + [("mma", s) for s in (4, 8, 16, 32, mp)
+                                  if s != plan] + [("fma", plan)]
+        for kernel, span in runs:
+            out = ops.paged_attention_cuda(*args, span=span, kernel=kernel)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            check(bool(torch.isfinite(out).all()) and err <= TOL["bfloat16"],
+                  f"spans: {kernel} span={span} max_abs_err {err:.3e}")
+            ms = timer(lambda: ops.paged_attention_cuda(*args, span=span,
+                                                        kernel=kernel))
+            n_spans = -(-mp // span)
+            log(f"spans: paged_attention {K1_SHAPE} {name} bfloat16 "
+                f"kernel {kernel}, span {span} pages"
+                f"{' (the plan)' if span == plan else ''} ({n_spans} spans "
+                f"of a {mp}-page table, "
+                f"{K1_SHAPE['B'] * K1_SHAPE['n_kv'] * n_spans} blocks on "
+                f"{ops._sms(q.device)} SMs): {ms:.4f} ms, max_abs_err "
+                f"{err:.3e} (pool {tuple(k.shape)}) [{card}]")
 
 
 def main() -> int:
@@ -143,7 +213,10 @@ def main() -> int:
     phase_device(torch, state)
     with tempfile.TemporaryDirectory(prefix="chip_profile_") as tmp:
         profile_pod(torch, state["card"], Path(tmp))
-    split_k(torch, state["card"])
+        torch.cuda.empty_cache()
+        profile_mamba2(torch, state["card"], Path(tmp))
+        torch.cuda.empty_cache()
+    spans(torch, state["card"])
     print(state["card"])
     return 0
 

@@ -14,7 +14,11 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             could take (bound) and the plain version's and a library call's
             times; each K3 row names the kernel (wgmma or fma) and tile
             ``kernel_choice`` took, and at llama3.2-3b's MLP products the
-            kernel's other tile is timed beside it
+            kernel's other tile is timed beside it; K1 (paged decode) is
+            also timed on its FMA kernel with the same span plan and at the
+            llama pod's own decode (lengths 64-544), K5 (SSD) at the mamba2
+            pod's shortest and longest prefills (S 64 and 768), with the
+            bound of its 3xTF32 tensor-core arithmetic beside the float32 one
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
             on the card: the blocked matmul called natively (blocks named:
             platform "h100") and through a container bound from an
@@ -77,7 +81,7 @@ PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "cli")
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and operations per second by input type (float32 outside tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 KERNELS = {
@@ -218,11 +222,14 @@ def phase_build(torch, state) -> None:
         f"({_build.BUILD_DIR})")
 
 
-def _paged_case(torch, rng, *, B, n_kv, g, hd, ps, lengths, dtype, poison):
+def _paged_case(torch, rng, *, B, n_kv, g, hd, ps, lengths, dtype, poison,
+                mp=None):
     """A shuffled paged layout: live pages scattered over the pool, the
-    garbage page 0, spare pages and the tail of each last page poisoned."""
+    garbage page 0, spare pages and the tail of each last page poisoned.
+    The table is ``mp`` pages wide (default: one more than the longest
+    slot needs)."""
     import numpy as np
-    mp = max(-(-int(l) // ps) for l in lengths) + 1
+    mp = mp or max(-(-int(l) // ps) for l in lengths) + 1
     n_alloc = sum(-(-int(l) // ps) for l in lengths)
     n_pages = n_alloc + 4
     free = list(range(1, n_pages))
@@ -249,6 +256,10 @@ def _paged_case(torch, rng, *, B, n_kv, g, hd, ps, lengths, dtype, poison):
 
 # K1 at llama3.2-3b's decode shape: 8 slots, ragged lengths 1..2048
 K1_SHAPE = dict(B=8, n_kv=8, g=3, hd=128, ps=16)
+# and at the llama pod's own decode: 8 slots of 64-544 positions (prompts
+# of 64-512 tokens and up to 32 new ones), a table of max_len 1024 / 16
+K1_POD_LENGTHS = (64, 544)
+K1_POD_MP = 64
 
 # K2 (Hq, Hkv, d, Sq, Sk, window): llama3.2-3b's 512-token prefill (the
 # kernel's record) and a suffix prefill over a 200-token prefix, then
@@ -267,6 +278,27 @@ def k1_case(torch, dtype):
     args = _paged_case(torch, np.random.default_rng(1), lengths=lengths,
                        dtype=dtype, poison=True, **K1_SHAPE)
     return args, lengths
+
+
+def k1_pod_case(torch):
+    """K1's inputs at the llama pod's decode (bfloat16, fixed seeds)."""
+    import numpy as np
+    lo, hi = K1_POD_LENGTHS
+    lengths = np.random.default_rng(6).integers(
+        lo, hi + 1, K1_SHAPE["B"]).astype(np.int32)
+    args = _paged_case(torch, np.random.default_rng(7), lengths=lengths,
+                       dtype=torch.bfloat16, poison=True, mp=K1_POD_MP,
+                       **K1_SHAPE)
+    return args, lengths
+
+
+def _k1_bytes(args, lengths, ps, n_kv, hd, g):
+    """Bytes K1 must move: live K+V pages, q and out, table and lengths."""
+    B = len(lengths)
+    isz = args[0].element_size()
+    pages = sum(-(-int(n) // ps) for n in lengths)
+    return (2 * pages * n_kv * ps * hd * isz + 2 * B * n_kv * g * hd * isz
+            + args[3].numel() * 4 + B * 4)
 
 
 def phase_kernels(torch, state, timer) -> None:
@@ -301,20 +333,45 @@ def phase_kernels(torch, state, timer) -> None:
             if window == 0 and dname == "bfloat16":
                 ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
                 plain = timer(lambda: paged_attention_ref(*args))
-                pages = sum(-(-int(l) // ps) for l in lengths)
-                isz = out.element_size()
-                nbytes = (2 * pages * n_kv * ps * hd * isz       # live K+V
-                          + 2 * B * n_kv * g * hd * isz          # q, out
-                          + args[3].numel() * 4 + B * 4)         # table, lens
+                nbytes = _k1_bytes(args, lengths, ps, n_kv, hd, g)
                 flops = 4.0 * B * n_kv * g * hd * float(lengths.sum())
                 bms, by = bound_ms(nbytes, flops, dname)
                 records["paged_attention"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=None)
-                log(f"kernels: paged_attention bf16 time {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms, bound {bms:.4f} ms ({by}: "
-                    f"{nbytes / 1e6:.2f} MB live), library none "
-                    f"[{state['card']}]")
+                kernel = pa_ops.kernel_choice(dt, g, hd)[0]
+                span = pa_ops.span_pages(B, n_kv, args[3].shape[1], ps,
+                                         pa_ops._sms(out.device))
+                log(f"kernels: paged_attention bf16 time {ms:.4f} ms (kernel "
+                    f"{kernel}, span {span} pages), plain {plain:.4f} ms, "
+                    f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB live), "
+                    f"library none [{state['card']}]")
+                # the FMA kernel on the same plan (counted, and reset before
+                # the main paths): what the tensor cores and the page ring
+                # add beyond the span plan
+                fma_ms = timer(lambda: pa_ops.paged_attention_cuda(
+                    *args, kernel="fma"))
+                log(f"kernels: paged_attention bf16 fma kernel, same spans: "
+                    f"{fma_ms:.4f} ms (not chosen) [{state['card']}]")
+
+    # K1 at the llama pod's own decode (bf16, window 0)
+    args, lengths = k1_pod_case(torch)
+    out = pa_ops.paged_attention_cuda(*args)
+    ref = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    ok = bool(torch.isfinite(out).all()) and err <= TOL["bfloat16"]
+    ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
+    nbytes = _k1_bytes(args, lengths, ps, n_kv, hd, g)
+    bms, by = bound_ms(nbytes, 4.0 * B * n_kv * g * hd * float(lengths.sum()),
+                       "bfloat16")
+    log(f"kernels: paged_attention at the llama pod's decode (B={B}, lengths "
+        f"{sorted(int(n) for n in lengths)}, mp={K1_POD_MP}) bfloat16: "
+        f"max_abs_err {err:.3e} (tol {TOL['bfloat16']:g}) "
+        f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by}: {nbytes / 1e6:.2f} MB) [{state['card']}]")
+    if not ok:
+        failures.append("paged_attention at the pod's decode")
 
     # -- K2: llama3.2-3b prefill and suffix prefill; recurrentgemma-2b's
     # local-attention prefill of 2304 tokens, window 2048 (query tiles past
@@ -384,10 +441,14 @@ def phase_kernels(torch, state, timer) -> None:
     check(not failures, "kernel mismatches: " + "; ".join(failures))
 
 
-# K5 at mamba2-2.7b's prefill (a 512-token prompt: two 256-step chunks) and
-# a ragged batch of two 192-token prompts (one chunk of 192 steps, not a
-# multiple of the kernel's 64-row tiles)
-K5_CASES = ((1, 512, 80, 64, 128, 256), (2, 192, 80, 64, 128, 192))
+# K5 at mamba2-2.7b's prefill (a 512-token prompt: two 256-step chunks; the
+# kernel's record), a ragged batch of two 192-token prompts (one chunk of
+# 192 steps, not a multiple of the kernel's 64-row tiles), then the mamba2
+# pod's shortest and longest prefills (64 tokens: one 64-step chunk; 768:
+# three chunks), timed beside the record
+K5_CASES = ((1, 512, 80, 64, 128, 256), (2, 192, 80, 64, 128, 192),
+            (1, 64, 80, 64, 128, 64), (1, 768, 80, 64, 128, 256))
+K5_POD = K5_CASES[2:]
 
 
 def ssd_flops(b: int, S: int, H: int, P: int, N: int, Q: int) -> float:
@@ -430,20 +491,31 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
             f"{SSD_REL_TOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"ssd {case}")
-        if case != K5_CASES[0]:
+        if case != K5_CASES[0] and case not in K5_POD:
             continue
         ms = timer(lambda: ssd_ops.ssd_cuda(x, dt, A, B, C, Q))
-        plain = timer(lambda: _ssd_chunked(x, dt, A, B, C, Q))
         nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
                       + C.numel() + st.numel())
         flops = ssd_flops(b, S, H, P, N, Q)
         bms, by = bound_ms(nbytes, flops, "float32")
+        # the bound of the arithmetic the kernel runs: three TF32 products
+        # for each float32 one, on the tensor cores
+        tc_ms, tc_by = bound_ms(nbytes, 3 * flops, "tf32")
+        if case in K5_POD:
+            log(f"kernels: ssd at the mamba2 pod's prefill S={S} chunk={Q}: "
+                f"{ms:.4f} ms, bound {bms:.4f} ms (f32 FMA), {tc_ms:.4f} ms "
+                f"(3xTF32 {tc_by}) [{state['card']}]")
+            continue
+        plain = timer(lambda: _ssd_chunked(x, dt, A, B, C, Q))
         state["records"]["ssd"] = dict(
             max_abs_err=err_y, ms=ms, plain_ms=plain, bound_ms=bms,
             bound_by=by, library_ms=None)
-        log(f"kernels: ssd float32 time {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP), library none [{state['card']}]")
+        log(f"kernels: ssd float32 time {ms:.4f} ms (3xTF32 tensor cores, "
+            f"P slice {ssd_ops.p_tile(P)}), plain {plain:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}, f32 FMA: {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP), 3xTF32 bound {tc_ms:.4f} ms "
+            f"({tc_by}: {3 * flops / 1e9:.3f} GFLOP at the TF32 rate), "
+            f"library none [{state['card']}]")
     return failures
 
 

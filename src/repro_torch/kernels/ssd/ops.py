@@ -9,8 +9,15 @@ fallback between the two. Forward only, as serving needs.
 Unlike the TPU kernel, which returns y alone, both paths also return the
 final state: the prefill hands it to decode.
 
-``launches`` counts kernel launches (CPU calls do not count), so a run can
-show that its prefill path went through the kernel.
+The kernel runs as three device kernels (the chunks' own states and the
+head-shared C.B^T, the serial pass over chunk states, the outputs; two
+when S is one chunk, which needs no pass), and its products run on the
+tensor cores in 3xTF32. It takes every shape the
+wrapper accepts; ``p_tile(P)`` is the P slice it is compiled for, a pure
+function of the shape decided before the launch.
+
+``launches`` counts wrapper calls that launch the kernel (CPU calls do
+not count), so a run can show that its prefill path went through it.
 """
 
 from __future__ import annotations
@@ -24,8 +31,9 @@ from repro_torch.kernels._launch import raise_on_error, require, stream_ptr
 from repro_torch.kernels.ssd.ref import _ssd_chunked
 
 MAX_CHUNK = 256        # the kernel's shared-memory arrays of one chunk
-MAX_STATE = 128        # state rows N one block holds
-P_BLOCKS = (32, 16)    # head-dim columns one block owns (compiled widths)
+MAX_STATE = 128        # state rows N the kernel takes
+P_TILES = (16, 32, 64, 128)   # compiled P slices (x columns a block owns)
+SCORE_ALIGN = 32       # the score scratch's rows are padded to this
 
 launches = 0
 _bound = False
@@ -38,13 +46,33 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssd_launch.argtypes = [
             p, p, p, p, p,                  # x, dt, A, B, C
-            p, p, p,                        # y, final state, scores scratch
-            i, i, i, i, i, i, i, p]         # b, S, H, P, N, chunk, pb, stream
+            p, p,                           # y, final state
+            p, p, p, p,                     # scratch: scores, cum, chunk
+                                            # states, entering states
+            i, i, i, i, i, i, i, p]         # b, S, H, P, N, chunk, pt, stream
         lib.ssd_launch.restype = i
         lib.ssd_error_string.argtypes = [i]
         lib.ssd_error_string.restype = ctypes.c_char_p
         _bound = True
     return lib
+
+
+def p_tile(P: int) -> int:
+    """The P slice the kernel runs for head dim P: the smallest compiled
+    slice that covers P (one slice: each score tile is read once per
+    chunk and head), else the widest (P > 128 takes several)."""
+    return next((t for t in P_TILES if t >= P), P_TILES[-1])
+
+
+def scratch_shapes(b: int, S: int, H: int, P: int, N: int,
+                   chunk: int) -> dict[str, tuple[int, ...]]:
+    """Float32 scratch of one launch: the chunks' C.B^T (rows padded to
+    SCORE_ALIGN), their cumsums, their own states and the states entering
+    them."""
+    bc = b * (S // chunk)
+    qp = -(-chunk // SCORE_ALIGN) * SCORE_ALIGN
+    return {"scores": (bc, chunk, qp), "cum": (bc, H, chunk),
+            "states": (bc, H, N, P), "prev": (bc, H, N, P)}
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -71,21 +99,24 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             f"ssd: chunk {chunk} must divide S={S} and be at most "
             f"{MAX_CHUNK}")
     require(0 < N <= MAX_STATE, f"ssd: state size {N} exceeds {MAX_STATE}")
-    pb = next((w for w in P_BLOCKS if P % w == 0), None)
-    require(pb is not None, f"ssd: head dim {P} is not a multiple of 16")
-    require(b <= 65535 and H <= 65535, "ssd: b or H exceeds the grid")
+    require(P > 0 and P % 16 == 0,
+            f"ssd: head dim {P} is not a multiple of 16")
+    pt = p_tile(P)
+    require(b * (S // chunk) <= 65535 and H * -(-P // pt) <= 65535,
+            "ssd: b * S / chunk or H exceeds the grid")
     lib = _lib()
     y = torch.empty_like(x)
     state = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
     if b == 0 or S == 0 or H == 0:
         return y, state.zero_()
-    nc = S // chunk
-    scores = torch.empty((b * nc, chunk, chunk), dtype=torch.float32,
-                         device=x.device)
+    scratch = {k: torch.empty(v, dtype=torch.float32, device=x.device)
+               for k, v in scratch_shapes(b, S, H, P, N, chunk).items()}
     rc = lib.ssd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), state.data_ptr(), scores.data_ptr(),
-        b, S, H, P, N, chunk, pb, stream_ptr(x.device))
+        y.data_ptr(), state.data_ptr(), scratch["scores"].data_ptr(),
+        scratch["cum"].data_ptr(), scratch["states"].data_ptr(),
+        scratch["prev"].data_ptr(), b, S, H, P, N, chunk, pt,
+        stream_ptr(x.device))
     raise_on_error(rc, lib, "ssd_error_string", "ssd")
     launches += 1
     return y, state

@@ -46,6 +46,18 @@ PA_CASES = [
     (2, 1, 4, 64, 64, 3, 40, "bfloat16"),    # window + big pages
     (8, 8, 3, 128, 16, 33, 0, "bfloat16"),   # llama3.2-3b decode
     (2, 2, 16, 256, 16, 5, 0, "float32"),    # widest group and head dim
+    # llama3.2-3b decode with a 1-token and a 2048-token slot (a table of
+    # 129 pages), plain and windowed: the span plan and the page ring where
+    # one slot is longest
+    (8, 8, 3, 128, 16, 129, 0, "bfloat16"),
+    (8, 8, 3, 128, 16, 129, 200, "bfloat16"),
+    # the tensor-core kernel at hd 16 (half-page tiles), a full 16-row
+    # group on pages of 24 with a window; the FMA kernel's group of 4 and
+    # bfloat16 at hd 256
+    (2, 2, 2, 16, 8, 4, 0, "bfloat16"),
+    (3, 2, 16, 64, 24, 5, 30, "bfloat16"),
+    (2, 1, 4, 64, 64, 3, 40, "float32"),
+    (2, 2, 16, 256, 16, 5, 0, "bfloat16"),
 ]
 
 FA_CASES = [
@@ -82,11 +94,16 @@ RG_CASES = [(2, 64, 128), (1, 100, 256), (3, 32, 512), (1, 128, 128),
             (1, 2304, 2560), (3, 100, 2560)]
 
 # tests/test_kernels.py:121 (b, S, H, P, N, chunk), plus mamba2-2.7b's
-# prefill widths (H 80, P 64, N 128, chunk 256) and a ragged chunk
+# prefill widths (H 80, P 64, N 128, chunk 256) and a ragged chunk; the
+# mamba2 pod's longest and shortest prefills (768 tokens: three chunks; 64);
+# then a head dim of 96 (the 128-column slice, masked), a state of 30 (rows
+# not 16-byte aligned) and a head dim of 144 (two slices)
 SSD_CASES = [(2, 64, 4, 32, 32, 16), (1, 128, 8, 64, 128, 32),
              (2, 96, 2, 16, 64, 32), (1, 256, 4, 64, 128, 64),
              (1, 512, 80, 64, 128, 256), (2, 256, 80, 64, 128, 256),
-             (1, 100, 3, 32, 48, 100)]
+             (1, 100, 3, 32, 48, 100), (1, 768, 80, 64, 128, 256),
+             (1, 64, 80, 64, 128, 64), (1, 64, 2, 96, 48, 32),
+             (1, 64, 2, 16, 30, 32), (1, 64, 2, 144, 16, 64)]
 
 # tests/test_kernels.py:159 (M, K, N, dtype), a ragged shape no block
 # divides, and llama3.2-3b's prefill MLP products for a 512-token prompt
@@ -117,7 +134,7 @@ def _tol(dt):
 def test_paged_kernel_vs_plain(case, cuda):
     B, n_kv, g, hd, ps, mp, window, dt = case
     rng = np.random.default_rng(42)
-    lengths = np.concatenate([[1, mp * ps],
+    lengths = np.concatenate([[1, min(2048, mp * ps)],
                               rng.integers(1, mp * ps, max(0, B - 2))])
     lengths = lengths[:B].astype(np.int32)
     n_pages = sum(-(-int(n) // ps) for n in lengths) + 3
@@ -144,8 +161,8 @@ def test_paged_kernel_vs_plain(case, cuda):
     ref = paged_attention_ref(*args, window=window)
     assert bool(torch.isfinite(out).all())
     assert float((out.float() - ref.float()).abs().max()) < _tol(dt)
-    # the single-pass kernel (no split, no merge) computes the same
-    one = pa_ops.paged_attention_cuda(*args, window=window, n_split=1)
+    # one span a block (the whole table: no merge kernel) computes the same
+    one = pa_ops.paged_attention_cuda(*args, window=window, span=mp)
     assert float((one.float() - ref.float()).abs().max()) < _tol(dt)
 
 
@@ -243,6 +260,31 @@ def test_mm_cases_cover_every_kernel_and_tile():
     bf16 = {mm_ops.kernel_choice(M, N, K, torch.bfloat16)[0]
             for M, K, N, dt in MM_CASES if dt == "bfloat16"}
     assert bf16 == {"wgmma", "fma"}
+
+
+def test_pa_cases_cover_every_kernel_and_variant():
+    """PA_CASES reach every (kernel, variant) csrc/paged_attention.cu
+    compiles: the tensor-core kernel at each head dim, the FMA kernel at
+    each group variant, and the FMA kernel in both dtypes (runs without a
+    card: the choice is shape and dtype only)."""
+    seen = {pa_ops.kernel_choice(getattr(torch, dt), g, hd)
+            for B, n_kv, g, hd, ps, mp, w, dt in PA_CASES}
+    want = ({("mma", d) for d in pa_ops.MMA_HEAD_DIMS}
+            | {("fma", g) for g in (*pa_ops.FMA_GROUPS, pa_ops.MAX_GROUP)})
+    assert seen == want
+    fma = {dt for B, n_kv, g, hd, ps, mp, w, dt in PA_CASES
+           if pa_ops.kernel_choice(getattr(torch, dt), g, hd)[0] == "fma"}
+    assert fma == {"float32", "bfloat16"}
+
+
+def test_ssd_cases_cover_every_p_slice():
+    """SSD_CASES reach every P slice csrc/ssd.cu compiles, one head dim
+    that fills no slice exactly and one that takes two slices."""
+    assert {ssd_ops.p_tile(P) for b, S, H, P, N, q in SSD_CASES} == \
+        set(ssd_ops.P_TILES)
+    assert any(P not in ssd_ops.P_TILES and P < 128
+               for b, S, H, P, N, q in SSD_CASES)
+    assert any(P > ssd_ops.P_TILES[-1] for b, S, H, P, N, q in SSD_CASES)
 
 
 @pytest.mark.parametrize("case", MM_CASES, ids=str)
