@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Three measurements, each printed beside the card's name and power limit:
+Four measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -17,6 +17,10 @@ Three measurements, each printed beside the card's name and power limit:
             twice, then 4 calls under torch.profiler: the device's busy
             and idle share of that prefill window and the SSD kernel's
             (K5's three device kernels) share of busy time
+  rgemma    the same for the full-width recurrentgemma-2b pod (contiguous
+            slots, max_len 4096): its prefill step of a 2304-token prompt
+            (past the 2048 window), the RG-LRU scan's (K4) and the flash
+            kernel's (K2) share of busy time, and K4's device kernels a call
   spans     the paged-attention kernel at chip_smoke.py's decode shape
             and at the llama pod's (bfloat16): the tensor-core kernel with
             the span plan ``span_pages`` picks, with spans of 4, 8, 16 and
@@ -122,19 +126,21 @@ def profile_pod(torch, card: str, workdir: Path) -> None:
             f"x{n:<6d} {key[:90]}")
 
 
-def profile_mamba2(torch, card: str, workdir: Path) -> None:
+def profile_prefill(torch, card: str, workdir: Path, arch: str, tag: str,
+                    max_len: int, prompt_len: int, kernels: tuple) -> list:
+    """A full-width pod's prefill step of ``prompt_len`` tokens, 2 warm-up
+    calls, then 4 under torch.profiler; returns the device kernels."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.runtime import Runtime
     from repro_torch.orchestrator import Pod
 
-    rt = Runtime(workdir / "mamba2")
-    rt.build(FULL_IMAGEFILE.format(arch="mamba2-2.7b"), tag="mamba2")
-    pod = Pod(rt, "mamba2", replicas=1, n_slots=8, max_len=1024,
+    rt = Runtime(workdir / tag)
+    rt.build(FULL_IMAGEFILE.format(arch=arch), tag=tag)
+    pod = Pod(rt, tag, replicas=1, n_slots=8, max_len=max_len,
               paged=False, seed=0)
     eng = pod.engines[0]
     c = eng.container
-    prompt_len = 512
     prefill = c.compile_serve_step("prefill_slot", prompt_len=prompt_len,
                                    cache_len=eng.max_len)
     rng = np.random.default_rng(14)
@@ -152,16 +158,37 @@ def profile_mamba2(torch, card: str, workdir: Path) -> None:
                 prefill(eng.params, t, prompt_len)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    log(f"mamba2: 4 prefills of {prompt_len} tokens, "
+    log(f"{tag}: 4 prefills of {prompt_len} tokens, "
         f"{c.arch.n_layers} layers")
-    device_summary(prof, wall_us, card, "mamba2",
-                   (("K5 ssd (state, pass and output kernels)",
-                     "ssd_"),))
+    device = device_summary(prof, wall_us, card, tag, kernels)
     for e in pod.engines:
         e.release()
+    return device
+
+
+def profile_mamba2(torch, card: str, workdir: Path) -> None:
+    profile_prefill(torch, card, workdir, "mamba2-2.7b", "mamba2", 1024, 512,
+                    (("K5 ssd (state, pass and output kernels)", "ssd_"),))
+
+
+def profile_rgemma(torch, card: str, workdir: Path) -> None:
+    from repro_torch.configs import get_config
+    cfg = get_config("recurrentgemma-2b")
+    device = profile_prefill(
+        torch, card, workdir, "recurrentgemma-2b", "rgemma", 4096, 2304,
+        (("K4 rglru_scan", "rglru_scan"), ("K2 flash_attention_fwd",
+                                           "flash_")))
+    rec = cfg.layer_types().count("rec")
+    runs = sum(n for _, key, n in device if "rglru_scan" in key)
+    log(f"rgemma: K4 device-kernel runs {runs} for {4 * rec} calls (4 "
+        f"prefills x {rec} rec layers) = {runs / (4 * rec):.2f} a call "
+        f"[{card}]")
+    check(runs == 4 * rec, f"rgemma: K4 ran {runs} device kernels for "
+                           f"{4 * rec} calls")
 
 
 def spans(torch, card: str) -> None:
+    from repro_torch.kernels._launch import device_sms
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -172,7 +199,7 @@ def spans(torch, card: str) -> None:
         q, k, table = args[0], args[1], args[3]
         mp = table.shape[1]
         plan = ops.span_pages(K1_SHAPE["B"], K1_SHAPE["n_kv"], mp,
-                              K1_SHAPE["ps"], ops._sms(q.device))
+                              K1_SHAPE["ps"], device_sms(q.device))
         ref = paged_attention_ref(*args).float()
         runs = [("mma", plan)] + [("mma", s) for s in (4, 8, 16, 32, mp)
                                   if s != plan] + [("fma", plan)]
@@ -190,7 +217,7 @@ def spans(torch, card: str) -> None:
                 f"{' (the plan)' if span == plan else ''} ({n_spans} spans "
                 f"of a {mp}-page table, "
                 f"{K1_SHAPE['B'] * K1_SHAPE['n_kv'] * n_spans} blocks on "
-                f"{ops._sms(q.device)} SMs): {ms:.4f} ms, max_abs_err "
+                f"{device_sms(q.device)} SMs): {ms:.4f} ms, max_abs_err "
                 f"{err:.3e} (pool {tuple(k.shape)}) [{card}]")
 
 
@@ -215,6 +242,8 @@ def main() -> int:
         profile_pod(torch, state["card"], Path(tmp))
         torch.cuda.empty_cache()
         profile_mamba2(torch, state["card"], Path(tmp))
+        torch.cuda.empty_cache()
+        profile_rgemma(torch, state["card"], Path(tmp))
         torch.cuda.empty_cache()
     spans(torch, state["card"])
     print(state["card"])

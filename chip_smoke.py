@@ -18,7 +18,11 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             also timed on its FMA kernel with the same span plan and at the
             llama pod's own decode (lengths 64-544), K5 (SSD) at the mamba2
             pod's shortest and longest prefills (S 64 and 768), with the
-            bound of its 3xTF32 tensor-core arithmetic beside the float32 one
+            bound of its 3xTF32 tensor-core arithmetic beside the float32
+            one; K1 and K2 at stablelm-3b's head dim 80 (its pod's decode,
+            its 512-token and suffix prefills, beside SDPA); K4 (RG-LRU) at
+            the recurrentgemma pod's prefills (S 64, 512, 2304), each
+            call held bit for bit against a second one
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
             on the card: the blocked matmul called natively (blocks named:
             platform "h100") and through a container bound from an
@@ -34,10 +38,12 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             slots; recurrentgemma's prompts pass its 16-token window);
             and llama3.2-3b-smoke served on the card by launch/serve.main
             in continuous and in static mode, tokens identical
-  serve     three full-width pods, bfloat16, random weights from seed 0,
+  serve     four full-width pods, bfloat16, random weights from seed 0,
             behind Runtime -> Pod -> ContinuousScheduler, 32 new tokens a
             request, no EOS:
               llama3.2-3b (28 layers), paged, prefix cache on, 16 requests;
+              stablelm-3b (32 layers, 32 heads of 80, LayerNorm, partial
+                rotary), the same pod and trace;
               mamba2-2.7b (64 ssm layers), contiguous, 12 requests of
                 64-768 prompt tokens;
               recurrentgemma-2b (18 rec + 8 local-attention layers),
@@ -261,11 +267,17 @@ K1_SHAPE = dict(B=8, n_kv=8, g=3, hd=128, ps=16)
 K1_POD_LENGTHS = (64, 544)
 K1_POD_MP = 64
 
+# K1 at stablelm-3b's pod decode: MHA, 32 heads of 80 (g 1), the llama
+# pod's lengths and table
+K1_STABLELM = dict(B=8, n_kv=32, g=1, hd=80, ps=16)
+
 # K2 (Hq, Hkv, d, Sq, Sk, window): llama3.2-3b's 512-token prefill (the
 # kernel's record) and a suffix prefill over a 200-token prefix, then
-# recurrentgemma-2b's local-attention prefill past its 2048 window
+# recurrentgemma-2b's local-attention prefill past its 2048 window, then
+# stablelm-3b's prefill and suffix prefill (head dim 80)
 K2_CASES = ((24, 8, 128, 512, 512, 0), (24, 8, 128, 128, 328, 0),
-            (10, 1, 256, 2304, 2304, 2048))
+            (10, 1, 256, 2304, 2304, 2048), (32, 32, 80, 512, 512, 0),
+            (32, 32, 80, 128, 328, 0))
 
 
 def k1_case(torch, dtype):
@@ -280,15 +292,16 @@ def k1_case(torch, dtype):
     return args, lengths
 
 
-def k1_pod_case(torch):
-    """K1's inputs at the llama pod's decode (bfloat16, fixed seeds)."""
+def k1_pod_case(torch, shape=K1_SHAPE, dtype=None):
+    """K1's inputs at the llama pod's decode (fixed seeds; bfloat16 unless
+    ``dtype``), with the heads of ``shape``."""
     import numpy as np
     lo, hi = K1_POD_LENGTHS
     lengths = np.random.default_rng(6).integers(
-        lo, hi + 1, K1_SHAPE["B"]).astype(np.int32)
+        lo, hi + 1, shape["B"]).astype(np.int32)
     args = _paged_case(torch, np.random.default_rng(7), lengths=lengths,
-                       dtype=torch.bfloat16, poison=True, mp=K1_POD_MP,
-                       **K1_SHAPE)
+                       dtype=dtype or torch.bfloat16, poison=True,
+                       mp=K1_POD_MP, **shape)
     return args, lengths
 
 
@@ -305,6 +318,7 @@ def phase_kernels(torch, state, timer) -> None:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels._launch import device_sms
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -341,7 +355,7 @@ def phase_kernels(torch, state, timer) -> None:
                     bound_by=by, library_ms=None)
                 kernel = pa_ops.kernel_choice(dt, g, hd)[0]
                 span = pa_ops.span_pages(B, n_kv, args[3].shape[1], ps,
-                                         pa_ops._sms(out.device))
+                                         device_sms(out.device))
                 log(f"kernels: paged_attention bf16 time {ms:.4f} ms (kernel "
                     f"{kernel}, span {span} pages), plain {plain:.4f} ms, "
                     f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB live), "
@@ -372,6 +386,35 @@ def phase_kernels(torch, state, timer) -> None:
         f"({by}: {nbytes / 1e6:.2f} MB) [{state['card']}]")
     if not ok:
         failures.append("paged_attention at the pod's decode")
+
+    # K1 at stablelm-3b's pod decode: head dim 80, g 1 (bf16 on the tensor
+    # cores, f32 on the FMA kernel), timed in bf16
+    sb, skv, sg, shd, sps = (K1_STABLELM[k]
+                             for k in ("B", "n_kv", "g", "hd", "ps"))
+    for dname, dt in dts.items():
+        args, lengths = k1_pod_case(torch, K1_STABLELM, dt)
+        out = pa_ops.paged_attention_cuda(*args)
+        ref = paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        ok = bool(torch.isfinite(out).all()) and err <= TOL[dname]
+        line = (f"kernels: paged_attention at stablelm-3b's pod decode "
+                f"(B={sb} n_kv={skv} g={sg} hd={shd} ps={sps}, kernel "
+                f"{pa_ops.kernel_choice(dt, sg, shd)[0]}) {dname}: "
+                f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+        if dname == "bfloat16":
+            ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
+            plain = timer(lambda: paged_attention_ref(*args))
+            nbytes = _k1_bytes(args, lengths, sps, skv, shd, sg)
+            bms, by = bound_ms(nbytes, 4.0 * sb * skv * sg * shd
+                               * float(lengths.sum()), dname)
+            line += (f"; time {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                     f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB) "
+                     f"[{state['card']}]")
+        log(line)
+        if not ok:
+            failures.append(f"paged_attention stablelm-3b {dname}")
 
     # -- K2: llama3.2-3b prefill and suffix prefill; recurrentgemma-2b's
     # local-attention prefill of 2304 tokens, window 2048 (query tiles past
@@ -519,13 +562,17 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
     return failures
 
 
-# K4 at recurrentgemma-2b's prefill widths: one 2304-token prompt, and a
-# ragged batch of three 100-token prompts
-K4_CASES = ((1, 2304, 2560), (3, 100, 2560))
+# K4 at recurrentgemma-2b's prefill widths: one 2304-token prompt (the
+# kernel's record), a ragged batch of three 100-token prompts, then the
+# recurrentgemma pod's shorter prefills (64 and 512 tokens), timed beside
+# the record
+K4_CASES = ((1, 2304, 2560), (3, 100, 2560), (1, 64, 2560), (1, 512, 2560))
+K4_TIMED = (K4_CASES[0], K4_CASES[2], K4_CASES[3])
 
 
 def _kernels_rglru(torch, state, timer) -> list[str]:
     import numpy as np
+    from repro_torch.kernels._launch import device_sms
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -536,31 +583,44 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
             case)))).astype(np.float32)).to("cuda")
         b = torch.from_numpy(rng.standard_normal(case).astype(
             np.float32)).to("cuda")
-        h = rg_ops.rglru_scan_cuda(a, b)
         ref = rglru_scan_ref(a, b)
+        tol = RGLRU_TOL * max(1.0, float(ref.abs().max()))
+        plan = rg_ops.scan_plan(*case, device_sms(a.device))
+        # the look-back composes in a fixed order: repeated calls agree
+        # bit for bit
+        h, again = rg_ops.rglru_scan_cuda(a, b), rg_ops.rglru_scan_cuda(a, b)
         torch.cuda.synchronize()
         err = float((h - ref).abs().max())
-        tol = RGLRU_TOL * max(1.0, float(ref.abs().max()))
-        ok = bool(torch.isfinite(h).all()) and err <= tol
-        log(f"kernels: rglru_scan B={case[0]} S={case[1]} R={case[2]} "
-            f"float32 (time chunk {rg_ops.time_chunk(*case, a.device)}): "
-            f"max_abs_err "
-            f"{err:.3e} against the sequential version (tol {tol:.3e}) "
-            f"{'ok' if ok else 'FAIL'}")
+        same = bool(torch.equal(h, again))
+        ok = bool(torch.isfinite(h).all()) and err <= tol and same
         if not ok:
             failures.append(f"rglru_scan {case}")
-        if case != K4_CASES[0]:
+        tile = (f"tile 32 x {plan.T} ({plan.steps} steps a warp), "
+                f"{plan.n_tiles} tiles; a second call "
+                f"{'bit-identical' if same else 'DIFFERS'}")
+        if case not in K4_TIMED:
+            log(f"kernels: rglru_scan B={case[0]} S={case[1]} R={case[2]} "
+                f"float32 ({tile}): max_abs_err {err:.3e} against the "
+                f"sequential version (tol {tol:.3e}) "
+                f"{'ok' if ok else 'FAIL'}")
             continue
         ms = timer(lambda: rg_ops.rglru_scan_cuda(a, b))
-        plain = timer(lambda: rglru_scan_ref(a, b))
         nbytes = 3 * a.numel() * 4
         bms, by = bound_ms(nbytes, 2.0 * a.numel(), "float32")
+        log(f"kernels: rglru_scan B={case[0]} S={case[1]} R={case[2]} "
+            f"float32 ({tile}): max_abs_err {err:.3e} (tol {tol:.3e}) "
+            f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, bound {bms:.4f} "
+            f"ms ({by}: {nbytes / 1e6:.2f} MB) [{state['card']}]")
+        if case != K4_CASES[0]:
+            continue
+        plain = timer(lambda: rglru_scan_ref(a, b))
         state["records"]["rglru_scan"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
             bound_by=by, library_ms=None)
         log(f"kernels: rglru_scan float32 time {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bms:.4f} ms ({by}: "
-            f"{nbytes / 1e6:.2f} MB), library none [{state['card']}]")
+            f"{nbytes / 1e6:.2f} MB), library none; scratch zero-fills so "
+            f"far {rg_ops.scratch_fills} [{state['card']}]")
     return failures
 
 
@@ -1013,6 +1073,10 @@ def phase_serve(torch, state, workdir: Path) -> None:
     run("llama3.2-3b", llama_reqs,
         {"paged_attention": ("decode", 28),
          "flash_attention_fwd": ("prefill", 28)},
+        n_slots=8, max_len=1024, paged=True, page_size=16, prefix_cache=True)
+    run("stablelm-3b", llama_reqs,
+        {"paged_attention": ("decode", 32),
+         "flash_attention_fwd": ("prefill", 32)},
         n_slots=8, max_len=1024, paged=True, page_size=16, prefix_cache=True)
     run("mamba2-2.7b", mamba2_reqs, {"ssd": ("prefill", 64)},
         n_slots=8, max_len=1024, paged=False)

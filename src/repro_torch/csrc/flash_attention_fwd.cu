@@ -54,7 +54,13 @@
 //
 // Both: KV tiles entirely in the future (causal with the Sk - Sq offset)
 // or entirely outside the window are never loaded; ragged Sq and Sk are
-// masked in the kernel; head dims 16, 32, 64, 128 and 256.
+// masked in the kernel; head dims 16, 32, 64, 80 (stablelm-3b), 128 and
+// 256, one instantiation each (a dispatch case per head dim, not any
+// multiple of 16). At d 80 the bf16 kernel runs 5 k-steps of m16n8k16 for
+// Q K^T and 10 n8 tiles for P V; a shared row is 88 elements (176 bytes,
+// 11 16-byte chunks), so the 8 rows an ldmatrix reads start at 176 r mod
+// 128 = {0, 48, 96, 16, 64, 112, 32, 80}: distinct 16-byte bank groups, no
+// conflict, with no swizzle to get wrong; global rows stay 160 bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,6 +280,9 @@ cudaError_t launch_f32(int d, const void* q, const void* k, const void* v,
                                         causal, window, scale, stream);
     case 64:
       return launch_tile<T, 64, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
+                                        causal, window, scale, stream);
+    case 80:
+      return launch_tile<T, 80, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                         causal, window, scale, stream);
     case 128:
       return launch_tile<T, 128, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
@@ -591,6 +600,9 @@ cudaError_t launch_bf16(int d, const void* q, const void* k, const void* v,
                             scale, stream);
     case 64:
       return launch_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
+                            scale, stream);
+    case 80:
+      return launch_mma<80>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
                             scale, stream);
     case 128:
       return launch_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,

@@ -33,8 +33,8 @@
 // Two kernels, chosen by ops.py:kernel_choice from dtype, group and head
 // dim (a pure function of shapes):
 //
-// "mma", bfloat16 with hd 16-128, on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 accumulate):
+// "mma", bfloat16 with hd 16, 32, 64, 80 or 128, on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate):
 //   * the GQA group (up to 16 query heads) is stacked as the 16 rows of the
 //     MMA, padded with zero rows; Q is held in registers as A fragments;
 //   * each of the 4 warps owns every fourth 16-token tile of the span, and
@@ -46,7 +46,13 @@
 //     stays in registers, each warp with its own (max, denominator,
 //     accumulator); P is rounded to bf16 as the plain version rounds it and
 //     fed back as the A operand of P V without touching shared memory;
-//   * the warps' triples merge once, through shared memory, at the end.
+//   * the warps' triples merge once, through shared memory, at the end;
+//   * hd 80 (stablelm-3b, MHA: g = 1 fills one of the 16 MMA rows, the
+//     others are zero rows whose outputs are never stored) runs 5 k-steps
+//     for S and 10 n8 tiles for P V; its 88-element shared rows (176 bytes)
+//     put the 8 rows of an ldmatrix on distinct 16-byte bank groups, as the
+//     power-of-two dims' rows do. The pool keeps its (n_kv, n_pages, ps,
+//     80) layout: 160-byte rows, every 16-byte copy aligned.
 //
 // "fma", float32 (tensor cores would mean TF32, outside the f32 tolerance)
 // and bf16 at hd 256 (its accumulator would not fit the registers):
@@ -56,7 +62,11 @@
 //   * the group size g is a template parameter (exact for 1, 2, 3, 4 and 8;
 //     bounded by 16 otherwise), so the per-row loops unroll to exactly g;
 //   * scores: TT tokens x (128/TT) threads per token, each thread a strided
-//     slice of the head dim, reduced with shuffles inside the token's lanes.
+//     slice of the head dim, reduced with shuffles inside the token's lanes;
+//   * any head dim of HEAD_DIMS: a 16-byte load's token and column come
+//     from a division by hd, so 80 is staged like the powers of two.
+//
+// Head dims: 16, 32, 64, 80, 128 and 256 (head_dim_ok; ops.py:HEAD_DIMS).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -194,7 +204,6 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int sh = __ffs(hd) - 1;                // hd is a power of two
   const int TT = tile_tokens(ps, hd);
   const int tpp = (ps + TT - 1) / TT;          // tiles per page
   const int tpt = threads_per_token(TT);
@@ -246,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
     for (int u = 0; u < VPT; ++u) {
       const int ev = tid + u * kThreads;
-      const int t = (ev * VE) >> sh;
+      const int t = (ev * VE) / hd;
       if (t < nt && col0 + t >= lo && col0 + t < hi) {
         kr[u] = __ldg(kp + ev);
         vr[u] = __ldg(vp + ev);
@@ -260,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
     for (int u = 0; u < VPT; ++u) {
       const int e = (tid + u * kThreads) * VE;
-      const int t = e >> sh, d = e & (hd - 1);
+      const int t = e / hd, d = e - t * hd;
       if (t < nt) {
         float kf[VE], vf[VE];
         if (col0 + t >= lo && col0 + t < hi) {
@@ -836,18 +845,23 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
     case 16: PA_MMA(16);
     case 32: PA_MMA(32);
     case 64: PA_MMA(64);
+    case 80: PA_MMA(80);
     case 128: PA_MMA(128);
     default: return cudaErrorInvalidValue;
   }
 #undef PA_MMA
 }
 
-bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+// the head dims both kernels are built and checked for ("mma": <= 128)
+bool head_dim_ok(int hd) {
+  return hd == 16 || hd == 32 || hd == 64 || hd == 80 || hd == 128 ||
+         hd == 256;
+}
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; kernel: 0 = "fma", 1 = "mma" (bfloat16,
-// hd <= 128 only). Block (kv head, slot, span) owns positions [s *
+// hd <= 128 only); hd one of head_dim_ok's. Block (kv head, slot, span) owns positions [s *
 // span_pages * ps, (s + 1) * span_pages * ps); n_spans = ceil(mp /
 // span_pages). part_acc (B, n_kv, n_spans, g, hd) and part_ml (B, n_kv,
 // n_spans, g, 2) are float32 scratch, unused when n_spans == 1. Returns a
@@ -861,7 +875,7 @@ extern "C" int paged_attention_launch(int dtype, int kernel, const void* q,
                                       int window, float scale,
                                       int span_pages, void* stream) {
   if (B <= 0 || n_kv <= 0 || Hq % n_kv != 0 || Hq / n_kv > kMaxGroup ||
-      !is_pow2(hd) || hd < 16 || hd > kMaxHeadDim || ps <= 0 || mp <= 0 ||
+      !head_dim_ok(hd) || ps <= 0 || mp <= 0 ||
       n_pages <= 0 || span_pages <= 0 || B > 65535 || n_kv > 65535)
     return (int)cudaErrorInvalidValue;
   const int n_spans = (mp + span_pages - 1) / span_pages;

@@ -1,5 +1,6 @@
-"""What every kernel wrapper shares: dtype codes, the current stream, and
-turning a launcher's return code into an exception."""
+"""What every kernel wrapper shares: dtype codes, the current stream, the
+card's SM count, and turning a launcher's return code into an
+exception."""
 
 from __future__ import annotations
 
@@ -26,6 +27,23 @@ def require(cond: bool, msg: str) -> None:
 def stream_ptr(device: torch.device) -> int:
     """The raw cudaStream_t of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def device_sms(device: torch.device) -> int:
+    """The SMs of the card ``device`` names (looked up once a card)."""
+    idx = device_index(device)
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def raise_on_error(rc: int, lib, error_fn: str, kernel: str) -> None:

@@ -28,7 +28,7 @@ from repro_torch.kernels._launch import (dtype_code, raise_on_error, require,
                                          stream_ptr)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernels' compiled head dims
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the kernels' compiled head dims
 
 launches = 0
 _bound = False

@@ -7,9 +7,9 @@ between the two.
 
 Two kernels live in that file; ``kernel_choice(dtype, g, hd)``, a pure
 function of the shapes decided before the launch, names the one that runs:
-"mma" (bfloat16, head dim at most 128: the group products on the tensor
-cores, pages streamed through a cp.async ring) or "fma" (float32, and
-bfloat16 at head dim 256).
+"mma" (bfloat16, head dims ``MMA_HEAD_DIMS``: the group products on the
+tensor cores, pages streamed through a cp.async ring) or "fma" (float32,
+and bfloat16 at head dim 256). Both take exactly ``HEAD_DIMS``.
 
 Both cut the work by position: block (kv head, slot, span) owns
 ``span_pages`` whole pages of its slot (``span_pages``: from shapes only,
@@ -29,13 +29,15 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (dtype_code, raise_on_error, require,
-                                         stream_ptr)
+from repro_torch.kernels._launch import (device_sms, dtype_code,
+                                         raise_on_error, require, stream_ptr)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-# csrc/paged_attention.cu's kernels, and the head dims "mma" is compiled for
+# csrc/paged_attention.cu's kernels, the head dims both take (its
+# head_dim_ok), and those "mma" is compiled for
 KERNEL_CODES = {"fma": 0, "mma": 1}
-MMA_HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+MMA_HEAD_DIMS = (16, 32, 64, 80, 128)
 # the FMA kernel's group-size variants: exact sizes, else a bound of 16
 FMA_GROUPS = (1, 2, 3, 4, 8)
 MAX_GROUP = 16
@@ -48,7 +50,6 @@ MIN_BLOCKS_PER_SM = 2
 
 launches = 0
 _bound = False
-_sm_count: dict[int, int] = {}
 
 
 def _lib():
@@ -69,20 +70,11 @@ def _lib():
     return lib
 
 
-def _sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_count[idx]
-
-
 def kernel_choice(dtype: torch.dtype, g: int, hd: int) -> tuple[str, int]:
     """(kernel, variant) that ``paged_attention_cuda`` launches for query
     groups of ``g`` heads of dim ``hd``: ("mma", hd) for bfloat16 with hd
-    at most 128 (the 16 MMA rows hold any group up to 16), else ("fma",
-    g's compiled group variant)."""
+    in MMA_HEAD_DIMS (the 16 MMA rows hold any group up to 16), else
+    ("fma", g's compiled group variant)."""
     if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
         return "mma", hd
     return "fma", g if g in FMA_GROUPS else MAX_GROUP
@@ -127,8 +119,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          kernel: str | None = None) -> torch.Tensor:
     """Launch the CUDA kernel. Every tensor must be contiguous and on one
     CUDA device; q/k/v share a float32 or bfloat16 dtype (16-byte aligned);
-    table and lengths are int32; the head dim is a power of two in
-    [16, 256]. ``span`` is the pages a block owns (None: ``span_pages``;
+    table and lengths are int32; the head dim is one of HEAD_DIMS. ``span`` is the pages a block owns (None: ``span_pages``;
     the table's width: one block per (slot, kv head), no merge kernel).
     ``kernel`` names the kernel (None: ``kernel_choice``; "fma" runs the
     FMA kernel on bfloat16 too, for comparison)."""
@@ -153,9 +144,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     require(Hq % n_kv == 0 and Hq // n_kv <= MAX_GROUP,
             f"paged_attention: Hq={Hq} must be n_kv={n_kv} times a group "
             f"of at most {MAX_GROUP}")
-    require(16 <= hd <= 256 and hd & (hd - 1) == 0,
-            f"paged_attention: head dim {hd} is not a power of two in "
-            "[16, 256]")
+    require(hd in HEAD_DIMS,
+            f"paged_attention: head dim {hd} not in {HEAD_DIMS}")
     require(page_table.dim() == 2 and page_table.shape[0] == B
             and tuple(lengths.shape) == (B,),
             "paged_attention: page_table must be (B, max_pages), lengths (B,)")
@@ -175,7 +165,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             f"paged_attention: kernel {kernel} does not take {q.dtype} at "
             f"head dim {hd}")
     if span is None:
-        span = span_pages(B, n_kv, mp, ps, _sms(q.device))
+        span = span_pages(B, n_kv, mp, ps, device_sms(q.device))
     require(span > 0, f"paged_attention: span {span} must be positive")
     n_spans = -(-mp // span)
     part_acc = part_ml = None

@@ -5,6 +5,16 @@ plain sequential version (``ref.py``); a CUDA tensor launches the
 hand-written kernel ``repro_torch/csrc/rglru_scan.cu`` or raises. There is
 no fallback between the two. Forward only, as serving needs.
 
+The kernel is one launch: a single-pass chained scan with decoupled
+look-back over tiles of 32 channels x 8 ``steps`` time steps, a block a
+tile. ``scan_plan`` picks ``steps`` from shapes and the SM count alone, and
+the look-back composes a tile's carry in a fixed order, so a call's h is
+the same bit for bit on every run. The kernel keeps its flags and
+counters in a scratch buffer that lives with the (device, stream) it runs
+on and that the kernel itself leaves ready for the next call;
+``scratch_fills`` counts the zero-fills that allocating it costs (one per
+stream, and one whenever a larger call grows it).
+
 ``launches`` counts kernel launches (CPU calls do not count), so a run can
 show that its prefill path went through the kernel.
 """
@@ -12,20 +22,35 @@ show that its prefill path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import raise_on_error, require, stream_ptr
+from repro_torch.kernels._launch import (device_index, device_sms,
+                                         raise_on_error, require, stream_ptr)
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
-THREADS = 128          # channels per block (the kernel's block size)
-BLOCKS_PER_SM = 4      # blocks the time split aims to give each SM
-MIN_STEPS = 32         # shortest time chunk one thread walks
+WARPS = 8                 # warps a block; each owns ``steps`` time steps
+CHANNELS = 32             # channels a tile: one warp wide, 128-byte rows
+STEPS = (1, 2, 4, 8, 16)  # steps per warp the kernel is compiled for
+# scratch words: a header (ticket, done, epoch, unused), then per tile one
+# 16-byte word (status and epoch, two floats, unused) for each channel
+SCRATCH_HEADER = 4
+SCRATCH_PER_TILE = 4 * CHANNELS
 
 launches = 0
+scratch_fills = 0
 _bound = False
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+class ScanPlan(NamedTuple):
+    steps: int      # time steps each warp owns
+    T: int          # time steps a tile: WARPS * steps
+    n_slabs: int    # 32-channel slabs: ceil(R / 32)
+    n_chunks: int   # time chunks: ceil(S / T)
+    n_tiles: int    # tiles, a block each: B * n_slabs * n_chunks
 
 
 def _lib():
@@ -34,8 +59,8 @@ def _lib():
     if not _bound:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rglru_scan_launch.argtypes = [
-            p, p, p, p, p,                  # a, b, h, chunk prod, chunk end
-            i, i, i, i, p]                  # B, S, R, steps per chunk, stream
+            p, p, p, p, ctypes.c_longlong,  # a, b, h, scratch, its capacity
+            i, i, i, i, p]                  # B, S, R, steps per warp, stream
         lib.rglru_scan_launch.restype = i
         lib.rglru_scan_error_string.argtypes = [i]
         lib.rglru_scan_error_string.restype = ctypes.c_char_p
@@ -43,21 +68,46 @@ def _lib():
     return lib
 
 
-def time_chunk(B: int, S: int, R: int, device: torch.device) -> int:
-    """Steps per time chunk: short enough that B * ceil(R/128) * n_chunks
-    reaches about BLOCKS_PER_SM blocks for each SM of ``device``, never
-    under MIN_STEPS steps."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_chunk = B * math.ceil(R / THREADS)
-    want = max(1, math.ceil(BLOCKS_PER_SM * sms / max(1, per_chunk)))
-    return max(MIN_STEPS, math.ceil(S / want))
+def scan_plan(B: int, S: int, R: int, sms: int) -> ScanPlan:
+    """The tiles of one launch at (B, S, R) on a card of ``sms`` SMs, a
+    block each. ``steps`` is the largest of STEPS whose tiles still number
+    one for each SM, else the smallest: long tiles where there is work
+    enough (fewer tiles to look back over), shorter ones where time is
+    short, so the pod's 64-token prefills still reach every SM. Shapes
+    only."""
+    n_slabs = -(-R // CHANNELS)
+
+    def n_tiles(st):
+        return B * n_slabs * -(-S // (WARPS * st))
+
+    fit = [st for st in STEPS if n_tiles(st) >= sms]
+    steps = max(fit) if fit else STEPS[0]
+    T = WARPS * steps
+    return ScanPlan(steps, T, n_slabs, -(-S // T), n_tiles(steps))
+
+
+def _scratch_for(device: torch.device, n_tiles: int) -> torch.Tensor:
+    """The scratch of PyTorch's current stream on ``device``, holding at
+    least ``n_tiles`` tiles (zero-filled when made or grown)."""
+    global scratch_fills
+    key = (device_index(device), stream_ptr(device))
+    buf = _scratch.get(key)
+    if buf is None or _capacity(buf) < n_tiles:
+        cap = max(n_tiles, 2 * _capacity(buf) if buf is not None else 0)
+        buf = torch.zeros(SCRATCH_HEADER + SCRATCH_PER_TILE * cap,
+                          dtype=torch.int32, device=device)
+        _scratch[key] = buf
+        scratch_fills += 1
+    return buf
+
+
+def _capacity(buf: torch.Tensor) -> int:
+    return (buf.numel() - SCRATCH_HEADER) // SCRATCH_PER_TILE
 
 
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel. a, b: (B, S, R) float32, contiguous, on one
-    CUDA device; h0 = 0. Each thread walks a time chunk of ``time_chunk``
-    steps; the chunks' carries are joined through a first pass over
-    per-chunk summaries."""
+    CUDA device; h0 = 0."""
     global launches
     require(a.dim() == 3 and tuple(b.shape) == tuple(a.shape),
             f"rglru_scan: shapes a {tuple(a.shape)}, b {tuple(b.shape)} "
@@ -73,19 +123,12 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if B == 0 or S == 0 or R == 0:
         return h
     lib = _lib()
-    T = time_chunk(B, S, R, a.device)
-    nT = -(-S // T)
-    require(B <= 65535 and nT <= 65535, "rglru_scan: B or chunks exceed "
-            "the grid")
-    scratch = None
-    if nT > 1:
-        scratch = torch.empty((2, B, nT, R), dtype=torch.float32,
-                              device=a.device)
+    plan = scan_plan(B, S, R, device_sms(a.device))
+    require(plan.n_tiles < 2**31, "rglru_scan: tiles exceed the grid")
+    scratch = _scratch_for(a.device, plan.n_tiles)
     rc = lib.rglru_scan_launch(
-        a.data_ptr(), b.data_ptr(), h.data_ptr(),
-        scratch[0].data_ptr() if scratch is not None else None,
-        scratch[1].data_ptr() if scratch is not None else None,
-        B, S, R, T, stream_ptr(a.device))
+        a.data_ptr(), b.data_ptr(), h.data_ptr(), scratch.data_ptr(),
+        _capacity(scratch), B, S, R, plan.steps, stream_ptr(a.device))
     raise_on_error(rc, lib, "rglru_scan_error_string", "rglru_scan")
     launches += 1
     return h

@@ -15,8 +15,8 @@ kernel within 1e-4 of its plain chunked version relative to the output's
 max (the JAX suite's bound: at mamba2-2.7b's widths each output sums 128
 state and 256 time products, and the two versions round them in other
 orders), the RG-LRU kernel within 1e-5 absolute of the sequential version
-scaled by max(1, max |h|) (its chunk carries fold the recurrence in
-another order).
+scaled by max(1, max |h|) (its tiles' carries compose the recurrence in
+another order, fixed, so repeated calls agree bit for bit).
 """
 
 import numpy as np
@@ -58,6 +58,10 @@ PA_CASES = [
     (3, 2, 16, 64, 24, 5, 30, "bfloat16"),
     (2, 1, 4, 64, 64, 3, 40, "float32"),
     (2, 2, 16, 256, 16, 5, 0, "bfloat16"),
+    # stablelm-3b decode: MHA (g 1: one of the tensor-core kernel's 16
+    # rows) at head dim 80, pages of 16, poisoned tails, both kernels
+    (8, 32, 1, 80, 16, 64, 0, "bfloat16"),
+    (8, 32, 1, 80, 16, 64, 0, "float32"),
 ]
 
 FA_CASES = [
@@ -84,14 +88,23 @@ FA_CASES = [
     (1, 8, 1, 256, 256, 32, True, 0, "bfloat16"),    # MQA
     (1, 24, 8, 128, 328, 128, True, 0, "bfloat16"),  # ragged suffix prefill
     (1, 2, 2, 128, 128, 128, False, 0, "bfloat16"),  # bidirectional
+    # stablelm-3b's prefill: 32 q and 32 kv heads of 80, a 512-token
+    # prompt, and a suffix prefill over a 200-token prefix
+    (1, 32, 32, 512, 512, 80, True, 0, "bfloat16"),
+    (1, 32, 32, 512, 512, 80, True, 0, "float32"),
+    (1, 32, 32, 128, 328, 80, True, 0, "bfloat16"),
+    (1, 32, 32, 128, 328, 80, True, 0, "float32"),
 ]
 
 
 # tests/test_kernels.py:93 (B, S, R), plus recurrentgemma-2b's prefill
-# widths: a 2304-token prompt and a ragged batch of 3. (3, 32, 512) runs
-# as one time chunk (no summary pass), the others as several.
+# widths: a 2304-token prompt and a ragged batch of 3; then one step, the
+# recurrentgemma pod's 64- and 512-token prefills, a ragged R (200: a
+# slab of 8 live channels) and three 2304-token prompts. (3, 32, 512) and
+# (1, 1, 2560) are one time chunk (no look-back), the others several.
 RG_CASES = [(2, 64, 128), (1, 100, 256), (3, 32, 512), (1, 128, 128),
-            (1, 2304, 2560), (3, 100, 2560)]
+            (1, 2304, 2560), (3, 100, 2560), (1, 1, 2560), (1, 64, 2560),
+            (1, 512, 2560), (1, 100, 200), (3, 2304, 2560)]
 
 # tests/test_kernels.py:121 (b, S, H, P, N, chunk), plus mamba2-2.7b's
 # prefill widths (H 80, P 64, N 128, chunk 256) and a ragged chunk; the
@@ -181,19 +194,74 @@ def test_flash_kernel_vs_plain(case, cuda):
     assert float((out.float() - ref.float()).abs().max()) < _tol(dt)
 
 
+def _rg_inputs(shape, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy((1.0 / (1.0 + np.exp(-rng.standard_normal(shape))))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda)
+    return a, b
+
+
+def _rg_close(out, ref):
+    scale = max(1.0, float(ref.abs().max()))
+    return float((out - ref).abs().max()) <= 1e-5 * scale
+
+
 @pytest.mark.parametrize("case", RG_CASES, ids=str)
 def test_rglru_kernel_vs_plain(case, cuda):
-    rng = np.random.default_rng(0)
-    a = torch.from_numpy((1.0 / (1.0 + np.exp(-rng.standard_normal(case))))
-                         .astype(np.float32)).to(cuda)
-    b = torch.from_numpy(rng.standard_normal(case).astype(np.float32)).to(cuda)
+    a, b = _rg_inputs(case, cuda)
     before = rg_ops.launches
     out = rg_ops.rglru_scan(a, b)
     torch.cuda.synchronize()
     assert rg_ops.launches == before + 1
-    ref = rglru_scan_ref(a, b)
-    scale = max(1.0, float(ref.abs().max()))
-    assert float((out - ref).abs().max()) <= 1e-5 * scale
+    assert _rg_close(out, rglru_scan_ref(a, b))
+
+
+# (B, S, R) whose plans on an H100's 132 SMs reach every tile length the
+# kernel is compiled for (tests/test_torch_kernel_plans.py holds the plan
+# to that), on ragged S and R (R 2563: rows not 16-byte aligned)
+RG_TILE_SHAPES = [(1, S, R) for R in (2560, 2563) for S in (10, 20, 40, 100,
+                                                              300)]
+
+
+@pytest.mark.parametrize("shape", RG_TILE_SHAPES, ids=str)
+def test_rglru_kernel_every_compiled_tile(shape, cuda):
+    a, b = _rg_inputs(shape, cuda)
+    out = rg_ops.rglru_scan_cuda(a, b)
+    torch.cuda.synchronize()
+    assert _rg_close(out, rglru_scan_ref(a, b))
+
+
+def test_rglru_scratch_carries_over_calls(cuda):
+    """The kernel leaves its flags and counters ready for the next call:
+    calls that grow the scratch, shrink back and repeat (each a new epoch)
+    stay within the tolerance and agree bit for bit (the look-back
+    composes each carry in a fixed order)."""
+    shapes = [(1, 64, 256), (1, 2304, 2560), (2, 33, 31), (1, 2304, 2560)]
+    for i, shape in enumerate(shapes):
+        a, b = _rg_inputs(shape, cuda, seed=i)
+        ref = rglru_scan_ref(a, b)
+        outs = [rg_ops.rglru_scan_cuda(a, b) for _ in range(20)]
+        torch.cuda.synchronize()
+        assert _rg_close(outs[0], ref)
+        assert all(torch.equal(out, outs[0]) for out in outs[1:])
+
+
+def test_rglru_is_one_device_kernel_a_call(cuda):
+    """One call, one device kernel (no summary pass, no memset once the
+    scratch exists)."""
+    from torch.profiler import ProfilerActivity, profile
+    a, b = _rg_inputs((1, 2304, 2560), cuda)
+    rg_ops.rglru_scan_cuda(a, b)             # builds and sizes the scratch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            rg_ops.rglru_scan_cuda(a, b)
+        torch.cuda.synchronize()
+    runs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    assert len(runs) == 4 and all("rglru_scan_kernel" in e.name
+                                  for e in runs), [e.name for e in runs]
 
 
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)

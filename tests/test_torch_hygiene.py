@@ -183,6 +183,41 @@ def test_flash_wrapper_with_cuda_tensors_never_falls_back(monkeypatch):
                             torch.empty(1, 2, 4, 16, device="meta"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_wrappers_take_exactly_the_compiled_head_dims(monkeypatch,
+                                                                dtype):
+    """K1 and K2 accept stablelm-3b's head dim 80 (MHA: 32 q and 32 kv
+    heads) and every other compiled one, reaching the build, and still
+    reject head dims no kernel is compiled for (72, 96) before it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernels run instead")
+
+    def no_library(name):
+        raise RuntimeError(f"cannot build {name}: no nvcc")
+    monkeypatch.setattr(_build, "load", no_library)
+    assert 80 in fa_ops.HEAD_DIMS and 80 in pa_ops.HEAD_DIMS
+    for hd in (*pa_ops.HEAD_DIMS, 72, 96):
+        ok = hd in pa_ops.HEAD_DIMS
+        q, kp, vp, table, lens = _fake_cuda(
+            ((2, 32, hd), dtype), ((32, 5, 16, hd), dtype),
+            ((32, 5, 16, hd), dtype), ((2, 3), torch.int32),
+            ((2,), torch.int32))
+        with pytest.raises(RuntimeError if ok else ValueError,
+                           match="cannot build" if ok else "head dim"):
+            pa_ops.paged_attention_cuda(q, kp, vp, table, lens)
+        q, k, v = _fake_cuda(((1, 32, 8, hd), dtype), ((1, 32, 24, hd), dtype),
+                             ((1, 32, 24, hd), dtype))
+        ok = hd in fa_ops.HEAD_DIMS
+        with pytest.raises(RuntimeError if ok else ValueError,
+                           match="cannot build" if ok else "head dim"):
+            fa_ops.flash_attention_fwd_cuda(q, k, v)
+    assert pa_ops.kernel_choice(torch.bfloat16, 1, 80) == ("mma", 80)
+    assert pa_ops.kernel_choice(torch.float32, 1, 80) == ("fma", 1)
+
+
 def test_scan_wrappers_with_cuda_tensors_never_fall_back(monkeypatch):
     """The SSD and RG-LRU wrappers, handed CUDA tensors, build and launch
     their kernels or raise: neither reaches its plain version."""

@@ -1,8 +1,9 @@
 """The pure functions that plan the port's CUDA launches, held without a
 card: K1's span plan (which block covers which positions) and its kernel
-choice, and K5's P slice and scratch shapes. They decide before a launch,
-from shapes alone, what the kernels in ``repro_torch/csrc`` then do, so a
-wrong plan shows here on the CPU.
+choice, K4's tile plan (and its look-back algebra, emulated in numpy), and
+K5's P slice and scratch shapes. They decide before a launch, from shapes
+alone, what the kernels in ``repro_torch/csrc`` then do, so a wrong plan
+shows here on the CPU.
 """
 
 import numpy as np
@@ -10,6 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 
 H100_SMS = 132
@@ -127,3 +130,140 @@ def test_k5_scratch_shapes():
     # a ragged chunk: score rows padded to the kernel's 32-column k tiles
     assert ssd_ops.scratch_shapes(2, 200, 3, 32, 48, 100)["scores"] == \
         (4, 100, 128)
+
+
+# K4 shapes (B, S, R): one step, the recurrentgemma pod's prefills (64 and
+# 512 tokens, 2304 past the window) at R 2560, a batch of three, ragged S
+# and R (not multiples of a tile's steps or 32 channels), and tiny ones
+RG_PLAN_SHAPES = [(1, 1, 2560), (1, 64, 2560), (1, 512, 2560),
+                  (1, 2304, 2560), (3, 2304, 2560), (3, 100, 2560),
+                  (1, 100, 200), (2, 33, 31), (1, 7, 1), (4, 1000, 96)]
+
+
+@pytest.mark.parametrize("shape", RG_PLAN_SHAPES, ids=str)
+def test_k4_plan_covers_every_step_and_channel_once(shape):
+    B, S, R = shape
+    plan = rg_ops.scan_plan(B, S, R, H100_SMS)
+    assert plan == rg_ops.scan_plan(B, S, R, H100_SMS)      # shapes only
+    assert plan.steps in rg_ops.STEPS
+    assert plan.T == rg_ops.WARPS * plan.steps
+    # the slabs and chunks cover R and S, the last one ragged at most
+    assert (plan.n_slabs - 1) * rg_ops.CHANNELS < R <= \
+        plan.n_slabs * rg_ops.CHANNELS
+    assert (plan.n_chunks - 1) * plan.T < S <= plan.n_chunks * plan.T
+    assert plan.n_tiles == B * plan.n_slabs * plan.n_chunks
+    # tile = ticket: chunk-major, (batch, slab) columns fastest; each
+    # (b, t, r) belongs to exactly one tile, warp and lane
+    n_cols = B * plan.n_slabs
+    seen = np.zeros((B, S, R), np.int32)
+    for tile in range(plan.n_tiles):
+        k, col = divmod(tile, n_cols)
+        b, slab = divmod(col, plan.n_slabs)
+        t = slice(k * plan.T, min(S, (k + 1) * plan.T))
+        r = slice(slab * rg_ops.CHANNELS, min(R, (slab + 1) * rg_ops.CHANNELS))
+        seen[b, t, r] += 1
+        if k:                        # its predecessor took an earlier ticket
+            assert tile - n_cols >= 0
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("S", [64, 512, 2304])
+def test_k4_plan_fills_the_card_at_the_pods_prefills(S):
+    B, R = 1, 2560
+    plan = rg_ops.scan_plan(B, S, R, H100_SMS)
+    assert plan.n_tiles >= H100_SMS                  # every SM gets a block
+    # and the tiles are the longest that still do
+    for st in rg_ops.STEPS:
+        if st > plan.steps:
+            longer = B * plan.n_slabs * -(-S // (rg_ops.WARPS * st))
+            assert longer < H100_SMS
+    assert plan.steps == {64: 4, 512: 16, 2304: 16}[S]
+
+
+@pytest.mark.parametrize("R", [2560, 2563])
+def test_k4_plan_reaches_every_compiled_tile(R):
+    """tests/test_torch_cuda.py's RG_TILE_SHAPES launch every tile length
+    the kernel is compiled for, each from the plan's own choice."""
+    steps = [rg_ops.scan_plan(1, S, R, H100_SMS).steps
+             for S in (10, 20, 40, 100, 300)]
+    assert steps == list(rg_ops.STEPS)
+
+
+def _lookback_scan(a, b, plan):
+    """The kernel's arithmetic, tile by tile in ticket order: per-warp
+    pairs, the tile aggregate, the look-back (the inclusive prefix of the
+    nearest anchor chunk before the tile, a multiple of WARPS, then the
+    aggregates of the chunks between, in time order), the carry entering
+    each warp, the rescan. Edges are identity pairs, as in the kernel."""
+    B, S, R = a.shape
+    C, W, U, T = rg_ops.CHANNELS, rg_ops.WARPS, plan.steps, plan.T
+    Rp, Sp = plan.n_slabs * C, plan.n_chunks * T
+    ap = np.ones((B, Sp, Rp), np.float32)
+    bp = np.zeros((B, Sp, Rp), np.float32)
+    ap[:, :S, :R], bp[:, :S, :R] = a, b
+    n_cols = B * plan.n_slabs
+    published = {}     # tile -> ("agg", (A, B)) or ("prefix", h)
+    h = np.zeros_like(ap)
+    for tile in range(plan.n_tiles):
+        k, col = divmod(tile, n_cols)
+        bi, slab = divmod(col, plan.n_slabs)
+        rows = ap[bi, k * T:(k + 1) * T, slab * C:(slab + 1) * C]
+        adds = bp[bi, k * T:(k + 1) * T, slab * C:(slab + 1) * C]
+        pairs = []
+        for w in range(W):
+            pa, pb = np.ones(C, np.float32), np.zeros(C, np.float32)
+            for u in range(w * U, (w + 1) * U):
+                pb = rows[u] * pb + adds[u]
+                pa = pa * rows[u]
+            pairs.append((pa, pb))
+        anchor = k % W == 0
+        if not anchor:
+            ta, tb = np.ones(C, np.float32), np.zeros(C, np.float32)
+            for pa, pb in pairs:
+                ta, tb = ta * pa, pa * tb + pb
+            published[tile] = ("agg", (ta, tb))
+        carry = np.zeros(C, np.float32)
+        if k:
+            j = (k - 1) // W * W
+            assert k - W <= j < k                    # one window of W
+            kind, carry = published[j * n_cols + col]
+            assert kind == "prefix"
+            for kk in range(j + 1, k):
+                kind, (xa, xb) = published[kk * n_cols + col]
+                assert kind == "agg"
+                carry = xa * carry + xb
+        c = carry
+        for w, (pa, pb) in enumerate(pairs):
+            hc = c
+            for u in range(w * U, (w + 1) * U):
+                hc = rows[u] * hc + adds[u]
+                h[bi, k * T + u, slab * C:(slab + 1) * C] = hc
+            c = pa * c + pb
+        if anchor:
+            published[tile] = ("prefix", c)
+    return h[:, :S, :R]
+
+
+# shapes with one chunk, a few, and chains of anchors (S / T past 8 and
+# 16 chunks at the shortest tiles), ragged S and R
+RG_ALGEBRA_SHAPES = [(1, 100, 200), (2, 33, 31), (3, 70, 64), (1, 300, 40),
+                     (1, 1, 5), (2, 64, 32), (1, 520, 33), (4, 17, 3),
+                     (1, 129, 64), (2, 200, 70), (1, 8, 1), (3, 150, 10)]
+
+
+@pytest.mark.parametrize("shape", RG_ALGEBRA_SHAPES, ids=str)
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10**6])
+def test_k4_lookback_algebra_matches_the_sequential_scan(shape, sms):
+    """The anchored look-back's carries give the sequential h (the
+    kernel's tolerance: 1e-5 x max(1, max |h|)) on the plans of a card
+    with ``sms`` SMs: the longest tiles (1), the H100's, the shortest
+    (10**6)."""
+    B, S, R = shape
+    rng = np.random.default_rng(0)
+    a = (1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))).astype(
+        np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    plan = rg_ops.scan_plan(B, S, R, sms)
+    h = _lookback_scan(a, b, plan)
+    ref = rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert np.abs(h - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max())
