@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Four measurements, each printed beside the card's name and power limit:
+Five measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -11,6 +11,9 @@ Four measurements, each printed beside the card's name and power limit:
             prompt tokens and 16 new tokens under torch.profiler: the
             device's busy and idle share of the window, device time by
             kernel, host time by operator
+  moe       the same for the full-width moonshot-v1-16b-a3b pod, and the
+            host time spent in ``moe_forward`` (router, dispatch, expert
+            products, combine) with its kernels' device time
   mamba2    the full-width mamba2-2.7b pod of the serve phase (bfloat16,
             random seeded weights, contiguous slots): its prefill step of a
             512-token prompt (the step a prefill dispatch runs), warmed
@@ -36,15 +39,19 @@ from __future__ import annotations
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 from chip_smoke import (FULL_IMAGEFILE, K1_SHAPE, SRC, TOL, Timer, check,
                         k1_case, k1_pod_case, log, phase_device)
 
 
-def dev_us(e) -> float:
-    """An event's own device time, whichever name this torch gives it."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def dev_us(e, total: bool = False) -> float:
+    """An event's own device time (with ``total``, its children's too),
+    whichever name this torch gives it."""
+    names = (("device_time_total", "cuda_time_total") if total else
+             ("self_device_time_total", "self_cuda_time_total"))
+    for name in names:
         v = getattr(e, name, None)
         if v is not None:
             return float(v)
@@ -52,16 +59,18 @@ def dev_us(e) -> float:
 
 
 def device_summary(prof, wall_us: float, card: str, tag: str,
-                   kernels: tuple) -> list:
+                   kernels: tuple, ranges: tuple = ()) -> list:
     """Log the window's device busy and idle share, its top kernels and
     the share of each (label, name part) in ``kernels``; return the
-    device kernels as (us, name, runs), largest first."""
+    device kernels as (us, name, runs), largest first. ``ranges`` names
+    ``record_function`` ranges, whose device-side spans cover kernels
+    already counted, so they are left out."""
     from torch.autograd import DeviceType
     events = prof.key_averages()
     # device kernels only (host operators also carry their kernels' time)
     device = sorted(((dev_us(e), e.key, e.count) for e in events
-                     if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                    reverse=True)
+                     if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                     and e.key not in ranges), reverse=True)
     check(bool(device), f"{tag}: the profiler recorded no device time")
     busy_us = sum(t for t, _, _ in device)
     log(f"{tag}: window {wall_us / 1e3:.1f} ms wall, device busy "
@@ -78,15 +87,35 @@ def device_summary(prof, wall_us: float, card: str, tag: str,
     return device
 
 
-def profile_pod(torch, card: str, workdir: Path) -> None:
+@contextmanager
+def labelled(torch, module, name: str):
+    """While entered, every call of ``module.<name>`` runs inside a
+    ``torch.profiler.record_function`` range of that name, so the
+    profile holds its host time and its kernels' device time."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        with torch.profiler.record_function(name):
+            return real(*a, **k)
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def profile_pod(torch, card: str, workdir: Path, arch: str = "llama3.2-3b",
+                tag: str = "pod") -> None:
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.runtime import Runtime
+    from repro_torch.models import moe as moe_mod
     from repro_torch.orchestrator import ContinuousScheduler, GenRequest, Pod
 
-    rt = Runtime(workdir / "full")
-    rt.build(FULL_IMAGEFILE.format(arch="llama3.2-3b"), tag="stable")
+    rt = Runtime(workdir / tag)
+    rt.build(FULL_IMAGEFILE.format(arch=arch), tag="stable")
     pod = Pod(rt, "stable", replicas=1, n_slots=8, max_len=1024, paged=True,
               page_size=16, prefix_cache=True, decode_chunk=4, seed=0)
     vocab = pod.engines[0].container.arch.vocab_size
@@ -102,28 +131,39 @@ def profile_pod(torch, card: str, workdir: Path) -> None:
 
     warm = serve(0)              # kernel builds, cuBLAS handles, allocator
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with labelled(torch, moe_mod, "moe_forward"), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         reqs = serve(100)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     check(all(r.state == "done" for r in warm + reqs),
-          "pod: requests unfinished")
+          f"{tag}: requests unfinished")
 
     # the port's kernels by their csrc entry points (K2: both flash kernels)
-    device_summary(prof, wall_us, card, "pod",
-                   (("K1 paged_attention", "paged_attention"),
-                    ("K2 flash_attention_fwd", "flash_")))
+    device = device_summary(prof, wall_us, card, tag,
+                            (("K1 paged_attention", "paged_attention"),
+                             ("K2 flash_attention_fwd", "flash_")),
+                            ranges=("moe_forward",))
     events = prof.key_averages()
     host = sorted(((float(e.self_cpu_time_total), e.key, e.count)
                    for e in events if e.device_type == DeviceType.CPU),
                   reverse=True)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    log(f"pod: {launches} kernel launches from the host in the window")
+    log(f"{tag}: {launches} kernel launches from the host in the window")
     for t, key, n in host[:8]:
-        log(f"pod: host   {t / 1e3:9.3f} ms {100 * t / wall_us:5.1f}% "
+        log(f"{tag}: host   {t / 1e3:9.3f} ms {100 * t / wall_us:5.1f}% "
             f"x{n:<6d} {key[:90]}")
+    moe = [e for e in events if e.key == "moe_forward"]
+    if moe:
+        busy_us = sum(t for t, _, _ in device)
+        e = moe[0]
+        dev = dev_us(e, total=True)
+        log(f"{tag}: moe_forward x{e.count}: host {e.cpu_time_total / 1e3:.1f}"
+            f" ms = {100 * e.cpu_time_total / wall_us:.1f}% of the window, "
+            f"its kernels {dev / 1e3:.1f} ms = {100 * dev / busy_us:.1f}% of "
+            f"device busy time [{card}]")
 
 
 def profile_prefill(torch, card: str, workdir: Path, arch: str, tag: str,
@@ -240,6 +280,9 @@ def main() -> int:
     phase_device(torch, state)
     with tempfile.TemporaryDirectory(prefix="chip_profile_") as tmp:
         profile_pod(torch, state["card"], Path(tmp))
+        torch.cuda.empty_cache()
+        profile_pod(torch, state["card"], Path(tmp), "moonshot-v1-16b-a3b",
+                    "moe")
         torch.cuda.empty_cache()
         profile_mamba2(torch, state["card"], Path(tmp))
         torch.cuda.empty_cache()

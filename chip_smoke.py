@@ -19,8 +19,12 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             llama pod's own decode (lengths 64-544), K5 (SSD) at the mamba2
             pod's shortest and longest prefills (S 64 and 768), with the
             bound of its 3xTF32 tensor-core arithmetic beside the float32
-            one; K1 and K2 at stablelm-3b's head dim 80 (its pod's decode,
-            its 512-token and suffix prefills, beside SDPA); K4 (RG-LRU) at
+            one; K1 at the decodes of the stablelm-3b, nemotron-4-15b
+            (GQA group 6), moonshot-v1-16b-a3b, musicgen-medium (hd 64)
+            and internvl2-2b pods; K2 at stablelm-3b's head dim 80 (its
+            512-token and suffix prefills), nemotron-4-15b's 512-token
+            prefill (48 over 8 heads) and musicgen-medium's packed prefill
+            of 64 + 512 rows, each beside SDPA; K4 (RG-LRU) at
             the recurrentgemma pod's prefills (S 64, 512, 2304), each
             call held bit for bit against a second one
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
@@ -36,9 +40,13 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             llama3.2-3b-smoke (12-request paged trace, prefix cache on),
             mamba2-2.7b-smoke and recurrentgemma-2b-smoke (contiguous
             slots; recurrentgemma's prompts pass its 16-token window);
+            nemotron-4-15b-smoke and moonshot-v1-16b-a3b-smoke (MoE) on
+            llama's trace; musicgen-medium-smoke and internvl2-2b-smoke
+            (paged, 12 requests with none, part or all of the 4-row
+            frontend buffer);
             and llama3.2-3b-smoke served on the card by launch/serve.main
             in continuous and in static mode, tokens identical
-  serve     four full-width pods, bfloat16, random weights from seed 0,
+  serve     eight full-width pods, bfloat16, random weights from seed 0,
             behind Runtime -> Pod -> ContinuousScheduler, 32 new tokens a
             request, no EOS:
               llama3.2-3b (28 layers), paged, prefix cache on, 16 requests;
@@ -49,8 +57,19 @@ Every phase runs, in order; any failure -> exit 1, no result line:
               recurrentgemma-2b (18 rec + 8 local-attention layers),
                 contiguous, max_len 4096, 8 requests, 2 of them 2304-token
                 prompts past the 2048 window;
+              nemotron-4-15b (32 layers, 48 q / 8 kv heads, squared ReLU),
+                the llama pod and trace;
+              moonshot-v1-16b-a3b (48 layers: 1 dense + 47 MoE of 64
+                experts, top 6, 2 shared), the llama pod and trace, with
+                the assignments each prefill dropped to capacity;
+              musicgen-medium (48 layers, 24 heads of 64, 64-row audio
+                frontend) and internvl2-2b (24 layers, 256-row vision
+                frontend), paged, prefix cache off, 12 requests of 64-512
+                prompt tokens: 4 with the full frontend, 4 with part, 4
+                with none;
             each pod's kernel launch counts must match the dispatches its
-            scheduler ran
+            scheduler ran, every request completes with 32 tokens, the
+            logits are finite, and the peak memory is printed
   cli       the user's entry points in process (``repro_torch.cli.main``)
             on full-width llama3.2-3b (bf16, random weights from seed 0) in
             a temporary root: build, images, inspect; serve with two pods
@@ -78,6 +97,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -267,17 +287,30 @@ K1_SHAPE = dict(B=8, n_kv=8, g=3, hd=128, ps=16)
 K1_POD_LENGTHS = (64, 544)
 K1_POD_MP = 64
 
-# K1 at stablelm-3b's pod decode: MHA, 32 heads of 80 (g 1), the llama
-# pod's lengths and table
-K1_STABLELM = dict(B=8, n_kv=32, g=1, hd=80, ps=16)
+# K1 at the other paged pods' decodes, the llama pod's lengths and table:
+# stablelm-3b (MHA, 32 heads of 80: g 1), nemotron-4-15b (48 q / 8 kv heads
+# of 128: a GQA group of 6 in the 16 MMA rows), moonshot-v1-16b-a3b (MHA,
+# 16 heads of 128), musicgen-medium (MHA, 24 heads of 64) and internvl2-2b
+# (16 q / 8 kv heads of 128: g 2); the first two also in float32 (the FMA
+# kernel), every one timed in bfloat16
+K1_PODS = (("stablelm-3b", dict(B=8, n_kv=32, g=1, hd=80, ps=16), True),
+           ("nemotron-4-15b", dict(B=8, n_kv=8, g=6, hd=128, ps=16), True),
+           ("moonshot-v1-16b-a3b", dict(B=8, n_kv=16, g=1, hd=128, ps=16),
+            False),
+           ("musicgen-medium", dict(B=8, n_kv=24, g=1, hd=64, ps=16), False),
+           ("internvl2-2b", dict(B=8, n_kv=8, g=2, hd=128, ps=16), False))
 
 # K2 (Hq, Hkv, d, Sq, Sk, window): llama3.2-3b's 512-token prefill (the
 # kernel's record) and a suffix prefill over a 200-token prefix, then
 # recurrentgemma-2b's local-attention prefill past its 2048 window, then
-# stablelm-3b's prefill and suffix prefill (head dim 80)
+# stablelm-3b's prefill and suffix prefill (head dim 80), nemotron-4-15b's
+# 512-token prefill (Hq 48 over Hkv 8) and musicgen-medium's widest packed
+# prefill (a 64-row frontend ahead of a 512-token bucket: 576 rows, 24
+# heads of 64)
 K2_CASES = ((24, 8, 128, 512, 512, 0), (24, 8, 128, 128, 328, 0),
             (10, 1, 256, 2304, 2304, 2048), (32, 32, 80, 512, 512, 0),
-            (32, 32, 80, 128, 328, 0))
+            (32, 32, 80, 128, 328, 0), (48, 8, 128, 512, 512, 0),
+            (24, 24, 64, 576, 576, 0))
 
 
 def k1_case(torch, dtype):
@@ -387,34 +420,37 @@ def phase_kernels(torch, state, timer) -> None:
     if not ok:
         failures.append("paged_attention at the pod's decode")
 
-    # K1 at stablelm-3b's pod decode: head dim 80, g 1 (bf16 on the tensor
-    # cores, f32 on the FMA kernel), timed in bf16
-    sb, skv, sg, shd, sps = (K1_STABLELM[k]
-                             for k in ("B", "n_kv", "g", "hd", "ps"))
-    for dname, dt in dts.items():
-        args, lengths = k1_pod_case(torch, K1_STABLELM, dt)
-        out = pa_ops.paged_attention_cuda(*args)
-        ref = paged_attention_ref(*args)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        ok = bool(torch.isfinite(out).all()) and err <= TOL[dname]
-        line = (f"kernels: paged_attention at stablelm-3b's pod decode "
-                f"(B={sb} n_kv={skv} g={sg} hd={shd} ps={sps}, kernel "
-                f"{pa_ops.kernel_choice(dt, sg, shd)[0]}) {dname}: "
-                f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
-                f"{'ok' if ok else 'FAIL'}")
-        if dname == "bfloat16":
-            ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
-            plain = timer(lambda: paged_attention_ref(*args))
-            nbytes = _k1_bytes(args, lengths, sps, skv, shd, sg)
-            bms, by = bound_ms(nbytes, 4.0 * sb * skv * sg * shd
-                               * float(lengths.sum()), dname)
-            line += (f"; time {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                     f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB) "
-                     f"[{state['card']}]")
-        log(line)
-        if not ok:
-            failures.append(f"paged_attention stablelm-3b {dname}")
+    # K1 at the other paged pods' decodes (bf16 on the tensor cores, f32 on
+    # the FMA kernel), timed in bf16
+    for arch, shape, with_f32 in K1_PODS:
+        sb, skv, sg, shd, sps = (shape[k]
+                                 for k in ("B", "n_kv", "g", "hd", "ps"))
+        for dname, dt in dts.items():
+            if dname == "float32" and not with_f32:
+                continue
+            args, lengths = k1_pod_case(torch, shape, dt)
+            out = pa_ops.paged_attention_cuda(*args)
+            ref = paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            ok = bool(torch.isfinite(out).all()) and err <= TOL[dname]
+            line = (f"kernels: paged_attention at {arch}'s pod decode "
+                    f"(B={sb} n_kv={skv} g={sg} hd={shd} ps={sps}, kernel "
+                    f"{pa_ops.kernel_choice(dt, sg, shd)[0]}) {dname}: "
+                    f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            if dname == "bfloat16":
+                ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
+                plain = timer(lambda: paged_attention_ref(*args))
+                nbytes = _k1_bytes(args, lengths, sps, skv, shd, sg)
+                bms, by = bound_ms(nbytes, 4.0 * sb * skv * sg * shd
+                                   * float(lengths.sum()), dname)
+                line += (f"; time {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                         f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB), "
+                         f"library none [{state['card']}]")
+            log(line)
+            if not ok:
+                failures.append(f"paged_attention {arch} {dname}")
 
     # -- K2: llama3.2-3b prefill and suffix prefill; recurrentgemma-2b's
     # local-attention prefill of 2304 tokens, window 2048 (query tiles past
@@ -869,15 +905,35 @@ def _parity_traces(GenRequest):
                     max_new_tokens=int(rng.integers(3, 12)))
                 for i in range(8)]
 
+    def frontend():
+        # 4-row frontend buffer (the smoke size): none, partial and full
+        # prefixes ahead of 3-20 token prompts
+        rng = np.random.default_rng(10)
+        out = []
+        for i in range(12):
+            fl = (0, 1, 2, 4)[i % 4]
+            fe = (0.02 * rng.standard_normal((fl, 64)).astype(np.float32)
+                  if fl else None)
+            out.append(GenRequest(
+                rid=i, prompt=rng.integers(0, 256, int(rng.integers(3, 21))),
+                max_new_tokens=int(rng.integers(3, 10)), frontend=fe))
+        return out
+
     contiguous = dict(n_slots=3, max_len=64)
+    paged_prefix = dict(n_slots=4, max_len=64, paged=True, page_size=8,
+                        prefix_cache=True)
+    paged = dict(n_slots=4, max_len=64, paged=True, page_size=8)
+    attention = ("paged_attention", "flash_attention_fwd")
     return {
-        "llama3.2-3b-smoke": (llama, dict(n_slots=4, max_len=64, paged=True,
-                                          page_size=8, prefix_cache=True),
-                              ("paged_attention", "flash_attention_fwd")),
+        "llama3.2-3b-smoke": (llama, paged_prefix, attention),
         "mamba2-2.7b-smoke": (mamba2, contiguous, ("ssd",)),
         "recurrentgemma-2b-smoke": (recurrentgemma,
                                     dict(n_slots=3, max_len=128),
                                     ("rglru_scan", "flash_attention_fwd")),
+        "nemotron-4-15b-smoke": (llama, paged_prefix, attention),
+        "moonshot-v1-16b-a3b-smoke": (llama, paged_prefix, attention),
+        "musicgen-medium-smoke": (frontend, paged, attention),
+        "internvl2-2b-smoke": (frontend, paged, attention),
     }
 
 
@@ -944,12 +1000,15 @@ def _parity_static_continuous(workdir: Path) -> list[str]:
         f"continuous {cont['request_tokens']}"]
 
 
-def _drive_pod(torch, state, rt, arch, reqs, expect, **kw):
+def _drive_pod(torch, state, rt, arch, reqs, expect, watch=None, **kw):
     """Serve ``reqs`` on a fresh full-width pod of ``arch``: counters set to
     0 just before the scheduler runs and read just after. ``expect`` maps
     each kernel of the path to its launches per prefill dispatch
-    ("prefill", layers) or per decode step ("decode", layers). Returns the
-    pod."""
+    ("prefill", layers) or per decode step ("decode", layers). ``watch``,
+    a context manager, is entered around the scheduler's run only. Returns
+    the pod."""
+    from contextlib import nullcontext
+
     from repro_torch.orchestrator import ContinuousScheduler, Pod
 
     torch.cuda.reset_peak_memory_stats()
@@ -963,8 +1022,9 @@ def _drive_pod(torch, state, rt, arch, reqs, expect, **kw):
     sched.submit(reqs)
     _reset_counts()
     t0 = time.perf_counter()
-    sched.run(max_ticks=10_000)
-    torch.cuda.synchronize()
+    with watch or nullcontext():
+        sched.run(max_ticks=10_000)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _main_path_counts(state)
 
@@ -1003,14 +1063,19 @@ def _drive_pod(torch, state, rt, arch, reqs, expect, **kw):
         f"{decode_tokens / eng.decode_s:.1f} tokens/s; peak memory "
         f"{peak / 2**30:.2f} GiB [{state['card']}]")
 
-    # logits of the served model: finite, of the expected shape
+    # logits of the served model: finite, of the expected shape (a
+    # frontend arch's with the last request's prefix ahead of its prompt)
     from repro_torch.models.layers import padded_vocab
     c = eng.container
     prompt = torch.as_tensor(reqs[-1].prompt[None], device=c.device)
+    fe = reqs[-1].frontend
+    fe = (None if fe is None else
+          torch.as_tensor(fe[None], device=c.device).to(c.cache_dtype))
     with torch.no_grad():
-        logits, _ = c.model.forward(eng.params, prompt)
+        logits, _ = c.model.forward(eng.params, prompt, frontend_embeds=fe)
     torch.cuda.synchronize()
-    shape_ok = tuple(logits.shape) == (1, prompt.shape[1],
+    rows = prompt.shape[1] + (0 if fe is None else fe.shape[1])
+    shape_ok = tuple(logits.shape) == (1, rows,
                                        padded_vocab(c.arch.vocab_size))
     finite = bool(torch.isfinite(logits).all())
     log(f"serve: {arch} full-width logits {tuple(logits.shape)} "
@@ -1027,12 +1092,15 @@ def phase_serve(torch, state, workdir: Path) -> None:
 
     rt = Runtime(workdir / "full")
     failures = []
+    drops = []                   # moonshot's MoE keep masks, per dispatch
 
     def run(arch, build_reqs, expect, **kw):
         rt.build(FULL_IMAGEFILE.format(arch=arch), tag=arch)
         try:
             pod = _drive_pod(torch, state, rt, arch, build_reqs(arch),
                              expect, **kw)
+            if arch == "moonshot-v1-16b-a3b":
+                _report_moe_drops(pod, drops)
             for e in pod.engines:
                 e.release()
         except PhaseError as e:
@@ -1070,6 +1138,24 @@ def phase_serve(torch, state, workdir: Path) -> None:
         return [GenRequest(rid=i, prompt=rng.integers(0, vocab, n),
                            max_new_tokens=32) for i, n in enumerate(lens)]
 
+    def frontend_reqs(arch):
+        # 12 requests of 64-512 prompt tokens: 4 with the full frontend
+        # buffer (musicgen 64 rows, internvl2 256), 4 with part of it, 4
+        # with none
+        cfg = get_config(arch)
+        F, D = cfg.frontend_len, cfg.d_model
+        rng = np.random.default_rng(14)
+        reqs = []
+        for i in range(12):
+            fl = (F, int(rng.integers(1, F)), 0)[i % 3]
+            fe = (0.02 * rng.standard_normal((fl, D)).astype(np.float32)
+                  if fl else None)
+            reqs.append(GenRequest(
+                rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                           int(rng.integers(64, 513))),
+                max_new_tokens=32, frontend=fe))
+        return reqs
+
     run("llama3.2-3b", llama_reqs,
         {"paged_attention": ("decode", 28),
          "flash_attention_fwd": ("prefill", 28)},
@@ -1084,7 +1170,77 @@ def phase_serve(torch, state, workdir: Path) -> None:
         {"rglru_scan": ("prefill", 18),
          "flash_attention_fwd": ("prefill", 8)},
         n_slots=8, max_len=4096, paged=False)
+    run("nemotron-4-15b", llama_reqs,
+        {"paged_attention": ("decode", 32),
+         "flash_attention_fwd": ("prefill", 32)},
+        n_slots=8, max_len=1024, paged=True, page_size=16, prefix_cache=True)
+    run("moonshot-v1-16b-a3b", llama_reqs,
+        {"paged_attention": ("decode", 48),
+         "flash_attention_fwd": ("prefill", 48)},
+        watch=_moe_drop_counter(drops),
+        n_slots=8, max_len=1024, paged=True, page_size=16, prefix_cache=True)
+    # the JAX scheduler keeps frontend requests out of the prefix cache:
+    # their leading KV rows are per-request embeddings
+    run("musicgen-medium", frontend_reqs,
+        {"paged_attention": ("decode", 48),
+         "flash_attention_fwd": ("prefill", 48)},
+        n_slots=8, max_len=1024, paged=True, page_size=16)
+    run("internvl2-2b", frontend_reqs,
+        {"paged_attention": ("decode", 24),
+         "flash_attention_fwd": ("prefill", 24)},
+        n_slots=8, max_len=1024, paged=True, page_size=16)
     check(not failures, "; ".join(failures))
+
+
+@contextmanager
+def _moe_drop_counter(calls):
+    """While entered, every MoE dispatch appends its (T, k) ``keep`` mask
+    (a device tensor, read after the run) to ``calls``."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod.dispatch_positions
+
+    def counting(idx, n_experts, C):
+        pos, keep, slot = real(idx, n_experts, C)
+        calls.append(keep.reshape(idx.shape))
+        return pos, keep, slot
+
+    moe_mod.dispatch_positions = counting
+    try:
+        yield
+    finally:
+        moe_mod.dispatch_positions = real
+
+
+def _report_moe_drops(pod, calls):
+    """Print the assignments each prefill dropped to capacity, summed over
+    the MoE layers and split between the prompt's rows and the bucket's
+    right-pad rows (the scheduler's prefill spans give the real rows). A
+    decode step routes the slot bank's rows (T = n_slots), a prefill its
+    bucket (T >= 16): the calls split by T."""
+    eng = pod.engines[0]
+    n_moe = sum(st.count for st in eng.container.model.stages
+                if "moe" in st.unit)
+    pre = [c for c in calls if c.shape[0] != eng.n_slots]
+    dec = [c for c in calls if c.shape[0] == eng.n_slots]
+    real = [e.attr("positions") for e in eng.trace.events()
+            if e.name == "prefill"]
+    check(len(pre) == n_moe * len(real),
+          f"serve: moonshot MoE dispatches {len(pre)} do not split into "
+          f"{len(real)} prefills of {n_moe} layers")
+    rows = []
+    for i, n in enumerate(real):
+        layers = pre[i * n_moe:(i + 1) * n_moe]
+        T, k = layers[0].shape
+        dropped = [int((~m[:n]).sum()) for m in layers]
+        dropped_pad = [int((~m[n:]).sum()) for m in layers]
+        rows.append(f"{sum(dropped)}/{n * k * n_moe} prompt + "
+                    f"{sum(dropped_pad)}/{(T - n) * k * n_moe} pad")
+    k = pre[0].shape[1] if pre else 0
+    log(f"serve: moonshot-v1-16b-a3b assignments dropped to capacity per "
+        f"prefill (rows x top-{k} x {n_moe} MoE layers, prompt rows then "
+        f"right-pad rows): {'; '.join(rows)}; decode steps dropped "
+        f"{sum(int((~m).sum()) for m in dec)} of "
+        f"{sum(m.numel() for m in dec)}")
 
 
 # the cli phase's serve commands (full-width llama3.2-3b)

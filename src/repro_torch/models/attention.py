@@ -176,21 +176,21 @@ def attend(q, k, v, q_pos, k_pos, window: int = 0,
     """Grouped attention. q: (B,Sq,Hq,hd) -> (B,Sq,Hq,hd).
 
     k/v carry the *replicated* kv heads (geom.n_kv). On CUDA with Sq > 1
-    the flash-attention kernel runs instead of the plain path. It derives
-    its mask from the canonical causal layout alone -- q positions
-    ``q_offset + arange(Sq)`` and k positions ``arange(Sk)``, one row
-    shared by the batch, ``Sk - Sq == q_offset`` -- and scores in float32,
-    so a call outside that layout (checked by shape, since reading the
-    position values would stall the host on the card) or with another
-    ``score_dtype`` raises there rather than compute something else."""
+    and float32 scores the flash-attention kernel runs instead of the
+    plain path. It derives its mask from the canonical causal layout alone
+    -- q positions ``q_offset + arange(Sq)`` and k positions
+    ``arange(Sk)``, one row shared by the batch, ``Sk - Sq == q_offset``
+    -- so a call outside that layout (checked by shape, since reading the
+    position values would stall the host on the card) raises there rather
+    than compute something else. Another ``score_dtype`` is the
+    reference's low-precision score chain, which it computes in XLA, not
+    in its Pallas kernel: it takes the chunked path here too, chosen by
+    dtype before any launch."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
-    if q.is_cuda and Sq > 1:
+    if q.is_cuda and Sq > 1 and score_dtype == torch.float32:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         Sk = k.shape[1]
-        if score_dtype != torch.float32:
-            raise NotImplementedError(
-                f"flash prefill scores in float32 only, got {score_dtype}")
         if not (Sk - Sq == q_offset and tuple(q_pos.shape) == (1, Sq)
                 and tuple(k_pos.shape) == (1, Sk)):
             raise ValueError(

@@ -60,28 +60,46 @@ def stack_defs(tree, n: int):
         tree)
 
 
+def _fan_in(shape: tuple[int, ...]) -> int:
+    """Product of all dims except the last, as the JAX package computes it
+    (the leading layer axis of stacked defs included)."""
+    return max(1, math.prod(shape[:-1]) if len(shape) > 1 else shape[0])
+
+
+def _draw(d: ParamDef, shape: tuple[int, ...], gen: torch.Generator,
+          device: torch.device) -> torch.Tensor:
+    """A float32 draw of ``shape`` (the whole leaf or one layer of it) from
+    ``d``'s law; ``fan_in`` always comes from the whole leaf's shape."""
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    if d.init == "normal":
+        x.normal_(0.0, d.scale, generator=gen)
+    elif d.init == "small_normal":
+        x.normal_(0.0, 0.02 * d.scale, generator=gen)
+    elif d.init == "fan_in":
+        # truncated normal at 2 std, std = scale / sqrt(fan_in)
+        std = d.scale / math.sqrt(_fan_in(d.shape))
+        torch.nn.init.trunc_normal_(x, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=gen)
+    else:
+        raise ValueError(f"unknown init {d.init!r}")
+    return x
+
+
 def _init_one(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
-    x = torch.empty(d.shape, dtype=torch.float32, device=device)
-    if d.init == "normal":
-        x.normal_(0.0, d.scale, generator=gen)
-    elif d.init == "small_normal":
-        x.normal_(0.0, 0.02 * d.scale, generator=gen)
-    elif d.init == "fan_in":
-        # truncated-normal with 1/sqrt(fan_in); fan_in = product of all dims
-        # except the last, as the JAX package computes it (stacked defs
-        # included)
-        fan_in = max(1, math.prod(d.shape[:-1]) if len(d.shape) > 1 else d.shape[0])
-        std = d.scale / math.sqrt(fan_in)
-        torch.nn.init.trunc_normal_(x, 0.0, std, -2.0 * std, 2.0 * std,
-                                    generator=gen)
-    else:
-        raise ValueError(f"unknown init {d.init!r}")
-    return x.to(dtype)
+    if d.logical and d.logical[0] == "layers":
+        # a stacked leaf is drawn one layer at a time into the target
+        # dtype: the float32 temporary is one layer, never the whole leaf
+        # (moonshot's experts are 47 x 64 x 2048 x 1408)
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        for i in range(d.shape[0]):
+            out[i] = _draw(d, d.shape[1:], gen, device)
+        return out
+    return _draw(d, d.shape, gen, device).to(dtype)
 
 
 def materialize(tree, seed: int, dtype: torch.dtype = torch.float32,

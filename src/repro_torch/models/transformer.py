@@ -8,10 +8,10 @@ for leaf. Where the JAX package scans over the stacked params, the port
 runs a Python ``for`` over the layer axis.
 
 Block kinds: ``attn`` (full or local-window attention + MLP; a local
-window keeps a ring-buffer cache), ``ssm`` (Mamba-2 SSD) and ``rec``
-(RG-LRU + MLP). ``moe`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item (Queue 1 item 10, other
-model families), as do frontend embeddings (same item).
+window keeps a ring-buffer cache), ``moe`` (attention + routed MoE),
+``ssm`` (Mamba-2 SSD) and ``rec`` (RG-LRU + MLP). Frontend archs
+(musicgen, internvl2) prepend a modality prefix of embeddings to the
+tokens in ``forward``.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnGeometry, resolve_geometry
@@ -35,10 +36,6 @@ from repro_torch.models.layers import (
     norm_defs,
 )
 from repro_torch.models.params import ParamDef, stack_defs, tree_map
-
-_NOT_PORTED = ("block kind {!r} is not ported yet (ROADMAP.md Queue 1 "
-               "item 10: other model families)")
-
 
 @dataclass(frozen=True)
 class Stage:
@@ -74,14 +71,6 @@ def build_stages(cfg: ModelConfig) -> tuple[Stage, ...]:
     return tuple(stages)
 
 
-_PORTED_KINDS = ("attn", "local", "ssm", "rec")
-
-
-def _check_ported(kind: str) -> None:
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(_NOT_PORTED.format(kind))
-
-
 def _window(kind: str, cfg: ModelConfig) -> int:
     """The attention window of a block: local-window blocks (a ``local``
     kind, or any attention of an ``attn_kind="local"`` arch) keep a ring
@@ -94,7 +83,19 @@ def _window(kind: str, cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def block_defs(kind: str, cfg: ModelConfig, geom: AttnGeometry) -> dict:
-    _check_ported(kind)
+    if kind in ("attn", "local"):
+        d = {"ln1": norm_defs(cfg), "attn": attn_mod.attn_defs(cfg, geom)}
+        if not cfg.parallel_block:
+            d["ln2"] = norm_defs(cfg)
+        d["mlp"] = mlp_defs(cfg)
+        return d
+    if kind == "moe":
+        return {
+            "ln1": norm_defs(cfg),
+            "attn": attn_mod.attn_defs(cfg, geom),
+            "ln2": norm_defs(cfg),
+            "moe": moe_mod.moe_defs(cfg),
+        }
     if kind == "ssm":
         return {"ln1": norm_defs(cfg), "ssm": ssm_mod.ssm_defs(cfg)}
     if kind == "rec":
@@ -104,11 +105,7 @@ def block_defs(kind: str, cfg: ModelConfig, geom: AttnGeometry) -> dict:
             "ln2": norm_defs(cfg),
             "mlp": mlp_defs(cfg),
         }
-    d = {"ln1": norm_defs(cfg), "attn": attn_mod.attn_defs(cfg, geom)}
-    if not cfg.parallel_block:
-        d["ln2"] = norm_defs(cfg)
-    d["mlp"] = mlp_defs(cfg)
-    return d
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -123,9 +120,6 @@ class Model:
         self.cfg = cfg
         self.geom = resolve_geometry(cfg, tp) if cfg.n_heads else None
         self.stages = build_stages(cfg)
-        for st in self.stages:
-            for kind in st.unit:
-                _check_ported(kind)
         self.act_dtype = act_dtype
 
     # -- params ---------------------------------------------------------
@@ -156,7 +150,7 @@ class Model:
 
     def _block_cache_defs(self, kind: str, batch: int, max_len: int) -> dict:
         cfg = self.cfg
-        if kind in ("attn", "local"):
+        if kind in ("attn", "local", "moe"):
             g = self.geom
             window = _window(kind, cfg)
             S = min(window, max_len) if window else max_len
@@ -219,7 +213,16 @@ class Model:
                 prefix_pages: torch.Tensor | None = None,
                 prefix_len: int = 0):
         """tokens: (B, S_tok). Returns (logits (B,S,Vp), aux) or, with
-        ``collect_cache``, (logits, cache, aux).
+        ``collect_cache``, (logits, cache, aux); ``aux`` sums the MoE
+        blocks' load-balancing losses (0 without MoE).
+
+        ``frontend_embeds`` (B, F, D) is a modality prefix prepended ahead
+        of the token embeddings. ``frontend_len`` (scalar or (B,)) marks how
+        many of the F rows are real: the prefix and tokens are then packed
+        contiguously (real frontend rows, then tokens, then the right-pad
+        rows, clamped), so positions stay gap-free and the causal mask
+        hides every pad row. With ``frontend_len == F`` the pack is the
+        identity gather.
 
         SUFFIX prefill over a shared KV prefix: with ``prefix_len > 0``,
         ``tokens`` are only the uncached suffix of a prompt whose first
@@ -229,18 +232,34 @@ class Model:
         offset past the prefix, every attention block attends over
         [prefix, suffix], and the collected cache covers the suffix only."""
         cfg = self.cfg
-        if frontend_embeds is not None or frontend_len is not None:
-            raise NotImplementedError(
-                "frontend embeddings are not ported yet (ROADMAP.md Queue 1 "
-                "item 10: other model families)")
-        if prefix_len and (prefix_kv is None or prefix_pages is None):
-            raise ValueError("prefix_len > 0 needs prefix_kv + prefix_pages")
+        if prefix_len:
+            if frontend_embeds is not None:
+                raise NotImplementedError(
+                    "prefix-cached suffix prefill does not compose with "
+                    "frontend embeddings")
+            if prefix_kv is None or prefix_pages is None:
+                raise ValueError("prefix_len > 0 needs prefix_kv + "
+                                 "prefix_pages")
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype)
+        if frontend_embeds is not None:
+            fe = frontend_embeds.to(device=x.device, dtype=self.act_dtype)
+            x = torch.cat([fe, x], dim=1)
+            if frontend_len is not None:
+                F, S = fe.shape[1], x.shape[1]
+                fl = torch.as_tensor(frontend_len, dtype=torch.int64,
+                                     device=x.device)
+                fl = fl.reshape(-1).expand(x.shape[0])[:, None]
+                pos = torch.arange(S, device=x.device)[None, :]
+                src = torch.where(pos < fl, pos, pos + (F - fl))
+                src = torch.clamp(src, max=S - 1)   # tail rows: clamped pad
+                x = torch.gather(x, 1, src[:, :, None].expand(-1, -1,
+                                                              x.shape[2]))
         B, S, _ = x.shape
         positions = prefix_len + torch.arange(
             S, dtype=torch.int32, device=x.device)[None, :]
 
         caches = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, st in enumerate(self.stages):
             sp = params[f"stage{si}"]
             spk = prefix_kv[f"stage{si}"] if prefix_len else None
@@ -252,10 +271,12 @@ class Model:
                 entries = {}
                 for bi, kind in enumerate(st.unit):
                     pkv = unit_prefix.get(f"b{bi}") if unit_prefix else None
-                    x, entry = self._apply_block(
+                    x, aux_b, entry = self._apply_block(
                         kind, unit_params[f"b{bi}"], x, positions,
                         collect_cache, cache_len or S, prefix_kv=pkv,
                         prefix_pages=prefix_pages, prefix_len=prefix_len)
+                    if aux_b is not None:
+                        aux = aux + aux_b
                     if collect_cache:
                         entries[f"b{bi}"] = entry
                 layer_entries.append(entries)
@@ -264,7 +285,6 @@ class Model:
                     lambda *xs: torch.stack(xs), *layer_entries)
         x = apply_norm(params["final_norm"], x, cfg.norm)
         logits = lm_logits(params["embed"], x, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if collect_cache:
             return logits, caches, aux
         return logits, aux
@@ -272,6 +292,8 @@ class Model:
     def _apply_block(self, kind: str, p: dict, x, positions,
                      collect_cache: bool, cache_len: int,
                      prefix_kv=None, prefix_pages=None, prefix_len: int = 0):
+        """One block's prefill -> (x, aux or None, cache entry or None);
+        ``aux`` is the MoE load-balancing loss of a ``moe`` block."""
         cfg, geom = self.cfg, self.geom
         entry = None
         window = _window(kind, cfg)
@@ -285,7 +307,7 @@ class Model:
                                                  return_cache=True)
             else:
                 out = ssm_mod.ssm_forward(p["ssm"], h, cfg)
-            return x + out, entry
+            return x + out, None, entry
         if kind == "rec":
             h = apply_norm(p["ln1"], x, cfg.norm)
             if collect_cache:
@@ -295,7 +317,7 @@ class Model:
                 out = rec_mod.rec_forward(p["rec"], h, cfg)
             x = x + out
             h2 = apply_norm(p["ln2"], x, cfg.norm)
-            return x + apply_mlp(p["mlp"], h2, cfg.mlp), entry
+            return x + apply_mlp(p["mlp"], h2, cfg.mlp), None, entry
         h = apply_norm(p["ln1"], x, cfg.norm)
         q, k, v = attn_mod.project_qkv(p["attn"], h, cfg, geom, positions)
         k_all, v_all, kv_pos = k, v, positions
@@ -324,13 +346,18 @@ class Model:
         out = attn_mod.attn_out(p["attn"], ctx)
         if collect_cache:
             entry = self._prefill_cache_entry(k, v, window, cache_len)
+        aux = None
         if cfg.parallel_block:
             x = x + out + apply_mlp(p["mlp"], h, cfg.mlp)
         else:
             x = x + out
             h2 = apply_norm(p["ln2"], x, cfg.norm)
-            x = x + apply_mlp(p["mlp"], h2, cfg.mlp)
-        return x, entry
+            if kind == "moe":
+                moe_out, aux = moe_mod.moe_forward(p["moe"], h2, cfg)
+                x = x + moe_out
+            else:
+                x = x + apply_mlp(p["mlp"], h2, cfg.mlp)
+        return x, aux, entry
 
     def _prefill_cache_entry(self, k, v, window: int, cache_len: int):
         """Store the last ``cache_len`` (or window) positions into the cache,
@@ -403,6 +430,8 @@ class Model:
             return x + out + apply_mlp(p["mlp"], h, cfg.mlp)
         x = x + out
         h2 = apply_norm(p["ln2"], x, cfg.norm)
+        if kind == "moe":
+            return x + moe_mod.moe_forward(p["moe"], h2, cfg)[0]
         return x + apply_mlp(p["mlp"], h2, cfg.mlp)
 
 

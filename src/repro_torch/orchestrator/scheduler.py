@@ -110,10 +110,6 @@ class SlotEngine:
         self.fe_len = cfg.frontend_len if cfg.frontend else 0
         self.d_model = cfg.d_model
         self.fe_dtype = container.cache_dtype
-        if cfg.frontend:
-            raise NotImplementedError(
-                "frontend-embedding serving is not ported yet (ROADMAP.md "
-                "Queue 1 item 10: other model families)")
         self.device = container.device
         self.exact_prefill = bool(
             kinds & {"ssm", "rec", "local"}
@@ -542,8 +538,18 @@ class SlotEngine:
                 self._prefills[bucket] = prefill
             toks = np.zeros((1, bucket), np.int32)
             toks[0, :P] = seq
+            fe_args = ()
+            if self.fe_len:
+                # static-width prefix buffer; real rows packed ahead of the
+                # prompt by Model.forward (fe_len=0 -> pure-token request)
+                fe = np.zeros((1, self.fe_len, self.d_model), np.float32)
+                if req.frontend is not None:
+                    fe[0, :req.frontend_len] = req.frontend
+                fe_args = (torch.as_tensor(fe, device=self.device).to(
+                    self.fe_dtype), req.frontend_len)
+
             t0 = time.perf_counter()
-            first, small = prefill(self.params, self._ids(toks), P)
+            first, small = prefill(self.params, self._ids(toks), P, *fe_args)
             start_pos = req.frontend_len + P
             if self.paged:
                 # bulk prefix+prompt allocation, then one page-major scatter

@@ -2,10 +2,18 @@
 slot-granular variants that power the orchestrator's continuous batching.
 
 ``decode``       : (params, cache, tokens (B,1), idx)  -> (logits, cache)
-``prefill_slot`` : (params, tokens (B,P), length)      -> (first_tokens (B,), cache)
+``prefill_slot`` : (params, tokens (B,P), length[, frontend_embeds, fe_len])
+                                                -> (first_tokens (B,), cache)
 ``decode_slots`` : (params, cache, tokens (B,1), pos (B,))
                                                 -> (next_tokens (B,), cache)
 ``generate``     : (params, cache, first (B,1), start) -> (toks (B,G), cache)
+
+Frontend-embedding archs (musicgen / internvl2) prepend a per-request
+modality prefix: ``prefill_slot`` built with ``frontend_len=F`` takes an
+(B, F, d_model) embedding buffer plus the per-row count of real prefix rows
+and packs [prefix, prompt] contiguously, so the KV cache covers
+prefix+prompt and decode proceeds at absolute positions fe_len+len+t with
+no further frontend involvement.
 
 The slot variants treat the batch dimension as a bank of independent
 *KV-cache slots*: each row is one in-flight request at its own depth.
@@ -84,14 +92,31 @@ class ServeStepBuilder:
         the orchestrator's one-request-per-prefill path (B=1) or a (B,)
         tensor. Returns (first_token (B,), cache padded to ``cache_len``).
 
+        With ``frontend_len`` > 0 the signature gains
+        ``(frontend_embeds (B, F, D), fe_len)``: a modality prefix consumed
+        AHEAD of the token prompt (packed contiguously by Model.forward, so
+        tokens sit at positions fe_len..fe_len+length-1 and the first token
+        is sampled at position fe_len+length-1); ``fe_len`` is an int or a
+        (B,) tensor.
+
         Right padding is causally safe for full attention: pad-position K/V
         land at positions >= the real content, which the causal mask hides
         until the decode loop overwrites them in place."""
-        if frontend_len:
-            raise NotImplementedError(
-                "frontend embeddings are not ported yet (ROADMAP.md Queue 1 "
-                "item 10: other model families)")
         vocab = self.model.cfg.vocab_size
+
+        if frontend_len:
+            def prefill_slot_fe(params, tokens, length, frontend_embeds,
+                                fe_len):
+                logits, cache, _ = self.model.forward(
+                    params, tokens, frontend_embeds=frontend_embeds,
+                    frontend_len=fe_len, collect_cache=True,
+                    cache_len=cache_len)
+                last_pos = (torch.as_tensor(fe_len, device=logits.device)
+                            + torch.as_tensor(length, device=logits.device)
+                            - 1)
+                return greedy_sample(_rows_at(logits, last_pos), vocab), cache
+
+            return prefill_slot_fe
 
         def prefill_slot(params, tokens, length):
             logits, cache, _ = self.model.forward(
@@ -145,8 +170,11 @@ class ServeStepBuilder:
                                  prefix_len: int = 0) -> Callable:
         """prefill_slot whose cache comes back PAGE-MAJOR, ready to scatter
         into the pool: each attention entry is (count, n_kv, n_prompt_pages,
-        page_size, hd) with n_prompt_pages = ceil(prompt_len / page_size).
-        The host writes row j into physical page ``table[slot, j]``.
+        page_size, hd) with n_prompt_pages = ceil((frontend_len +
+        prompt_len) / page_size): a frontend arch's prefix occupies the
+        leading cache positions, as in the contiguous layout, and the
+        signature gains ``(frontend_embeds, fe_len)``. The host writes row
+        j into physical page ``table[slot, j]``.
 
         With ``prefix_len`` > 0 (prefix-registry hit) this is the SUFFIX
         prefill: ``tokens`` are only the uncached tail (bucketed to
@@ -157,11 +185,11 @@ class ServeStepBuilder:
         ``prefix_len % page_size`` positions are copied ahead of the suffix
         KV (the front-partial merge), so the returned cache starts
         page-aligned; the pool itself is only read."""
-        if frontend_len:
-            raise NotImplementedError(
-                "frontend embeddings are not ported yet (ROADMAP.md Queue 1 "
-                "item 10: other model families)")
         if prefix_len:
+            if frontend_len:
+                raise NotImplementedError(
+                    "prefix-cached suffix prefill does not compose with "
+                    "frontend embeddings")
             span = prompt_len                  # the suffix bucket
             vocab = self.model.cfg.vocab_size
             frac = prefix_len % page_size      # front-partial merge width
@@ -199,13 +227,13 @@ class ServeStepBuilder:
 
             return prefill_suffix_paged
 
-        span = prompt_len
-        inner = self.build_prefill_slot(span)
+        span = prompt_len + frontend_len
+        inner = self.build_prefill_slot(span, frontend_len)
         np_ = -(-span // page_size)
         pad = np_ * page_size - span
 
-        def prefill_slot_paged(params, tokens, length):
-            first, cache = inner(params, tokens, length)
+        def prefill_slot_paged(params, tokens, length, *fe_args):
+            first, cache = inner(params, tokens, length, *fe_args)
 
             def to_pages(e):
                 # (count, 1, S, n_kv, hd) -> (count, n_kv, np_, ps, hd)

@@ -62,6 +62,15 @@ PA_CASES = [
     # rows) at head dim 80, pages of 16, poisoned tails, both kernels
     (8, 32, 1, 80, 16, 64, 0, "bfloat16"),
     (8, 32, 1, 80, 16, 64, 0, "float32"),
+    # the decodes of nemotron-4-15b (48 q / 8 kv heads: a GQA group of 6
+    # in the 16 MMA rows), moonshot-v1-16b-a3b (MHA at hd 128),
+    # musicgen-medium (MHA, 24 heads of 64) and internvl2-2b (g 2, hd 128)
+    (8, 8, 6, 128, 16, 64, 0, "bfloat16"),
+    (8, 8, 6, 128, 16, 64, 0, "float32"),
+    (8, 16, 1, 128, 16, 64, 0, "bfloat16"),
+    (8, 24, 1, 64, 16, 64, 0, "bfloat16"),
+    (8, 24, 1, 64, 16, 64, 0, "float32"),
+    (8, 8, 2, 128, 16, 64, 0, "bfloat16"),
 ]
 
 FA_CASES = [
@@ -94,6 +103,16 @@ FA_CASES = [
     (1, 32, 32, 512, 512, 80, True, 0, "float32"),
     (1, 32, 32, 128, 328, 80, True, 0, "bfloat16"),
     (1, 32, 32, 128, 328, 80, True, 0, "float32"),
+    # nemotron-4-15b's 512-token prefill (Hq 48 over Hkv 8), moonshot's
+    # (16/16 at 128), and the frontend archs' packed prefills of F + P
+    # rows: musicgen-medium (24 heads of 64, 64 + 300 rows) and
+    # internvl2-2b (16 over 8 at 128, 256 + 512 rows)
+    (1, 48, 8, 512, 512, 128, True, 0, "bfloat16"),
+    (1, 48, 8, 512, 512, 128, True, 0, "float32"),
+    (1, 16, 16, 512, 512, 128, True, 0, "bfloat16"),
+    (1, 24, 24, 364, 364, 64, True, 0, "bfloat16"),
+    (1, 24, 24, 364, 364, 64, True, 0, "float32"),
+    (1, 16, 8, 768, 768, 128, True, 0, "bfloat16"),
 ]
 
 
@@ -390,3 +409,52 @@ def test_matmul_native_equals_container_bound(cuda, tmp_path):
         b = torch.randn(K, N, generator=g, device=device).to(getattr(torch, dt))
         assert torch.equal(mm_ops.matmul(a, b, platform="h100"),
                            mm_ops.matmul(a, b))
+
+
+def test_moe_smoke_prefill_on_the_card_equals_the_cpu(cuda):
+    """moonshot-v1-16b-a3b-smoke in float32, the same weights on both
+    devices: the card's prefill (K2 in every attention layer, the MoE
+    dispatch and expert products in PyTorch) equals the CPU's within 1e-4,
+    aux within 1e-6, and K2 ran once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import materialize, tree_map
+    from repro_torch.models.transformer import Model
+    cfg = get_config("moonshot-v1-16b-a3b-smoke")
+    m = Model(cfg, act_dtype=torch.float32)
+    params = materialize(m.param_defs(), 0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    with torch.no_grad():
+        cpu, cpu_aux = m.forward(params, toks)
+        before = fa_ops.launches
+        card, card_aux = m.forward(tree_map(lambda a: a.to(cuda), params),
+                                   toks.to(cuda))
+        torch.cuda.synchronize()
+    assert fa_ops.launches == before + cfg.n_layers
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-4
+    assert abs(float(card_aux) - float(cpu_aux)) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_bf16_scores_on_the_card(cuda, dtype):
+    """``attend`` with bfloat16 scores takes the chunked path on the card
+    (chosen by dtype: no K2 launch) and equals the CPU within 3e-2, the
+    bfloat16 tolerance of its CPU parity test against the JAX package
+    (tests/test_torch_hygiene.py). Float32 inputs are held to it too: the
+    card's float32 products round apart from the CPU's, and a score whose
+    bfloat16 rounding flips moves the output by up to one bfloat16 step."""
+    from repro_torch.models.attention import attend
+    rng = np.random.default_rng(0)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dt) for s in ((2, 40, 4, 32), (2, 40, 2, 32),
+                                 (2, 40, 2, 32)))
+    pos = torch.arange(40, dtype=torch.int32)[None]
+    kw = dict(score_dtype=torch.bfloat16, q_chunk=16, kv_chunk=16)
+    cpu = attend(q, k, v, pos, pos, **kw)
+    before = fa_ops.launches
+    card = attend(q.to(cuda), k.to(cuda), v.to(cuda), pos.to(cuda),
+                  pos.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before
+    assert float((card.cpu().float() - cpu.float()).abs().max()) <= 3e-2

@@ -7,7 +7,9 @@
 * the default platform is the card: without CUDA, ``Runtime.run`` raises
   unless the caller asks for ``platform="cpu"``;
 * a kernel wrapper handed non-CPU tensors launches its kernel or raises --
-  it never falls back to the plain version.
+  it never falls back to the plain version;
+* ``attend`` with bfloat16 scores (the reference's XLA score chain, not a
+  kernel) agrees with the JAX package's on the CPU.
 """
 
 import ast
@@ -338,8 +340,8 @@ def test_build_needs_nvcc_and_writes_under_build(monkeypatch, tmp_path):
 
 
 def test_attend_on_cuda_raises_outside_the_flash_kernels_layout():
-    """On a card, ``attend`` with Sq > 1 runs the flash kernel, which scores
-    in float32 over the canonical causal layout only: anything else raises
+    """On a card, ``attend`` with Sq > 1 and float32 scores runs the flash
+    kernel, over the canonical causal layout only: anything else raises
     before a launch, never computes another function."""
     from repro_torch.models.attention import attend
     if torch.cuda.is_available():
@@ -348,9 +350,49 @@ def test_attend_on_cuda_raises_outside_the_flash_kernels_layout():
                          ((2, 8, 2, 16), torch.float32),
                          ((2, 8, 2, 16), torch.float32))
     pos = torch.arange(8, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        attend(q, k, v, pos, pos, score_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="canonical causal layout"):
         attend(q, k, v, pos.expand(2, 8), pos.expand(2, 8))
     with pytest.raises(ValueError, match="canonical causal layout"):
         attend(q, k, v, pos, pos, q_offset=3)
+
+
+# bfloat16 scores: float32 inputs agree to float32 rounding (the score
+# chain rounds to bfloat16 at the same points in both packages);
+# bfloat16 inputs within one bfloat16 rounding of outputs up to 4
+ATTEND_BF16_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 24, 24, 4, 2, 16, 0, 0),
+                                  (1, 40, 40, 4, 1, 32, 0, 16),
+                                  (2, 8, 20, 4, 2, 16, 12, 0)],
+                         ids=["prefill", "window", "suffix"])
+def test_attend_bf16_scores_match_jax(dtype, case):
+    """``score_dtype=bfloat16`` is the reference's low-precision score
+    chain (``repro.models.attention._sdpa_chunked``, XLA, no Pallas
+    kernel); the port computes it with its own ``_sdpa_chunked``, on the
+    CPU here and on the card alike (chosen by dtype before any launch).
+    Held against the JAX ``attend`` with chunks of 16."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models.attention import attend as j_attend
+    from repro_torch.models.attention import attend
+    B, Sq, Sk, Hq, Hkv, hd, off, window = case
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((B, Sq, Hq, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, Hkv, hd)).astype(np.float32)
+    qp = (off + np.arange(Sq, dtype=np.int32))[None]
+    kp = np.arange(Sk, dtype=np.int32)[None]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jo = j_attend(*(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(qp),
+                  jnp.asarray(kp), window, score_dtype=jnp.bfloat16,
+                  q_chunk=16, kv_chunk=16, q_offset=off)
+    to = attend(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)),
+                torch.from_numpy(qp), torch.from_numpy(kp), window,
+                score_dtype=torch.bfloat16, q_chunk=16, kv_chunk=16,
+                q_offset=off)
+    assert to.dtype == dtype
+    err = float(np.abs(np.asarray(jo, np.float32) - to.float().numpy()).max())
+    assert err <= ATTEND_BF16_TOL[dtype], err

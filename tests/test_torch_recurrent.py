@@ -423,10 +423,3 @@ def test_paged_serving_raises_for_recurrent_archs(envs, arch):
             params=env["np_params"])
     with pytest.raises(NotImplementedError, match="contiguous"):
         env["tc"].model.paged_cache_defs(8, 8)
-
-
-def test_moe_still_raises_naming_its_roadmap_item(tmp_path):
-    from repro_torch.models.transformer import Model
-    from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Model(get_config("moonshot-v1-16b-a3b-smoke"))

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity as tp
 from repro.core.runtime import Runtime as JRuntime
 from repro.orchestrator import ContinuousScheduler as JScheduler
 from repro.orchestrator import GenRequest as JRequest
@@ -73,92 +74,20 @@ def test_load_params_is_exact(env):
 
 
 def test_prefill_logits_match(env):
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, 256, (2, 24)).astype(np.int32)
-    jl, _ = env["jc"].model.forward(env["jparams"], jnp.asarray(toks))
-    tl, _ = env["tc"].model.forward(env["tparams"],
-                                    torch.from_numpy(toks).long())
-    assert tl.shape == tuple(jl.shape)
-    _close(jl, tl)
-
-
-def _greedy(x):
-    return np.asarray(x).argmax(-1).astype(np.int32)
+    tp.check_prefill(env)
 
 
 def test_greedy_decode_contiguous(env):
     """Prefill a 12-token prompt into a 32-position slab, then 8 decode
     steps at per-row positions: the same tokens and logits."""
-    rng = np.random.default_rng(1)
-    B, P, L = 2, 12, 32
-    toks = rng.integers(0, 256, (B, P)).astype(np.int32)
-    jm, tm = env["jc"].model, env["tc"].model
-    j_decode = jax.jit(jm.decode_step)
-    jlog, jcache, _ = jm.forward(env["jparams"], jnp.asarray(toks),
-                                 collect_cache=True, cache_len=L)
-    tlog, tcache, _ = tm.forward(env["tparams"], torch.from_numpy(toks).long(),
-                                 collect_cache=True, cache_len=L)
-    _close(jlog, tlog)
-    jt = _greedy(jlog[:, -1])
-    tt = _greedy(tlog[:, -1].numpy())
-    assert (jt == tt).all()
-    for step in range(8):
-        pos = np.full((B,), P + step, np.int32)
-        jlog, jcache = j_decode(env["jparams"], jcache,
-                                jnp.asarray(jt[:, None]), jnp.asarray(pos))
-        tlog, tcache = tm.decode_step(env["tparams"], tcache,
-                                      torch.from_numpy(tt[:, None]).long(),
-                                      torch.from_numpy(pos))
-        _close(jlog, tlog)
-        jt, tt = _greedy(jlog[:, -1]), _greedy(tlog[:, -1].numpy())
-        assert (jt == tt).all(), step
+    tp.check_greedy_contiguous(env)
 
 
 def test_greedy_decode_paged(env):
     """Two slots of different prompt lengths prefill page-major into a
     shuffled page pool (through each package's scatter helper), then 8
     paged decode steps: the same tokens and logits."""
-    ps, mp = 8, 4
-    table = np.array([[3, 1, 6, 0], [5, 2, 7, 4]], np.int32)
-    n_pages = 8
-    lens = [11, 6]
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in lens]
-    jpool = env["jc"].init_paged_cache(n_pages, ps)
-    tpool = env["tc"].init_paged_cache(n_pages, ps)
-    jb = JBuilder(env["jc"].model, env["jc"].mesh, env["jc"].rules)
-    tb = ServeStepBuilder(env["tc"].model)
-    jpre, tpre = (jb.build_prefill_slot_paged(16, ps),
-                  tb.build_prefill_slot_paged(16, ps))
-    first_j, first_t = [], []
-    for b, pr in enumerate(prompts):
-        toks = np.zeros((1, 16), np.int32)
-        toks[0, :len(pr)] = pr
-        fj, small_j = jpre(env["jparams"], jnp.asarray(toks),
-                           jnp.int32(len(pr)))
-        ft, small_t = tpre(env["tparams"], torch.from_numpy(toks).long(),
-                           len(pr))
-        jpool = j_insert_pages(jpool, small_j, jnp.asarray(table[b, :2]))
-        tpool = _insert_pages(tpool, small_t, torch.from_numpy(table[b, :2]))
-        first_j.append(int(fj[0]))
-        first_t.append(int(ft[0]))
-    assert first_j == first_t
-    jt = np.array(first_j, np.int32)
-    tt = jt.copy()
-    pos = np.array(lens, np.int32)
-    j_decode = jax.jit(env["jc"].model.decode_step)
-    for step in range(8):
-        jlog, jpool = j_decode(
-            env["jparams"], jpool, jnp.asarray(jt[:, None]), jnp.asarray(pos),
-            page_table=jnp.asarray(table))
-        tlog, tpool = env["tc"].model.decode_step(
-            env["tparams"], tpool, torch.from_numpy(tt[:, None]).long(),
-            torch.from_numpy(pos), page_table=torch.from_numpy(table))
-        _close(jlog, tlog)
-        jt, tt = _greedy(jlog[:, -1]), _greedy(tlog[:, -1].numpy())
-        assert (jt == tt).all(), step
-        pos = pos + 1
-    assert mp == table.shape[1]
+    tp.check_greedy_paged(env)
 
 
 def test_suffix_prefill_equals_full_prefill(env):
@@ -203,51 +132,15 @@ def test_suffix_prefill_equals_full_prefill(env):
     _close(small_sfx_j["stage0"]["b0"]["k"], e_s)
 
 
-def _trace(Req, n=12, seed=1, shared_len=20):
-    rng = np.random.default_rng(seed)
-    shared = np.random.default_rng(99).integers(0, 256, shared_len)
-    reqs = []
-    for i in range(n):
-        tail = rng.integers(0, 256, int(rng.integers(3, 20)))
-        if i % 3 == 0:
-            reqs.append(Req(rid=i, prompt=np.concatenate([shared, tail]),
-                            max_new_tokens=int(rng.integers(2, 9)),
-                            prefix_len=shared_len))
-        else:
-            reqs.append(Req(rid=i, prompt=tail,
-                            max_new_tokens=int(rng.integers(2, 9))))
-    return reqs
-
-
 @pytest.mark.parametrize("paged,prefix_cache", [(False, False), (True, False),
                                                 (True, True)],
                          ids=["contiguous", "paged", "paged+prefix"])
 def test_pod_trace_tokens_identical_across_packages(env, paged, prefix_cache):
-    kw = dict(replicas=1, n_slots=3, max_len=64, paged=paged, page_size=8,
-              prefix_cache=prefix_cache)
-    jp = JPod(env["jrt"], "stable", **kw)
-    jreqs = _trace(JRequest)
-    js = JScheduler(jp)
-    js.submit(jreqs)
-    js.run()
-    tp = Pod(env["trt"], "stable", platform="cpu", params=env["np_params"],
-             **kw)
-    treqs = _trace(GenRequest)
-    ts = ContinuousScheduler(tp)
-    ts.submit(treqs)
-    ts.run()
-    assert all(r.state == "done" for r in treqs)
-    assert [list(r.tokens) for r in jreqs] == [list(r.tokens) for r in treqs]
-    je, te = jp.engines[0], tp.engines[0]
-    assert te.prefill_positions == je.prefill_positions
-    assert te.decode_ticks == je.decode_ticks
-    assert te.prefix_hits == je.prefix_hits
-    if prefix_cache:
-        assert te.prefix_hits >= 1
-        te.pool.check()
+    jp, tp_ = tp.check_pod_trace(env, paged, prefix_cache)
     # tick-clocked completion metrics match field for field
-    assert tp.metrics.snapshot()["histograms"] == \
+    assert tp_.metrics.snapshot()["histograms"] == \
         jp.metrics.snapshot()["histograms"]
+    te = tp_.engines[0]
     assert te.container.device == torch.device("cpu")
     assert sorted(te.free) == list(range(te.n_slots))
 

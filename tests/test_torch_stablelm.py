@@ -21,20 +21,15 @@ tests/test_torch_cuda.py and chip_smoke.py on a card.
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
+import torch_parity as tp
 from repro.configs import get_config as j_get_config
 from repro.core.runtime import Runtime as JRuntime
-from repro.orchestrator.scheduler import _insert_pages as j_insert_pages
-from repro.serve.serve_step import ServeStepBuilder as JBuilder
 from repro_torch.configs import get_config
 from repro_torch.core.runtime import Runtime
 from repro_torch.models.params import tree_leaves
-from repro_torch.orchestrator.scheduler import _insert_pages
-from repro_torch.serve.serve_step import ServeStepBuilder
 
 pytestmark = pytest.mark.orchestrator
 
@@ -47,8 +42,6 @@ ARCH stablelm-3b {overrides}
 MESH local
 PRECISION compute=float32 params=float32
 """.format(overrides=" ".join(f"{k}={v}" for k, v in CUT.items()))
-
-LOGIT_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -66,15 +59,6 @@ def env(tmp_path_factory):
                 tparams=tc.load_params(np_params))
 
 
-def _close(j, t, tol=LOGIT_TOL):
-    err = float(np.abs(np.asarray(j, np.float32) - t.float().numpy()).max())
-    assert err <= tol, err
-
-
-def _greedy(x):
-    return np.asarray(x).argmax(-1).astype(np.int32)
-
-
 def test_config_is_stablelm_cut_at_head_dim_80(env):
     j_want = dataclasses.replace(j_get_config("stablelm-3b"), **CUT)
     t_want = dataclasses.replace(get_config("stablelm-3b"), **CUT)
@@ -86,41 +70,13 @@ def test_config_is_stablelm_cut_at_head_dim_80(env):
 
 
 def test_prefill_logits_match(env):
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, 256, (2, 24)).astype(np.int32)
-    jl, _ = env["jc"].model.forward(env["jparams"], jnp.asarray(toks))
-    tl, _ = env["tc"].model.forward(env["tparams"],
-                                    torch.from_numpy(toks).long())
-    assert tl.shape == tuple(jl.shape)
-    _close(jl, tl)
+    tp.check_prefill(env)
 
 
 def test_greedy_decode_contiguous(env):
     """Prefill a 12-token prompt into a 32-position slab, then 8 decode
     steps at per-row positions: the same tokens and logits."""
-    rng = np.random.default_rng(1)
-    B, P, L = 2, 12, 32
-    toks = rng.integers(0, 256, (B, P)).astype(np.int32)
-    jm, tm = env["jc"].model, env["tc"].model
-    j_decode = jax.jit(jm.decode_step)
-    jlog, jcache, _ = jm.forward(env["jparams"], jnp.asarray(toks),
-                                 collect_cache=True, cache_len=L)
-    tlog, tcache, _ = tm.forward(env["tparams"], torch.from_numpy(toks).long(),
-                                 collect_cache=True, cache_len=L)
-    _close(jlog, tlog)
-    jt = _greedy(jlog[:, -1])
-    tt = _greedy(tlog[:, -1].numpy())
-    assert (jt == tt).all()
-    for step in range(8):
-        pos = np.full((B,), P + step, np.int32)
-        jlog, jcache = j_decode(env["jparams"], jcache,
-                                jnp.asarray(jt[:, None]), jnp.asarray(pos))
-        tlog, tcache = tm.decode_step(env["tparams"], tcache,
-                                      torch.from_numpy(tt[:, None]).long(),
-                                      torch.from_numpy(pos))
-        _close(jlog, tlog)
-        jt, tt = _greedy(jlog[:, -1]), _greedy(tlog[:, -1].numpy())
-        assert (jt == tt).all(), step
+    tp.check_greedy_contiguous(env)
 
 
 def test_greedy_decode_paged(env):
@@ -128,44 +84,6 @@ def test_greedy_decode_paged(env):
     shuffled pool of (n_kv, n_pages, 8, 80) pages (through each package's
     scatter helper), then 8 paged decode steps: the same tokens and
     logits."""
-    ps = 8
-    table = np.array([[3, 1, 6, 0], [5, 2, 7, 4]], np.int32)
-    n_pages = 8
-    lens = [11, 6]
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in lens]
-    jpool = env["jc"].init_paged_cache(n_pages, ps)
-    tpool = env["tc"].init_paged_cache(n_pages, ps)
-    assert {t.shape[-1] for t in tree_leaves(tpool)} == {80}
-    jb = JBuilder(env["jc"].model, env["jc"].mesh, env["jc"].rules)
-    tb = ServeStepBuilder(env["tc"].model)
-    jpre, tpre = (jb.build_prefill_slot_paged(16, ps),
-                  tb.build_prefill_slot_paged(16, ps))
-    first_j, first_t = [], []
-    for b, pr in enumerate(prompts):
-        toks = np.zeros((1, 16), np.int32)
-        toks[0, :len(pr)] = pr
-        fj, small_j = jpre(env["jparams"], jnp.asarray(toks),
-                           jnp.int32(len(pr)))
-        ft, small_t = tpre(env["tparams"], torch.from_numpy(toks).long(),
-                           len(pr))
-        jpool = j_insert_pages(jpool, small_j, jnp.asarray(table[b, :2]))
-        tpool = _insert_pages(tpool, small_t, torch.from_numpy(table[b, :2]))
-        first_j.append(int(fj[0]))
-        first_t.append(int(ft[0]))
-    assert first_j == first_t
-    jt = np.array(first_j, np.int32)
-    tt = jt.copy()
-    pos = np.array(lens, np.int32)
-    j_decode = jax.jit(env["jc"].model.decode_step)
-    for step in range(8):
-        jlog, jpool = j_decode(
-            env["jparams"], jpool, jnp.asarray(jt[:, None]), jnp.asarray(pos),
-            page_table=jnp.asarray(table))
-        tlog, tpool = env["tc"].model.decode_step(
-            env["tparams"], tpool, torch.from_numpy(tt[:, None]).long(),
-            torch.from_numpy(pos), page_table=torch.from_numpy(table))
-        _close(jlog, tlog)
-        jt, tt = _greedy(jlog[:, -1]), _greedy(tlog[:, -1].numpy())
-        assert (jt == tt).all(), step
-        pos = pos + 1
+    pool = env["tc"].init_paged_cache(8, 8)
+    assert {t.shape[-1] for t in tree_leaves(pool)} == {80}
+    tp.check_greedy_paged(env)
