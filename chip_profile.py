@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Five measurements, each printed beside the card's name and power limit:
+Six measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -24,6 +24,14 @@ Five measurements, each printed beside the card's name and power limit:
             slots, max_len 4096): its prefill step of a 2304-token prompt
             (past the 2048 window), the RG-LRU scan's (K4) and the flash
             kernel's (K2) share of busy time, and K4's device kernels a call
+  train     one full-width llama3.2-3b training step (chip_smoke.py's train
+            image: float32 params, bf16 compute, remat=full, 2 x 2048
+            tokens, ``Container.train_step_fn(donate=True)``), 2 warm-up
+            steps, then 2 under torch.profiler: the device's busy and idle
+            share, the top device kernels, the flash kernel's (K2 forward
+            and its recompute) share, and the share of the attention
+            backward, the vjp of the plain version (a ``record_function``
+            range around the Function's backward)
   spans     the paged-attention kernel at chip_smoke.py's decode shape
             and at the llama pod's (bfloat16): the tensor-core kernel with
             the span plan ``span_pages`` picks, with spans of 4, 8, 16 and
@@ -42,8 +50,9 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 
-from chip_smoke import (FULL_IMAGEFILE, K1_SHAPE, SRC, TOL, Timer, check,
-                        k1_case, k1_pod_case, log, phase_device)
+from chip_smoke import (FULL_IMAGEFILE, K1_SHAPE, SRC, TOL, TRAIN_IMAGEFILE,
+                        Timer, check, k1_case, k1_pod_case, log,
+                        phase_device)
 
 
 def dev_us(e, total: bool = False) -> float:
@@ -88,14 +97,15 @@ def device_summary(prof, wall_us: float, card: str, tag: str,
 
 
 @contextmanager
-def labelled(torch, module, name: str):
+def labelled(torch, module, name: str, label: str | None = None):
     """While entered, every call of ``module.<name>`` runs inside a
-    ``torch.profiler.record_function`` range of that name, so the
-    profile holds its host time and its kernels' device time."""
+    ``torch.profiler.record_function`` range named ``label`` (default:
+    ``name``), so the profile holds its host time and its kernels' device
+    time."""
     real = getattr(module, name)
 
     def wrapped(*a, **k):
-        with torch.profiler.record_function(name):
+        with torch.profiler.record_function(label or name):
             return real(*a, **k)
 
     setattr(module, name, wrapped)
@@ -227,6 +237,51 @@ def profile_rgemma(torch, card: str, workdir: Path) -> None:
                            f"{4 * rec} calls")
 
 
+def profile_train(torch, card: str, workdir: Path) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    rt = Runtime(workdir / "train")
+    rt.build(TRAIN_IMAGEFILE, tag="train")
+    c = rt.run("train")
+    params = c.init_params(0)
+    opt = c.init_opt_state(params)
+    step = c.train_step_fn(donate=True)
+    data = SyntheticLM(DataConfig(vocab_size=c.arch.vocab_size,
+                                  seq_len=c.cell.seq_len,
+                                  global_batch=c.cell.global_batch, seed=0))
+    for i in range(2):       # allocator, cuBLAS handles
+        params, opt, m = step(params, opt, data.batch(i))
+    torch.cuda.synchronize()
+    label = "flash_attention_backward"
+    with labelled(torch, fa_ops._FlashAttention, "backward", label), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, 4):
+            params, opt, m = step(params, opt, data.batch(i))
+        loss = float(m["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(loss == loss, "train: the loss is NaN")
+    log(f"train: 2 steps of llama3.2-3b ({c.cell.global_batch} x "
+        f"{c.cell.seq_len} tokens, remat={c.model.remat}), loss {loss:.4f}, "
+        f"{wall_us / 2e6:.3f} s a step under the profiler")
+    device = device_summary(prof, wall_us, card, "train",
+                            (("K2 flash_attention_fwd (forward and "
+                              "recompute)", "flash_"),), ranges=(label,))
+    busy_us = sum(t for t, _, _ in device)
+    bwd = [e for e in prof.key_averages() if e.key == label]
+    check(bool(bwd), "train: no attention backward range in the profile")
+    dev = dev_us(bwd[0], total=True)
+    log(f"train: attention backward (vjp of the plain version) "
+        f"x{bwd[0].count}: its kernels {dev / 1e3:.1f} ms = "
+        f"{100 * dev / busy_us:.1f}% of device busy time, host "
+        f"{bwd[0].cpu_time_total / 1e3:.1f} ms [{card}]")
+    del params, opt, m
+
+
 def spans(torch, card: str) -> None:
     from repro_torch.kernels._launch import device_sms
     from repro_torch.kernels.paged_attention import ops
@@ -287,6 +342,8 @@ def main() -> int:
         profile_mamba2(torch, state["card"], Path(tmp))
         torch.cuda.empty_cache()
         profile_rgemma(torch, state["card"], Path(tmp))
+        torch.cuda.empty_cache()
+        profile_train(torch, state["card"], Path(tmp))
         torch.cuda.empty_cache()
     spans(torch, state["card"])
     print(state["card"])

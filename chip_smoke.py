@@ -79,11 +79,30 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             ps, top, and the trace validator. Every command exits 0, every
             request completes, the prefix cache hits, and K1/K2 launches
             equal layers x the dispatches the engines ran
+  train     (a) K2, K4 and K5 as ``torch.autograd.Function``s at the
+            shapes training gives them (K2 at llama3.2-3b's 2 x 24/8 x 2048
+            x 128 and recurrentgemma-2b's 1 x 10/1 x 2048 x 256 window
+            2048, bf16; K4 at 1 x 2048 x 2560; K5 at 1 x 1024 x 80 x 64 x
+            128, chunk 256, f32): output and input grads against the plain
+            version under autograd, forward and backward times (K2 beside
+            SDPA's); (b) five smoke reductions (llama, mamba2,
+            recurrentgemma, moonshot, musicgen) trained 3 steps on the card
+            and on the CPU from the same weights and batches, float32:
+            losses and grad norms agree, the card runs their kernels and
+            the CPU none; (c) full-width llama3.2-3b (float32 params,
+            bf16 compute, remat=full, 2 x 2048 tokens) through
+            ``repro_torch.cli run --steps 4 --ckpt-every 2 --keep 1``, then
+            ``run --resume --steps 2``: finite losses, the resumed run
+            starts at step 4 and its step 5 equals a straight 6-step run's
+            (``Container.train_step_fn``), K2 launches = 28 x 2 x steps and
+            nothing else, peak memory under 80 GB; step seconds, tokens/s
+            and the model-FLOPs share of 989 TFLOP/s printed
 
 The kernel counters are set to 0 just before each main path is driven
-(each pod of the serve phase, the fig5 calls, each CLI serve) and read just
-after; a kernel's launches are their sum. Output ends with a JSON line of
-kernel records, the card line, and ``{"ok": true, "device": {...}}``.
+(each pod of the serve phase, the fig5 calls, each CLI serve, each CLI
+training run) and read just after; a kernel's launches are their sum.
+Output ends with a JSON line of kernel records, the card line, and
+``{"ok": true, "device": {...}}``.
 Without CUDA, or without the port beside this file, it exits non-zero and
 prints no result. ``chip_profile.py`` breaks the llama pod's time down by
 operator.
@@ -102,7 +121,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "cli")
+PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "cli",
+          "train")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and operations per second by input type (float32 outside tensor cores)
@@ -1376,6 +1396,358 @@ def phase_cli(torch, state, workdir: Path) -> None:
     check(rc == 0, f"cli: the exported trace does not validate ({rc})")
 
 
+# ---------------------------------------------------------------------------
+# train: gradients through the kernels, smoke training card vs CPU, and
+# full-width llama3.2-3b trained through the CLI
+# ---------------------------------------------------------------------------
+
+# (a) the Functions at the shapes training gives them: K2 at llama3.2-3b's
+# (B, Hq, Hkv, S, d) and recurrentgemma-2b's local layers, bf16; K4 at
+# recurrentgemma-2b's (B, S, R); K5 at mamba2-2.7b's (b, S, H, P, N) and
+# chunk, float32
+GRAD_K2 = ((2, 24, 8, 2048, 128, 0), (1, 10, 1, 2048, 256, 2048))
+GRAD_K4 = (1, 2048, 2560)
+GRAD_K5 = ((1, 1024, 80, 64, 128), 256)
+
+# (b) smoke reductions trained 3 steps on the card and on the CPU, float32,
+# TF32 off, the same weights and batches: each step's loss within 1e-3 and
+# grad_norm within 1e-3 of its value (two devices sum in other orders, K2
+# f32, K4 and K5 3xTF32 agree with their plain versions to 1e-6..1e-4 of
+# their outputs, and routed MoE rows can flip at near-ties after a step)
+TRAIN_SMOKE = ("llama3.2-3b-smoke", "mamba2-2.7b-smoke",
+               "recurrentgemma-2b-smoke", "moonshot-v1-16b-a3b-smoke",
+               "musicgen-medium-smoke")
+TRAIN_SMOKE_KERNELS = {"llama3.2-3b-smoke": ("flash_attention_fwd",),
+                       "mamba2-2.7b-smoke": ("ssd",),
+                       "recurrentgemma-2b-smoke": ("rglru_scan",
+                                                   "flash_attention_fwd"),
+                       "moonshot-v1-16b-a3b-smoke": ("flash_attention_fwd",),
+                       "musicgen-medium-smoke": ("flash_attention_fwd",)}
+TRAIN_SMOKE_IMAGEFILE = """\
+FROM scratch
+ARCH {arch}
+SHAPE train_4k seq_len=64 global_batch=4
+MESH local
+PRECISION compute=float32 params=float32
+COLLECTIVES generic
+SET optimizer={{"lr":0.005,"warmup_steps":2,"total_steps":50}}
+"""
+TRAIN_SMOKE_TOL = 1e-3
+
+# (c) llama3.2-3b at full width through ``repro_torch.cli run``
+TRAIN_IMAGEFILE = """\
+FROM scratch
+ARCH llama3.2-3b
+SHAPE train_4k seq_len=2048 global_batch=2
+MESH local
+PRECISION params=float32 compute=bfloat16
+COLLECTIVES generic
+SET remat=full optimizer={"lr":0.0003,"warmup_steps":2,"total_steps":1000}
+"""
+TRAIN_RUN = ("--steps", "4", "--ckpt-every", "2", "--keep", "1")
+TRAIN_RESUME = ("--resume", "--steps", "2", "--keep", "1")
+# the resumed step 5 against a straight run's step 5: the same state and
+# batch on the same card; bf16 products and atomics in the embedding's
+# backward may sum in another order
+TRAIN_RESUME_TOL = 1e-3
+PEAK_BF16 = PEAK_FLOPS["bfloat16"]
+
+
+def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
+               rel: bool):
+    """``fn`` (a Function) against ``plain`` under autograd on the card:
+    output and every input's grad within ``tol`` (of the reference's max
+    when ``rel``); times of the forward and of the backward. Returns
+    (ok, forward ms, backward ms)."""
+    xs = [t.detach().requires_grad_() for t in inputs]
+    rs = [t.detach().requires_grad_() for t in inputs]
+    out, ref = fn(*xs), plain(*rs)
+    gx = torch.autograd.grad(out, xs, cot, retain_graph=True)
+    gr = torch.autograd.grad(ref, rs, cot)
+    torch.cuda.synchronize()
+    errs = []
+    ok = bool(torch.isfinite(out).all())
+    for a, b in ((out.detach(), ref.detach()), *zip(gx, gr)):
+        err = float((a.float() - b.float()).abs().max())
+        lim = tol * (float(b.float().abs().max()) if rel else 1.0)
+        ok = ok and err <= lim
+        errs.append(f"{err:.2e}/{lim:.2e}")
+    with torch.no_grad():
+        fwd = timer(lambda: fn(*inputs))
+    bwd = timer(lambda: torch.autograd.grad(out, xs, cot,
+                                            retain_graph=True))
+    log(f"train: {name}: max_abs_err out, grads (err/tol) "
+        f"{', '.join(errs)} {'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms, "
+        f"backward (vjp of the plain version) {bwd:.4f} ms "
+        f"[{state['card']}]")
+    return ok, fwd, bwd
+
+
+def _train_grads(torch, state, timer) -> list[str]:
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import _ssd_chunked
+
+    failures = []
+    rng = np.random.default_rng(21)
+    cuda = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to("cuda", dt)
+    bf = torch.bfloat16
+    for B, Hq, Hkv, S, d, w in GRAD_K2:
+        q = cuda(rng.standard_normal((B, Hq, S, d)), bf)
+        k = cuda(rng.standard_normal((B, Hkv, S, d)), bf)
+        v = cuda(rng.standard_normal((B, Hkv, S, d)), bf)
+        cot = cuda(rng.standard_normal((B, Hq, S, d)), bf)
+        name = (f"flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} "
+                f"window={w} bfloat16")
+        ok, fwd, bwd = _grad_case(
+            torch, timer, state, name,
+            lambda *x: fa_ops.flash_attention(*x, causal=True, window=w),
+            lambda *x: flash_attention_ref(*x, causal=True, window=w),
+            (q, k, v), cot, TOL["bfloat16"], rel=False)
+        # the library's fused attention, forward and backward, as yardstick
+        kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+        if w:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
+            sdpa = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
+                *x, attn_mask=mask)
+        else:
+            sdpa = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
+                *x, is_causal=True)
+        with torch.no_grad():
+            lib_fwd = timer(lambda: sdpa(q, kr, vr))
+        xs = [t.detach().requires_grad_() for t in (q, kr, vr)]
+        o = sdpa(*xs)
+        lib_bwd = timer(lambda: torch.autograd.grad(o, xs, cot,
+                                                    retain_graph=True))
+        log(f"train: {name}: SDPA forward {lib_fwd:.4f} ms, backward "
+            f"{lib_bwd:.4f} ms (library, not used by the port) "
+            f"[{state['card']}]")
+        state["train"][f"K2 {B}x{Hq}/{Hkv}x{S}x{d} w{w}"] = dict(
+            fwd_ms=fwd, bwd_ms=bwd, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd)
+        if not ok:
+            failures.append(name)
+        del q, k, v, kr, vr, xs, o
+        torch.cuda.empty_cache()
+
+    a = cuda(1.0 / (1.0 + np.exp(-rng.standard_normal(GRAD_K4))))
+    b = cuda(rng.standard_normal(GRAD_K4))
+    cot = cuda(rng.standard_normal(GRAD_K4))
+    name = "rglru_scan B={} S={} R={} float32".format(*GRAD_K4)
+    ok, fwd, bwd = _grad_case(torch, timer, state, name, rg_ops.rglru_scan,
+                              rglru_scan_ref, (a, b), cot, RGLRU_TOL,
+                              rel=True)
+    state["train"]["K4 {}x{}x{}".format(*GRAD_K4)] = dict(fwd_ms=fwd,
+                                                          bwd_ms=bwd)
+    if not ok:
+        failures.append(name)
+
+    (bsz, S, H, P, N), Q = GRAD_K5
+    x = cuda(rng.standard_normal((bsz, S, H, P)))
+    dt = cuda(np.log1p(np.exp(rng.standard_normal((bsz, S, H)) - 1.0)))
+    A = cuda(-np.exp(0.5 * rng.standard_normal(H)))
+    Bm = cuda(rng.standard_normal((bsz, S, N)))
+    Cm = cuda(rng.standard_normal((bsz, S, N)))
+    cot = cuda(rng.standard_normal((bsz, S, H, P)))
+    name = f"ssd b={bsz} S={S} H={H} P={P} N={N} chunk={Q} float32 (y)"
+    ok, fwd, bwd = _grad_case(
+        torch, timer, state, name,
+        lambda *t: ssd_ops.ssd(*t, Q)[0],
+        lambda *t: _ssd_chunked(*t, Q)[0], (x, dt, A, Bm, Cm), cot,
+        SSD_REL_TOL, rel=True)
+    state["train"][f"K5 {bsz}x{S}x{H}x{P}x{N} c{Q}"] = dict(fwd_ms=fwd,
+                                                            bwd_ms=bwd)
+    if not ok:
+        failures.append(name)
+    return failures
+
+
+def _train_smoke(torch, state, workdir: Path) -> list[str]:
+    import numpy as np
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    rt = Runtime(workdir / "train_smoke")
+    failures = []
+    for arch in TRAIN_SMOKE:
+        rt.build(TRAIN_SMOKE_IMAGEFILE.format(arch=arch), tag=arch)
+        weights = rt.run(arch, platform="cpu").init_params(0)
+        runs = {}
+        for platform in ("cuda", "cpu"):
+            c = rt.run(arch, platform=None if platform == "cuda" else "cpu")
+            params = c.load_params(weights)
+            opt = c.init_opt_state(params)
+            step = c.train_step_fn()
+            data = SyntheticLM(DataConfig(
+                vocab_size=c.arch.vocab_size, seq_len=c.cell.seq_len,
+                global_batch=c.cell.global_batch, seed=0,
+                frontend_len=c.arch.frontend_len, d_model=c.arch.d_model))
+            before = _launch_counts()
+            rec = []
+            for i in range(3):
+                params, opt, m = step(params, opt, data.batch(i))
+                rec.append((float(m["loss"]), float(m["grad_norm"])))
+            after = _launch_counts()
+            used = {k: after[k] - before[k] for k in after}
+            runs[platform] = rec
+            want = TRAIN_SMOKE_KERNELS[arch]
+            if platform == "cuda" and not all(used[k] for k in want):
+                failures.append(f"{arch}: the card run skipped {want}: "
+                                f"{used}")
+            if platform == "cpu" and any(used.values()):
+                failures.append(f"{arch}: the CPU run launched {used}")
+        dl = max(abs(a[0] - b[0]) for a, b in zip(runs["cuda"], runs["cpu"]))
+        dg = max(abs(a[1] - b[1]) / b[1]
+                 for a, b in zip(runs["cuda"], runs["cpu"]))
+        ok = (all(np.isfinite(v) for r in runs.values() for p in r for v in p)
+              and dl <= TRAIN_SMOKE_TOL and dg <= TRAIN_SMOKE_TOL)
+        log(f"train: {arch} 3 steps card vs CPU (float32): losses "
+            f"{[round(l, 6) for l, _ in runs['cuda']]} / "
+            f"{[round(l, 6) for l, _ in runs['cpu']]}, max |dloss| {dl:.2e}, "
+            f"max grad_norm rel diff {dg:.2e} (tol {TRAIN_SMOKE_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{arch}: card and CPU training disagree")
+    return failures
+
+
+def _train_flops(cfg, tokens: int, S: int) -> float:
+    """Model FLOPs of one step (forward and backward, recompute not
+    counted): 6 per parameter and token, plus attention's 12 L S d_attn
+    per token (the PaLM count)."""
+    from repro_torch.models.params import count_params
+    from repro_torch.models.transformer import Model
+    n = count_params(Model(cfg).param_defs())
+    d_attn = cfg.n_heads * cfg.head_dim
+    return tokens * (6.0 * n + 12.0 * cfg.n_layers * S * d_attn)
+
+
+def _train_cli(torch, state, workdir: Path) -> list[str]:
+    import numpy as np
+    from repro_torch import cli
+    from repro_torch.configs import get_config, get_shape_cell
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_mod
+
+    failures = []
+    root = workdir / "train"
+    root.mkdir()
+    imagefile = root / "Imagefile"
+    imagefile.write_text(TRAIN_IMAGEFILE)
+    cfg = get_config("llama3.2-3b")
+    outs = []
+    real_main = train_mod.main
+
+    def train_main(argv=None):
+        outs.append(real_main(argv))
+        return outs[-1]
+
+    def run(*argv):
+        log(f"train: stevedore {' '.join(argv)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--root", str(root / "rt"), *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _main_path_counts(state)
+        check(rc == 0, f"train: {argv[0]} exited {rc}")
+        return counts, torch.cuda.max_memory_allocated(), wall
+
+    run("build", "-t", "train", str(imagefile))
+    train_mod.main = train_main
+    try:
+        counts, peak, wall = run("run", "train", *TRAIN_RUN)
+        first = outs[-1]
+        counts2, peak2, wall2 = run("run", "train", *TRAIN_RESUME)
+        resumed = outs[-1]
+    finally:
+        train_mod.main = real_main
+    cell = get_shape_cell("train_4k").scaled(seq_len=2048, global_batch=2)
+    tokens = cell.seq_len * cell.global_batch
+    for out, cnt, pk, wl, argv in ((first, counts, peak, wall, TRAIN_RUN),
+                                   (resumed, counts2, peak2, wall2,
+                                    TRAIN_RESUME)):
+        steps = _flag(list(argv), "--steps")
+        recs = [json.loads(ln) for ln in (Path(out["overlay"])
+                / "metrics.jsonl").read_text().splitlines()]
+        secs = [r["step_seconds"] for r in recs]
+        med = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+        flops = _train_flops(cfg, tokens, cell.seq_len)
+        want = {"flash_attention_fwd": cfg.n_layers * 2 * steps}
+        log(f"train: llama3.2-3b run {' '.join(argv)}: steps "
+            f"{out['start_step'] + 1}..{out['steps']}, losses "
+            f"{[round(out['losses'][s], 5) for s in sorted(out['losses'])]}; "
+            f"step seconds {[round(t, 4) for t in secs]}, median after the "
+            f"first {med:.4f} s = {tokens / med:.1f} tokens/s, model FLOPs "
+            f"{flops / 1e12:.1f} T a step = {100 * flops / med / PEAK_BF16:.1f}"
+            f"% of 989 TFLOP/s; peak memory {pk / 2**30:.2f} GiB; "
+            f"{wl:.1f} s with checkpoints; launches {cnt}, expected K2 "
+            f"{cfg.n_layers} x 2 x {steps} [{state['card']}]")
+        state["train"][f"llama run {' '.join(argv)}"] = dict(
+            step_s=med, tokens_per_s=tokens / med, peak_gib=pk / 2**30,
+            mfu=flops / med / PEAK_BF16, wall_s=wl)
+        if not all(np.isfinite(v) for v in out["losses"].values()):
+            failures.append(f"run {argv}: a loss is not finite")
+        if pk >= 80e9:
+            failures.append(f"run {argv}: peak memory {pk / 1e9:.1f} GB")
+        for name, n in cnt.items():
+            if n != want.get(name, 0):
+                failures.append(f"run {argv}: {name} launches {n} != "
+                                f"{want.get(name, 0)}")
+    if resumed["start_step"] != 4:
+        failures.append(f"the resumed run started at step "
+                        f"{resumed['start_step']}, not 4")
+
+    # a straight 6-step run through Container.train_step_fn, in process:
+    # its step 5 against the resumed run's
+    from repro_torch.core.runtime import Runtime
+    torch.cuda.empty_cache()
+    rt = Runtime(root / "rt")
+    c = rt.run("train")
+    params = c.init_params(0)
+    opt = c.init_opt_state(params)
+    step = c.train_step_fn(donate=True)
+    data = SyntheticLM(DataConfig(vocab_size=c.arch.vocab_size,
+                                  seq_len=c.cell.seq_len,
+                                  global_batch=c.cell.global_batch, seed=0))
+    straight = {}
+    for i in range(6):
+        params, opt, m = step(params, opt, data.batch(i))
+        straight[i + 1] = float(m["loss"])
+    del params, opt, m
+    torch.cuda.empty_cache()
+    d5 = abs(straight[5] - resumed["losses"][5])
+    d14 = max(abs(straight[s] - first["losses"][s]) for s in range(1, 5))
+    ok = d5 <= TRAIN_RESUME_TOL
+    log(f"train: straight 6-step run (Container.train_step_fn): losses "
+        f"{[round(straight[s], 5) for s in range(1, 7)]}; step 5 resumed "
+        f"{resumed['losses'][5]:.6f} vs straight {straight[5]:.6f}: "
+        f"|diff| {d5:.2e} (tol {TRAIN_RESUME_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}; steps 1-4 against the first run: max "
+        f"|diff| {d14:.2e}")
+    if not ok:
+        failures.append(f"resumed step 5 differs by {d5:.2e}")
+    return failures
+
+
+def phase_train(torch, state, timer, workdir: Path) -> None:
+    state["train"] = {}
+    failures = _train_grads(torch, state, timer)
+    torch.cuda.empty_cache()
+    failures += _train_smoke(torch, state, workdir)
+    torch.cuda.empty_cache()
+    failures += _train_cli(torch, state, workdir)
+    check(not failures, "train: " + "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -1415,6 +1787,9 @@ def main() -> int:
                     phase_serve(torch, state, workdir)
                 elif phase == "cli":
                     phase_cli(torch, state, workdir)
+                elif phase == "train":
+                    timer = timer or Timer(torch)
+                    phase_train(torch, state, timer, workdir)
             except Exception as e:          # report every phase, then fail
                 failed.append(phase)
                 log(f"FAIL {phase}: {type(e).__name__}: {e}")

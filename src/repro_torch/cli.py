@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.cli build -t stable Imagefile
   PYTHONPATH=src python -m repro_torch.cli images
   PYTHONPATH=src python -m repro_torch.cli history stable
+  PYTHONPATH=src python -m repro_torch.cli run stable --steps 10 [--resume]
   PYTHONPATH=src python -m repro_torch.cli serve stable --replicas 2 --slots 8
   PYTHONPATH=src python -m repro_torch.cli ps
   PYTHONPATH=src python -m repro_torch.cli top
@@ -13,9 +14,11 @@ for scientists, so projects ship a wrapper (`fenicsproject notebook ...`).
 This is that wrapper.
 
 PyTorch port of ``repro.cli``: the same commands and output over the port's
-Runtime, serving on the card unless ``serve --platform cpu`` is given.
-``run`` (training) and ``lint`` are not ported yet and raise, naming
-ROADMAP.md Queue 1 items 11 and 12.
+Runtime, training and serving on the card unless ``--platform cpu`` is
+given. ``run`` also takes ``--ckpt-every`` and ``--keep`` (the
+checkpoint period of ``launch/train.py`` and the checkpoints kept on
+disk). ``lint`` is
+not ported yet and raises, naming ROADMAP.md Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -27,8 +30,6 @@ from pathlib import Path
 
 from repro_torch.core.runtime import Runtime
 
-_TRAINING = ("`run` trains from an image; training is not ported yet "
-             "(ROADMAP.md Queue 1 item 11: training and distribution)")
 _LINT = ("`lint` is not ported yet (ROADMAP.md Queue 1 item 12: tooling); "
          "run the JAX package's `repro lint`, which scans src/repro_torch "
          "too")
@@ -171,7 +172,16 @@ def cmd_ps(rt: Runtime, args) -> int:
 
 
 def cmd_run(rt: Runtime, args) -> int:
-    raise NotImplementedError(_TRAINING)
+    from repro_torch.launch.train import main as train_main
+    argv = ["--image", args.ref, "--root", str(rt.root),
+            "--steps", str(args.steps), "--ckpt-every", str(args.ckpt_every),
+            "--keep", str(args.keep)]
+    if args.platform:
+        argv += ["--platform", args.platform]
+    if args.resume:
+        argv += ["--resume"]
+    train_main(argv)
+    return 0
 
 
 def cmd_serve(rt: Runtime, args) -> int:
@@ -343,9 +353,14 @@ def main(argv=None) -> int:
 
     sub.add_parser("ps", help="list containers (overlays)")
 
-    p = sub.add_parser("run", help="run training from an image "
-                       "(not ported yet)")
+    p = sub.add_parser("run", help="run training from an image")
     p.add_argument("ref")
+    p.add_argument("--platform", default=None)
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--ckpt-every", type=int, default=20)
+    p.add_argument("--keep", type=int, default=0,
+                   help="checkpoints kept on disk (0: all)")
 
     p = sub.add_parser("serve",
                        help="serve a Pod of replicas (continuous batching)")

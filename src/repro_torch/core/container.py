@@ -1,24 +1,28 @@
 """Container: runtime instantiation of an EnvImage on a platform (the
-serving half of ``repro.core.container``).
+port of ``repro.core.container``).
 
 A Container binds the immutable image to
 
   * a concrete device (the MESH layer resolved by ``dist.mesh``: ``local``
     is ``cuda:0``; ``platform="cpu"`` must be asked for),
-  * the arch and precision layers (param and compute dtypes),
-  * built serve steps, obtained through the Runtime's CompileCache with
-    per-dispatch-class hit/miss accounting,
-  * a writable overlay directory (metrics, container.json).
+  * the arch and precision layers (param and compute dtypes) and the
+    ``remat`` and ``microbatches`` settings,
+  * the collective ABI named by the image and the optimizer settings,
+  * train steps (``train_step_fn``) and built serve steps, the latter
+    through the Runtime's CompileCache with per-dispatch-class hit/miss
+    accounting,
+  * a writable overlay directory (checkpoints, metrics, container.json).
 
-Training (optimizer state, train steps, the collective ABI) comes with the
-training slice of the port (ROADMAP.md Queue 1 item 11); those methods
-raise ``NotImplementedError``.
+Sharded placement (the JAX package's ``param_shardings`` and
+``opt_state_shardings``) comes with ROADMAP.md Queue 1 item 11; on one
+card every leaf lives on ``device``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import time
 import uuid
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_shape_cell
+from repro_torch.core.abi import CollectiveABI, abi_from_image_config
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.image import EnvImage
 from repro_torch.dist.mesh import resolve_device
@@ -38,9 +43,12 @@ from repro_torch.models.params import (materialize, params_from_jax,
                                        tree_map)
 from repro_torch.models.transformer import Model
 from repro_torch.serve.serve_step import ServeStepBuilder, dispatch_class
+from repro_torch.train.optimizer import OptConfig, adamw_init
+from repro_torch.train.train_step import TrainStepBuilder
 
-_TRAINING = ("training is not ported yet (ROADMAP.md Queue 1 item 11: "
-             "training and distribution)")
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -71,13 +79,16 @@ class Container:
         mesh_cfg = dict(cfg.get("mesh") or {"platform": "local"})
         self.platform = platform or mesh_cfg.get("platform", "local")
         self.device: torch.device = resolve_device(self.platform)
+        self.abi: CollectiveABI = abi_from_image_config(cfg)
 
         prec = cfg["precision"]
         self.model = Model(self.arch, tp=1,
                            act_dtype=_torch_dtype(prec.get("compute",
-                                                           "bfloat16")))
+                                                           "bfloat16")),
+                           remat=str(self.settings.get("remat", "none")))
         self.param_dtype = _torch_dtype(prec.get("params", "float32"))
         self.cache_dtype = _torch_dtype(prec.get("compute", "bfloat16"))
+        self.opt = OptConfig(**self.settings.get("optimizer", {}))
 
         self.container_id = f"{image.short_digest}-{uuid.uuid4().hex[:8]}"
         self.overlay = (Path(overlay_root) if overlay_root
@@ -111,11 +122,70 @@ class Container:
             return t.to(device=self.device, dtype=self.param_dtype)
         return tree_map(leaf, self.param_defs, tree)
 
-    def train_step_fn(self) -> Callable:
-        raise NotImplementedError(_TRAINING)
+    def abstract_params(self):
+        """Meta tensors of the params' shapes and dtype (no allocation):
+        the template a checkpoint restores into."""
+        return tree_map(lambda d: _meta(d.shape, self.param_dtype),
+                        self.param_defs)
+
+    # -- optimizer state ------------------------------------------------------
+    def abstract_opt_state(self):
+        f32 = tree_map(lambda d: _meta(d.shape, torch.float32),
+                       self.param_defs)
+        out = {"m": f32, "v": f32, "step": _meta((), torch.int32)}
+        if self.param_dtype != torch.float32:
+            out["master"] = f32
+        if self._powersgd_rank():
+            out["comm"] = self._comm_template()
+        return out
 
     def init_opt_state(self, params):
-        raise NotImplementedError(_TRAINING)
+        state = adamw_init(params,
+                           with_master=self.param_dtype != torch.float32)
+        if self._powersgd_rank():
+            from repro_torch.train.compression import powersgd_init
+            comm = powersgd_init(params, self._powersgd_rank())
+            # a leading per-replica axis, of 1 on one card: the error
+            # buffer is per-replica state, unlike params
+            expand = lambda a: None if a is None else a[None].clone()
+            state["comm"] = {"q": tree_map(expand, comm["q"]),
+                             "err": tree_map(expand, comm["err"])}
+        return state
+
+    def _powersgd_rank(self) -> int:
+        if self.abi.options.get("compression") == "powersgd":
+            return int(self.abi.options.get("rank", 16))
+        return 0
+
+    def _comm_template(self):
+        """Abstract comm-state tree: a per-replica leading axis on q/err,
+        ``None`` where a leaf syncs uncompressed."""
+        from repro_torch.train.compression import _compressible
+        rank = self._powersgd_rank()
+
+        def q_leaf(d):
+            if not _compressible(d, rank):
+                return None
+            return _meta((1, math.prod(d.shape[1:]), rank), torch.float32)
+
+        def e_leaf(d):
+            if not _compressible(d, rank):
+                return None
+            return _meta((1, *d.shape), torch.float32)
+
+        return {"q": tree_map(q_leaf, self.param_defs),
+                "err": tree_map(e_leaf, self.param_defs)}
+
+    # -- train steps ----------------------------------------------------------
+    def train_step_fn(self, donate: bool = False) -> Callable:
+        """``step(params, opt_state, batch) -> (params, opt_state,
+        metrics)`` on this container's device; ``donate`` updates params
+        and optimizer state in place (``donate_argnums=(0, 1)``)."""
+        builder = TrainStepBuilder(
+            model=self.model, abi=self.abi, opt=self.opt,
+            microbatches=int(self.settings.get("microbatches", 1)),
+            donate=donate)
+        return builder.build()
 
     # -- serving: slot-granular cache + built serve steps ----------------------
     def cache_leaf_dtype(self, d) -> torch.dtype:

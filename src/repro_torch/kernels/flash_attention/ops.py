@@ -10,11 +10,14 @@ between the two. Which kernel runs is decided by the dtype alone:
 - float32: the FMA kernel (tensor cores would mean TF32, outside the
   float32 tolerance).
 
-Both take head dims ``HEAD_DIMS``. Forward only: the backward and its
-``torch.autograd.Function`` come with the training slice.
+Both take head dims ``HEAD_DIMS``. ``flash_attention`` is a
+``torch.autograd.Function``: its backward recomputes the plain version on
+the saved inputs and returns that version's vjp, as the JAX package's
+``custom_vjp`` does (it has no backward kernel either).
 
-``launches`` counts kernel launches (CPU calls do not count), so a run can
-show that its prefill path went through the kernel.
+``launches`` counts forward kernel launches (CPU calls do not count), so a
+run can show that its prefill or training path went through the kernel;
+under ``torch.utils.checkpoint`` the recomputed forward launches again.
 """
 
 from __future__ import annotations
@@ -99,11 +102,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, d); k/v: (B, Hkv, Sk, d) -> (B, Hq, Sq, d), causal
-    with the Sk - Sq offset."""
+def _forward(q, k, v, causal, window, scale):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
@@ -111,3 +110,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     return flash_attention_fwd_cuda(q, k, v, causal=causal, window=window,
                                     scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (or, on the CPU, the plain version). Backward:
+    the vjp of ``flash_attention_ref`` recomputed on the saved q, k, v
+    (``repro.kernels.flash_attention.ops._bwd_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale = ctx.args
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_ref(*inputs, causal=causal, window=window,
+                                      scale=scale)
+        return (*torch.autograd.grad(out, inputs, g), None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, d); k/v: (B, Hkv, Sk, d) -> (B, Hq, Sq, d), causal
+    with the Sk - Sq offset. Differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale)

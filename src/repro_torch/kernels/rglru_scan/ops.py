@@ -3,7 +3,12 @@
 Dispatch is on the tensors' device, nothing else: a CPU tensor runs the
 plain sequential version (``ref.py``); a CUDA tensor launches the
 hand-written kernel ``repro_torch/csrc/rglru_scan.cu`` or raises. There is
-no fallback between the two. Forward only, as serving needs.
+no fallback between the two. ``rglru_scan`` is a
+``torch.autograd.Function``: its backward is the JAX package's
+(``repro.kernels.rglru_scan.ops._bwd_vjp``), the reverse recurrence
+dh_t = g_t + a_{t+1} dh_{t+1} run through the plain scan on the saved a
+and h, then da_t = dh_t h_{t-1} and db_t = dh_t. The JAX package has no
+backward kernel, so neither has the port.
 
 The kernel is one launch: a single-pass chained scan with decoupled
 look-back over tiles of 32 channels x 8 ``steps`` time steps, a block a
@@ -15,8 +20,8 @@ on and that the kernel itself leaves ready for the next call;
 ``scratch_fills`` counts the zero-fills that allocating it costs (one per
 stream, and one whenever a larger call grows it).
 
-``launches`` counts kernel launches (CPU calls do not count), so a run can
-show that its prefill path went through the kernel.
+``launches`` counts forward kernel launches (CPU calls do not count), so a
+run can show that its prefill or training path went through the kernel.
 """
 
 from __future__ import annotations
@@ -134,10 +139,35 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t h_{t-1} + b_t along axis 1, h0 = 0. a, b: (B, S, R) f32."""
+def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     return rglru_scan_cuda(a, b)
+
+
+class _RglruScan(torch.autograd.Function):
+    """Forward: the kernel (or, on the CPU, the plain scan). Backward: the
+    reverse recurrence of the JAX package's ``_bwd_vjp`` on the saved a
+    and h."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _forward(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        dh = rglru_scan_ref(a_next.flip(1), g.flip(1)).flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return dh * h_prev, dh
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along axis 1, h0 = 0. a, b: (B, S, R) f32.
+    Differentiable in a and b."""
+    return _RglruScan.apply(a, b)

@@ -4,7 +4,10 @@ Dispatch is on the tensors' device, nothing else: a CPU tensor runs the
 plain chunked version (``ref._ssd_chunked``, the same algorithm,
 exponents clipped the same way); a CUDA tensor launches the
 hand-written kernel ``repro_torch/csrc/ssd.cu`` or raises. There is no
-fallback between the two. Forward only, as serving needs.
+fallback between the two. ``ssd`` is a ``torch.autograd.Function``: its
+backward recomputes ``_ssd_chunked`` on the saved inputs and returns its
+vjp, as the JAX package's ``custom_vjp`` does (it has no backward kernel
+either); a final state that nothing uses gets a zero gradient.
 
 Unlike the TPU kernel, which returns y alone, both paths also return the
 final state: the prefill hands it to decode.
@@ -16,8 +19,9 @@ tensor cores in 3xTF32. It takes every shape the
 wrapper accepts; ``p_tile(P)`` is the P slice it is compiled for, a pure
 function of the shape decided before the launch.
 
-``launches`` counts wrapper calls that launch the kernel (CPU calls do
-not count), so a run can show that its prefill path went through it.
+``launches`` counts wrapper calls that launch the forward kernel (CPU
+calls do not count), so a run can show that its prefill or training path
+went through it.
 """
 
 from __future__ import annotations
@@ -122,10 +126,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-        C: torch.Tensor, chunk: int):
-    """Chunked SSD; shapes as ``ssd_ref``, S % chunk == 0.
-    Returns (y (b,S,H,P), final state (b,H,N,P)), float32."""
+def _forward(x, dt, A, B, C, chunk: int):
     if x.device.type == "cpu":
         require(chunk > 0 and x.shape[1] % chunk == 0,
                 f"ssd: chunk {chunk} must divide S={x.shape[1]}")
@@ -133,3 +134,31 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
     return ssd_cuda(x, dt, A, B, C, chunk)
+
+
+class _Ssd(torch.autograd.Function):
+    """Forward: the kernel (or, on the CPU, the plain chunked version).
+    Backward: the vjp of ``_ssd_chunked`` recomputed on the saved inputs
+    (``repro.kernels.ssd.ops._bwd_vjp``), for y and the final state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = _ssd_chunked(*inputs, ctx.chunk)
+        return (*torch.autograd.grad((y, state), inputs, (gy, gstate)),
+                None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int):
+    """Chunked SSD; shapes as ``ssd_ref``, S % chunk == 0.
+    Returns (y (b,S,H,P), final state (b,H,N,P)), float32; differentiable
+    in x, dt, A, B and C."""
+    return _Ssd.apply(x, dt, A, B, C, chunk)

@@ -1,2 +1,2 @@
-# launch: the serving driver (training, dry-run and analysis drivers come
-# with later slices: ROADMAP.md Queue 1 items 11 and 12).
+# launch: the serving and training entry points (dry-run and analysis
+# come with a later slice: ROADMAP.md Queue 1 item 12).

@@ -7,6 +7,13 @@ blocks), so parameter and cache trees line up with the JAX package's leaf
 for leaf. Where the JAX package scans over the stacked params, the port
 runs a Python ``for`` over the layer axis.
 
+Training may recompute activations in the backward pass (``remat``): the
+JAX package wraps each scanned unit in ``jax.checkpoint``, the port wraps
+each unit's body in ``torch.utils.checkpoint`` (``full``: keep only the
+unit's input; ``dots``: also keep the outputs of matrix products without
+batch dimensions, as ``dots_with_no_batch_dims_saveable``). It applies
+only where autograd records the forward.
+
 Block kinds: ``attn`` (full or local-window attention + MLP; a local
 window keeps a ring-buffer cache), ``moe`` (attention + routed MoE),
 ``ssm`` (Mamba-2 SSD) and ``rec`` (RG-LRU + MLP). Frontend archs
@@ -17,8 +24,10 @@ tokens in ``forward``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -36,6 +45,9 @@ from repro_torch.models.layers import (
     norm_defs,
 )
 from repro_torch.models.params import ParamDef, stack_defs, tree_map
+
+REMAT_MODES = ("none", "full", "dots")
+
 
 @dataclass(frozen=True)
 class Stage:
@@ -116,11 +128,16 @@ class Model:
     """A config bound to a TP width (1 on one card: no head padding)."""
 
     def __init__(self, cfg: ModelConfig, tp: int = 1,
-                 act_dtype: torch.dtype = torch.bfloat16):
+                 act_dtype: torch.dtype = torch.bfloat16,
+                 remat: str = "none"):
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}; expected one "
+                             f"of {REMAT_MODES}")
         self.cfg = cfg
         self.geom = resolve_geometry(cfg, tp) if cfg.n_heads else None
         self.stages = build_stages(cfg)
         self.act_dtype = act_dtype
+        self.remat = remat
 
     # -- params ---------------------------------------------------------
     def param_defs(self) -> dict:
@@ -260,25 +277,24 @@ class Model:
 
         caches = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        unit = self._unit
+        if (self.remat != "none" and torch.is_grad_enabled()
+                and not collect_cache):
+            unit = _remat(unit, self.remat)
         for si, st in enumerate(self.stages):
-            sp = params[f"stage{si}"]
+            # a layer's params as views of the stacked leaves; unbind makes
+            # their backward one stack of the layers' grads, where indexing
+            # would write each layer's grad into a zero-filled full leaf
+            sp = tree_map(torch.unbind, params[f"stage{si}"])
             spk = prefix_kv[f"stage{si}"] if prefix_len else None
             layer_entries = []
             for li in range(st.count):
                 unit_params = tree_map(lambda a: a[li], sp)
                 unit_prefix = (tree_map(lambda a: a[li], spk)
                                if spk is not None else None)
-                entries = {}
-                for bi, kind in enumerate(st.unit):
-                    pkv = unit_prefix.get(f"b{bi}") if unit_prefix else None
-                    x, aux_b, entry = self._apply_block(
-                        kind, unit_params[f"b{bi}"], x, positions,
-                        collect_cache, cache_len or S, prefix_kv=pkv,
-                        prefix_pages=prefix_pages, prefix_len=prefix_len)
-                    if aux_b is not None:
-                        aux = aux + aux_b
-                    if collect_cache:
-                        entries[f"b{bi}"] = entry
+                x, aux, entries = unit(
+                    st, unit_params, x, aux, positions, collect_cache,
+                    cache_len or S, unit_prefix, prefix_pages, prefix_len)
                 layer_entries.append(entries)
             if collect_cache:
                 caches[f"stage{si}"] = tree_map(
@@ -288,6 +304,24 @@ class Model:
         if collect_cache:
             return logits, caches, aux
         return logits, aux
+
+    def _unit(self, st: Stage, unit_params: dict, x, aux, positions,
+              collect_cache: bool, cache_len: int, unit_prefix=None,
+              prefix_pages=None, prefix_len: int = 0):
+        """One stacked unit's blocks (the JAX package's scan body) ->
+        (x, aux, the blocks' cache entries)."""
+        entries = {}
+        for bi, kind in enumerate(st.unit):
+            pkv = unit_prefix.get(f"b{bi}") if unit_prefix else None
+            x, aux_b, entry = self._apply_block(
+                kind, unit_params[f"b{bi}"], x, positions, collect_cache,
+                cache_len, prefix_kv=pkv, prefix_pages=prefix_pages,
+                prefix_len=prefix_len)
+            if aux_b is not None:
+                aux = aux + aux_b
+            if collect_cache:
+                entries[f"b{bi}"] = entry
+        return x, aux, entries
 
     def _apply_block(self, kind: str, p: dict, x, positions,
                      collect_cache: bool, cache_len: int,
@@ -433,6 +467,30 @@ class Model:
         if kind == "moe":
             return x + moe_mod.moe_forward(p["moe"], h2, cfg)[0]
         return x + apply_mlp(p["mlp"], h2, cfg.mlp)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    matrix products without batch dimensions (``mm``, ``addmm``, and a
+    ``bmm`` over a batch of one, which is how ``einsum`` runs a plain
+    product), recompute everything else."""
+    policy = torch_checkpoint.CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return policy.MUST_SAVE
+    return policy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` recomputed in the backward pass: ``full`` keeps only its
+    inputs, ``dots`` also the outputs ``_save_dots`` picks."""
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    return partial(torch_checkpoint.checkpoint, fn, use_reentrant=False,
+                   **kw)
 
 
 def _write_state(cache: dict, new: dict) -> None:

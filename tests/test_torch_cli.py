@@ -13,8 +13,8 @@ llama3.2-3b-smoke with the JAX package's weights handed over as numpy.
 * the CLI prints the same image digests and layers in both packages, and
   the port's ``ps``/``top`` read the state files its ``serve`` wrote;
 * the obs validator accepts the exported trace;
-* what is not ported yet (the fabric, training, lint) raises naming its
-  ROADMAP item.
+* what is not ported yet (the fabric, lint) raises naming its ROADMAP
+  item.
 
 The port's ``Container.init_params`` is patched to load the JAX package's
 seed-0 weights (torch's RNG cannot replay the JAX init), so both packages
@@ -331,7 +331,5 @@ def test_unported_entry_points_raise_with_their_roadmap_item(tmp_path):
               "--fabric", "proc"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tvalidate.main(["--spans", root])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tcli(["--root", root, "run", "stable"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tcli(["lint", "--strict", "src"])

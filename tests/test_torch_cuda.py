@@ -458,3 +458,76 @@ def test_attend_bf16_scores_on_the_card(cuda, dtype):
     torch.cuda.synchronize()
     assert fa_ops.launches == before
     assert float((card.cpu().float() - cpu.float()).abs().max()) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# gradients: each kernel's torch.autograd.Function on the card against the
+# plain version under autograd (the same vjp, recomputed: grads within the
+# forward's tolerance), a launch a forward
+# ---------------------------------------------------------------------------
+
+GRAD_FA_CASES = [  # B, Hq, Hkv, S, d, window, dtype
+    (1, 4, 2, 128, 64, 0, "bfloat16"),
+    (2, 4, 1, 100, 128, 48, "bfloat16"),
+    (1, 2, 2, 96, 32, 0, "float32"),
+]
+
+
+def _grad_pair(fn, plain, inputs, cot):
+    xs = [t.detach().requires_grad_() for t in inputs]
+    rs = [t.detach().requires_grad_() for t in inputs]
+    out, ref = fn(*xs), plain(*rs)
+    return (out.detach(), ref.detach(), torch.autograd.grad(out, xs, cot),
+            torch.autograd.grad(ref, rs, cot))
+
+
+@pytest.mark.parametrize("case", GRAD_FA_CASES, ids=str)
+def test_flash_attention_function_grads(case, cuda):
+    B, Hq, Hkv, S, d, window, dt = case
+    rng = np.random.default_rng(7)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
+    q, k, v, cot = t(B, Hq, S, d), t(B, Hkv, S, d), t(B, Hkv, S, d), \
+        t(B, Hq, S, d)
+    before = fa_ops.launches
+    out, ref, g, gr = _grad_pair(
+        lambda *x: fa_ops.flash_attention(*x, causal=True, window=window),
+        lambda *x: flash_attention_ref(*x, causal=True, window=window),
+        (q, k, v), cot)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    for a, b in ((out, ref), *zip(g, gr)):
+        assert a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) < _tol(dt)
+
+
+def test_rglru_scan_function_grads(cuda):
+    a, b = _rg_inputs((2, 300, 2560), cuda, seed=8)
+    cot = _rg_inputs((2, 300, 2560), cuda, seed=9)[1]
+    before = rg_ops.launches
+    h, ref, g, gr = _grad_pair(rg_ops.rglru_scan, rglru_scan_ref, (a, b),
+                               cot)
+    torch.cuda.synchronize()
+    assert rg_ops.launches == before + 1
+    assert _rg_close(h, ref)
+    for x, y in zip(g, gr):
+        assert _rg_close(x, y)
+
+
+def test_ssd_function_grads(cuda):
+    rng = np.random.default_rng(10)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)  # noqa: E731
+    b, S, H, P, N, Q = 1, 256, 8, 64, 128, 64
+    x = t(rng.standard_normal((b, S, H, P)))
+    dt = t(np.log1p(np.exp(rng.standard_normal((b, S, H)) - 1.0)))
+    A = t(-np.exp(0.5 * rng.standard_normal(H)))
+    B, C = t(rng.standard_normal((b, S, N))), t(rng.standard_normal((b, S, N)))
+    cot = t(rng.standard_normal((b, S, H, P)))
+    before = ssd_ops.launches
+    y, ref, g, gr = _grad_pair(lambda *z: ssd_ops.ssd(*z, Q)[0],
+                               lambda *z: _ssd_chunked(*z, Q)[0],
+                               (x, dt, A, B, C), cot)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    for u, w in ((y, ref), *zip(g, gr)):
+        assert float((u - w).abs().max()) <= 1e-4 * float(w.abs().max())
