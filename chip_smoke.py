@@ -79,6 +79,25 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             ps, top, and the trace validator. Every command exits 0, every
             request completes, the prefix cache hits, and K1/K2 launches
             equal layers x the dispatches the engines ran
+  fabric    the cross-host fabric on full-width llama3.2-3b in float32
+            (the reference harness's precision), 16 requests of 64-512
+            prompt tokens and 32 new, 4 arriving a tick, against one pod
+            and scheduler serving the same trace (the oracle): (a) two
+            loopback pods, (b) the same with one killed
+            (``transport.kill()``) once it holds a request with 16
+            committed tokens, (c) two worker processes
+            (``proc_spawner``, each its own CUDA context), one killed
+            with SIGKILL there, the fleet healing to two; (d) ``serve
+            --fabric proc`` through the CLI on the bf16 image, then ps and
+            top. Tokens equal the oracle's in (a)-(c) (else the rid, the
+            position and the oracle's top-2 margin there are printed); K1
+            = 28 x decode steps and K2 = 28 x prefills (resumes included)
+            over every member of (a) and (b); one eviction in (b) and (c),
+            each rerouted rid rerouted once, closure routed == closed (c:
+            from the span files, and ``validate --spans`` exits 0); every
+            worker holds the card's device node open and the card's
+            memory grows by more than its weights a worker; boot seconds,
+            kill to eviction and wall seconds printed
   train     (a) K2, K4 and K5 as ``torch.autograd.Function``s at the
             shapes training gives them (K2 at llama3.2-3b's 2 x 24/8 x 2048
             x 128 and recurrentgemma-2b's 1 x 10/1 x 2048 x 256 window
@@ -99,8 +118,9 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             and the model-FLOPs share of 989 TFLOP/s printed
 
 The kernel counters are set to 0 just before each main path is driven
-(each pod of the serve phase, the fig5 calls, each CLI serve, each CLI
-training run) and read just after; a kernel's launches are their sum.
+(each pod of the serve phase, the fig5 calls, each CLI serve, each
+loopback fleet of the fabric phase, each CLI training run) and read just
+after; a kernel's launches are their sum.
 Output ends with a JSON line of kernel records, the card line, and
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the port beside this file, it exits non-zero and
@@ -122,7 +142,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "cli",
-          "train")
+          "fabric", "train")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and operations per second by input type (float32 outside tensor cores)
@@ -1397,6 +1417,458 @@ def phase_cli(torch, state, workdir: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# fabric: the cross-host serving fabric on the card -- loopback and process
+# fleets of full-width llama3.2-3b, a worker killed mid-decode
+# ---------------------------------------------------------------------------
+
+# the reference harness's precision (tests/test_fabric.py, fig12_fabric.py):
+# a rerouted request's KV is recomputed by a suffix prefill (K2, GEMMs of
+# M = S rows) where the unkilled run wrote it a decode tick at a time (K1,
+# GEMMs of M = n_slots rows); float32 keeps those roundings far below the
+# greedy margins
+FABRIC_IMAGEFILE = """\
+FROM scratch
+ARCH llama3.2-3b
+MESH local
+PRECISION compute=float32 params=float32
+"""
+# every fleet member: 8 slots, paged, pool of the contiguous bank's size
+# (8 x 576 / 16 = 288 pages; a request spans at most 512 + 32 + 4)
+FABRIC_POD = dict(replicas=1, n_slots=8, max_len=576, paged=True,
+                  page_size=16)
+FABRIC_REQUESTS = 16
+# the CLI arm: serve --fabric proc on the bf16 image
+CLI_FABRIC = ("--fabric", "proc", "--pods", "2", "--min-pods", "2",
+              "--replicas", "1", "--slots", "8", "--requests", "16",
+              "--prompt-len", "512", "--gen", "32", "--paged",
+              "--page-size", "16")
+
+
+def _fabric_trace(GenRequest, vocab: int):
+    """16 requests of 64-512 prompt tokens and 32 new, 4 arriving a tick."""
+    import numpy as np
+    rng = np.random.default_rng(15)
+    return [GenRequest(rid=i, prompt=rng.integers(
+                0, vocab, int(rng.integers(64, 513))), max_new_tokens=32,
+                arrival=i // 4) for i in range(FABRIC_REQUESTS)]
+
+
+# a worker is killed once it holds a request with this many committed
+# tokens (of 32): its resume re-prefills them, so the survivor recomputes
+# the KV of generated tokens, not only of the prompt
+KILL_AFTER_TOKENS = 16
+
+
+def _kill_mid_decode(router, kill):
+    """Step until a member holds an unfinished request with at least
+    KILL_AFTER_TOKENS committed tokens, then ``kill`` it; returns (victim,
+    its in-flight rids)."""
+    while router.busy and router.tick < 10_000:
+        victim = next((m for m in router.members.values()
+                       if any(KILL_AFTER_TOKENS <= len(r.tokens)
+                              < r.max_new_tokens
+                              for r in m.assigned.values())), None)
+        if victim is not None:
+            inflight = sorted(victim.assigned)
+            kill(victim)
+            return victim, inflight
+        router.step()
+    raise PhaseError("fabric: no member was ever mid-decode")
+
+
+def _drain_fleet(router) -> None:
+    while router.busy and router.tick < 10_000:
+        router.step()
+    check(not router.busy, "fabric: the fleet did not drain")
+
+
+def _token_diffs(want: dict, reqs) -> list[tuple[int, int]]:
+    """(rid, first position) of every request whose tokens differ."""
+    out = []
+    for r in reqs:
+        w, g = want[r.rid], list(r.tokens)
+        if w != g:
+            out.append((r.rid, next((i for i, (a, b) in enumerate(zip(w, g))
+                                     if a != b), min(len(w), len(g)))))
+    return out
+
+
+def _margins(torch, rt, tag, reqs, want, diffs) -> str:
+    """The unkilled run's top-2 logit margin at each divergent position:
+    the seeded model's full forward over prompt + the tokens before it."""
+    import numpy as np
+    c = rt.run(tag)
+    params = c.init_params(0)
+    by_rid = {r.rid: r for r in reqs}
+    out = []
+    for rid, pos in diffs:
+        seq = np.concatenate([by_rid[rid].prompt,
+                              np.asarray(want[rid][:pos], np.int64)])
+        with torch.no_grad():
+            logits, _ = c.model.forward(
+                params, torch.as_tensor(seq[None], device=c.device))
+        top = torch.topk(logits[0, -1, :c.arch.vocab_size].float(), 2)
+        out.append(f"rid {rid} position {pos}: unkilled top-2 "
+                   f"{top.indices.tolist()} margin "
+                   f"{float(top.values[0] - top.values[1]):.4e}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return "; ".join(out)
+
+
+def _smi(query: str) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", query, "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"fabric: nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip()
+
+
+def _device_used_mib() -> int:
+    """The card's memory in use, all processes, per ``nvidia-smi``."""
+    return int(_smi("--query-gpu=memory.used").splitlines()[0])
+
+
+def _opens_card(pid: int) -> bool:
+    """Whether process ``pid`` holds a card's device node open (it has a
+    CUDA context there), read from outside through ``/proc/<pid>/fd``."""
+    import os
+    import re
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+", os.readlink(fd)):
+                return True
+        except OSError:             # closed since the listing
+            continue
+    return False
+
+
+def _release(pods) -> None:
+    """Drop every engine's device state and the pod's params, so the
+    memory frees even while a pod object is still referenced."""
+    for pod in pods:
+        for e in pod.engines:
+            e.release()
+        pod.drop_params(pod.image.digest)
+
+
+def phase_fabric(torch, state, workdir: Path) -> None:
+    """(a) 2 loopback pods, unkilled; (b) the same, one killed mid-decode;
+    (c) 2 worker processes, one killed with SIGKILL mid-decode; (d) the
+    CLI's ``serve --fabric proc`` on the bf16 image, then ps and top.
+    Counters are reset before (a)'s and (b)'s runs and read after: in
+    process, the loopback members' launches are this process's."""
+    import io
+    import math
+    import os
+    import signal
+    from contextlib import redirect_stdout
+
+    from repro_torch import cli
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.orchestrator import (ContinuousScheduler, FabricRouter,
+                                          GenRequest, Pod, load_fleet_spans,
+                                          loopback_spawner, proc_spawner)
+    from repro_torch.orchestrator.obs import (validate_fleet_closure,
+                                              validate_span_log)
+
+    arch = "llama3.2-3b"
+    cfg = get_config(arch)
+    layers = cfg.n_layers
+    card = state["card"]
+    rt = Runtime(workdir / "fabric")
+    rt.build(FABRIC_IMAGEFILE, tag="f32")
+    image = rt.pull("f32")
+    weights_mib = sum(math.prod(d.shape) for d in tree_leaves(
+        rt.run("f32").param_defs)) * 4 / 2**20
+
+    def trace():
+        return _fabric_trace(GenRequest, cfg.vocab_size)
+
+    # the oracle: one pod and one scheduler serve the whole trace
+    t0 = time.perf_counter()
+    pod = Pod(rt, "f32", **FABRIC_POD)
+    sched = ContinuousScheduler(pod)
+    reqs = trace()
+    sched.submit(reqs)
+    sched.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    check(all(r.state == "done" and len(r.tokens) == 32 for r in reqs),
+          "fabric: the oracle pod left requests unfinished")
+    want = {r.rid: list(r.tokens) for r in reqs}
+    log(f"fabric: oracle (1 pod + ContinuousScheduler, {arch} f32) "
+        f"{len(reqs)} requests, prompts {sorted(len(r.prompt) for r in reqs)}"
+        f", {sum(len(t) for t in want.values())} tokens in "
+        f"{time.perf_counter() - t0:.2f} s, {sched.tick} ticks")
+    _release([pod])
+    del pod, sched
+    torch.cuda.empty_cache()
+
+    failures = []
+
+    def loopback(kill: bool):
+        """One loopback arm: 2 pods (min 2), launch gates over every member
+        the run spawned (the victim and its replacement too)."""
+        name = "kill" if kill else "unkilled"
+        workers = []
+        base = loopback_spawner(rt, image, pod_kwargs=FABRIC_POD)
+
+        def spawn(pod_id, start_tick):
+            tr = base(pod_id, start_tick)
+            workers.append(tr.worker)
+            return tr
+        torch.cuda.reset_peak_memory_stats()
+        router = FabricRouter(spawn, runtime=rt, pods=2, min_pods=2,
+                              fleet=f"loop-{name}")
+        reqs = trace()
+        router.submit(reqs)
+        _reset_counts()
+        t0 = time.perf_counter()
+        victim = inflight = None
+        if kill:
+            victim, inflight = _kill_mid_decode(
+                router, lambda m: m.transport.kill())
+            kill_tick = router.tick
+        _drain_fleet(router)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _main_path_counts(state)
+        engines = [e for w in workers for e in w.pod.engines]
+        steps = sum(e.decode_ticks for e in engines)
+        prefills = sum(e._c_prefill_disp.value for e in engines)
+        fab = router.status()["fabric"]
+        buffers = router.trace_buffers()
+        validate_span_log(buffers)
+        closure = validate_fleet_closure(buffers)
+        router.close()
+        peak = torch.cuda.max_memory_allocated()
+        toks = sum(len(r.tokens) for r in reqs)
+        log(f"fabric: ({'b' if kill else 'a'}) loopback {name}: "
+            f"{sum(r.state == 'done' for r in reqs)}/{len(reqs)} done, "
+            f"{toks} tokens in {wall:.2f} s, {router.tick} router ticks; "
+            f"members spawned {fab['spawned']}, evictions "
+            f"{fab['evictions']}, reroutes {fab['reroutes']}"
+            + (f" (killed {victim.pod_id} at tick {kill_tick} with "
+               f"{len(inflight)} in flight: rids {inflight})" if kill else "")
+            + f"; closure {closure}; prefills {prefills}, decode steps "
+            f"{steps}, resumes {sum(e.resumes for e in engines)}; launches "
+            f"{counts}, expected K1 {layers} x {steps}, K2 {layers} x "
+            f"{prefills}; peak memory {peak / 2**30:.2f} GiB "
+            f"(every member of the arm, in this process) [{card}]")
+        diffs = _token_diffs(want, reqs)
+        errs = []
+        if diffs:
+            errs.append(f"({name}) tokens differ from the oracle: "
+                        + _margins(torch, rt, "f32", reqs, want, diffs))
+        if not all(r.state == "done" and len(r.tokens) == 32 for r in reqs):
+            errs.append(f"({name}) requests lost or short")
+        if closure["routed"] != closure["closed"] or \
+                closure["routed"] != len(reqs):
+            errs.append(f"({name}) closure {closure}")
+        if counts["paged_attention"] != layers * steps or \
+                counts["flash_attention_fwd"] != layers * prefills:
+            errs.append(f"({name}) launches {counts} != K1 {layers * steps}"
+                        f", K2 {layers * prefills}")
+        others = {k: v for k, v in counts.items() if v and k not in (
+            "paged_attention", "flash_attention_fwd")}
+        if others:
+            errs.append(f"({name}) launches off the path: {others}")
+        if kill:
+            rerouted = [r for r in reqs if r.reroutes]
+            if fab["evictions"] != 1 or not rerouted:
+                errs.append(f"({name}) evictions {fab['evictions']}, "
+                            f"{len(rerouted)} rerouted")
+            if any(r.reroutes != 1 for r in rerouted) or \
+                    sorted(r.rid for r in rerouted) != inflight:
+                errs.append(f"({name}) reroutes per rid "
+                            f"{[(r.rid, r.reroutes) for r in rerouted]}, "
+                            f"in flight at the kill {inflight}")
+            if closure["rerouted"] != len(rerouted):
+                errs.append(f"({name}) closure rerouted {closure}")
+        elif fab["evictions"] or fab["reroutes"]:
+            errs.append(f"({name}) evictions or reroutes without a kill")
+        _release([w.pod for w in workers])
+        torch.cuda.empty_cache()
+        return errs
+
+    failures += loopback(kill=False)
+    failures += loopback(kill=True)
+
+    # (c) one worker process per pod, each its own CUDA context, in a root
+    # of its own (its span files alone under <root>/spans). The kernels are
+    # built here, before the first spawn, so no worker runs nvcc while the
+    # router waits on it
+    _build.build()
+    prt = Runtime(workdir / "fabric-proc")
+    prt.build(FABRIC_IMAGEFILE, tag="f32")
+    base = proc_spawner(prt.root, imagefile=FABRIC_IMAGEFILE,
+                        pod_kwargs=FABRIC_POD)
+    boots, procs = {}, {}
+
+    def spawn(pod_id, start_tick):
+        t_spawn = time.perf_counter()
+        tr = base(pod_id, start_tick)
+        procs[pod_id] = tr.proc
+        recv = tr.recv
+
+        def timed_recv(timeout=None):
+            msg = recv(timeout)
+            if msg and msg.get("t") == "ready" and pod_id not in boots:
+                boots[pod_id] = (time.perf_counter() - t_spawn, msg["pid"])
+            return msg
+        tr.recv = timed_recv
+        return tr
+
+    # device memory from outside (nvidia-smi's per-process list shows every
+    # process of this machine as pid 1, so the workers are told apart by
+    # their open device nodes, and their memory is the card's total less
+    # what was in use before they started)
+    used0 = _device_used_mib()
+    t0 = time.perf_counter()
+    router = FabricRouter(spawn, runtime=prt, pods=2, min_pods=2,
+                          wall_clock=True, fleet="proc")
+    used = {"booted": _device_used_mib()}
+    opens = {}
+    try:
+        reqs = trace()
+        router.submit(reqs)
+        _reset_counts()
+        t_run = time.perf_counter()
+        kill_wall = []
+
+        def sigkill(m):
+            used["mid-decode"] = _device_used_mib()
+            opens.update({pid: _opens_card(pid) for _, pid in boots.values()})
+            log("fabric: (c) nvidia-smi compute apps (pid, MiB): "
+                + _smi("--query-compute-apps=pid,used_memory")
+                .replace("\n", "; "))
+            kill_wall.append(time.time())
+            os.kill(m.transport.pid, signal.SIGKILL)
+        victim, inflight = _kill_mid_decode(router, sigkill)
+        kill_tick = router.tick
+        _drain_fleet(router)
+        run_s = time.perf_counter() - t_run
+        used["drained"] = _device_used_mib()
+        opens.update({pid: _opens_card(pid) for _, pid in boots.values()
+                      if pid not in opens})
+        fab = router.status()["fabric"]
+        in_parent = _launch_counts()
+    finally:
+        router.close()
+    wall = time.perf_counter() - t0
+    victim.transport.proc.wait(timeout=60)
+    alive = [p for p, pr in procs.items() if pr.poll() is None]
+    evict = [e for e in router.trace.events() if e.name == "evict"]
+    buffers = load_fleet_spans(prt.root, fleet="proc")
+    validate_span_log(buffers)
+    closure = validate_fleet_closure(buffers)
+    workers = {pid: (pod_id, s) for pod_id, (s, pid) in boots.items()}
+    per_worker = {k: (v - used0) / 2 for k, v in used.items()}
+    log(f"fabric: (c) proc SIGKILL: {sum(r.state == 'done' for r in reqs)}/"
+        f"{len(reqs)} done, {sum(len(r.tokens) for r in reqs)} tokens; "
+        f"killed {victim.pod_id} (pid {victim.transport.pid}) at tick "
+        f"{kill_tick} with {len(inflight)} in flight; evictions "
+        f"{fab['evictions']}, reroutes {fab['reroutes']}, spawned "
+        f"{fab['spawned']}; kill to eviction "
+        + (f"{evict[0].wall - kill_wall[0]:.3f} s" if evict and kill_wall
+           and evict[0].wall else "not recorded")
+        + f"; closure from {len(buffers)} span files {closure}; run "
+        f"{run_s:.2f} s, arm {wall:.2f} s (boots included) [{card}]")
+    log("fabric: (c) workers (pod, pid, spawn to ready read, device node "
+        "open): " + "; ".join(
+            f"{pod} {pid} {s:.2f} s {opens.get(pid)}"
+            for pid, (pod, s) in sorted(workers.items(),
+                                        key=lambda kv: kv[1][0]))
+        + f"; card memory in use {used0} MiB before the fleet, "
+        + ", ".join(f"{v} MiB {k}" for k, v in used.items())
+        + " (two live workers each time): per worker "
+        + ", ".join(f"{v:.0f} MiB {k}" for k, v in per_worker.items())
+        + f"; the weights are {weights_mib:.0f} MiB [{card}]")
+    diffs = _token_diffs(want, reqs)
+    if diffs:
+        failures.append("(proc) tokens differ from the oracle: "
+                        + _margins(torch, rt, "f32", reqs, want, diffs))
+    if not all(r.state == "done" and len(r.tokens) == 32 for r in reqs):
+        failures.append("(proc) requests lost or short")
+    if fab["evictions"] != 1 or fab["reroutes"] < 1:
+        failures.append(f"(proc) evictions {fab['evictions']}, reroutes "
+                        f"{fab['reroutes']}")
+    if closure["routed"] != closure["closed"] or \
+            closure["routed"] != len(reqs):
+        failures.append(f"(proc) closure {closure}")
+    if not all(opens.get(pid) for pid in workers) or \
+            min(per_worker.values()) <= weights_mib:
+        failures.append(f"(proc) a worker is not on the card with its "
+                        f"weights: device node open {opens}, MiB per "
+                        f"worker {per_worker}")
+    if any(in_parent.values()):
+        failures.append(f"(proc) the router's process launched {in_parent}")
+    if alive:
+        failures.append(f"(proc) workers still running: {alive}")
+    val = subprocess.run(
+        [sys.executable, "-m", "repro_torch.orchestrator.obs.validate",
+         "--spans", str(prt.root)], capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(SRC)})
+    log(f"fabric: (c) validate --spans: {val.stdout.strip()} "
+        f"{val.stderr.strip()}")
+    if val.returncode != 0:
+        failures.append(f"(proc) validate --spans exited {val.returncode}")
+
+    # (d) the entry point: serve --fabric proc, then ps and top
+    root = workdir / "fabric-cli"
+    root.mkdir()
+    imagefile = root / "Imagefile"
+    imagefile.write_text(FULL_IMAGEFILE.format(arch=arch))
+    outs = []
+    real_main = serve_mod.main
+
+    def serve_main(argv=None):
+        outs.append(real_main(argv))
+        return outs[-1]
+
+    def run(*argv):
+        log(f"fabric: stevedore {' '.join(argv)}")
+        return cli.main(["--root", str(root / "rt"), *argv])
+
+    serve_mod.main = serve_main
+    try:
+        t0 = time.perf_counter()
+        rc = run("serve", str(imagefile), *CLI_FABRIC)
+        wall = time.perf_counter() - t0
+    finally:
+        serve_mod.main = real_main
+    check(rc == 0 and outs, f"fabric: (d) serve exited {rc}")
+    out = outs[0]
+    budgets = serve_mod._tail_budgets(_flag(CLI_FABRIC, "--gen"),
+                                      _flag(CLI_FABRIC, "--requests"))
+    got = [len(out["request_tokens"].get(i, [])) for i in range(len(budgets))]
+    log(f"fabric: (d) serve --fabric proc: {out['requests']} requests, "
+        f"{out['tokens']} tokens (budgets {sorted(set(budgets))}), "
+        f"evictions {out['evictions']}, reroutes {out['reroutes']}, closure "
+        f"{out['fleet_closure']}; serve {out['wall_s']:.2f} s, command "
+        f"{wall:.2f} s (boots included) [{card}]")
+    if got != budgets or out["fleet_closure"]["closed"] != len(budgets):
+        failures.append(f"(cli) tokens per request {got} != budgets "
+                        f"{budgets}")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc_ps = run("ps")
+    ps = buf.getvalue()
+    log(ps.rstrip())
+    fleet = [ln for ln in ps.splitlines() if ln.startswith("fabric-")]
+    if rc_ps != 0 or len(fleet) != 1 or "live=" not in fleet[0]:
+        failures.append(f"(cli) ps exited {rc_ps} without the fleet's live "
+                        "count")
+    if run("top") != 0:
+        failures.append("(cli) top failed")
+    check(not failures, "fabric: " + "; ".join(failures))
+
+
+# ---------------------------------------------------------------------------
 # train: gradients through the kernels, smoke training card vs CPU, and
 # full-width llama3.2-3b trained through the CLI
 # ---------------------------------------------------------------------------
@@ -1787,6 +2259,8 @@ def main() -> int:
                     phase_serve(torch, state, workdir)
                 elif phase == "cli":
                     phase_cli(torch, state, workdir)
+                elif phase == "fabric":
+                    phase_fabric(torch, state, workdir)
                 elif phase == "train":
                     timer = timer or Timer(torch)
                     phase_train(torch, state, timer, workdir)

@@ -5,6 +5,7 @@
   PYTHONPATH=src python -m repro_torch.cli history stable
   PYTHONPATH=src python -m repro_torch.cli run stable --steps 10 [--resume]
   PYTHONPATH=src python -m repro_torch.cli serve stable --replicas 2 --slots 8
+  PYTHONPATH=src python -m repro_torch.cli serve stable --pods 2 --fabric proc
   PYTHONPATH=src python -m repro_torch.cli ps
   PYTHONPATH=src python -m repro_torch.cli top
   PYTHONPATH=src python -m repro_torch.cli tag <digest> prod
@@ -219,7 +220,16 @@ def cmd_serve(rt: Runtime, args) -> int:
     if args.trace:
         argv += ["--trace", args.trace]
     if args.fabric != "none":
-        argv += ["--fabric", args.fabric]
+        argv += ["--fabric", args.fabric,
+                 "--min-pods", str(args.min_pods),
+                 "--heartbeat-every", str(args.heartbeat_every),
+                 "--miss-limit", str(args.miss_limit)]
+        if args.max_pods is not None:
+            argv += ["--max-pods", str(args.max_pods)]
+        if args.scale_up_tokens is not None:
+            argv += ["--scale-up-tokens", str(args.scale_up_tokens)]
+        if args.scale_idle_ticks is not None:
+            argv += ["--scale-idle-ticks", str(args.scale_idle_ticks)]
     serve_main(argv)
     return 0
 
@@ -411,8 +421,23 @@ def main(argv=None) -> int:
                         "trace-event JSON (open in Perfetto)")
     p.add_argument("--fabric", choices=("none", "loopback", "proc"),
                    default="none",
-                   help="serve over the cross-host fabric (not ported "
-                        "yet: raises, naming ROADMAP.md Queue 1 item 8)")
+                   help="serve over the cross-host fabric: framed message "
+                        "transport in-process (loopback) or one OS "
+                        "process per pod (proc)")
+    p.add_argument("--min-pods", type=int, default=1,
+                   help="elastic floor: heal back to N pods (--fabric)")
+    p.add_argument("--max-pods", type=int, default=None,
+                   help="elastic ceiling (--fabric); default --pods")
+    p.add_argument("--heartbeat-every", type=int, default=4,
+                   help="fabric liveness probe cadence in ticks")
+    p.add_argument("--miss-limit", type=int, default=2,
+                   help="consecutive missed probes before eviction")
+    p.add_argument("--scale-up-tokens", type=int, default=None,
+                   help="spawn a pod when outstanding tokens per live pod "
+                        "exceed N (--fabric)")
+    p.add_argument("--scale-idle-ticks", type=int, default=None,
+                   help="drain+retire the newest pod after N idle ticks "
+                        "(--fabric)")
 
     p = sub.add_parser("top",
                        help="live serving metrics (queue/pool/latency) "

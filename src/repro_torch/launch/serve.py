@@ -20,11 +20,16 @@ for frontend-embedding archs like musicgen/internvl2 -- per-request
 audio/vision prefix embeddings), and both return ``request_tokens``:
 continuous and static produce identical tokens request-for-request.
 
+Fabric (--fabric loopback|proc): the same trace served by a FabricRouter
+over the framed message protocol, to in-process workers or to one worker
+process per pod, with heartbeats, eviction, exactly-once reroute and an
+elastic fleet (--min-pods, --max-pods, --scale-up-tokens,
+--scale-idle-ticks).
+
 PyTorch port of ``repro.launch.serve``. Without ``--platform`` the pods and
 the static container run on the image's MESH layer (``local`` = cuda:0);
-``--platform cpu`` runs on the host CPU. The cross-host fabric
-(``--fabric loopback|proc``) is not ported yet and raises, naming ROADMAP.md
-Queue 1 item 8.
+``--platform cpu`` runs on the host CPU. Proc workers run where the pods
+would: each is its own process with its own device context.
 """
 
 from __future__ import annotations
@@ -37,9 +42,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.runtime import Runtime
-
-_FABRIC = ("--fabric {}: the cross-host fabric (fabric.py, fabric_worker.py) "
-           "is not ported yet (ROADMAP.md Queue 1 item 8: fleet)")
 
 
 def _tail_budgets(gen: int, n: int) -> list[int]:
@@ -266,6 +268,117 @@ def serve_continuous(rt: Runtime, image, args) -> dict:
     return out
 
 
+def _pods_on_card(rt: Runtime, image, args) -> bool:
+    """Whether the pods' platform (``--platform``, else the image's MESH
+    layer) is a CUDA device."""
+    from repro_torch.dist.mesh import resolve_device
+    cfg = (image if not isinstance(image, str) else rt.pull(image)).config()
+    platform = args.platform or (cfg.get("mesh") or {}).get("platform",
+                                                            "local")
+    return resolve_device(platform).type == "cuda"
+
+
+def serve_fabric(rt: Runtime, image, args) -> dict:
+    """The same trace served over the cross-host fabric: router and pods
+    speak the framed message protocol instead of method calls.
+
+    ``--fabric loopback`` keeps workers in-process (deterministic, the
+    codec still round-trips every message); ``--fabric proc`` launches
+    one worker PROCESS per pod over stdin/stdout pipes -- the
+    configuration the fault-injection benchmark kills pods under.
+    ``--min-pods``/``--max-pods`` bound the elastic fleet; scale-up
+    triggers on the outstanding-token backlog per live pod, scale-down
+    drains the newest pod after a sustained idle streak.
+
+    Proc workers on the card load the kernels the parent builds here,
+    before the first spawn: a worker compiling them itself would miss
+    heartbeats while nvcc runs, and its work would be rerouted to a
+    worker that is compiling too."""
+    from repro_torch.orchestrator.fabric import (
+        FABRIC_POLICIES, FabricRouter, load_fleet_spans,
+        loopback_spawner, proc_spawner)
+    from repro_torch.orchestrator.obs import (
+        decomposition, export_chrome, validate_fleet_closure)
+    from repro_torch.orchestrator.telemetry import latency_summary
+    if args.policy not in FABRIC_POLICIES:
+        raise SystemExit(f"--fabric supports policies {FABRIC_POLICIES}, "
+                         f"not {args.policy!r}")
+    cfg = _arch_config(rt, image)
+    pod_kwargs = _pod_kwargs(args, cfg)
+    if args.fabric == "proc":
+        if _pods_on_card(rt, image, args):
+            from repro_torch.kernels import _build
+            _build.build()
+        imagefile = (Path(args.image).read_text()
+                     if Path(args.image).exists() else None)
+        spawn = proc_spawner(
+            args.root, imagefile=imagefile,
+            ref=None if imagefile else args.image,
+            pod_kwargs=pod_kwargs, fairness_cap=args.fairness_cap)
+    else:
+        spawn = loopback_spawner(rt, image, pod_kwargs=pod_kwargs,
+                                 fairness_cap=args.fairness_cap)
+    router = FabricRouter(
+        spawn, runtime=rt, pods=max(1, args.pods), policy=args.policy,
+        min_pods=max(1, getattr(args, "min_pods", 1) or 1),
+        max_pods=getattr(args, "max_pods", None),
+        heartbeat_every=getattr(args, "heartbeat_every", 4),
+        miss_limit=getattr(args, "miss_limit", 2),
+        scale_up_tokens=getattr(args, "scale_up_tokens", None),
+        scale_idle_ticks=getattr(args, "scale_idle_ticks", None),
+        wall_clock=args.fabric == "proc")
+    rng = np.random.default_rng(args.seed)
+    reqs = _build_requests(args, cfg, rng)
+
+    t0 = time.perf_counter()
+    router.submit(reqs)
+    done = router.run()
+    wall = time.perf_counter() - t0
+    fleet = router.status()
+    # loopback worker buffers are reachable only through the membership,
+    # which close() clears -- capture them first. proc workers flush span
+    # FILES at retire, so those are pooled after close.
+    local_buffers = (None if args.fabric == "proc"
+                     else router.trace_buffers())
+    router.close()
+
+    toks = sum(len(r.tokens) for r in done)
+    out = {
+        "mode": "fabric",
+        "fabric": args.fabric,
+        "pods": args.pods,
+        "requests": len(done),
+        "tokens": toks,
+        "wall_s": wall,
+        "shed": len(router.shedded),
+        "rejected": len(router.rejected),
+        **latency_summary(done),
+        "request_tokens": {r.rid: list(r.tokens) for r in done},
+        "fleet": fleet,
+        "reroutes": fleet["fabric"]["reroutes"],
+        "evictions": fleet["fabric"]["evictions"],
+    }
+    buffers = (load_fleet_spans(rt.root, fleet=router.fleet)
+               if args.fabric == "proc" else local_buffers)
+    out["fleet_closure"] = validate_fleet_closure(buffers)
+    out["decomposition"] = decomposition(buffers)
+    trace_path = getattr(args, "trace", None)
+    if trace_path:
+        trace = export_chrome(buffers, trace_path)
+        print(f"[serve] trace: {len(trace['traceEvents'])} events -> "
+              f"{trace_path} (open in Perfetto / chrome://tracing)")
+    fb = fleet["fabric"]
+    print(f"[serve] fabric={args.fabric} fleet={router.router_id} "
+          f"policy={router.policy} live={fb['live']} "
+          f"(spawned {fb['spawned']}, retired {fb['retired']}, "
+          f"evicted {fb['evictions']})")
+    print(f"[serve] {len(done)} requests, {toks} tokens in {wall:.2f}s; "
+          f"{fb['reroutes']} reroutes; closure: "
+          f"{out['fleet_closure']['routed']} routed / "
+          f"{out['fleet_closure']['closed']} closed")
+    return out
+
+
 def serve_static(rt: Runtime, image, args) -> dict:
     """Fixed-batch baseline THROUGH the container compile path.
 
@@ -372,8 +485,24 @@ def main(argv=None) -> dict:
                          "land on the pod that owns the pages")
     ap.add_argument("--fabric", choices=("none", "loopback", "proc"),
                     default="none",
-                    help="serve over the cross-host fabric (not ported "
-                         "yet: raises, naming ROADMAP.md Queue 1 item 8)")
+                    help="serve over the cross-host fabric: workers speak "
+                         "the framed message protocol in-process "
+                         "(loopback) or as one OS process per pod (proc)")
+    ap.add_argument("--min-pods", type=int, default=1,
+                    help="elastic floor (--fabric): the fleet heals back "
+                         "to this many pods after evictions")
+    ap.add_argument("--max-pods", type=int, default=None,
+                    help="elastic ceiling (--fabric); default --pods")
+    ap.add_argument("--heartbeat-every", type=int, default=4,
+                    help="fabric liveness probe cadence in ticks")
+    ap.add_argument("--miss-limit", type=int, default=2,
+                    help="consecutive missed probes before eviction")
+    ap.add_argument("--scale-up-tokens", type=int, default=None,
+                    help="spawn a pod when outstanding tokens per live "
+                         "pod exceed N (--fabric)")
+    ap.add_argument("--scale-idle-ticks", type=int, default=None,
+                    help="drain+retire the newest pod after N idle ticks "
+                         "(--fabric)")
     ap.add_argument("--slots", type=int, default=8,
                     help="KV slots per replica (static: the batch size)")
     ap.add_argument("--requests", type=int, default=32)
@@ -441,7 +570,7 @@ def main(argv=None) -> dict:
     if args.mode == "static":
         return serve_static(rt, image, args)
     if args.fabric != "none":
-        raise NotImplementedError(_FABRIC.format(args.fabric))
+        return serve_fabric(rt, image, args)
     return serve_continuous(rt, image, args)
 
 

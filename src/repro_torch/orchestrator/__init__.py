@@ -9,10 +9,19 @@ global page pool served by the paged-attention kernel;
 ``PodRouter`` fronts N pods (shortest-queue, consistent-hash or
 prefix-hash placement, spillover before reject, drains) and
 ``RollingDeployer`` rolls a pod or a router fleet onto a re-pointed tag.
-The cross-host fabric comes with a later slice (ROADMAP.md Queue 1 item 8).
+
+``FabricRouter`` (``repro_torch.orchestrator.fabric``) takes the router
+cross-host: pods become workers behind a framed message transport
+(in-process loopback or one OS process per pod), with heartbeat liveness,
+dead-pod eviction + exactly-once re-routing of in-flight work, and an
+elastic spawn/drain/retire fleet.
 """
 
 from repro_torch.orchestrator.deployer import RollingDeployer
+from repro_torch.orchestrator.fabric import (FABRIC_POLICIES, FabricRouter,
+                                             PodWorker, decode_request,
+                                             encode_request, load_fleet_spans,
+                                             loopback_spawner, proc_spawner)
 from repro_torch.orchestrator.page_pool import PagePool
 from repro_torch.orchestrator.pod import Pod
 from repro_torch.orchestrator.request_queue import (PRIORITIES, GenRequest,
@@ -32,6 +41,14 @@ __all__ = [
     "SlotEngine",
     "ContinuousScheduler",
     "RollingDeployer",
+    "FABRIC_POLICIES",
+    "FabricRouter",
+    "PodWorker",
+    "encode_request",
+    "decode_request",
+    "load_fleet_spans",
+    "loopback_spawner",
+    "proc_spawner",
     "latency_summary",
     "nearest_rank",
 ]

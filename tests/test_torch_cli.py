@@ -13,8 +13,11 @@ llama3.2-3b-smoke with the JAX package's weights handed over as numpy.
 * the CLI prints the same image digests and layers in both packages, and
   the port's ``ps``/``top`` read the state files its ``serve`` wrote;
 * the obs validator accepts the exported trace;
-* what is not ported yet (the fabric, lint) raises naming its ROADMAP
-  item.
+* ``serve --fabric loopback`` gives the JAX package's tokens, reroutes,
+  evictions, sheds, rejects and latency ticks; ``serve --fabric proc``
+  runs one worker process per pod and ``validate --spans`` accepts the
+  span files they wrote;
+* what is not ported yet (lint) raises naming its ROADMAP item.
 
 The port's ``Container.init_params`` is patched to load the JAX package's
 seed-0 weights (torch's RNG cannot replay the JAX init), so both packages
@@ -319,17 +322,57 @@ def test_ps_top_and_validate_read_what_serve_wrote(tmp_path, monkeypatch):
         assert tvalidate.main([str(trace)]) == 1
 
 
-def test_unported_entry_points_raise_with_their_roadmap_item(tmp_path):
+# serve --fabric with every fleet flag: two pods of two slots whose token
+# backlog spawns a third (kills are tests/test_torch_fabric.py's)
+FABRIC = ["--image", "stable", "--pods", "2", "--replicas", "1", "--slots",
+          "2", "--requests", "10", "--prompt-len", "12", "--gen", "8",
+          "--arrive-per-tick", "4", "--paged", "--page-size", "8",
+          "--min-pods", "2", "--max-pods", "3", "--heartbeat-every", "2",
+          "--scale-up-tokens", "4", "--scale-idle-ticks", "3"]
+
+
+def test_serve_fabric_loopback_matches_jax(serve_roots, monkeypatch,
+                                           same_ids, jax_weights):
+    jrt, trt = serve_roots
+    same_ids()
+    jout, jplace = _serve(jserve, jrt.root, FABRIC + ["--fabric",
+                                                      "loopback"],
+                          monkeypatch)
+    same_ids()
+    tout, tplace = _serve(tserve, trt.root, FABRIC + ["--fabric",
+                                                      "loopback"],
+                          monkeypatch, "cpu")
+    assert tout["mode"] == "fabric" and tout["requests"] == 10
+    for k in ("request_tokens", "reroutes", "evictions", "shed",
+              "rejected", "latency_count", "p50_latency_ticks",
+              "p99_latency_ticks", "tokens", "fleet_closure",
+              "decomposition"):
+        assert tout[k] == jout[k], k
+    assert tplace == jplace
+    tf, jf = tout["fleet"]["fabric"], jout["fleet"]["fabric"]
+    assert tf == jf and tf["spawned"] == 3      # the backlog scaled up
+
+
+def test_serve_fabric_proc_then_validate_spans(tmp_path):
     rt = Runtime(tmp_path / "rt")
     rt.build(IMAGEFILE, tag="stable")
     root = str(rt.root)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tserve.main(["--image", "stable", "--root", root, "--platform",
-                     "cpu", "--fabric", "loopback"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tcli(["--root", root, "serve", "stable", "--platform", "cpu",
-              "--fabric", "proc"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tvalidate.main(["--spans", root])
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tcli(["--root", root, "serve", "stable", "--platform", "cpu",
+                     "--pods", "2", "--replicas", "1", "--slots", "2",
+                     "--requests", "6", "--prompt-len", "12", "--gen", "4",
+                     "--fabric", "proc", "--min-pods", "2"]) == 0
+    ps = _cli(tcli, "--root", root, "ps")
+    fabric = [ln for ln in ps.splitlines() if ln.startswith("fabric-")]
+    workers = [ln for ln in ps.splitlines() if ln.startswith("fab-")]
+    assert len(fabric) == 1 and "live=" in fabric[0]
+    assert len(workers) == 2 and all("exited" in ln for ln in workers)
+    out = _cli(tvalidate.main, "--spans", root)
+    assert out.startswith(f"OK {root}") and "6 routed / 6 closed" in out
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert tvalidate.main(["--spans", str(tmp_path / "empty")]) == 1
+
+
+def test_lint_raises_with_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tcli(["lint", "--strict", "src"])
