@@ -116,11 +116,31 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             (``Container.train_step_fn``), K2 launches = 28 x 2 x steps and
             nothing else, peak memory under 80 GB; step seconds, tokens/s
             and the model-FLOPs share of 989 TFLOP/s printed
+  dist      data-parallel training across processes, through ``torchrun
+            -m repro_torch.cli run`` (run as ``python -m
+            torch.distributed.run --standalone``): (a) one NCCL rank,
+            full-width full-depth llama3.2-3b (the train phase's image),
+            2 steps under ``generic`` and 2 under ``host``: the losses
+            equal the train phase's single-process run within 1e-6, K2 =
+            28 x 2 x steps, the backend is nccl; (b) two gloo ranks
+            sharing the card, llama3.2-3b at full width cut to 8 of 28
+            layers, one 2048-token row a rank, 3 steps under each of
+            ``generic``, ``host`` (ZeRO-1) and ``host mode=explicit``
+            (bf16 wire): losses and grad norms equal one process on the
+            same global batch (1e-3; 1e-2 for the bf16 wire), K2 = 8 x 2
+            x steps in each rank, each rank holds the card's device node
+            open while it runs; (c) (b)'s host checkpoint of step 2 (two
+            ZeRO-1 halves) restored onto one process: its step 3 equals
+            (b)'s within 1e-3. Printed: step seconds a rank, collective
+            seconds and wire bytes a step (the port's counter), peak
+            memory a rank, the card's memory in use while (b) runs
 
 The kernel counters are set to 0 just before each main path is driven
 (each pod of the serve phase, the fig5 calls, each CLI serve, each
-loopback fleet of the fabric phase, each CLI training run) and read just
-after; a kernel's launches are their sum.
+loopback fleet of the fabric phase, each CLI training run, (c) of the
+dist phase) and read just after; a kernel's launches are their sum. A
+torchrun rank starts with its counters at 0 and reports them at exit
+(``ranks.json`` in the run's overlay); the dist phase adds them in.
 Output ends with a JSON line of kernel records, the card line, and
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the port beside this file, it exits non-zero and
@@ -142,7 +162,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "cli",
-          "fabric", "train")
+          "fabric", "train", "dist")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and operations per second by input type (float32 outside tensor cores)
@@ -2174,6 +2194,7 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
             if n != want.get(name, 0):
                 failures.append(f"run {argv}: {name} launches {n} != "
                                 f"{want.get(name, 0)}")
+    state["train_losses"] = first["losses"]
     if resumed["start_step"] != 4:
         failures.append(f"the resumed run started at step "
                         f"{resumed['start_step']}, not 4")
@@ -2220,6 +2241,317 @@ def phase_train(torch, state, timer, workdir: Path) -> None:
     check(not failures, "train: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# dist: data-parallel training across processes (torchrun)
+# ---------------------------------------------------------------------------
+
+DIST_IMAGEFILE = """\
+FROM scratch
+ARCH llama3.2-3b{layers}
+SHAPE train_4k seq_len=2048 global_batch=2
+MESH local
+PRECISION params=float32 compute=bfloat16
+COLLECTIVES {collectives}
+SET remat=full optimizer={{"lr":0.0003,"warmup_steps":2,"total_steps":1000}}
+"""
+# (a) one NCCL rank at full depth, 2 steps an ABI: the losses of the train
+# phase's single-process run (the same image, weights and batches) within
+# 1e-6
+DIST_A = {"generic": "generic", "host": "host"}
+DIST_A_STEPS = 2
+DIST_A_TOL = 1e-6
+# (b) two gloo ranks sharing the card, depth cut to 8 of 28 layers (two
+# full-depth ranks need about 2 x 58.7 GiB), 3 steps an ABI, one row of
+# the 2 x 2048 global batch a rank, against one process on the same
+# global batch. Float32 wires: loss within 1e-3, grad_norm within 1e-3
+# relative (the ranks' bf16 products see 2048 tokens, the single
+# process's 4096: cuBLAS may tile and round them otherwise; the train
+# phase's card-vs-CPU bound). The bf16 wire rounds every gradient to 8
+# bits of mantissa before the mean (2^-9 relative): 1e-2 on both.
+DIST_B_LAYERS = 8
+DIST_B = {"generic": ("generic", 1e-3), "host": ("host", 1e-3),
+          "explicit": ("host mode=explicit", 1e-2)}
+DIST_B_STEPS = 3
+DIST_B_CKPT = 2             # host's checkpoint that (c) restores
+
+
+def _torchrun(nproc: int, root: Path, imagefile: Path, steps: int,
+              extra=(), timeout: float = 900, watch=None) -> tuple:
+    """``torchrun --nproc-per-node N -m repro_torch.cli run`` (as
+    ``python -m torch.distributed.run``, the same program); ``watch``
+    gets the ranks' pids twice a second while the job runs. Returns (exit
+    code, output tail, the ranks' records from the overlay's ranks.json,
+    seconds)."""
+    import os
+    import threading
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC), os.environ.get("PYTHONPATH", "")])}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m", "repro_torch.cli",
+           "--root", str(root), "run", str(imagefile), "--steps", str(steps),
+           *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=str(root.parent),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    out = []
+    reader = threading.Thread(
+        target=lambda: out.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        while proc.poll() is None:
+            if watch is not None:
+                watch(_children(proc.pid))
+            time.sleep(0.5)
+            if time.perf_counter() - t0 > timeout:
+                proc.kill()
+        reader.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    found = sorted(root.glob("overlays/*/ranks.json"))
+    ranks = json.loads(found[-1].read_text()) if found else []
+    return proc.returncode, "".join(out)[-4000:], ranks, wall
+
+
+def _children(pid: int) -> list[int]:
+    """The direct children of ``pid`` (torchrun's rank processes)."""
+    kids = []
+    for task in Path(f"/proc/{pid}/task").glob("*/children"):
+        try:
+            kids += [int(k) for k in task.read_text().split()]
+        except OSError:
+            continue
+    return kids
+
+
+def _rank_summary(ranks: list) -> str:
+    parts = []
+    for r in ranks:
+        steps = r["steps"]
+        rest = steps[1:] or steps
+        parts.append(
+            f"rank {r['rank']}/{r['ranks']} {r['backend']} {r['device']}: "
+            f"step s {[round(s['seconds'], 4) for s in steps]} (median "
+            f"after the first {statistics.median(x['seconds'] for x in rest):.4f}"
+            f"), collective s a step "
+            f"{statistics.median(x['collective_seconds'] for x in rest):.4f}, "
+            f"wire bytes a step {steps[-1]['wire_bytes']} "
+            f"({r['wire_bytes_by_op']}), peak memory "
+            f"{_gib(r['peak_memory_bytes']):.2f} GiB, K2 launches "
+            f"{r['kernel_launches']['flash_attention_fwd']}")
+    return "; ".join(parts)
+
+
+def _gib(nbytes) -> float:
+    """Bytes in GiB (nan where a rank ran off the card)."""
+    return float("nan") if nbytes is None else nbytes / 2**30
+
+
+def _add_rank_launches(state, ranks: list) -> None:
+    for r in ranks:
+        for name, n in r["kernel_launches"].items():
+            state["launches"][name] = state["launches"].get(name, 0) + n
+
+
+def _dist_reference(torch, workdir: Path, imagefile: str, steps: int):
+    """One process on the card, the same image, weights and global
+    batches as launch/train's ranks: per step (loss, grad_norm)."""
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    rt = Runtime(workdir / "dist_ref")
+    c = rt.run(rt.build(imagefile))
+    params = c.init_params(0)
+    opt = c.init_opt_state(params)
+    step = c.train_step_fn(donate=True)
+    data = SyntheticLM(DataConfig(vocab_size=c.arch.vocab_size,
+                                  seq_len=c.cell.seq_len,
+                                  global_batch=c.cell.global_batch, seed=0))
+    rec = []
+    for i in range(steps):
+        params, opt, m = step(params, opt, data.batch(i))
+        rec.append((float(m["loss"]), float(m["grad_norm"])))
+    del params, opt, m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dist_a(torch, state, workdir: Path) -> list[str]:
+    import shutil
+    from repro_torch.configs import get_config
+    failures = []
+    n_layers = get_config("llama3.2-3b").n_layers
+    want = state.get("train_losses", {})
+    for name, coll in DIST_A.items():
+        root = workdir / f"dist_a_{name}"
+        root.mkdir()
+        imagefile = root / "Imagefile"
+        imagefile.write_text(DIST_IMAGEFILE.format(layers="",
+                                                   collectives=coll))
+        torch.cuda.empty_cache()
+        rc, tail, ranks, wall = _torchrun(1, root / "rt", imagefile,
+                                          DIST_A_STEPS)
+        shutil.rmtree(root)         # a 38.5 GB checkpoint
+        if rc != 0 or len(ranks) != 1:
+            failures.append(f"(a) {name}: exit {rc}, {len(ranks)} rank "
+                            f"records: {tail}")
+            continue
+        _add_rank_launches(state, ranks)
+        r = ranks[0]
+        losses = [s["loss"] for s in r["steps"]]
+        diff = max(abs(l - want[i + 1]) for i, l in enumerate(losses)) \
+            if want else float("inf")
+        k2 = r["kernel_launches"]["flash_attention_fwd"]
+        ok = (r["backend"] == "nccl" and diff <= DIST_A_TOL
+              and k2 == n_layers * 2 * DIST_A_STEPS)
+        log(f"dist: (a) torchrun --nproc-per-node 1 cli run, llama3.2-3b "
+            f"28 layers, {name}: losses {[round(l, 6) for l in losses]} vs "
+            f"the train phase's single process "
+            f"{[round(want.get(i + 1, float('nan')), 6) for i in range(len(losses))]}"
+            f": max |diff| {diff:.2e} (tol {DIST_A_TOL:g}); "
+            f"{_rank_summary(ranks)}; expected K2 {n_layers} x 2 x "
+            f"{DIST_A_STEPS}; {wall:.1f} s with the checkpoint "
+            f"{'ok' if ok else 'FAIL'} [{state['card']}]")
+        state["dist"][f"a {name}"] = dict(
+            step_s=[s["seconds"] for s in r["steps"]],
+            peak_gib=_gib(r["peak_memory_bytes"]), wall_s=wall)
+        if not ok:
+            failures.append(f"(a) {name}: backend {r['backend']}, loss diff "
+                            f"{diff:.2e}, K2 {k2}")
+    return failures
+
+
+def _dist_b(torch, state, workdir: Path) -> tuple[list[str], dict]:
+    import shutil
+    failures, host_steps, refs = [], {}, {}
+    for name, (coll, tol) in DIST_B.items():
+        root = workdir / f"dist_b_{name}"
+        root.mkdir()
+        imagefile = root / "Imagefile"
+        text = DIST_IMAGEFILE.format(layers=f" n_layers={DIST_B_LAYERS}",
+                                     collectives=coll)
+        imagefile.write_text(text)
+        # on one process ZeRO-1 splits nothing: host's step is generic's
+        path = "explicit" if "explicit" in coll else "implicit"
+        if path not in refs:
+            refs[path] = _dist_reference(torch, workdir, text, DIST_B_STEPS)
+        ref = refs[path]
+        seen: dict[int, bool] = {}
+        used = [_device_used_mib()]
+
+        def watch(pids):
+            for pid in pids:
+                if not seen.get(pid):
+                    try:
+                        seen[pid] = _opens_card(pid)
+                    except OSError:     # gone, or not yet readable
+                        continue
+            used.append(_device_used_mib())
+
+        extra = (("--ckpt-every", str(DIST_B_CKPT)) if name == "host"
+                 else ())
+        rc, tail, ranks, wall = _torchrun(2, root / "rt", imagefile,
+                                          DIST_B_STEPS, extra, watch=watch)
+        if rc != 0 or len(ranks) != 2:
+            failures.append(f"(b) {name}: exit {rc}, {len(ranks)} rank "
+                            f"records: {tail}")
+            continue
+        _add_rank_launches(state, ranks)
+        r0 = ranks[0]
+        dl = max(abs(s["loss"] - l) for s, (l, _) in zip(r0["steps"], ref))
+        dg = max(abs(s["grad_norm"] - g) / g
+                 for s, (_, g) in zip(r0["steps"], ref))
+        same = all(r["steps"][i]["loss"] == r0["steps"][i]["loss"]
+                   for r in ranks for i in range(DIST_B_STEPS))
+        k2 = [r["kernel_launches"]["flash_attention_fwd"] for r in ranks]
+        on_card = [seen.get(r["pid"], False) for r in ranks]
+        ok = (dl <= tol and dg <= tol and same and all(on_card)
+              and all(r["backend"] == "gloo" for r in ranks)
+              and k2 == [DIST_B_LAYERS * 2 * DIST_B_STEPS] * 2)
+        log(f"dist: (b) torchrun --nproc-per-node 2 cli run, llama3.2-3b "
+            f"{DIST_B_LAYERS} layers, {coll}: losses "
+            f"{[round(s['loss'], 6) for s in r0['steps']]} vs one process "
+            f"{[round(l, 6) for l, _ in ref]}: max |dloss| {dl:.2e}, max "
+            f"grad_norm rel diff {dg:.2e} (tol {tol:g}); every rank's loss "
+            f"equal {same}; {_rank_summary(ranks)}; expected K2 "
+            f"{DIST_B_LAYERS} x 2 x {DIST_B_STEPS} a rank; ranks hold "
+            f"/dev/nvidia* open {on_card}; card memory in use "
+            f"{used[0]} MiB before, {max(used)} MiB at most during the "
+            f"run; {wall:.1f} s with checkpoints {'ok' if ok else 'FAIL'} "
+            f"[{state['card']}]")
+        state["dist"][f"b {name}"] = dict(
+            step_s=[[s["seconds"] for s in r["steps"]] for r in ranks],
+            peak_gib=[_gib(r["peak_memory_bytes"]) for r in ranks],
+            wire=r0["steps"][-1]["wire_bytes"], wall_s=wall)
+        if name == "host":
+            host_steps = {"root": root, "steps": r0["steps"], "tol": tol,
+                          "text": text}
+        else:
+            shutil.rmtree(root)
+        if not ok:
+            failures.append(f"(b) {name}: dloss {dl:.2e}, dgnorm {dg:.2e}, "
+                            f"equal {same}, K2 {k2}, on card {on_card}")
+    return failures, host_steps
+
+
+def _dist_c(torch, state, host: dict) -> list[str]:
+    """Restore (b)'s host step-2 checkpoint (2 ranks, ZeRO-1) onto one
+    process and take step 3."""
+    import shutil
+    from repro_torch.checkpoint.elastic import reshard_restore
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    if not host:
+        return ["(c): no host run to restore"]
+    rt = Runtime(host["root"] / "rt")
+    c = rt.run(rt.build(host["text"]))
+    store = CheckpointStore(next(host["root"].glob(
+        "rt/overlays/*/ckpt/manifests")).parent)
+    t = {"params": c.abstract_params(), "opt": c.abstract_opt_state()}
+    sh = {"params": c.param_shardings(), "opt": c.opt_state_shardings()}
+    restored = reshard_restore(store, t, sh, step=DIST_B_CKPT)
+    params, opt = restored["params"], restored["opt"]
+    data = SyntheticLM(DataConfig(vocab_size=c.arch.vocab_size,
+                                  seq_len=c.cell.seq_len,
+                                  global_batch=c.cell.global_batch, seed=0))
+    step = c.train_step_fn(donate=True)
+    _reset_counts()
+    params, opt, m = step(params, opt, data.batch(DIST_B_CKPT))
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    counts = _main_path_counts(state)
+    want = host["steps"][DIST_B_CKPT]
+    dl = abs(loss - want["loss"])
+    dg = abs(gnorm - want["grad_norm"]) / want["grad_norm"]
+    ok = (int(opt["step"]) == DIST_B_CKPT + 1 and dl <= host["tol"]
+          and dg <= host["tol"]
+          and counts["flash_attention_fwd"] == DIST_B_LAYERS * 2)
+    log(f"dist: (c) the 2-rank host checkpoint of step {DIST_B_CKPT} "
+        f"restored onto one process (reshard_restore: whole m/v from two "
+        f"ZeRO-1 halves): step {DIST_B_CKPT + 1} loss {loss:.6f} vs (b)'s "
+        f"{want['loss']:.6f}, |diff| {dl:.2e}, grad_norm rel diff "
+        f"{dg:.2e} (tol {host['tol']:g}); launches {counts} "
+        f"{'ok' if ok else 'FAIL'} [{state['card']}]")
+    del params, opt, m, restored
+    torch.cuda.empty_cache()
+    shutil.rmtree(host["root"])
+    return [] if ok else [f"(c): dloss {dl:.2e}, dgnorm {dg:.2e}, "
+                          f"launches {counts}"]
+
+
+def phase_dist(torch, state, workdir: Path) -> None:
+    import shutil
+    state["dist"] = {}
+    shutil.rmtree(workdir / "train", ignore_errors=True)   # 38.5 GB
+    torch.cuda.empty_cache()
+    failures = _dist_a(torch, state, workdir)
+    b_failures, host = _dist_b(torch, state, workdir)
+    failures += b_failures + _dist_c(torch, state, host)
+    check(not failures, "dist: " + "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -2264,6 +2596,8 @@ def main() -> int:
                 elif phase == "train":
                     timer = timer or Timer(torch)
                     phase_train(torch, state, timer, workdir)
+                elif phase == "dist":
+                    phase_dist(torch, state, workdir)
             except Exception as e:          # report every phase, then fail
                 failed.append(phase)
                 log(f"FAIL {phase}: {type(e).__name__}: {e}")

@@ -26,8 +26,16 @@ Differences from the JAX package, both about one host's memory and disk:
   with ``keep=1`` a crash during the write leaves none). The default, 0,
   keeps every checkpoint, as the JAX package does.
 
-Restore returns CPU tensors; ``checkpoint.elastic.reshard_restore`` casts
-and places them on a device.
+A store given the ``mesh`` of a multi-process job saves with its
+``shardings``: each leaf a rank holds only part of (ZeRO-1 shards,
+PowerSGD rows) is gathered into the whole tensor first, then rank 0
+alone writes, and every rank waits for it. So a checkpoint from N ranks
+is the same file set as one from a single process, and it still moves
+between the packages.
+
+Restore returns whole CPU tensors; ``checkpoint.elastic.reshard_restore``
+casts them, takes the part the target mesh gives this rank and places it
+on a device.
 """
 
 from __future__ import annotations
@@ -101,26 +109,47 @@ def _digest(arr: np.ndarray) -> str:
 
 
 class CheckpointStore:
-    def __init__(self, root: str | os.PathLike, keep: int = 0):
+    def __init__(self, root: str | os.PathLike, keep: int = 0, mesh=None):
         self.root = Path(root)
-        (self.root / "blobs").mkdir(parents=True, exist_ok=True)
-        (self.root / "manifests").mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        if self._writer:
+            (self.root / "blobs").mkdir(parents=True, exist_ok=True)
+            (self.root / "manifests").mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: threading.Thread | None = None
         self.last_stats: dict | None = None
 
     # -- save --------------------------------------------------------------
-    def save(self, step: int, tree, blocking: bool = False) -> None:
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def save(self, step: int, tree, blocking: bool = False,
+             shardings=None) -> None:
         """Join the previous write, snapshot to the host synchronously,
-        write blobs async."""
-        self.wait()
-        host = [(path, *_to_host(leaf)) for path, leaf in _flatten(tree)]
-        if blocking:
-            self._write(step, host)
-        else:
-            self._thread = threading.Thread(
-                target=self._write, args=(step, host), daemon=True)
-            self._thread.start()
+        write blobs async. With a mesh of several ranks, collective:
+        ``shardings`` (a NamedSharding tree like ``tree``) names the
+        leaves to gather whole; rank 0 writes; every rank returns once it
+        has its snapshot (with ``blocking``, once it is published)."""
+        if shardings is not None and self.mesh is not None \
+                and self.mesh.size > 1:
+            from repro_torch.core.abi import all_gather
+            shs = dict(_flatten(shardings))
+            tree = _unflatten(tree, {
+                path: leaf if shs[path].split()[0] is None
+                else all_gather(leaf, shs[path], "checkpoint")
+                for path, leaf in _flatten(tree)})
+        if self._writer:
+            self.wait()
+            host = [(path, *_to_host(leaf)) for path, leaf in _flatten(tree)]
+            if blocking:
+                self._write(step, host)
+            else:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, host), daemon=True)
+                self._thread.start()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:

@@ -4,6 +4,7 @@
   PYTHONPATH=src python -m repro_torch.cli images
   PYTHONPATH=src python -m repro_torch.cli history stable
   PYTHONPATH=src python -m repro_torch.cli run stable --steps 10 [--resume]
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.cli run stable
   PYTHONPATH=src python -m repro_torch.cli serve stable --replicas 2 --slots 8
   PYTHONPATH=src python -m repro_torch.cli serve stable --pods 2 --fabric proc
   PYTHONPATH=src python -m repro_torch.cli ps
@@ -18,7 +19,9 @@ PyTorch port of ``repro.cli``: the same commands and output over the port's
 Runtime, training and serving on the card unless ``--platform cpu`` is
 given. ``run`` also takes ``--ckpt-every`` and ``--keep`` (the
 checkpoint period of ``launch/train.py`` and the checkpoints kept on
-disk). ``lint`` is
+disk); under torchrun each process is one data-parallel rank of the
+training job, and rank 0 alone writes the registry and the overlay
+(``launch/train.py``). ``lint`` is
 not ported yet and raises, naming ROADMAP.md Queue 1 item 12.
 """
 

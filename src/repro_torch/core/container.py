@@ -3,8 +3,12 @@ port of ``repro.core.container``).
 
 A Container binds the immutable image to
 
-  * a concrete device (the MESH layer resolved by ``dist.mesh``: ``local``
-    is ``cuda:0``; ``platform="cpu"`` must be asked for),
+  * this rank's view of the job's mesh and its device (the MESH layer
+    resolved by ``dist.mesh``: ``local`` puts every rank of a
+    torch.distributed job on the data axis, each on
+    ``cuda:{LOCAL_RANK % cards}``; ``platform="cpu"`` must be asked for),
+  * resolved sharding rules (the logical-axis table; ZeRO-1 splits the
+    optimizer state's ``embed`` dims over the batch axes),
   * the arch and precision layers (param and compute dtypes) and the
     ``remat`` and ``microbatches`` settings,
   * the collective ABI named by the image and the optimizer settings,
@@ -13,9 +17,14 @@ A Container binds the immutable image to
     accounting,
   * a writable overlay directory (checkpoints, metrics, container.json).
 
-Sharded placement (the JAX package's ``param_shardings`` and
-``opt_state_shardings``) comes with ROADMAP.md Queue 1 item 11; on one
-card every leaf lives on ``device``.
+``param_shardings`` / ``opt_state_shardings`` are trees of
+``dist.sharding.NamedSharding`` (spec, mesh, device). Params are whole on
+every rank (data parallel); under ZeRO-1 a rank keeps its part of m, v
+and the master copy; PowerSGD's error and Q rows are per rank. A
+container of a multi-process job is one container: rank 0 names it and
+alone writes its overlay. Not ported, and raising where asked for (ROADMAP
+Queue 1 item 13): ``fsdp``, a ``model`` axis above 1, and MoE archs on
+more than one rank.
 """
 
 from __future__ import annotations
@@ -37,7 +46,10 @@ from repro_torch.configs import get_config, get_shape_cell
 from repro_torch.core.abi import CollectiveABI, abi_from_image_config
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.image import EnvImage
-from repro_torch.dist.mesh import resolve_device
+from repro_torch.dist.mesh import (TENSOR_PARALLEL, batch_axes,
+                                   make_platform_mesh, resolve_device)
+from repro_torch.dist.sharding import (NamedSharding, ShardingRules,
+                                       def_shardings)
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.params import (materialize, params_from_jax,
                                        tree_map)
@@ -78,11 +90,37 @@ class Container:
         # platform: image default, overridable at run time (docker-run style)
         mesh_cfg = dict(cfg.get("mesh") or {"platform": "local"})
         self.platform = platform or mesh_cfg.get("platform", "local")
+        self.mesh = make_platform_mesh(self.platform)
         self.device: torch.device = resolve_device(self.platform)
         self.abi: CollectiveABI = abi_from_image_config(cfg)
+        if self.settings.get("fsdp"):
+            raise NotImplementedError(f"settings fsdp=true: {TENSOR_PARALLEL}")
+        if self.arch.n_experts and self.mesh.size > 1:
+            # the JAX implicit path drops MoE tokens by a capacity over the
+            # GLOBAL batch (moe_forward); per-rank capacity is the
+            # expert-parallel moe_forward_spmd's rule
+            raise NotImplementedError(
+                f"{self.arch.name} (MoE) on {self.mesh.size} ranks: "
+                f"{TENSOR_PARALLEL}")
+
+        self.rules = ShardingRules.default(
+            seq_parallel=bool(self.settings.get("seq_parallel", False)))
+        extra_rules = self.settings.get("rules")
+        if extra_rules:
+            self.rules = self.rules.with_(**{
+                k: (tuple(v) if isinstance(v, list) else v)
+                for k, v in dict(extra_rules).items()
+            })
+        # ZeRO-1 on the implicit path: optimizer state splits over the
+        # batch axes on 'embed' dims (the explicit path keeps it whole, as
+        # the JAX package's shard_map region does)
+        self.zero1 = (self.abi.zero1
+                      and self.abi.options.get("mode") != "explicit")
+        self.opt_rules = (self.rules.with_(embed=("pod", "data"))
+                          if self.zero1 else self.rules)
 
         prec = cfg["precision"]
-        self.model = Model(self.arch, tp=1,
+        self.model = Model(self.arch, tp=self.mesh.shape.get("model", 1),
                            act_dtype=_torch_dtype(prec.get("compute",
                                                            "bfloat16")),
                            remat=str(self.settings.get("remat", "none")))
@@ -90,7 +128,8 @@ class Container:
         self.cache_dtype = _torch_dtype(prec.get("compute", "bfloat16"))
         self.opt = OptConfig(**self.settings.get("optimizer", {}))
 
-        self.container_id = f"{image.short_digest}-{uuid.uuid4().hex[:8]}"
+        self.container_id = self.mesh.broadcast_object(
+            f"{image.short_digest}-{uuid.uuid4().hex[:8]}")
         self.overlay = (Path(overlay_root) if overlay_root
                         else Path(".stevedore") / "overlays") / self.container_id
         self.compile_cache = compile_cache
@@ -122,6 +161,26 @@ class Container:
             return t.to(device=self.device, dtype=self.param_dtype)
         return tree_map(leaf, self.param_defs, tree)
 
+    def param_shardings(self):
+        return def_shardings(self.param_defs, self.mesh, self.rules,
+                             self.device)
+
+    def opt_state_shardings(self):
+        ps = def_shardings(self.param_defs, self.mesh, self.opt_rules,
+                           self.device)
+        out = {"m": ps, "v": ps,
+               "step": NamedSharding(self.mesh, (), self.device)}
+        if self.param_dtype != torch.float32:
+            out["master"] = ps
+        if self._powersgd_rank():
+            baxes = batch_axes(self.mesh)
+            sh0 = NamedSharding(self.mesh,
+                                (baxes if len(baxes) > 1 else baxes[0],),
+                                self.device)
+            out["comm"] = tree_map(lambda a: None if a is None else sh0,
+                                   self._comm_template())
+        return out
+
     def abstract_params(self):
         """Meta tensors of the params' shapes and dtype (no allocation):
         the template a checkpoint restores into."""
@@ -140,12 +199,16 @@ class Container:
         return out
 
     def init_opt_state(self, params):
-        state = adamw_init(params,
+        """Optimizer state for ``params``: this rank's part of each leaf
+        under ZeRO-1, the whole leaf otherwise."""
+        parts = tree_map(lambda sh, p: sh.local(p),
+                         self.opt_state_shardings()["m"], params)
+        state = adamw_init(parts,
                            with_master=self.param_dtype != torch.float32)
         if self._powersgd_rank():
             from repro_torch.train.compression import powersgd_init
             comm = powersgd_init(params, self._powersgd_rank())
-            # a leading per-replica axis, of 1 on one card: the error
+            # this rank's row of the (replicas, ...) leaves: the error
             # buffer is per-replica state, unlike params
             expand = lambda a: None if a is None else a[None].clone()
             state["comm"] = {"q": tree_map(expand, comm["q"]),
@@ -158,20 +221,21 @@ class Container:
         return 0
 
     def _comm_template(self):
-        """Abstract comm-state tree: a per-replica leading axis on q/err,
-        ``None`` where a leaf syncs uncompressed."""
+        """Abstract comm-state tree: a per-replica leading axis on q/err
+        (one row a rank), ``None`` where a leaf syncs uncompressed."""
         from repro_torch.train.compression import _compressible
         rank = self._powersgd_rank()
+        nsh = self.mesh.axes_size(batch_axes(self.mesh))
 
         def q_leaf(d):
             if not _compressible(d, rank):
                 return None
-            return _meta((1, math.prod(d.shape[1:]), rank), torch.float32)
+            return _meta((nsh, math.prod(d.shape[1:]), rank), torch.float32)
 
         def e_leaf(d):
             if not _compressible(d, rank):
                 return None
-            return _meta((1, *d.shape), torch.float32)
+            return _meta((nsh, *d.shape), torch.float32)
 
         return {"q": tree_map(q_leaf, self.param_defs),
                 "err": tree_map(e_leaf, self.param_defs)}
@@ -184,7 +248,9 @@ class Container:
         builder = TrainStepBuilder(
             model=self.model, abi=self.abi, opt=self.opt,
             microbatches=int(self.settings.get("microbatches", 1)),
-            donate=donate)
+            donate=donate, mesh=self.mesh,
+            opt_shardings=(self.opt_state_shardings()["m"] if self.zero1
+                           else None))
         return builder.build()
 
     # -- serving: slot-granular cache + built serve steps ----------------------
@@ -290,6 +356,10 @@ class Container:
 
     # -- overlay (writable layer) ----------------------------------------------
     def ensure_overlay(self) -> Path:
+        """The overlay directory, made and described by rank 0 (another
+        rank's returns its path)."""
+        if self.mesh.rank:
+            return self.overlay
         self.overlay.mkdir(parents=True, exist_ok=True)
         meta = self.overlay / "container.json"
         if not meta.exists():
@@ -303,6 +373,9 @@ class Container:
         return self.overlay
 
     def log_metrics(self, step: int, metrics: dict) -> None:
+        """Append a step's metrics to ``metrics.jsonl`` (rank 0 only)."""
+        if self.mesh.rank:
+            return
         self.ensure_overlay()
         rec = {"step": step}
         for k, v in metrics.items():

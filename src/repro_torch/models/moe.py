@@ -27,7 +27,7 @@ Two points keep the port's routing identical to the reference's:
   ``.at[slot].add`` and is deterministic on the card, with no host sync.
 
 The expert-parallel ``moe_forward_spmd`` and ``moe_param_specs`` come with
-the port's sharding (ROADMAP.md Queue 1 item 11).
+the port's tensor and expert parallelism (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations

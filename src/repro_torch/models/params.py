@@ -7,8 +7,8 @@ derives materialised params (``materialize``) and stacked per-layer params
 
 ``params_from_jax`` takes the JAX package's ``Container.init_params`` tree
 (as numpy arrays) and returns the port's tree: the layouts are the same, so
-the hand-off is a copy, never a transpose. Sharding is not ported: this
-slice runs on one card.
+the hand-off is a copy, never a transpose. A def's logical axes give its
+sharding (``dist.sharding.def_shardings``).
 """
 
 from __future__ import annotations

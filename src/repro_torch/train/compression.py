@@ -12,11 +12,11 @@ Wire per tensor: r(m+n) floats instead of m*n. The error buffer makes the
 scheme unbiased over time. Small tensors (1D norms/biases, or
 m*n <= 4*r*(m+n)) sync uncompressed.
 
-The cross-replica means go through ``replica_mean``, which is the identity
-on one process (JAX's ``pmean`` over a size-1 axis) and raises where
-``torch.distributed`` runs more than one (ROADMAP.md Queue 1 item 11).
-Even on one replica the gradient is compressed, with error feedback, as
-in the JAX package.
+The cross-replica means of P and Q go through ``replica_mean`` over the
+mesh's batch axes: ``torch.distributed`` all-reduces where the job has
+more than one rank, the identity on one (JAX's ``pmean`` over a size-1
+axis). Even on one replica the gradient is compressed, with error
+feedback, as in the JAX package. The error buffer is each rank's own.
 
 State trees keep the JAX package's keys; a leaf that is not compressed
 holds ``None`` in ``q`` and ``err``. The initial Q is drawn from a
@@ -74,19 +74,23 @@ def powersgd_init(params, rank: int, seed: int = 17) -> dict:
     return {"q": qs, "err": errs, "rank": rank}
 
 
-def powersgd_sync(grads, state: dict, batch_axes, rank: int):
-    """Cross-replica mean of grads over ``batch_axes`` with rank-r
-    compression and error feedback. Returns (synced_grads, new_state)."""
+def powersgd_sync(grads, state: dict, batch_axes, rank: int, mesh=None,
+                  abi: str = "host"):
+    """Cross-replica mean of grads over ``batch_axes`` of ``mesh`` with
+    rank-r compression and error feedback. Returns (synced_grads,
+    new_state)."""
+
+    def mean(x):
+        return replica_mean(x, batch_axes, mesh, abi)
 
     def sync(g, q, e):
         if q is None:
-            g = replica_mean(g.float(), batch_axes).to(g.dtype)
-            return g, None, None
+            return mean(g.float()).to(g.dtype), None, None
         g32 = g.float() + e
         g2 = _as_matrix(g32)
-        p = replica_mean(g2 @ q, batch_axes)                # wire: m*r
+        p = mean(g2 @ q)                                    # wire: m*r
         p, _ = torch.linalg.qr(p)                           # orthonormalize
-        qn = replica_mean(g2.T @ p, batch_axes)             # wire: n*r
+        qn = mean(g2.T @ p)                                 # wire: n*r
         ghat = (p @ qn.T).reshape(g.shape)
         return ghat.to(g.dtype), qn, g32 - ghat             # error feedback
 

@@ -76,10 +76,12 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: OptConfig,
-                 inplace: bool = False):
+                 inplace: bool = False, gnorm: torch.Tensor | None = None):
     """Returns (new_params, new_state, metrics). If the state carries a
     float32 ``master`` tree, updates apply to it and params are its cast.
-    ``inplace`` writes the results into ``params`` and ``state``."""
+    ``inplace`` writes the results into ``params`` and ``state``. ``gnorm``
+    is the gradients' global norm where ``grads`` hold only a part of
+    them (a ZeRO-1 shard: train_step.py); by default ``grads``' own."""
     keys = [k for k in ("m", "v", "step", "master") if k in state]
     state = {k: state[k] for k in keys}
     if not inplace:
@@ -87,7 +89,8 @@ def adamw_update(params, grads, state: dict, cfg: OptConfig,
         params = tree_map(copy, params)
         state = {k: tree_map(copy, v) for k, v in state.items()}
     step = state["step"]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(cfg, step)

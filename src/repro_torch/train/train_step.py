@@ -3,21 +3,36 @@
 Two ABI-compatible step paths, as in the JAX package:
 
 * ``implicit`` -- value-and-grad, then the AdamW update. The ``generic``
-  ABI uses it (one flat fp32 gradient mean; on one process there is
-  nothing to reduce).
+  ABI: one flat float32 all-reduce mean of the gradients, optimizer state
+  replicated. ZeRO-1 (the ``host`` ABI; ``opt_shardings`` split m/v over
+  the batch axes): a float32 reduce-scatter of each split leaf's
+  gradient, the update of this rank's part, an all-gather of the params.
+  The JAX package leaves these collectives to XLA's partitioner on this
+  path, so its wire stays float32 here too.
 * ``explicit`` -- the local step, then ``abi.grad_sync`` (wire dtype,
-  hierarchical reductions) or PowerSGD with error feedback, then the
-  update: the ``host mode=explicit`` path.
+  hierarchical means) or PowerSGD with error feedback, then the update:
+  the ``host mode=explicit`` path. Optimizer state stays replicated, as
+  inside the JAX package's ``shard_map``.
 
 Both return ``step(params, opt_state, batch) -> (params, opt_state,
 metrics)`` with metrics ``loss``, ``aux_loss``, ``grad_norm`` and ``lr``
 (0-d tensors on the device; nothing is read back to the host). A batch
-holds numpy arrays or tensors; the step moves them to the params'
-device. Built with ``donate=True`` the update writes into the given
-params and optimizer state (``jax.jit(..., donate_argnums=(0, 1))``).
+is the GLOBAL batch, numpy arrays or tensors: each rank of the mesh keeps
+its rows (``data.pipeline.rank_rows``) and moves them to the params'
+device, so every step equals the JAX step on the same global batch over a
+mesh of the same shape. Built with ``donate=True`` the update writes into
+the given params and optimizer state (``jax.jit(..., donate_argnums=(0,
+1))``).
 
 Gradient accumulation: ``microbatches > 1`` runs the batch in slices and
 accumulates float32 grads, divided by the count at the end.
+
+With a ``loss_mask`` the JAX implicit loss is the global masked mean
+(over each global microbatch, then averaged), which no mean of the
+ranks' own masked means gives: each rank weights its microbatches by
+their mask counts over the all-reduced counts of the global microbatches
+that hold them (``_mask_weights``). The explicit path keeps the JAX
+package's per-shard mean, then the mean over replicas.
 """
 
 from __future__ import annotations
@@ -27,14 +42,19 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.abi import CollectiveABI, replica_mean
+from repro_torch.core.abi import (CollectiveABI, all_gather,
+                                  reduce_scatter_mean, replica_mean)
+from repro_torch.data.pipeline import rank_rows
+from repro_torch.dist.mesh import PlatformMesh, batch_axes
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.transformer import Model
 from repro_torch.train.compression import powersgd_sync
 from repro_torch.train.optimizer import OptConfig, adamw_update
 
 AUX_LOSS_WEIGHT = 0.01
-BATCH_AXES = ("data",)    # the one replica axis of a single-card mesh
+# the label of the step's scalar means (loss, aux, ZeRO-1's norm, mask
+# counts) in the mesh's collective counter, apart from the ABI's traffic
+METRICS = "metrics"
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -74,6 +94,11 @@ class TrainStepBuilder:
     opt: OptConfig
     microbatches: int = 1
     donate: bool = False
+    # this rank's view of the job (None: one process)
+    mesh: PlatformMesh | None = None
+    # ZeRO-1: m/v (and master) NamedShardings, param-shaped; None keeps
+    # the optimizer state whole on every rank
+    opt_shardings: dict | None = None
 
     # -- loss ------------------------------------------------------------
     def _loss(self, params, batch):
@@ -89,72 +114,158 @@ class TrainStepBuilder:
                              batch.get("loss_mask"))
         return loss + AUX_LOSS_WEIGHT * aux, (loss, aux)
 
-    def _value_and_grad(self, params, batch):
+    def _value_and_grad(self, params, batch, weight=None):
+        """Grads of the loss; with ``weight`` of ``weight * loss`` plus the
+        aux loss's share of the microbatches' mean."""
         tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(tracked)
         total, (loss, aux) = self._loss(tracked, batch)
+        if weight is not None:
+            total = weight * loss + AUX_LOSS_WEIGHT * aux / self.microbatches
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
                                     materialize_grads=True)
         by_leaf = {id(t): g for t, g in zip(leaves, grads)}
         return (tree_map(lambda t: by_leaf[id(t)], tracked), loss.detach(),
                 aux.detach())
 
-    def _grads(self, params, batch):
+    def _grads(self, params, batch, weights=None):
         """(possibly microbatched) value-and-grad; with microbatches the
-        grads are float32."""
-        if self.microbatches == 1:
-            return self._value_and_grad(params, batch)
+        grads are float32. With ``weights`` (one a microbatch) grads and
+        loss are the weighted sums over the microbatches, not means."""
         n = self.microbatches
+        if n == 1 and weights is None:
+            return self._value_and_grad(params, batch)
         gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device), params)
         lacc = aacc = 0.0
         for i in range(n):
             mb = {k: _slice(v, i, n) for k, v in batch.items()}
-            g, loss, aux = self._value_and_grad(params, mb)
+            w = None if weights is None else weights[i]
+            g, loss, aux = self._value_and_grad(params, mb, w)
             for a, b in zip(tree_leaves(gacc), tree_leaves(g)):
                 a.add_(b.float())
-            lacc, aacc = lacc + loss, aacc + aux
+            lacc = lacc + (loss if w is None else w * loss)
+            aacc = aacc + aux
+        if weights is not None:
+            return gacc, lacc, aacc / n
         return tree_map(lambda x: x / n, gacc), lacc / n, aacc / n
+
+    def _mask_weights(self, batch):
+        """World size x each local microbatch's share of the global masked
+        loss: its mask count over (microbatches x the count of the global
+        microbatch holding it), from one all-reduce of every rank's
+        counts. ``None`` without a mask or a job."""
+        mesh, n = self.mesh, self.microbatches
+        if "loss_mask" not in batch or mesh is None or mesh.size == 1:
+            return None
+        w = mesh.size
+        counts = batch["loss_mask"].float().reshape(n, -1).sum(1)
+        table = torch.zeros((w, n), device=counts.device)
+        table[mesh.rank] = counts
+        table = (replica_mean(table, batch_axes(mesh), mesh, METRICS)
+                 * w).round()
+        # local microbatch k of rank r is microbatch (r n + k) // w of the
+        # global batch
+        glob = table.reshape(n, w).sum(1)
+        idx = (mesh.rank * n + torch.arange(n)) // w
+        return w * counts / (n * torch.clamp(glob[idx.to(glob.device)],
+                                             min=1.0))
 
     def _device(self, params) -> torch.device:
         return tree_leaves(params)[0].device
 
+    def _local_batch(self, params, batch: dict) -> dict:
+        if self.mesh is not None:
+            batch = rank_rows(batch, self.mesh.rank, self.mesh.size)
+        return _on_device(batch, self._device(params))
+
+    def _baxes(self) -> tuple[str, ...]:
+        return batch_axes(self.mesh) if self.mesh is not None else ("data",)
+
     # -- implicit path ----------------------------------------------------
     def build_implicit(self) -> Callable:
         def step(params, opt_state, batch):
-            batch = _on_device(batch, self._device(params))
-            grads, loss, aux = self._grads(params, batch)
-            new_params, new_state, om = adamw_update(
-                params, grads, opt_state, self.opt, inplace=self.donate)
-            metrics = {"loss": loss, "aux_loss": aux, **om}
-            return new_params, new_state, metrics
+            batch = self._local_batch(params, batch)
+            if self.mesh is None or self.mesh.size == 1:
+                grads, loss, aux = self._grads(params, batch)
+                new_params, new_state, om = adamw_update(
+                    params, grads, opt_state, self.opt, inplace=self.donate)
+                return new_params, new_state, {"loss": loss,
+                                               "aux_loss": aux, **om}
+            return self._implicit_distributed(params, opt_state, batch)
 
         return step
+
+    def _implicit_distributed(self, params, opt_state, batch):
+        mesh, name, baxes = self.mesh, self.abi.name, self._baxes()
+        grads, loss, aux = self._grads(params, batch,
+                                       self._mask_weights(batch))
+        loss = replica_mean(loss, baxes, mesh, METRICS)
+        aux = replica_mean(aux, baxes, mesh, METRICS)
+        shards = self.opt_shardings or tree_map(lambda p: None, params)
+
+        def split(sh) -> bool:          # this leaf's optimizer state is split
+            return sh is not None and sh.split()[0] is not None
+
+        def sync(g, sh):
+            if split(sh):
+                return reduce_scatter_mean(g.float(), sh, name)
+            return replica_mean(g.float(), baxes, mesh, name)
+
+        part_g = tree_map(sync, grads, shards)
+        part_p = tree_map(lambda p, sh: sh.local(p) if split(sh) else p,
+                          params, shards)
+        gnorm = None
+        if any(split(sh) for sh in tree_leaves(shards)):
+            # the global norm: the parts' squares summed over the ranks
+            # (a part held by several ranks counts once), the whole
+            # leaves' here
+            part_sq, whole_sq = torch.zeros((), device=loss.device), 0.0
+            for g, sh in zip(tree_leaves(part_g), tree_leaves(shards)):
+                if split(sh):
+                    part_sq = part_sq + g.square().sum() * (
+                        sh.split()[1] / mesh.size)
+                else:
+                    whole_sq = whole_sq + g.square().sum()
+            gnorm = torch.sqrt(replica_mean(part_sq, baxes, mesh, METRICS)
+                               * mesh.size + whole_sq)
+        new_parts, new_state, om = adamw_update(
+            part_p, part_g, opt_state, self.opt, inplace=self.donate,
+            gnorm=gnorm)
+        new_params = tree_map(
+            lambda p, new, sh: all_gather(new, sh, name,
+                                          out=p if self.donate else None)
+            if split(sh) else new, params, new_parts, shards)
+        return new_params, new_state, {"loss": loss, "aux_loss": aux, **om}
 
     # -- explicit path ------------------------------------------------------
     def build_explicit(self) -> Callable:
         """The local step, then the ABI's gradient sync (or PowerSGD with
         error feedback, whose state rides in ``opt_state["comm"]`` with a
-        leading per-replica axis of 1), then the update."""
+        leading per-replica axis holding this rank's row), then the
+        update."""
         use_psgd = self.abi.options.get("compression") == "powersgd"
         rank = int(self.abi.options.get("rank", 16))
+        mesh, name = self.mesh, self.abi.name
 
         def step(params, opt_state, batch):
-            batch = _on_device(batch, self._device(params))
+            baxes = self._baxes()
+            batch = self._local_batch(params, batch)
             comm = opt_state.get("comm")
             opt_core = {k: v for k, v in opt_state.items() if k != "comm"}
             grads, loss, aux = self._grads(params, batch)
             if use_psgd and comm is not None:
                 local = {"q": _map(lambda a: a[0], comm["q"]),
                          "err": _map(lambda a: a[0], comm["err"])}
-                grads, local = powersgd_sync(grads, local, BATCH_AXES, rank)
+                grads, local = powersgd_sync(grads, local, baxes, rank, mesh,
+                                             name)
                 comm = {"q": _map(lambda a: a[None], local["q"]),
                         "err": _map(lambda a: a[None], local["err"])}
             else:
                 # the ABI swap point: wire dtype + topology live here
-                grads = self.abi.grad_sync(grads, BATCH_AXES)
-            loss = replica_mean(loss, BATCH_AXES)
-            aux = replica_mean(aux, BATCH_AXES)
+                grads = self.abi.grad_sync(grads, baxes, mesh)
+            loss = replica_mean(loss, baxes, mesh, METRICS)
+            aux = replica_mean(aux, baxes, mesh, METRICS)
             new_params, new_state, om = adamw_update(
                 params, grads, opt_core, self.opt, inplace=self.donate)
             if comm is not None:

@@ -531,3 +531,63 @@ def test_ssd_function_grads(cuda):
     assert ssd_ops.launches == before + 1
     for u, w in ((y, ref), *zip(g, gr)):
         assert float((u - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_two_gloo_ranks_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """llama3.2-3b-smoke in float32 on two gloo ranks that share cuda:0
+    (tests/torch_dist_worker.py; gloo's collectives go through host
+    memory), generic and ZeRO-1: every step's loss and grad_norm equal one
+    CPU process's on the same global batches within 1e-3 relative (the
+    card's kernels sum in other orders; chip_smoke's card-vs-CPU bound),
+    and each rank launched the flash-attention kernel once a layer a
+    step."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.checkpoint.store import _flatten, _unflatten
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    image = ("FROM scratch\nARCH llama3.2-3b-smoke\nSHAPE train_4k "
+             "seq_len=64 global_batch=4\nMESH local\nPRECISION "
+             "compute=float32 params=float32\nCOLLECTIVES {}\nSET "
+             'optimizer={{"lr":0.005,"warmup_steps":2,"total_steps":50}}\n')
+    plan = {"steps": 3, "abis": {"generic": image.format("generic"),
+                                 "host": image.format("host")}}
+    (tmp_path / "plan.json").write_text(json.dumps(plan))
+    rt = Runtime(tmp_path / "cpu")
+    c = rt.run(rt.build(plan["abis"]["generic"]), platform="cpu")
+    weights = c.init_params(0)
+    np.savez(tmp_path / "params.npz", **{
+        k: v.numpy() for k, v in _flatten(weights)})
+    data = SyntheticLM(DataConfig(vocab_size=c.arch.vocab_size, seq_len=64,
+                                  global_batch=4, seed=3))
+    for i in range(3):
+        np.savez(tmp_path / f"batch{i}.npz", **data.batch(i))
+    root = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "tests" / "torch_dist_worker.py"),
+         "card2", str(r), "2", str(tmp_path)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[-2000:] for o in outs]
+    card = json.loads((tmp_path / "card2.json").read_text())["abis"]
+    for name, imagefile in plan["abis"].items():
+        c = rt.run(rt.build(imagefile), platform="cpu")
+        params = c.load_params(_unflatten(c.param_defs, dict(
+            _flatten(weights))))
+        opt, step = c.init_opt_state(params), c.train_step_fn()
+        run = card[name]
+        assert run["device"] == "cuda:0" and run["backend"] == "gloo"
+        assert run["k2"] == c.arch.n_layers * 3
+        for i, rec in enumerate(run["steps"]):
+            params, opt, m = step(params, opt, data.batch(i))
+            for key in ("loss", "grad_norm"):
+                want = float(m[key])
+                assert abs(rec[key] - want) <= 1e-3 * abs(want), (name, i,
+                                                                 key)

@@ -117,6 +117,9 @@ def test_runtime_run_needs_cuda_unless_cpu_is_asked(tmp_path):
     params = c.init_params(0)
     assert params["embed"]["tokens"].device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown platform"):
+        rt.run("stable", platform="tpu")
+    # the JAX package's pod meshes are known, and need tensor parallelism
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         rt.run("stable", platform="pod")
 
 

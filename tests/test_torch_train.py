@@ -288,23 +288,44 @@ def test_abi_generic_vs_host_parity_and_bf16_wire():
     assert 0 < _max_diff(res["host"][0], res["bf16"][0]) < 5e-2
 
 
-def test_multi_process_sync_raises_naming_its_roadmap_item(monkeypatch):
+def test_world_one_sync_is_identity_and_unported_settings_raise(
+        monkeypatch, tmp_path):
     """On one process the ABI's mean is the identity (a cast to the wire
-    dtype and back); a world of more than one process is not ported."""
+    dtype and back). Multi-process data parallelism is ported; what is not
+    raises, naming its ROADMAP item: FSDP, a ``model`` axis above 1 (the
+    pod platforms), and an MoE arch on more than one rank."""
+    from repro_torch.dist.mesh import make_mesh
     g = {"w": torch.linspace(-1, 1, 7)}
     host = make_abi("host", mode="explicit")
     out = host.grad_sync(g, ("data",))
     assert out["w"].dtype == torch.float32
     assert torch.equal(out["w"], g["w"].to(torch.bfloat16).float())
+    st = powersgd_init(g, 2)
+    assert torch.equal(powersgd_sync(g, st, ("data",), 2)[0]["w"], g["w"])
+
+    rt = Runtime(tmp_path / "rt")
+    rt.build(IMAGEFILE.format(arch="llama3.2-3b-smoke")
+             + "SET fsdp=true\n", tag="fsdp")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        rt.run("fsdp", platform="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        make_mesh((1, 2), ("data", "model"))
+    rt.build(IMAGEFILE.format(arch="llama3.2-3b-smoke"), tag="dense")
+    for platform in ("pod", "multipod"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            rt.run("dense", platform=platform)
+    rt.build(IMAGEFILE.format(arch="moonshot-v1-16b-a3b-smoke"), tag="moe")
+    assert rt.run("moe", platform="cpu").mesh.size == 1
+    # a job of two ranks, as this process sees it (the local mesh of two
+    # ranks on data needs no process group of its own)
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    for abi in (host, make_abi("generic")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            abi.grad_sync(g, ("data",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        powersgd_sync(g, powersgd_init(g, 2), ("data",), 2)
+    monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
+    monkeypatch.setattr(dist, "get_backend", lambda *a: "gloo")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        rt.run("moe", platform="cpu")
 
 
 def test_loss_decreases():
