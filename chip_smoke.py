@@ -70,6 +70,23 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             each pod's kernel launch counts must match the dispatches its
             scheduler ran, every request completes with 32 tokens, the
             logits are finite, and the peak memory is printed
+  batch     the whole-batch serve path (``Container.prefill_fn`` /
+            ``decode_fn``, tests/test_consistency.py's flow) at full width,
+            ``SHAPE prefill_32k seq_len=1024 global_batch=8``, random
+            weights from seed 0: (a) float32 llama3.2-3b, mamba2-2.7b and
+            recurrentgemma-2b, 8 prompts of 512 tokens: one prefill (K2 =
+            28; K2 = 8 and K4 = 18; K5 = 64, nothing else), the
+            ``generate`` step of 32 from the scalar start 512 and
+            ``decode_fn`` stepped 4 times at a 0-d position (no kernel
+            launched); the hand-stepped tokens equal the loop's, and each
+            request's 33 tokens equal a contiguous ``Pod(n_slots=8,
+            max_len=1024)``'s on the same prompts (else the top-2 margins
+            at the first difference are printed); (b) bf16 llama3.2-3b,
+            the native route (``Model`` + ``ServeStepBuilder``) against
+            the container route on the same params: last logits and 8
+            decode steps bit-identical; each route's prefill and one
+            decode step timed (median of 5, CUDA events, the routes
+            interleaved) with their ratio
   cli       the user's entry points in process (``repro_torch.cli.main``)
             on full-width llama3.2-3b (bf16, random weights from seed 0) in
             a temporary root: build, images, inspect; serve with two pods
@@ -136,9 +153,10 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             memory a rank, the card's memory in use while (b) runs
 
 The kernel counters are set to 0 just before each main path is driven
-(each pod of the serve phase, the fig5 calls, each CLI serve, each
-loopback fleet of the fabric phase, each CLI training run, (c) of the
-dist phase) and read just after; a kernel's launches are their sum. A
+(each pod of the serve phase, each prefill and decode run of the batch
+phase, the fig5 calls, each CLI serve, each loopback fleet of the fabric
+phase, each CLI training run, (c) of the dist phase) and read just
+after; a kernel's launches are their sum. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
 Output ends with a JSON line of kernel records, the card line, and
@@ -161,8 +179,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "cli",
-          "fabric", "train", "dist")
+PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "batch",
+          "cli", "fabric", "train", "dist")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and operations per second by input type (float32 outside tensor cores)
@@ -1301,6 +1319,238 @@ def _report_moe_drops(pod, calls):
         f"right-pad rows): {'; '.join(rows)}; decode steps dropped "
         f"{sum(int((~m).sum()) for m in dec)} of "
         f"{sum(m.numel() for m in dec)}")
+
+
+# ---------------------------------------------------------------------------
+# batch: the whole-batch serve path (Container.prefill_fn / decode_fn, the
+# lockstep decode at one scalar position) at full width
+# ---------------------------------------------------------------------------
+
+BATCH_IMAGEFILE = """\
+FROM scratch
+ARCH {arch}
+SHAPE prefill_32k seq_len=1024 global_batch=8
+MESH local
+PRECISION compute={dtype} params={dtype}
+"""
+BATCH_B, BATCH_PROMPT, BATCH_GEN, BATCH_HAND = 8, 512, 32, 4
+# kernel launches of one whole-batch prefill (tests/test_consistency.py's
+# three archs); none may launch during the lockstep decode, which is
+# contiguous and runs the plain path, as the reference's runs through XLA
+BATCH_PREFILL_LAUNCHES = {
+    "llama3.2-3b": {"flash_attention_fwd": 28},
+    "recurrentgemma-2b": {"flash_attention_fwd": 8, "rglru_scan": 18},
+    "mamba2-2.7b": {"ssd": 64},
+}
+# (b): 8 decode steps compared, 5 timed calls after one warm-up
+BATCH_NATIVE_STEPS, BATCH_SAMPLES = 8, 5
+
+
+def _batch_gate(counts: dict, want: dict, what: str) -> None:
+    """Every kernel's launches equal ``want``'s (0 where it names none)."""
+    bad = {k: (n, want.get(k, 0)) for k, n in counts.items()
+           if n != want.get(k, 0)}
+    check(not bad, f"batch: {what}: launches (got, expected) {bad}")
+
+
+def _batch_tokens(torch, state, rt, arch: str) -> list[str]:
+    """(a) for one arch, float32: prefill_fn over 8 prompts of 512 tokens,
+    then the ``generate`` step (build_generate_loop(32)) from the scalar
+    start 512, and decode_fn stepped by hand 4 times at a 0-d position on
+    a copy of the cache; against a contiguous Pod serving the same
+    prompts. Returns the failures."""
+    import numpy as np
+    from repro_torch.models.params import tree_map
+    from repro_torch.orchestrator import ContinuousScheduler, GenRequest, Pod
+    from repro_torch.serve.serve_step import greedy_sample
+
+    tag = f"batch-{arch}"
+    rt.build(BATCH_IMAGEFILE.format(arch=arch, dtype="float32"), tag=tag)
+    c = rt.run(tag)
+    params = c.init_params(0)
+    vocab = c.arch.vocab_size
+    prompts = np.random.default_rng(0).integers(
+        0, vocab, (BATCH_B, BATCH_PROMPT))
+    toks = torch.as_tensor(prompts, device=c.device)
+    prefill = c.prefill_fn()
+    decode = c.decode_fn()
+    generate = c.compile_serve_step("generate", batch=BATCH_B,
+                                    cache_len=c.cell.seq_len,
+                                    gen_steps=BATCH_GEN)
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, toks)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_counts = _main_path_counts(state)
+    _batch_gate(prefill_counts, BATCH_PREFILL_LAUNCHES[arch],
+                f"{arch} prefill")
+    finite = bool(torch.isfinite(last).all())
+    check(finite and tuple(last.shape)[0] == BATCH_B,
+          f"batch: {arch} prefill logits {tuple(last.shape)} finite={finite}")
+    first = greedy_sample(last, vocab)[:, None]
+    del last
+    hand_cache = tree_map(torch.clone, cache)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    gen, _ = generate(params, cache, first, BATCH_PROMPT)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    hand = []
+    tok = first
+    for i in range(BATCH_HAND):
+        logits, hand_cache = decode(
+            params, hand_cache, tok,
+            torch.tensor(BATCH_PROMPT + i, dtype=torch.int32,
+                         device=c.device))
+        tok = greedy_sample(logits, vocab)[:, None]
+        hand.append(tok[:, 0])
+    torch.cuda.synchronize()
+    counts = _main_path_counts(state)
+    _batch_gate(counts, {}, f"{arch} decode")
+    del cache, hand_cache, logits
+    batch = torch.cat([first, gen], dim=1).tolist()     # 33 a request
+    hand = torch.stack(hand, dim=1).tolist()
+    hand_same = hand == [row[:BATCH_HAND] for row in gen.tolist()]
+    log(f"batch: {arch} f32 prefill_fn {BATCH_B} x {BATCH_PROMPT} in "
+        f"{t_prefill:.3f} s (first call), launches {prefill_counts}; "
+        f"generate {BATCH_GEN} steps from the scalar start {BATCH_PROMPT} "
+        f"in {t_gen:.3f} s and decode_fn x {BATCH_HAND}, launches {counts}; "
+        f"the hand-stepped tokens equal the loop's: {hand_same}")
+
+    reqs = [GenRequest(rid=i, prompt=prompts[i],
+                       max_new_tokens=BATCH_GEN + 1) for i in range(BATCH_B)]
+    pod = Pod(rt, tag, replicas=1, n_slots=BATCH_B,
+              max_len=c.cell.seq_len, params=params)
+    sched = ContinuousScheduler(pod)
+    sched.submit(reqs)
+    sched.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    pod_done = all(r.state == "done" for r in reqs)
+    _release([pod])
+    del pod, sched, params
+    torch.cuda.empty_cache()
+    want = dict(enumerate(batch))
+    diffs = _token_diffs(want, reqs)
+    log(f"batch: {arch} whole-batch tokens ({BATCH_GEN + 1} a request) "
+        f"equal a contiguous Pod(n_slots={BATCH_B}, max_len="
+        f"{c.cell.seq_len})'s: {not diffs and pod_done}")
+    failures = []
+    if not hand_same:
+        failures.append(f"{arch}: decode_fn by hand {hand} != the loop's")
+    if diffs or not pod_done:
+        failures.append(f"{arch}: tokens differ from the Pod's at (rid, "
+                        f"position) {diffs}: "
+                        + _margins(torch, rt, tag, reqs, want, diffs))
+    return failures
+
+
+def _batch_timed(torch, fns: dict) -> dict:
+    """Median ms of BATCH_SAMPLES calls of each of ``fns`` (CUDA events,
+    after one warm-up each), the routes interleaved A B, B A, ... so a
+    drift of the shared host falls on both alike."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    times = {n: [] for n in names}
+    for i in range(BATCH_SAMPLES):
+        for n in names if i % 2 == 0 else names[::-1]:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[n]()
+            b.record()
+            b.synchronize()
+            times[n].append(a.elapsed_time(b))
+    return {n: statistics.median(t) for n, t in times.items()}
+
+
+def _batch_routes(torch, state, rt) -> list[str]:
+    """(b) llama3.2-3b bf16: the native route (``Model`` + ``ServeStepBuilder``
+    built by hand) against the container route (``prefill_fn`` /
+    ``decode_fn``) on the container's params: bit-identical last logits and
+    8 decode steps, both prefills' launches gated; then prefill and decode
+    timed on each route."""
+    import numpy as np
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.serve_step import ServeStepBuilder, greedy_sample
+
+    arch = "llama3.2-3b"
+    rt.build(BATCH_IMAGEFILE.format(arch=arch, dtype="bfloat16"), tag="bf16")
+    c = rt.run("bf16")
+    params = c.init_params(0)
+    vocab = c.arch.vocab_size
+    L = c.cell.seq_len
+    native = ServeStepBuilder(Model(c.arch, act_dtype=torch.bfloat16))
+    routes = {
+        "native": (torch.no_grad()(native.build_prefill(L)),
+                   torch.no_grad()(native.build_decode())),
+        "container": (c.prefill_fn(), c.decode_fn()),
+    }
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab, (BATCH_B, BATCH_PROMPT)), device=c.device)
+    out = {}
+    for name, (prefill, decode) in routes.items():
+        _reset_counts()
+        last, cache = prefill(params, toks)
+        torch.cuda.synchronize()
+        _batch_gate(_main_path_counts(state), BATCH_PREFILL_LAUNCHES[arch],
+                    f"{name} bf16 prefill")
+        logits, tok = [], greedy_sample(last, vocab)[:, None]
+        _reset_counts()
+        for i in range(BATCH_NATIVE_STEPS):
+            lg, cache = decode(params, cache, tok, BATCH_PROMPT + i)
+            logits.append(lg)
+            tok = greedy_sample(lg, vocab)[:, None]
+        torch.cuda.synchronize()
+        _batch_gate(_main_path_counts(state), {}, f"{name} bf16 decode")
+        out[name] = (last, logits, cache, tok)
+    same_last = torch.equal(out["native"][0], out["container"][0])
+    same_steps = all(torch.equal(a, b) for a, b in
+                     zip(out["native"][1], out["container"][1]))
+    # timing: the prefill again, and one decode step at the next position
+    # (rewritten in place each call), the routes interleaved
+    pos = BATCH_PROMPT + BATCH_NATIVE_STEPS
+    ms_p = _batch_timed(torch, {
+        n: (lambda f=f: f(params, toks)) for n, (f, _) in routes.items()})
+    ms_d = _batch_timed(torch, {
+        n: (lambda f=f, c=out[n][2], t=out[n][3]: f(params, c, t, pos))
+        for n, (_, f) in routes.items()})
+    _reset_counts()
+    card = state["card"]
+    for name in routes:
+        log(f"batch: llama3.2-3b bf16 {name} route: prefill {BATCH_B} x "
+            f"{BATCH_PROMPT} {ms_p[name]:.4f} ms, one decode step "
+            f"{ms_d[name]:.4f} ms (median of {BATCH_SAMPLES}, CUDA events, "
+            f"routes interleaved) [{card}]")
+    log(f"batch: container / native: prefill "
+        f"{ms_p['container'] / ms_p['native']:.4f}, decode "
+        f"{ms_d['container'] / ms_d['native']:.4f} [{card}]; last logits "
+        f"bit-identical {same_last}, {BATCH_NATIVE_STEPS} decode steps "
+        f"bit-identical {same_steps}")
+    del out, params, routes
+    torch.cuda.empty_cache()
+    return [] if same_last and same_steps else [
+        f"native vs container: last logits equal {same_last}, decode steps "
+        f"equal {same_steps}"]
+
+
+def phase_batch(torch, state, workdir: Path) -> None:
+    from repro_torch.core.runtime import Runtime
+
+    rt = Runtime(workdir / "batch")
+    failures = []
+    for arch in BATCH_PREFILL_LAUNCHES:
+        try:
+            failures += _batch_tokens(torch, state, rt, arch)
+        except PhaseError as e:
+            failures.append(str(e))
+        torch.cuda.empty_cache()
+    failures += _batch_routes(torch, state, rt)
+    check(not failures, "batch: " + "; ".join(failures))
 
 
 # the cli phase's serve commands (full-width llama3.2-3b)
@@ -2589,6 +2839,8 @@ def main() -> int:
                     phase_parity(torch, state, workdir)
                 elif phase == "serve":
                     phase_serve(torch, state, workdir)
+                elif phase == "batch":
+                    phase_batch(torch, state, workdir)
                 elif phase == "cli":
                     phase_cli(torch, state, workdir)
                 elif phase == "fabric":

@@ -253,6 +253,20 @@ class Container:
                            else None))
         return builder.build()
 
+    # -- whole-batch serve steps ------------------------------------------------
+    def prefill_fn(self, cache_len: int | None = None) -> Callable:
+        """``prefill(params, tokens[, frontend_embeds]) -> (last logits,
+        cache)`` into ``cache_len`` positions (the cell's ``seq_len`` when
+        None), under no_grad."""
+        b = ServeStepBuilder(self.model)
+        return torch.no_grad()(b.build_prefill(
+            cache_len or (self.cell.seq_len if self.cell else 0)))
+
+    def decode_fn(self) -> Callable:
+        """``decode(params, cache, tokens (B,1), idx) -> (logits (B, Vp),
+        cache)`` at a scalar or (B,) position, under no_grad."""
+        return torch.no_grad()(ServeStepBuilder(self.model).build_decode())
+
     # -- serving: slot-granular cache + built serve steps ----------------------
     def cache_leaf_dtype(self, d) -> torch.dtype:
         """The dtype of one (layer-stacked) cache leaf, by the JAX package's
@@ -292,13 +306,16 @@ class Container:
                          per_row: bool | None = None) -> Callable:
         """A serving step at the given shapes (the ``lower_serve_step``
         counterpart; the shapes the eager step does not need are accepted
-        so the keys stay those of the JAX package). ``generate`` is the
-        greedy loop of ``gen_steps`` steps over a (batch, cache_len) cache;
-        with ``per_row`` it takes a (batch,) vector of start positions, as
-        for mixed-length waves, else one scalar start. Runs under
-        no_grad."""
+        so the keys stay those of the JAX package). ``prefill`` is the
+        whole-batch prefill into ``cache_len`` positions. ``generate`` is
+        the greedy loop of ``gen_steps`` steps over a (batch, cache_len)
+        cache; with ``per_row`` it takes a (batch,) vector of start
+        positions, as for mixed-length waves, else one scalar start. Runs
+        under no_grad."""
         b = ServeStepBuilder(self.model)
-        if kind == "prefill_slot":
+        if kind == "prefill":
+            fn = b.build_prefill(cache_len)
+        elif kind == "prefill_slot":
             fn = b.build_prefill_slot(cache_len, frontend_len or 0)
         elif kind == "decode_slots":
             fn = b.build_decode_slots()

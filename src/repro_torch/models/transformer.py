@@ -415,17 +415,23 @@ class Model:
     # -- decode ------------------------------------------------------------
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
                     idx, page_table: torch.Tensor | None = None):
-        """tokens: (B,1); idx: (B,) tensor of per-row positions.
+        """tokens: (B,1); idx: position -- a Python int or 0-d tensor
+        (lockstep batch) or a (B,) tensor of per-row positions
+        (slot-granular continuous batching); normalised once, on the
+        device, to (B,) (``attention.row_positions``).
         -> (logits (B,1,Vp), cache).
 
         With ``page_table`` (B, max_pages) the attention caches are PAGED
         pools (see paged_cache_defs) and decode routes through the paged
-        kernel; without it they are contiguous per-slot slabs. Either way
-        the cache is updated IN PLACE (per-layer views of the stacked
-        tensors; a recurrent block's new conv tail and state are copied
-        into them, cast to the cache's dtype) and returned."""
+        kernel, with (B,) positions only, as in the JAX package; without
+        it they are contiguous per-slot slabs. Either way the cache is
+        updated IN PLACE (per-layer views of the stacked tensors; a
+        recurrent block's new conv tail and state are copied into them,
+        cast to the cache's dtype) and returned."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype)
+        idx = attn_mod.row_positions(idx, tokens.shape[0], x.device,
+                                     lockstep=page_table is None)
         for si, st in enumerate(self.stages):
             sp = params[f"stage{si}"]
             sc = cache[f"stage{si}"]

@@ -1,12 +1,17 @@
 """Serving steps: batched prefill, single-token decode, and the
 slot-granular variants that power the orchestrator's continuous batching.
 
+``prefill``      : (params, tokens[, frontend_embeds]) -> (last_logits, cache)
 ``decode``       : (params, cache, tokens (B,1), idx)  -> (logits, cache)
 ``prefill_slot`` : (params, tokens (B,P), length[, frontend_embeds, fe_len])
                                                 -> (first_tokens (B,), cache)
 ``decode_slots`` : (params, cache, tokens (B,1), pos (B,))
                                                 -> (next_tokens (B,), cache)
 ``generate``     : (params, cache, first (B,1), start) -> (toks (B,G), cache)
+
+``prefill`` and ``decode`` are the whole-batch (lockstep) path: every row
+is one prompt of the same length, and ``idx`` may be one scalar position
+for the whole batch.
 
 Frontend-embedding archs (musicgen / internvl2) prepend a per-request
 modality prefix: ``prefill_slot`` built with ``frontend_len=F`` takes an
@@ -77,7 +82,23 @@ def _rows_at(logits: torch.Tensor, pos) -> torch.Tensor:
 class ServeStepBuilder:
     model: Model
 
+    def build_prefill(self, cache_len: int) -> Callable:
+        """Whole-batch prefill of (B, S) prompts (after a (B, F, D)
+        ``frontend_embeds`` prefix, where the arch has one) into a cache
+        of ``cache_len`` positions -> (last logits (B, Vp), cache). The
+        last row is copied out, so the full (B, S, Vp) logits are freed
+        when the step returns."""
+        def prefill(params, tokens, frontend_embeds=None):
+            logits, cache, _ = self.model.forward(
+                params, tokens, frontend_embeds=frontend_embeds,
+                collect_cache=True, cache_len=cache_len)
+            return logits[:, -1].clone(), cache
+
+        return prefill
+
     def build_decode(self) -> Callable:
+        """One decode step at ``idx``: a scalar (lockstep batch) or (B,)
+        per-row positions -> (logits (B, Vp), cache)."""
         def decode(params, cache, tokens, idx):
             logits, cache = self.model.decode_step(params, cache, tokens, idx)
             return logits[:, -1], cache
@@ -300,9 +321,7 @@ class ServeStepBuilder:
                 raise ValueError(
                     f"generate: start_idx of shape {tuple(idx.shape)}, "
                     f"expected {want} (per_row={per_row})")
-            toks, _, _, cache = chunk(params, cache, first_token,
-                                      idx.reshape(-1).expand(
-                                          first_token.shape[0]))
+            toks, _, _, cache = chunk(params, cache, first_token, idx)
             return toks, cache
 
         return generate

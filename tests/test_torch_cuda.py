@@ -435,6 +435,49 @@ def test_moe_smoke_prefill_on_the_card_equals_the_cpu(cuda):
     assert abs(float(card_aux) - float(cpu_aux)) <= 1e-6
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-3b-smoke",
+                                  "recurrentgemma-2b-smoke"])
+def test_whole_batch_on_the_card_equals_the_cpu(cuda, tmp_path, arch):
+    """The whole-batch serve path in float32, the same weights on both
+    devices: ``Container.prefill_fn()`` over 4 prompts of 40 tokens (K2 in
+    every attention layer, K4 in every rec layer on the card), then 6
+    ``decode_fn()`` steps at a 0-d position; greedy tokens identical, and
+    no kernel launched during the lockstep decode."""
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.serve.serve_step import greedy_sample
+    rt = Runtime(tmp_path / "rt")
+    rt.build(f"FROM scratch\nARCH {arch}\nSHAPE prefill_32k seq_len=64 "
+             "global_batch=4\nMESH local\n"
+             "PRECISION compute=float32 params=float32\n", tag="t")
+    cpu = rt.run("t", platform="cpu")
+    params = cpu.init_params(0)
+    prompts = np.random.default_rng(0).integers(0, cpu.arch.vocab_size,
+                                                (4, 40))
+    tokens = {}
+    for c in (cpu, rt.run("t")):
+        p = c.load_params(params)
+        before = (fa_ops.launches, rg_ops.launches)
+        last, cache = c.prefill_fn()(p, torch.as_tensor(prompts,
+                                                        device=c.device))
+        tok = greedy_sample(last, c.arch.vocab_size)[:, None]
+        after = (fa_ops.launches, rg_ops.launches)
+        out = [tok[:, 0]]
+        for i in range(6):
+            logits, cache = c.decode_fn()(
+                p, cache, tok, torch.tensor(40 + i, dtype=torch.int32,
+                                            device=c.device))
+            tok = greedy_sample(logits, c.arch.vocab_size)[:, None]
+            out.append(tok[:, 0])
+        tokens[c.device.type] = torch.stack(out, 1).tolist()
+        if c.device.type == "cuda":
+            torch.cuda.synchronize()
+            kinds = c.arch.layer_types()
+            assert after[0] - before[0] == kinds.count("attn")
+            assert after[1] - before[1] == kinds.count("rec")
+            assert (fa_ops.launches, rg_ops.launches) == after
+    assert tokens["cuda"] == tokens["cpu"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attend_bf16_scores_on_the_card(cuda, dtype):
     """``attend`` with bfloat16 scores takes the chunked path on the card
