@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Six measurements, each printed beside the card's name and power limit:
+Seven measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -32,12 +32,20 @@ Six measurements, each printed beside the card's name and power limit:
             and its recompute) share, and the share of the attention
             backward, the vjp of the plain version (a ``record_function``
             range around the Function's backward)
+  batch     the whole-batch bf16 decode of ``chip_smoke.py``'s batch phase
+            (llama3.2-3b, ``Container.prefill_fn`` over 8 prompts of 512
+            tokens, then ``decode_fn`` at a scalar position), 2 warm-up steps,
+            then 8 under torch.profiler: the device's busy and idle share
+            of the window, its top kernels, the host time by operator and
+            the launches a step
   spans     the paged-attention kernel at chip_smoke.py's decode shape
             and at the llama pod's (bfloat16): the tensor-core kernel with
             the span plan ``span_pages`` picks, with spans of 4, 8, 16 and
             32 pages, with one span a block (no merge kernel), and the FMA
             kernel with the plan, each held against the plain version;
             CUDA-event medians, L2 flushed
+
+    python3 chip_profile.py batch spans   # only the measurements named
 
 Exits non-zero without a card, or when a check fails.
 """
@@ -237,6 +245,61 @@ def profile_rgemma(torch, card: str, workdir: Path) -> None:
                            f"{4 * rec} calls")
 
 
+def profile_batch(torch, card: str, workdir: Path) -> None:
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import BATCH_B, BATCH_IMAGEFILE, BATCH_PROMPT
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.serve.serve_step import greedy_sample
+
+    rt = Runtime(workdir / "batch")
+    rt.build(BATCH_IMAGEFILE.format(arch="llama3.2-3b", dtype="bfloat16"),
+             tag="bf16")
+    c = rt.run("bf16")
+    params = c.init_params(0)
+    vocab = c.arch.vocab_size
+    prefill, decode = c.prefill_fn(), c.decode_fn()
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab, (BATCH_B, BATCH_PROMPT)), device=c.device)
+    last, cache = prefill(params, toks)
+    tok = greedy_sample(last, vocab)[:, None]
+    del last
+
+    def step(i: int):
+        lg, _ = decode(params, cache, tok, BATCH_PROMPT + i)
+        return lg
+
+    for i in range(2):           # allocator, cuBLAS handles
+        step(i)
+    torch.cuda.synchronize()
+    n = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, 2 + n):
+            lg = step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check(bool(torch.isfinite(lg).all()), "batch: decode logits not finite")
+    log(f"batch: {n} whole-batch bf16 decode steps of llama3.2-3b "
+        f"({BATCH_B} rows at one scalar position, {c.arch.n_layers} "
+        f"layers), "
+        f"{wall_us / n / 1e3:.3f} ms a step under the profiler")
+    device_summary(prof, wall_us, card, "batch", ())
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    log(f"batch: {launches} kernel launches from the host in the window, "
+        f"{launches / n:.0f} a step")
+    host = sorted(((float(e.self_cpu_time_total), e.key, e.count)
+                   for e in events if e.device_type == DeviceType.CPU),
+                  reverse=True)
+    for t, key, k in host[:8]:
+        log(f"batch: host   {t / 1e3:9.3f} ms {100 * t / wall_us:5.1f}% "
+            f"x{k:<6d} {key[:90]}")
+    del params, cache
+
+
 def profile_train(torch, card: str, workdir: Path) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.runtime import Runtime
@@ -331,21 +394,28 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    runs = {
+        "pod": profile_pod,
+        "moe": lambda torch, card, wd: profile_pod(
+            torch, card, wd, "moonshot-v1-16b-a3b", "moe"),
+        "mamba2": profile_mamba2,
+        "rgemma": profile_rgemma,
+        "batch": profile_batch,
+        "train": profile_train,
+        "spans": lambda torch, card, wd: spans(torch, card),
+    }
+    chosen = sys.argv[1:] or list(runs)
+    unknown = [n for n in chosen if n not in runs]
+    if unknown:
+        print(f"chip_profile: unknown measurements {unknown}; choose from "
+              f"{list(runs)}", file=sys.stderr)
+        return 2
     state = {"card": ""}
     phase_device(torch, state)
     with tempfile.TemporaryDirectory(prefix="chip_profile_") as tmp:
-        profile_pod(torch, state["card"], Path(tmp))
-        torch.cuda.empty_cache()
-        profile_pod(torch, state["card"], Path(tmp), "moonshot-v1-16b-a3b",
-                    "moe")
-        torch.cuda.empty_cache()
-        profile_mamba2(torch, state["card"], Path(tmp))
-        torch.cuda.empty_cache()
-        profile_rgemma(torch, state["card"], Path(tmp))
-        torch.cuda.empty_cache()
-        profile_train(torch, state["card"], Path(tmp))
-        torch.cuda.empty_cache()
-    spans(torch, state["card"])
+        for name in chosen:
+            runs[name](torch, state["card"], Path(tmp))
+            torch.cuda.empty_cache()
     print(state["card"])
     return 0
 

@@ -389,6 +389,10 @@ K2_CASES = ((24, 8, 128, 512, 512, 0), (24, 8, 128, 128, 328, 0),
             (10, 1, 256, 2304, 2304, 2048), (32, 32, 80, 512, 512, 0),
             (32, 32, 80, 128, 328, 0), (48, 8, 128, 512, 512, 0),
             (24, 24, 64, 576, 576, 0))
+# K2 (B, Hq, Hkv, d, Sq, Sk, window) at the batch phase's whole-batch
+# prefills (8 prompts of 512 tokens, f32 and bf16): llama3.2-3b, then
+# recurrentgemma-2b's local attention (window 2048, wider than the prompt)
+K2_BATCH = ((8, 24, 8, 128, 512, 512, 0), (8, 10, 1, 256, 512, 512, 2048))
 
 
 def k1_case(torch, dtype):
@@ -533,14 +537,15 @@ def phase_kernels(torch, state, timer) -> None:
     # -- K2: llama3.2-3b prefill and suffix prefill; recurrentgemma-2b's
     # local-attention prefill of 2304 tokens, window 2048 (query tiles past
     # the window start their key loop late) -----------------------------
-    for (Hq, Hkv, d, Sq, Sk, window) in K2_CASES:
+    for (Bq, Hq, Hkv, d, Sq, Sk, window) in ([(1, *c) for c in K2_CASES]
+                                             + list(K2_BATCH)):
         for dname, dt in dts.items():
             r = np.random.default_rng(2)
-            q = torch.from_numpy(r.standard_normal((1, Hq, Sq, d)).astype(
+            q = torch.from_numpy(r.standard_normal((Bq, Hq, Sq, d)).astype(
                 np.float32)).to("cuda", dt)
-            k = torch.from_numpy(r.standard_normal((1, Hkv, Sk, d)).astype(
+            k = torch.from_numpy(r.standard_normal((Bq, Hkv, Sk, d)).astype(
                 np.float32)).to("cuda", dt)
-            v = torch.from_numpy(r.standard_normal((1, Hkv, Sk, d)).astype(
+            v = torch.from_numpy(r.standard_normal((Bq, Hkv, Sk, d)).astype(
                 np.float32)).to("cuda", dt)
             out = fa_ops.flash_attention_fwd_cuda(q, k, v, causal=True,
                                                   window=window)
@@ -550,15 +555,15 @@ def phase_kernels(torch, state, timer) -> None:
             finite = bool(torch.isfinite(out).all())
             ok = finite and err <= TOL[dname]
             kind = "tensor cores" if dname == "bfloat16" else "fma"
-            log(f"kernels: flash_attention_fwd B=1 Hq={Hq} Hkv={Hkv} d={d} "
+            log(f"kernels: flash_attention_fwd B={Bq} Hq={Hq} Hkv={Hkv} d={d} "
                 f"Sq={Sq} Sk={Sk} causal window={window} {dname} ({kind}): "
                 f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append(f"flash_attention_fwd {dname} d={d} Sq={Sq} "
-                                f"Sk={Sk} window={window}")
+                failures.append(f"flash_attention_fwd {dname} B={Bq} d={d} "
+                                f"Sq={Sq} Sk={Sk} window={window}")
             del ref
-            if Sq != Sk or dname != "bfloat16":
+            if Sq != Sk or dname != "bfloat16" or Bq > 1:
                 continue
             ms = timer(lambda: fa_ops.flash_attention_fwd_cuda(
                 q, k, v, causal=True, window=window))
@@ -602,10 +607,12 @@ def phase_kernels(torch, state, timer) -> None:
 # kernel's record), a ragged batch of two 192-token prompts (one chunk of
 # 192 steps, not a multiple of the kernel's 64-row tiles), then the mamba2
 # pod's shortest and longest prefills (64 tokens: one 64-step chunk; 768:
-# three chunks), timed beside the record
+# three chunks), timed beside the record; then the batch phase's
+# whole-batch prefill (8 prompts of 512 tokens)
 K5_CASES = ((1, 512, 80, 64, 128, 256), (2, 192, 80, 64, 128, 192),
-            (1, 64, 80, 64, 128, 64), (1, 768, 80, 64, 128, 256))
-K5_POD = K5_CASES[2:]
+            (1, 64, 80, 64, 128, 64), (1, 768, 80, 64, 128, 256),
+            (8, 512, 80, 64, 128, 256))
+K5_POD = K5_CASES[2:4]
 
 
 def ssd_flops(b: int, S: int, H: int, P: int, N: int, Q: int) -> float:
@@ -679,8 +686,9 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
 # K4 at recurrentgemma-2b's prefill widths: one 2304-token prompt (the
 # kernel's record), a ragged batch of three 100-token prompts, then the
 # recurrentgemma pod's shorter prefills (64 and 512 tokens), timed beside
-# the record
-K4_CASES = ((1, 2304, 2560), (3, 100, 2560), (1, 64, 2560), (1, 512, 2560))
+# the record; then the batch phase's whole-batch prefill (8 x 512 tokens)
+K4_CASES = ((1, 2304, 2560), (3, 100, 2560), (1, 64, 2560), (1, 512, 2560),
+            (8, 512, 2560))
 K4_TIMED = (K4_CASES[0], K4_CASES[2], K4_CASES[3])
 
 
@@ -1342,7 +1350,7 @@ BATCH_PREFILL_LAUNCHES = {
     "recurrentgemma-2b": {"flash_attention_fwd": 8, "rglru_scan": 18},
     "mamba2-2.7b": {"ssd": 64},
 }
-# (b): 8 decode steps compared, 5 timed calls after one warm-up
+# (b): 8 decode steps compared; 5 timed calls a block after one warm-up
 BATCH_NATIVE_STEPS, BATCH_SAMPLES = 8, 5
 
 
@@ -1449,23 +1457,33 @@ def _batch_tokens(torch, state, rt, arch: str) -> list[str]:
 
 
 def _batch_timed(torch, fns: dict) -> dict:
-    """Median ms of BATCH_SAMPLES calls of each of ``fns`` (CUDA events,
-    after one warm-up each), the routes interleaved A B, B A, ... so a
-    drift of the shared host falls on both alike."""
+    """Per-call ms of each of ``fns`` (CUDA events, after one warm-up
+    each), in blocks of BATCH_SAMPLES calls in the order A B B A: each
+    route timed twice, once before and once after the other, so a drift
+    of the shared host shows as a gap between a route's two blocks.
+    Returns {name: [first block's samples, second block's]}."""
     for fn in fns.values():
         fn()
     names = list(fns)
     times = {n: [] for n in names}
-    for i in range(BATCH_SAMPLES):
-        for n in names if i % 2 == 0 else names[::-1]:
+    for n in names + names[::-1]:
+        block = []
+        for _ in range(BATCH_SAMPLES):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             fns[n]()
             b.record()
             b.synchronize()
-            times[n].append(a.elapsed_time(b))
-    return {n: statistics.median(t) for n, t in times.items()}
+            block.append(a.elapsed_time(b))
+        times[n].append(block)
+    return times
+
+
+def _blocks_txt(blocks: list) -> str:
+    return "; ".join(f"block {i + 1} median {statistics.median(b):.4f} "
+                     f"(min {min(b):.4f}, max {max(b):.4f})"
+                     for i, b in enumerate(blocks))
 
 
 def _batch_routes(torch, state, rt) -> list[str]:
@@ -1512,7 +1530,7 @@ def _batch_routes(torch, state, rt) -> list[str]:
     same_steps = all(torch.equal(a, b) for a, b in
                      zip(out["native"][1], out["container"][1]))
     # timing: the prefill again, and one decode step at the next position
-    # (rewritten in place each call), the routes interleaved
+    # (rewritten in place each call), each route before and after the other
     pos = BATCH_PROMPT + BATCH_NATIVE_STEPS
     ms_p = _batch_timed(torch, {
         n: (lambda f=f: f(params, toks)) for n, (f, _) in routes.items()})
@@ -1521,16 +1539,23 @@ def _batch_routes(torch, state, rt) -> list[str]:
         for n, (_, f) in routes.items()})
     _reset_counts()
     card = state["card"]
-    for name in routes:
-        log(f"batch: llama3.2-3b bf16 {name} route: prefill {BATCH_B} x "
-            f"{BATCH_PROMPT} {ms_p[name]:.4f} ms, one decode step "
-            f"{ms_d[name]:.4f} ms (median of {BATCH_SAMPLES}, CUDA events, "
-            f"routes interleaved) [{card}]")
+    med = {}
+    for step, ms in (("prefill", ms_p), ("decode", ms_d)):
+        med[step] = {n: statistics.median(sum(b, [])) for n, b in ms.items()}
+        for name in routes:
+            log(f"batch: llama3.2-3b bf16 {name} route, "
+                + (f"prefill {BATCH_B} x {BATCH_PROMPT}" if step == "prefill"
+                   else "one decode step")
+                + f": median {med[step][name]:.4f} ms of "
+                f"{2 * BATCH_SAMPLES} (CUDA events, blocks native, "
+                f"container, container, native); {_blocks_txt(ms[name])}; "
+                f"samples {[round(t, 4) for t in sum(ms[name], [])]} "
+                f"[{card}]")
     log(f"batch: container / native: prefill "
-        f"{ms_p['container'] / ms_p['native']:.4f}, decode "
-        f"{ms_d['container'] / ms_d['native']:.4f} [{card}]; last logits "
-        f"bit-identical {same_last}, {BATCH_NATIVE_STEPS} decode steps "
-        f"bit-identical {same_steps}")
+        f"{med['prefill']['container'] / med['prefill']['native']:.4f}, "
+        f"decode {med['decode']['container'] / med['decode']['native']:.4f}"
+        f" [{card}]; last logits bit-identical {same_last}, "
+        f"{BATCH_NATIVE_STEPS} decode steps bit-identical {same_steps}")
     del out, params, routes
     torch.cuda.empty_cache()
     return [] if same_last and same_steps else [

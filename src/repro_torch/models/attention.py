@@ -315,21 +315,19 @@ def row_positions(idx, batch: int, device, lockstep: bool = True):
 
 
 def decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
-                idx, cfg: ModelConfig, geom: AttnGeometry,
+                idx: torch.Tensor, cfg: ModelConfig, geom: AttnGeometry,
                 window: int = 0):
     """One-token decode over contiguous per-slot slabs. x: (B,1,D);
-    layer_cache k/v: (B,S,n_kv,hd); idx: the current position -- a scalar
-    (whole-batch lockstep decode) or a (B,) tensor of per-row positions
-    (every row an independent request at its own depth; see
-    ``row_positions``). Row b's new K/V is written IN PLACE at position
-    idx[b]. Returns (out, cache).
+    layer_cache k/v: (B,S,n_kv,hd); idx: (B,) per-row positions, as
+    ``row_positions`` gives them (a lockstep batch's scalar position is
+    broadcast there, once a step). Row b's new K/V is written IN PLACE at
+    position idx[b]. Returns (out, cache).
 
     For ``window`` caches the slab is a ring of S = min(window, max_len)
     slots: position p lives at slot ``p % S``, and the true position of
     slot j, seen from the write at idx, is ``idx - ((idx % S - j) mod S)``
     (negative for slots not written yet, which the mask hides)."""
     B = x.shape[0]
-    idx = row_positions(idx, B, x.device)
     positions = idx[:, None].to(torch.int32)
     q, k, v = project_qkv(p, x, cfg, geom, positions)
     ck, cv = layer_cache["k"], layer_cache["v"]

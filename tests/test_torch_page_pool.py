@@ -111,3 +111,29 @@ def test_port_objects_are_the_ports():
                                                              JPool)
     assert seen["match"].__module__.startswith("repro_torch.")
     assert ref.PagePool is JPool
+
+
+_LEAKS = {
+    "module": "import repro.orchestrator.page_pool as pp\n"
+              "def body():\n    pass\n",
+    "instance": "from repro.orchestrator.page_pool import PagePool\n"
+                "pool = object.__new__(PagePool)\n"
+                "def body():\n    pass\n",
+    "default argument": "from repro.orchestrator.page_pool import PagePool\n"
+                        "def body(cls=PagePool):\n    pass\n",
+    "body import": "def body():\n"
+                   "    from repro.models.attention import _sdpa_dense\n",
+}
+
+
+@pytest.mark.parametrize("leak", sorted(_LEAKS))
+def test_port_run_fails_on_a_jax_object(leak):
+    """The harness fails a port run whose reference module still reaches
+    the JAX package: a module, an instance or a default argument among its
+    globals, or an import its body makes."""
+    import types
+    fake = types.ModuleType("fake_reference_suite")
+    exec(_LEAKS[leak], vars(fake))
+    with pytest.raises(AssertionError, match="JAX package"):
+        torch_ref.run_on(fake, fake.body, port=True)
+    torch_ref.run_on(fake, fake.body, port=False)

@@ -10,7 +10,9 @@ collected; imported by name from the tests dir).
   ``monkeypatch`` it may be given patches the port's modules), the
   ``local`` platform runs on the CPU, and ``Container.init_params``
   loads the JAX package's weights for the same arch and seed (torch's RNG
-  cannot replay the JAX init).
+  cannot replay the JAX init). A global of the reference module, or an
+  import its body makes, that still reaches the JAX package fails the
+  run, so a body that compares nothing still runs on the port alone.
 
 Pod, router and container ids come from ``uuid.uuid4``, restarted from
 one counter before each package's run, so the ids (and the hash rings
@@ -22,6 +24,7 @@ and registry counters exactly.
 
 from __future__ import annotations
 
+import builtins
 import importlib
 import itertools
 import json
@@ -136,6 +139,53 @@ class _PortPatch:
         return self._mp.setattr(target, name, value, **kw)
 
 
+def _jax_origin(value) -> str | None:
+    """The JAX package's module that ``value`` is, or that defines it (or
+    its class); None for anything else."""
+    if isinstance(value, types.ModuleType):
+        name = value.__name__
+    else:
+        name = getattr(value, "__module__", None)
+        if not isinstance(name, str):
+            name = type(value).__module__
+    return name if name == "repro" or name.startswith("repro.") else None
+
+
+def _assert_on_port(ref_module) -> None:
+    """No global of ``ref_module`` (modules and instances included, and no
+    default argument of its functions) still comes from the JAX package."""
+    leaks = []
+    for gname, value in vars(ref_module).items():
+        held = [value]
+        if isinstance(value, types.FunctionType):
+            held += list(value.__defaults__ or ())
+            held += list((value.__kwdefaults__ or {}).values())
+        leaks += [f"{gname}: {_jax_origin(v)}" for v in held
+                  if _jax_origin(v)]
+    assert not leaks, (f"{ref_module.__name__} still reaches the JAX "
+                       f"package on the port: {leaks}")
+
+
+def _port_imports(ref_module):
+    """``__import__`` that fails an import made by ``ref_module``'s code
+    (a body's own ``from repro... import``) when what it binds comes from
+    the JAX package."""
+    real = builtins.__import__
+    home = vars(ref_module)
+
+    def guarded(name, globals=None, locals=None, fromlist=(), level=0):
+        mod = real(name, globals, locals, fromlist, level)
+        if globals is home:
+            got = ({n: getattr(mod, n, None) for n in fromlist} if fromlist
+                   else {name: mod})
+            leaks = [f"{n}: {_jax_origin(v)}" for n, v in got.items()
+                     if _jax_origin(v)]
+            assert not leaks, (f"{ref_module.__name__} imports from the "
+                               f"JAX package on the port: {leaks}")
+        return mod
+    return guarded
+
+
 @contextmanager
 def on_package(ref_module, port: bool, made: dict):
     """Point ``ref_module``'s ``repro`` globals and the ``repro.*`` module
@@ -182,6 +232,9 @@ def on_package(ref_module, port: bool, made: dict):
             elif port:
                 src = importlib.import_module(port_name(mod))
                 mp.setattr(ref_module, gname, getattr(src, name))
+        if port:
+            _assert_on_port(ref_module)
+            mp.setattr(builtins, "__import__", _port_imports(ref_module))
         yield proxy, (_PortPatch(mp) if port else mp)
     finally:
         mp.undo()
