@@ -96,6 +96,25 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             ps, top, and the trace validator. Every command exits 0, every
             request completes, the prefix cache hits, and K1/K2 launches
             equal layers x the dispatches the engines ran
+  examples  (a) the port's linter: ``python -m repro_torch.cli lint
+            --strict --ratchet lint-ratchet.json src tests`` in a process
+            whose PYTHONPATH starts with a directory where ``import jax``
+            and ``import repro`` raise: exit 0, no finding; then on a copy
+            of the port's ``obs/tracing.py`` with a span kind added to
+            ``SPAN_KINDS`` (and to its exporter) and no transition: exactly
+            one span-lifecycle error; (b) the four examples
+            (``repro_torch.examples``) in process through their
+            ``main(argv)``, on the card at their own configurations, each
+            root deleted after it: quickstart (15 steps of
+            llama3.2-3b-smoke, a checkpoint and a resume) and
+            hpc_migration (10 steps, the host-ABI image pushed as 2 new
+            layers and 8 reused, a reshard restore): losses finite, the
+            last below the first; serve_batched (a 6-layer llama, 8
+            requests): every request gets its budget; train_100m (0.10 B
+            params, 300 steps, a checkpoint every 50): losses finite, the
+            last below the first. K2 = layers x training steps (no
+            remat) or layers x prefills, and nothing else; seconds, peak
+            memory and train_100m's tokens/s printed
   fabric    the cross-host fabric on full-width llama3.2-3b in float32
             (the reference harness's precision), 16 requests of 64-512
             prompt tokens and 32 new, 4 arriving a tick, against one pod
@@ -154,8 +173,9 @@ Every phase runs, in order; any failure -> exit 1, no result line:
 
 The kernel counters are set to 0 just before each main path is driven
 (each pod of the serve phase, each prefill and decode run of the batch
-phase, the fig5 calls, each CLI serve, each loopback fleet of the fabric
-phase, each CLI training run, (c) of the dist phase) and read just
+phase, the fig5 calls, each CLI serve, each example, each loopback fleet
+of the fabric phase, each CLI training run, (c) of the dist phase) and
+read just
 after; a kernel's launches are their sum. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
@@ -169,6 +189,7 @@ operator.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -180,7 +201,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "batch",
-          "cli", "fabric", "train", "dist")
+          "cli", "examples", "fabric", "train", "dist")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and operations per second by input type (float32 outside tensor cores)
@@ -393,6 +414,16 @@ K2_CASES = ((24, 8, 128, 512, 512, 0), (24, 8, 128, 128, 328, 0),
 # prefills (8 prompts of 512 tokens, f32 and bf16): llama3.2-3b, then
 # recurrentgemma-2b's local attention (window 2048, wider than the prompt)
 K2_BATCH = ((8, 24, 8, 128, 512, 512, 0), (8, 10, 1, 256, 512, 512, 2048))
+# K2 (B, Hq, Hkv, d, Sq, Sk, window, dtype) at the examples phase's calls,
+# each in its example's compute dtype, untimed: quickstart and
+# hpc_migration (llama3.2-3b-smoke, 8 x 64 tokens, float32), serve_batched
+# (6 heads over 2 of 64; one 32-token and seven 64-token prefills, bfloat16)
+# and train_100m (8 heads over 4 of 64, 4 x 128 tokens, bfloat16). The
+# examples phase fails on a K2 call at a shape not in this list.
+K2_EXAMPLES = ((8, 4, 2, 16, 64, 64, 0, "float32"),
+               (1, 6, 2, 64, 32, 32, 0, "bfloat16"),
+               (1, 6, 2, 64, 64, 64, 0, "bfloat16"),
+               (4, 8, 4, 64, 128, 128, 0, "bfloat16"))
 
 
 def k1_case(torch, dtype):
@@ -537,9 +568,13 @@ def phase_kernels(torch, state, timer) -> None:
     # -- K2: llama3.2-3b prefill and suffix prefill; recurrentgemma-2b's
     # local-attention prefill of 2304 tokens, window 2048 (query tiles past
     # the window start their key loop late) -----------------------------
-    for (Bq, Hq, Hkv, d, Sq, Sk, window) in ([(1, *c) for c in K2_CASES]
-                                             + list(K2_BATCH)):
-        for dname, dt in dts.items():
+    cases = ([((1, *c), tuple(dts), True) for c in K2_CASES]
+             + [(c, tuple(dts), True) for c in K2_BATCH]
+             + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES])
+    checked = state["k2_checked"] = set()
+    for (Bq, Hq, Hkv, d, Sq, Sk, window), dnames, timed in cases:
+        for dname in dnames:
+            dt = dts[dname]
             r = np.random.default_rng(2)
             q = torch.from_numpy(r.standard_normal((Bq, Hq, Sq, d)).astype(
                 np.float32)).to("cuda", dt)
@@ -562,8 +597,9 @@ def phase_kernels(torch, state, timer) -> None:
             if not ok:
                 failures.append(f"flash_attention_fwd {dname} B={Bq} d={d} "
                                 f"Sq={Sq} Sk={Sk} window={window}")
+            checked.add((Bq, Hq, Hkv, d, Sq, Sk, window, dname))
             del ref
-            if Sq != Sk or dname != "bfloat16" or Bq > 1:
+            if not timed or Sq != Sk or dname != "bfloat16" or Bq > 1:
                 continue
             ms = timer(lambda: fa_ops.flash_attention_fwd_cuda(
                 q, k, v, causal=True, window=window))
@@ -1712,6 +1748,207 @@ def phase_cli(torch, state, workdir: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# examples: the port's linter with JAX unimportable, and the four user
+# examples (repro_torch.examples) at their own configurations
+# ---------------------------------------------------------------------------
+
+LINT_ARGS = ("lint", "--strict", "--ratchet", "lint-ratchet.json", "src",
+             "tests")
+# a span kind added to the port's table (and to its exporter) with no
+# transition entry: the port's span-lifecycle reads this file
+LINT_SEEDS = (('"evict", "reroute")', '"evict", "reroute", "park")'),
+              ('elif e.name == "reroute":\n                    events',
+               'elif e.name in ("reroute", "park"):\n                    events'))
+TRACING_REL = "src/repro_torch/orchestrator/obs/tracing.py"
+
+
+def _no_jax_env(workdir: Path) -> dict:
+    """An environment whose PYTHONPATH starts with a directory where
+    ``import jax`` and ``import repro`` raise, then the port."""
+    poison = workdir / "poison"
+    for name in ("jax", "repro"):
+        (poison / name).mkdir(parents=True, exist_ok=True)
+        (poison / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not importable here')\n")
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(poison), str(SRC)])}
+
+
+def _examples_lint(workdir: Path) -> None:
+    env = _no_jax_env(workdir)
+    cmd = [sys.executable, "-m", "repro_torch.cli"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, *LINT_ARGS], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    out = proc.stdout.strip().splitlines()
+    log(f"examples: lint {' '.join(LINT_ARGS[1:])} -> exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+        f"{out[-1] if out else proc.stderr.strip()[-300:]}")
+    check(proc.returncode == 0 and len(out) == 1 and out[0].startswith(
+        "repro lint: 0 error(s), 0 warning(s) across "),
+          f"examples: lint on the tree: {proc.stdout[-800:]}"
+          f"{proc.stderr[-800:]}")
+
+    text = (ROOT / TRACING_REL).read_text()
+    for old, new in LINT_SEEDS:
+        check(text.count(old) == 1, f"examples: seed anchor {old!r}")
+        text = text.replace(old, new)
+    seeded = workdir / "lint-seeded" / TRACING_REL
+    seeded.parent.mkdir(parents=True)
+    seeded.write_text(text)
+    proc = subprocess.run([*cmd, "lint", str(seeded), "--rule",
+                           "span-lifecycle"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    errors = [ln for ln in proc.stdout.splitlines()
+              if " error [span-lifecycle] " in ln]
+    log(f"examples: lint on a copy of the port's tracing.py with a span "
+        f"kind and no transition -> exit {proc.returncode}: {errors}")
+    check(proc.returncode == 1 and len(errors) == 1
+          and "missing ['park']" in errors[0]
+          and "repro lint: 1 error(s), 0 warning(s)" in proc.stdout,
+          f"examples: the seeded span kind: {proc.stdout[-800:]}"
+          f"{proc.stderr[-800:]}")
+
+
+def _example_run(torch, state, name: str, fn, argv) -> tuple:
+    """``fn(argv)`` with the counters at 0 just before and read just after;
+    returns (result, counts, seconds, peak bytes). Fails if K2 was called
+    at a shape (and dtype) that the kernels phase did not hold against its
+    plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"examples: repro_torch.examples.{name}.main({argv})")
+    shapes, real = set(), fa_ops.flash_attention_fwd_cuda
+
+    def k2(q, k, v, *, causal=True, window=0, scale=None):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3],
+                    q.shape[2], k.shape[2], int(window),
+                    str(q.dtype).removeprefix("torch."), bool(causal)))
+        return real(q, k, v, causal=causal, window=window, scale=scale)
+    fa_ops.flash_attention_fwd_cuda = k2
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = fn(argv)
+        torch.cuda.synchronize()
+    finally:
+        fa_ops.flash_attention_fwd_cuda = real
+    seconds = time.perf_counter() - t0
+    counts = _main_path_counts(state)
+    checked = {(*c, True) for c in state.get("k2_checked", ())}
+    log(f"examples: {name} K2 shapes (B, Hq, Hkv, d, Sq, Sk, window, dtype, "
+        f"causal) {sorted(shapes)}")
+    check(shapes <= checked, f"examples: {name} called K2 at shapes the "
+          f"kernels phase did not check: {sorted(shapes - checked)}")
+    return res, counts, seconds, torch.cuda.max_memory_allocated()
+
+
+def _example_gate(name: str, counts: dict, want_k2: int, seconds: float,
+                  peak: int, card: str, extra: str = "") -> None:
+    log(f"examples: {name}: {seconds:.2f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB{extra}; launches {counts}, expected K2 "
+        f"{want_k2} [{card}]")
+    for k, n in counts.items():
+        want = want_k2 if k == "flash_attention_fwd" else 0
+        check(n == want, f"examples: {name} {k} launches {n} != {want}")
+
+
+def _finite(xs) -> bool:
+    return all(x == x and abs(x) != float("inf") for x in xs)
+
+
+def phase_examples(torch, state, workdir: Path) -> None:
+    """(a) the port's ``lint`` with JAX unimportable; (b) the four
+    examples in process, through their ``main(argv)``, on the card at
+    their own configurations, each root deleted after it."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (hpc_migration, quickstart,
+                                      serve_batched, train_100m)
+    from repro_torch.launch import serve as serve_mod
+
+    _examples_lint(workdir)
+    card = state["card"]
+    base = workdir / "examples"
+    smoke = get_config("llama3.2-3b-smoke").n_layers
+
+    root = base / "quickstart"
+    res, counts, s, peak = _example_run(torch, state, "quickstart",
+                                        quickstart.main, ["--root", str(root)])
+    losses = res["losses"]
+    _example_gate("quickstart", counts, smoke * len(losses), s, peak, card,
+                  f"; losses step 1 {losses[0]:.4f}, step 15 "
+                  f"{losses[-1]:.4f}")
+    check(len(losses) == 15 and _finite(losses) and losses[-1] < losses[0],
+          f"examples: quickstart losses {losses}")
+    shutil.rmtree(root)
+
+    root = base / "hpc_migration"
+    res, counts, s, peak = _example_run(torch, state, "hpc_migration",
+                                        hpc_migration.main,
+                                        ["--root", str(root)])
+    losses = res["losses"]
+    _example_gate("hpc_migration", counts, smoke * len(losses), s, peak,
+                  card, f"; losses step 1 {losses[0]:.4f}, step 10 "
+                        f"{losses[-1]:.4f}")
+    check(len(losses) == 10 and _finite(losses) and losses[-1] < losses[0],
+          f"examples: hpc_migration losses {losses}")
+    pushed = (res["layers_transferred"], res["layers_reused"])
+    check(pushed == (2, 8), f"examples: hpc push (new, reused) {pushed} "
+                            "!= (2, 8)")
+    shutil.rmtree(root)
+
+    root = base / "serve_batched"
+    pods, real_make = [], serve_mod._make_pod
+
+    def make_pod(*a, **k):
+        pods.append(real_make(*a, **k))
+        return pods[-1]
+    serve_mod._make_pod = make_pod
+    try:
+        res, counts, s, peak = _example_run(
+            torch, state, "serve_batched", serve_batched.main,
+            ["--root", str(root)])
+        engines = [e for p in pods for e in p.engines]
+        prefills = sum(e._c_prefill_disp.value for e in engines)
+        layers = engines[0].container.arch.n_layers
+    finally:
+        serve_mod._make_pod = real_make
+        pods.clear()
+    budgets = serve_mod._tail_budgets(32, 8)
+    got = [len(res["request_tokens"].get(i, ())) for i in range(8)]
+    _example_gate("serve_batched", counts, layers * prefills, s, peak, card,
+                  f"; {res['requests']} requests, tokens {got} (budgets "
+                  f"{budgets}), decode {res['decode_tok_per_s']:.1f} "
+                  f"tokens/s; K2 = {layers} layers x {prefills} prefills")
+    check(res["requests"] == 8 and got == budgets,
+          f"examples: serve_batched tokens {got} != budgets {budgets}")
+    del engines
+    shutil.rmtree(root)
+
+    root = base / "train_100m"
+    res, counts, s, peak = _example_run(torch, state, "train_100m",
+                                        train_100m.main, ["--root", str(root)])
+    steps = res["steps"]
+    losses = [res["losses"][k] for k in sorted(res["losses"])]
+    recs = [json.loads(ln) for ln in (Path(res["overlay"]) / "metrics.jsonl")
+            .read_text().splitlines()]
+    step_s = sum(r["step_seconds"] for r in recs)
+    tokens = steps * 4 * 128              # the Imagefile's global_batch, seq_len
+    _example_gate("train_100m", counts, 8 * steps, s, peak, card,
+                  f"; {steps} steps, loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}; {tokens / step_s:.1f} tokens/s over "
+                  f"the steps' {step_s:.2f} s ({tokens / s:.1f} over the "
+                  f"wall, {steps // 50 + 1} checkpoint writes included)")
+    check(steps == 300 and len(losses) == 300 and _finite(losses)
+          and losses[-1] < losses[0],
+          f"examples: train_100m losses {losses[:3]} ... {losses[-3:]}")
+    shutil.rmtree(root)
+
+
+# ---------------------------------------------------------------------------
 # fabric: the cross-host serving fabric on the card -- loopback and process
 # fleets of full-width llama3.2-3b, a worker killed mid-decode
 # ---------------------------------------------------------------------------
@@ -2844,6 +3081,7 @@ def main() -> int:
 
     state = {"records": {}, "launches": {}, "card": ""}
     failed = []
+    t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         workdir = Path(tmp)
         timer = None
@@ -2868,6 +3106,8 @@ def main() -> int:
                     phase_batch(torch, state, workdir)
                 elif phase == "cli":
                     phase_cli(torch, state, workdir)
+                elif phase == "examples":
+                    phase_examples(torch, state, workdir)
                 elif phase == "fabric":
                     phase_fabric(torch, state, workdir)
                 elif phase == "train":
@@ -2883,6 +3123,8 @@ def main() -> int:
                     traceback.print_exc(file=sys.stdout)
             log(f"== {phase} {'failed' if phase in failed else 'passed'} "
                 f"in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: {len(PHASES)} phases in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

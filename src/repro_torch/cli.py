@@ -10,6 +10,7 @@
   PYTHONPATH=src python -m repro_torch.cli ps
   PYTHONPATH=src python -m repro_torch.cli top
   PYTHONPATH=src python -m repro_torch.cli tag <digest> prod
+  PYTHONPATH=src python -m repro_torch.cli lint --strict src tests
 
 The paper's observation (§3.2) is that raw runtime CLIs are too low-level
 for scientists, so projects ship a wrapper (`fenicsproject notebook ...`).
@@ -21,8 +22,8 @@ given. ``run`` also takes ``--ckpt-every`` and ``--keep`` (the
 checkpoint period of ``launch/train.py`` and the checkpoints kept on
 disk); under torchrun each process is one data-parallel rank of the
 training job, and rank 0 alone writes the registry and the overlay
-(``launch/train.py``). ``lint`` is
-not ported yet and raises, naming ROADMAP.md Queue 1 item 12.
+(``launch/train.py``). ``lint`` is the port's own linter
+(``repro_torch.analysis``), which builds no Runtime.
 """
 
 from __future__ import annotations
@@ -33,10 +34,6 @@ import sys
 from pathlib import Path
 
 from repro_torch.core.runtime import Runtime
-
-_LINT = ("`lint` is not ported yet (ROADMAP.md Queue 1 item 12: tooling); "
-         "run the JAX package's `repro lint`, which scans src/repro_torch "
-         "too")
 
 
 def _pid_alive(pid: int) -> bool:
@@ -341,9 +338,13 @@ def cmd_inspect(rt: Runtime, args) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    # `lint` must not construct a Runtime (it would create .stevedore)
+    # `lint` forwards everything to repro_torch.analysis's own argparse
+    # (argparse.REMAINDER mis-parses leading flags in subparsers) and must
+    # not construct a Runtime -- linting a bare checkout, e.g. in CI, may
+    # not create .stevedore
     if argv[:1] == ["lint"]:
-        raise NotImplementedError(_LINT)
+        from repro_torch.analysis import main as lint_main
+        return lint_main(argv[1:])
     ap = argparse.ArgumentParser(prog="stevedore")
     ap.add_argument("--root", default=".stevedore")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -448,14 +449,17 @@ def main(argv=None) -> int:
     p.add_argument("--watch", type=float, default=0, metavar="SECONDS",
                    help="refresh every N seconds until interrupted")
 
+    # static analysis: all flags forwarded to repro_torch.analysis (its
+    # own argparse owns --strict/--rule/--baseline/--list-rules/--help)
     p = sub.add_parser("lint", add_help=False,
                        help="static analysis of the stack's contracts "
-                            "(not ported yet)")
+                            "(lint --strict src tests)")
     p.add_argument("lint_args", nargs=argparse.REMAINDER)
 
     args = ap.parse_args(argv)
     if args.cmd == "lint":        # reached via `--root X lint ...`
-        raise NotImplementedError(_LINT)
+        from repro_torch.analysis import main as lint_main
+        return lint_main(args.lint_args)
     rt = Runtime(args.root)
     return {
         "build": cmd_build, "images": cmd_images, "history": cmd_history,

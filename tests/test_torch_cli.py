@@ -17,7 +17,8 @@ llama3.2-3b-smoke with the JAX package's weights handed over as numpy.
   evictions, sheds, rejects and latency ticks; ``serve --fabric proc``
   runs one worker process per pod and ``validate --spans`` accepts the
   span files they wrote;
-* what is not ported yet (lint) raises naming its ROADMAP item.
+* ``lint`` runs the port's linter, with and without ``--root``, and
+  builds no Runtime.
 
 The port's ``Container.init_params`` is patched to load the JAX package's
 seed-0 weights (torch's RNG cannot replay the JAX init), so both packages
@@ -373,6 +374,19 @@ def test_serve_fabric_proc_then_validate_spans(tmp_path):
         assert tvalidate.main(["--spans", str(tmp_path / "empty")]) == 1
 
 
-def test_lint_raises_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tcli(["lint", "--strict", "src"])
+def test_lint_raises_with_its_roadmap_item(tmp_path, monkeypatch, capsys):
+    """``lint`` no longer raises: the port's CLI runs the port's linter on
+    the tree, clean under --strict, directly and after ``--root X``, and
+    neither form creates a runtime root."""
+    from pathlib import Path
+    monkeypatch.chdir(Path(__file__).resolve().parent.parent)
+    root = tmp_path / "rt"
+    assert tcli(["lint", "--strict", "src"]) == 0
+    # after --root, argparse takes the first word after `lint` as the
+    # start of the forwarded arguments only if it is not a flag (as in
+    # the JAX package's CLI), so the paths come first
+    assert tcli(["--root", str(root), "lint", "src", "tests", "--strict",
+                 "--ratchet", "lint-ratchet.json"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("repro lint: 0 error(s), 0 warning(s)") == 2
+    assert not root.exists()

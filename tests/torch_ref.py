@@ -138,6 +138,10 @@ class _PortPatch:
             target = importlib.import_module(port_name(target.__name__))
         return self._mp.setattr(target, name, value, **kw)
 
+    def __getattr__(self, name):
+        # chdir, setenv, setitem, ...: not module-bound, used as they are
+        return getattr(self._mp, name)
+
 
 def _jax_origin(value) -> str | None:
     """The JAX package's module that ``value`` is, or that defines it (or
