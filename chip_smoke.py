@@ -159,23 +159,38 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             2 steps under ``generic`` and 2 under ``host``: the losses
             equal the train phase's single-process run within 1e-6, K2 =
             28 x 2 x steps, the backend is nccl; (b) two gloo ranks
-            sharing the card, llama3.2-3b at full width cut to 8 of 28
+            sharing the card, llama3.2-3b at full width cut to 2 of 28
             layers, one 2048-token row a rank, 3 steps under each of
             ``generic``, ``host`` (ZeRO-1) and ``host mode=explicit``
             (bf16 wire): losses and grad norms equal one process on the
-            same global batch (1e-3; 1e-2 for the bf16 wire), K2 = 8 x 2
+            same global batch in two microbatches of one row, the ranks'
+            arithmetic (1e-3; 1e-2 for the bf16 wire), K2 = 2 x 2
             x steps in each rank, each rank holds the card's device node
             open while it runs; (c) (b)'s host checkpoint of step 2 (two
             ZeRO-1 halves) restored onto one process: its step 3 equals
-            (b)'s within 1e-3. Printed: step seconds a rank, collective
-            seconds and wire bytes a step (the port's counter), peak
-            memory a rank, the card's memory in use while (b) runs
+            (b)'s within 1e-3; (d) tensor parallelism: two gloo ranks
+            sharing the card under ``torchrun --nproc-per-node 2
+            chip_smoke.py --tp-worker``, each building the (data 1, model
+            2) mesh and the port's ``TrainStepBuilder`` over it, 3
+            generic steps of llama3.2-3b and of moonshot-v1-16b-a3b (its
+            dense layer and one MoE layer: 32 experts a rank) at full
+            width cut to 2 layers, both rows of the 2 x 2048 global batch
+            on each rank: every rank's loss equal, losses and grad norms
+            within 1e-3 relative of one process, K2 = 2 x 2 x steps a
+            rank at the per-rank head counts of K2_TP (checked by the
+            kernels phase) and nothing else, the model axis's bytes a
+            step equal to
+            ``tp_wire_bytes``, each rank holds the card's device node
+            open. Printed: step seconds a rank, collective seconds and
+            wire bytes a step (the port's counter), peak memory a rank
+            (beside one process's in (d)), the card's memory in use while
+            (b) and (d) run
 
 The kernel counters are set to 0 just before each main path is driven
 (each pod of the serve phase, each prefill and decode run of the batch
 phase, the fig5 calls, each CLI serve, each example, each loopback fleet
-of the fabric phase, each CLI training run, (c) of the dist phase) and
-read just
+of the fabric phase, each CLI training run, (c) of the dist phase, each run of
+(d)) and read just
 after; a kernel's launches are their sum. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
@@ -424,6 +439,12 @@ K2_EXAMPLES = ((8, 4, 2, 16, 64, 64, 0, "float32"),
                (1, 6, 2, 64, 32, 32, 0, "bfloat16"),
                (1, 6, 2, 64, 64, 64, 0, "bfloat16"),
                (4, 8, 4, 64, 128, 128, 0, "bfloat16"))
+# K2 at the dist phase's (d) tensor-parallel ranks, untimed: the (1, 2)
+# mesh's global batch of 2 x 2048 tokens on each rank, bf16, llama3.2-3b
+# at 12 of 24 q heads over 4 of 8 kv heads and moonshot-v1-16b-a3b at 8
+# of 16 over 8 of 16. Phase (d) fails on a K2 call at a shape not here.
+K2_TP = ((2, 12, 4, 128, 2048, 2048, 0, "bfloat16"),
+         (2, 8, 8, 128, 2048, 2048, 0, "bfloat16"))
 
 
 def k1_case(torch, dtype):
@@ -570,7 +591,7 @@ def phase_kernels(torch, state, timer) -> None:
     # the window start their key loop late) -----------------------------
     cases = ([((1, *c), tuple(dts), True) for c in K2_CASES]
              + [(c, tuple(dts), True) for c in K2_BATCH]
-             + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES])
+             + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES + K2_TP])
     checked = state["k2_checked"] = set()
     for (Bq, Hq, Hkv, d, Sq, Sk, window), dnames, timed in cases:
         for dname in dnames:
@@ -2759,7 +2780,7 @@ def phase_train(torch, state, timer, workdir: Path) -> None:
 
 DIST_IMAGEFILE = """\
 FROM scratch
-ARCH llama3.2-3b{layers}
+ARCH {arch}{layers}
 SHAPE train_4k seq_len=2048 global_batch=2
 MESH local
 PRECISION params=float32 compute=bfloat16
@@ -2772,19 +2793,59 @@ SET remat=full optimizer={{"lr":0.0003,"warmup_steps":2,"total_steps":1000}}
 DIST_A = {"generic": "generic", "host": "host"}
 DIST_A_STEPS = 2
 DIST_A_TOL = 1e-6
-# (b) two gloo ranks sharing the card, depth cut to 8 of 28 layers (two
-# full-depth ranks need about 2 x 58.7 GiB), 3 steps an ABI, one row of
-# the 2 x 2048 global batch a rank, against one process on the same
-# global batch. Float32 wires: loss within 1e-3, grad_norm within 1e-3
-# relative (the ranks' bf16 products see 2048 tokens, the single
-# process's 4096: cuBLAS may tile and round them otherwise; the train
-# phase's card-vs-CPU bound). The bf16 wire rounds every gradient to 8
-# bits of mantissa before the mean (2^-9 relative): 1e-2 on both.
-DIST_B_LAYERS = 8
+# (b) two gloo ranks sharing the card, depth cut to 2 of 28 layers (the
+# phase's time: at low depth the 394 M-parameter embedding dominates each
+# step's wire bytes, so 2 layers halve 8 layers' 9.59e9 a step a rank), 3
+# steps an ABI, one row of the 2 x 2048 global batch a rank, against one
+# process on the same global batch in DIST_B_MICROBATCHES microbatches of
+# one row: the ranks' arithmetic (each row's bf16 gradient from its own
+# backward, the two summed in float32), where the whole batch in one
+# backward rounds each bf16 gradient product once over both rows and two
+# Adam steps at the image's learning rate carry that rounding to 1.2e-3
+# of a 2-layer model's loss (17.6 at step 2). Float32 wires: loss within
+# 1e-3, grad_norm within 1e-3 relative. The bf16 wire rounds every
+# gradient to 8 bits of mantissa before the mean (2^-9 relative): 1e-2 on
+# both.
+DIST_B_LAYERS = 2
+DIST_B_MICROBATCHES = 2
 DIST_B = {"generic": ("generic", 1e-3), "host": ("host", 1e-3),
           "explicit": ("host mode=explicit", 1e-2)}
 DIST_B_STEPS = 3
 DIST_B_CKPT = 2             # host's checkpoint that (c) restores
+
+
+def tp_wire_bytes(cfg, n_kv_orig: int, tokens: int, act_bytes: int,
+                  remat: str = "none") -> int:
+    """The bytes one rank hands to the ``model`` axis's all-reduces in one
+    training step (no microbatches), as ``CollectiveStats`` counts an
+    all-reduce (twice its tensor), for ``tokens`` = the rank's rows x
+    seq_len of ``cfg`` in a compute dtype of ``act_bytes``:
+
+    * the vocab-parallel embedding's exit, forward: (T, D);
+    * each attention block: its output's exit forward (T, D), and
+      backward the entries of the q projection's input (T, D) and of the
+      k and v heads (T, n_kv_orig, hd) each;
+    * each dense MLP: its exit forward and its entry backward, (T, D)
+      each; each MoE block instead: its exit forward (T, D), and backward
+      the entries of its tokens (T, D) and of the routing weights (T, k)
+      in float32;
+    * ``remat="full"``: every block's attention exit again, when the
+      backward pass recomputes the block (the recompute stops at the last
+      tensor the backward needs -- torch.utils.checkpoint's early stop --
+      so the MLP's or MoE's exit, whose output only feeds the next
+      block's residual, is not re-run);
+    * the head's entry backward (T, D), and the vocab-parallel cross
+      entropy's row max, sum of exponentials and gold logit forward, (T,)
+      float32 each."""
+    T, D, hd = tokens, cfg.d_model, cfg.head_dim_
+    td = 2 * T * D * act_bytes
+    total = td + td + 3 * 2 * T * 4
+    for kind in cfg.layer_types():
+        total += 2 * td + td + 2 * 2 * T * n_kv_orig * hd * act_bytes
+        total += td + (2 * T * cfg.top_k * 4 if kind == "moe" else 0)
+        if remat == "full":
+            total += td
+    return total
 
 
 def _torchrun(nproc: int, root: Path, imagefile: Path, steps: int,
@@ -2794,16 +2855,30 @@ def _torchrun(nproc: int, root: Path, imagefile: Path, steps: int,
     gets the ranks' pids twice a second while the job runs. Returns (exit
     code, output tail, the ranks' records from the overlay's ranks.json,
     seconds)."""
+    rc, tail, wall = _torchrun_cmd(
+        nproc, ["-m", "repro_torch.cli", "--root", str(root), "run",
+                str(imagefile), "--steps", str(steps), *extra],
+        root.parent, timeout, watch)
+    found = sorted(root.glob("overlays/*/ranks.json"))
+    ranks = json.loads(found[-1].read_text()) if found else []
+    return rc, tail, ranks, wall
+
+
+def _torchrun_cmd(nproc: int, program: list, cwd: Path,
+                  timeout: float = 900, watch=None) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc-per-node N``
+    of ``program`` (a script and its arguments, or ``-m`` and a module)
+    with the port on PYTHONPATH; ``watch`` gets the ranks' pids twice a
+    second while the job runs. Returns (exit code, output tail,
+    seconds)."""
     import os
     import threading
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(SRC), os.environ.get("PYTHONPATH", "")])}
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(nproc), "-m", "repro_torch.cli",
-           "--root", str(root), "run", str(imagefile), "--steps", str(steps),
-           *extra]
+           "--nproc-per-node", str(nproc), *program]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, env=env, cwd=str(root.parent),
+    proc = subprocess.Popen(cmd, env=env, cwd=str(cwd),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     out = []
@@ -2822,10 +2897,7 @@ def _torchrun(nproc: int, root: Path, imagefile: Path, steps: int,
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    wall = time.perf_counter() - t0
-    found = sorted(root.glob("overlays/*/ranks.json"))
-    ranks = json.loads(found[-1].read_text()) if found else []
-    return proc.returncode, "".join(out)[-4000:], ranks, wall
+    return proc.returncode, "".join(out)[-4000:], time.perf_counter() - t0
 
 
 def _children(pid: int) -> list[int]:
@@ -2870,9 +2942,12 @@ def _add_rank_launches(state, ranks: list) -> None:
 
 def _dist_reference(torch, workdir: Path, imagefile: str, steps: int):
     """One process on the card, the same image, weights and global
-    batches as launch/train's ranks: per step (loss, grad_norm)."""
+    batches as launch/train's ranks: per step (loss, grad_norm), and the
+    run's peak memory."""
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     rt = Runtime(workdir / "dist_ref")
     c = rt.run(rt.build(imagefile))
     params = c.init_params(0)
@@ -2885,9 +2960,10 @@ def _dist_reference(torch, workdir: Path, imagefile: str, steps: int):
     for i in range(steps):
         params, opt, m = step(params, opt, data.batch(i))
         rec.append((float(m["loss"]), float(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated()
     del params, opt, m
     torch.cuda.empty_cache()
-    return rec
+    return rec, peak
 
 
 def _dist_a(torch, state, workdir: Path) -> list[str]:
@@ -2900,8 +2976,8 @@ def _dist_a(torch, state, workdir: Path) -> list[str]:
         root = workdir / f"dist_a_{name}"
         root.mkdir()
         imagefile = root / "Imagefile"
-        imagefile.write_text(DIST_IMAGEFILE.format(layers="",
-                                                   collectives=coll))
+        imagefile.write_text(DIST_IMAGEFILE.format(
+            arch="llama3.2-3b", layers="", collectives=coll))
         torch.cuda.empty_cache()
         rc, tail, ranks, wall = _torchrun(1, root / "rt", imagefile,
                                           DIST_A_STEPS)
@@ -2942,13 +3018,17 @@ def _dist_b(torch, state, workdir: Path) -> tuple[list[str], dict]:
         root = workdir / f"dist_b_{name}"
         root.mkdir()
         imagefile = root / "Imagefile"
-        text = DIST_IMAGEFILE.format(layers=f" n_layers={DIST_B_LAYERS}",
+        text = DIST_IMAGEFILE.format(arch="llama3.2-3b",
+                                     layers=f" n_layers={DIST_B_LAYERS}",
                                      collectives=coll)
         imagefile.write_text(text)
         # on one process ZeRO-1 splits nothing: host's step is generic's
         path = "explicit" if "explicit" in coll else "implicit"
         if path not in refs:
-            refs[path] = _dist_reference(torch, workdir, text, DIST_B_STEPS)
+            refs[path] = _dist_reference(
+                torch, workdir,
+                text + f"SET microbatches={DIST_B_MICROBATCHES}\n",
+                DIST_B_STEPS)[0]
         ref = refs[path]
         seen: dict[int, bool] = {}
         used = [_device_used_mib()]
@@ -3053,6 +3133,197 @@ def _dist_c(torch, state, host: dict) -> list[str]:
                           f"launches {counts}"]
 
 
+# (d) tensor parallelism: two gloo ranks sharing the card on a (data 1,
+# model 2) mesh, DIST_IMAGEFILE's settings (f32 params, bf16 compute,
+# remat=full, both rows of the 2 x 2048 global batch on each rank) at
+# full width cut to DIST_D_LAYERS layers (moonshot: its dense first layer
+# and one MoE layer of 32 experts a rank, the 2 shared experts split on
+# F), 3 steps under the generic ABI, against one process on the same
+# global batch: loss and grad_norm within 1e-3 relative. (b)'s loss gate
+# is 1e-3 absolute, where its ranks compute each row's forward as one
+# process does (its step 1 is bit-equal); here each output projection
+# sums two bf16 partials (two roundings more than one product), step 1's
+# loss already differs by about 2e-5 of itself, and two Adam steps at
+# this image's learning rate (the loss moves by 5 between steps) carry
+# it to about 1e-4 of the loss, 1.2-2e-3 absolute at losses of 12-17
+DIST_D = ("llama3.2-3b", "moonshot-v1-16b-a3b")
+DIST_D_LAYERS = 2
+DIST_D_STEPS = 3
+DIST_D_TOL = 1e-3
+DIST_D_TOKENS = 2 * 2048            # a rank's rows x seq_len
+
+
+def tp_worker(spec_path: str) -> int:
+    """One rank of the dist phase's (d), started by torchrun: joins a gloo
+    group, makes the (1, 2) mesh and, for each run of the spec, builds
+    the port's Container on it and a ``TrainStepBuilder`` over it, takes
+    the steps, and records its losses, grad norms, the bytes each step
+    handed to the model axis, step seconds, peak memory, kernel launches
+    and the shapes of its K2 calls; rank 0 writes every rank's records."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train.train_step import TrainStepBuilder
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    device = torch.device(
+        f"cuda:{int(os.environ['LOCAL_RANK']) % torch.cuda.device_count()}")
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method="env://", rank=rank,
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    shapes, real = set(), fa_ops.flash_attention_fwd_cuda
+
+    def k2(q, k, v, *, causal=True, window=0, scale=None):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3],
+                    q.shape[2], k.shape[2], int(window),
+                    str(q.dtype).removeprefix("torch."), bool(causal)))
+        return real(q, k, v, causal=causal, window=window, scale=scale)
+    fa_ops.flash_attention_fwd_cuda = k2
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"))
+        records = []
+        for run in spec["runs"]:
+            rt = Runtime(Path(spec["root"]) / f"rank{rank}")
+            c = rt.run(rt.build(run["imagefile"]), mesh=mesh)
+            params = c.init_params(0)
+            opt = c.init_opt_state(params)
+            step = TrainStepBuilder(model=c.model, abi=c.abi, opt=c.opt,
+                                    mesh=mesh, donate=True).build()
+            data = SyntheticLM(DataConfig(
+                vocab_size=c.arch.vocab_size, seq_len=c.cell.seq_len,
+                global_batch=c.cell.global_batch, seed=0))
+            shapes.clear()
+            _reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for i in range(spec["steps"]):
+                tp0, t0 = mesh.stats.total("tp"), time.perf_counter()
+                params, opt, m = step(params, opt, data.batch(i))
+                loss = float(m["loss"])        # waits for the step
+                steps.append({"loss": loss,
+                              "grad_norm": float(m["grad_norm"]),
+                              "tp": mesh.stats.total("tp") - tp0,
+                              "seconds": time.perf_counter() - t0})
+            records.append({
+                "arch": run["arch"], "rank": rank, "pid": os.getpid(),
+                "device": str(device), "steps": steps,
+                "peak": torch.cuda.max_memory_allocated(),
+                "launches": _launch_counts(), "k2_shapes": sorted(shapes),
+                "tp_seconds": mesh.stats.seconds})
+            mesh.stats.reset()
+            del params, opt, m, step, c
+            torch.cuda.empty_cache()
+        everything = mesh.gather_objects(records)
+        if rank == 0:
+            Path(spec["out"]).write_text(json.dumps(everything))
+    finally:
+        fa_ops.flash_attention_fwd_cuda = real
+        dist.destroy_process_group()
+    return 0
+
+
+def _dist_d(torch, state, workdir: Path) -> list[str]:
+    """Tensor parallelism on two ranks sharing the card: each run of
+    DIST_D against one process on the same global batch."""
+    import shutil
+    from repro_torch.configs import get_config
+    failures, runs, refs = [], [], {}
+    root = workdir / "dist_d"
+    root.mkdir()
+    for arch in DIST_D:
+        text = DIST_IMAGEFILE.format(arch=arch,
+                                     layers=f" n_layers={DIST_D_LAYERS}",
+                                     collectives="generic")
+        refs[arch] = _dist_reference(torch, workdir, text, DIST_D_STEPS)
+        runs.append({"arch": arch, "imagefile": text})
+    out = root / "ranks.json"
+    spec = root / "spec.json"
+    spec.write_text(json.dumps({"runs": runs, "steps": DIST_D_STEPS,
+                                "root": str(root / "rt"), "out": str(out)}))
+    seen: dict[int, bool] = {}
+    used = [_device_used_mib()]
+
+    def watch(pids):
+        for pid in pids:
+            if not seen.get(pid):
+                try:
+                    seen[pid] = _opens_card(pid)
+                except OSError:
+                    continue
+        used.append(_device_used_mib())
+
+    torch.cuda.empty_cache()
+    rc, tail, wall = _torchrun_cmd(
+        2, [str(ROOT / "chip_smoke.py"), "--tp-worker", str(spec)], root,
+        watch=watch)
+    if rc != 0 or not out.exists():
+        return [f"(d): exit {rc}: {tail}"]
+    ranks = json.loads(out.read_text())
+    checked = {(*c, True) for c in state.get("k2_checked", ())}
+    for j, arch in enumerate(DIST_D):
+        rs = [r[j] for r in ranks]
+        ref, ref_peak = refs[arch]
+        cfg = get_config(arch, n_layers=DIST_D_LAYERS)
+        r0 = rs[0]["steps"]
+        same = all(r["steps"][i]["loss"] == r0[i]["loss"]
+                   for r in rs for i in range(DIST_D_STEPS))
+        dl = max(abs(s["loss"] - l) / abs(l) for s, (l, _) in zip(r0, ref))
+        dg = max(abs(s["grad_norm"] - g) / g for s, (_, g) in zip(r0, ref))
+        want_tp = tp_wire_bytes(cfg, cfg.n_kv_heads, DIST_D_TOKENS, 2,
+                                "full")
+        tp = [s["tp"] for r in rs for s in r["steps"]]
+        k2 = [r["launches"]["flash_attention_fwd"] for r in rs]
+        want_k2 = DIST_D_LAYERS * 2 * DIST_D_STEPS
+        others = {k: n for r in rs for k, n in r["launches"].items()
+                  if k != "flash_attention_fwd" and n}
+        shapes = {tuple(x) for r in rs for x in r["k2_shapes"]}
+        on_card = [seen.get(r["pid"], False) for r in rs]
+        for r in rs:
+            for name, n in r["launches"].items():
+                state["launches"][name] = state["launches"].get(name, 0) + n
+        ok = (same and dl <= DIST_D_TOL and dg <= DIST_D_TOL
+              and tp == [want_tp] * len(tp) and k2 == [want_k2] * 2
+              and not others and shapes and shapes <= checked
+              and all(on_card))
+        med = [statistics.median(s["seconds"] for s in r["steps"][1:])
+               for r in rs]
+        log(f"dist: (d) torchrun --nproc-per-node 2, mesh (data 1, model "
+            f"2), {arch} {DIST_D_LAYERS} layers, generic: losses "
+            f"{[round(s['loss'], 6) for s in r0]} vs one process "
+            f"{[round(l, 6) for l, _ in ref]}: max loss rel diff {dl:.2e}, "
+            f"max grad_norm rel diff {dg:.2e} (tol {DIST_D_TOL:g}); every "
+            f"rank's loss equal {same}; TP bytes a step a rank {tp} "
+            f"(formula {want_tp}); K2 launches {k2} (expected "
+            f"{DIST_D_LAYERS} x 2 x {DIST_D_STEPS} a rank), other "
+            f"launches {others}; K2 shapes (B, Hq, Hkv, d, Sq, Sk, window, "
+            f"dtype, causal) {sorted(shapes)}, all checked by the kernels "
+            f"phase {shapes <= checked}; ranks hold /dev/nvidia* open "
+            f"{on_card}; step s after the first (median) {med}, model-axis "
+            f"collective s {[round(r['tp_seconds'], 3) for r in rs]}; peak "
+            f"memory a rank {[round(_gib(r['peak']), 2) for r in rs]} GiB "
+            f"vs one process {_gib(ref_peak):.2f} GiB; card memory in use "
+            f"{used[0]} MiB before, {max(used)} MiB at most during the "
+            f"ranks' run of {wall:.1f} s {'ok' if ok else 'FAIL'} "
+            f"[{state['card']}]")
+        state["dist"][f"d {arch}"] = dict(
+            step_s=[[s["seconds"] for s in r["steps"]] for r in rs],
+            peak_gib=[_gib(r["peak"]) for r in rs],
+            ref_peak_gib=_gib(ref_peak), tp_bytes=want_tp, wall_s=wall)
+        if not ok:
+            failures.append(
+                f"(d) {arch}: dloss {dl:.2e}, dgnorm {dg:.2e}, equal "
+                f"{same}, tp {tp} vs {want_tp}, K2 {k2}, others {others}, "
+                f"unchecked K2 shapes {sorted(shapes - checked)}, on card "
+                f"{on_card}")
+    shutil.rmtree(root)
+    return failures
+
+
 def phase_dist(torch, state, workdir: Path) -> None:
     import shutil
     state["dist"] = {}
@@ -3061,10 +3332,13 @@ def phase_dist(torch, state, workdir: Path) -> None:
     failures = _dist_a(torch, state, workdir)
     b_failures, host = _dist_b(torch, state, workdir)
     failures += b_failures + _dist_c(torch, state, host)
+    failures += _dist_d(torch, state, workdir)
     check(not failures, "dist: " + "; ".join(failures))
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker(sys.argv[2])
     try:
         import torch
     except ImportError:

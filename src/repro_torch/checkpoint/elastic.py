@@ -32,8 +32,9 @@ def reshard_restore(store: CheckpointStore, template, shardings,
     meta tensors from ``Container.abstract_params`` /
     ``abstract_opt_state``. ``shardings`` is a matching tree of
     ``dist.sharding.NamedSharding`` for the TARGET mesh (each leaf becomes
-    this rank's part, on the sharding's device), or one device that takes
-    every leaf whole."""
+    this rank's part -- on a mesh with a ``model`` axis its shard, split
+    over the batch axes too for ZeRO-1 state -- on the sharding's device),
+    or one device that takes every leaf whole."""
     host = dict(_flatten(store.restore(template, step)))
     dtypes = dict(_flatten(template))
     if isinstance(shardings, (str, torch.device)):

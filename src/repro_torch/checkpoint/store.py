@@ -27,9 +27,10 @@ Differences from the JAX package, both about one host's memory and disk:
   keeps every checkpoint, as the JAX package does.
 
 A store given the ``mesh`` of a multi-process job saves with its
-``shardings``: each leaf a rank holds only part of (ZeRO-1 shards,
-PowerSGD rows) is gathered into the whole tensor first, then rank 0
-alone writes, and every rank waits for it. So a checkpoint from N ranks
+``shardings``: each leaf a rank holds only part of (model-axis shards,
+ZeRO-1 parts, PowerSGD rows; split on any number of dims) is gathered
+into the whole tensor first, then rank 0 alone writes, and every rank
+waits for it. So a checkpoint from N ranks
 is the same file set as one from a single process, and it still moves
 between the packages.
 
@@ -136,8 +137,8 @@ class CheckpointStore:
             from repro_torch.core.abi import all_gather
             shs = dict(_flatten(shardings))
             tree = _unflatten(tree, {
-                path: leaf if shs[path].split()[0] is None
-                else all_gather(leaf, shs[path], "checkpoint")
+                path: all_gather(leaf, shs[path], "checkpoint")
+                if shs[path].split() else leaf
                 for path, leaf in _flatten(tree)})
         if self._writer:
             self.wait()

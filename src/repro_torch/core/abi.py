@@ -22,7 +22,11 @@ means are ``torch.distributed`` collectives over the process groups of a
 the mesh's ``stats`` under the ABI's name: the bytes are the Fig. 3
 observable. Over one rank each mean is the identity, exactly as JAX's
 ``pmean`` over a size-1 axis, so ``grad_sync`` casts each gradient to the
-wire dtype and back.
+wire dtype and back. On a mesh with a ``model`` axis every collective
+here runs over the batch axes' group only (the JAX package's explicit
+path is manual over the batch axes and leaves ``model`` to GSPMD): each
+rank hands over its own model-axis shard, and the tensor-parallel
+collectives stay on the model group (``dist.sharding``).
 
 A gloo group moves host memory: a collective of a CUDA tensor over gloo
 goes through a host copy (chosen from the mesh's backend and the tensor's
@@ -31,16 +35,14 @@ device, never by trying one and then the other).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
 import torch
 
-from repro_torch.dist.mesh import PlatformMesh, batch_axes, make_mesh
+from repro_torch.dist.mesh import (PlatformMesh, batch_axes, collective,
+                                   make_mesh)
 from repro_torch.models.params import tree_map
-
-_RING = {"all_reduce": 2, "reduce_scatter": 1, "all_gather": 1}
 
 
 def _job_mesh(mesh: PlatformMesh | None) -> PlatformMesh | None:
@@ -53,35 +55,6 @@ def _job_mesh(mesh: PlatformMesh | None) -> PlatformMesh | None:
     return mesh
 
 
-def _collective(mesh: PlatformMesh, abi: str, op: str, out: torch.Tensor,
-                inp: torch.Tensor, group) -> None:
-    """Run ``op`` from ``inp`` into ``out`` (the same tensor for an
-    all-reduce, which sums) over ``group``, staged through host memory
-    where a gloo group meets a CUDA tensor; time it and count its bytes
-    (``CollectiveStats``)."""
-    dist = torch.distributed
-    staged = mesh.backend == "gloo" and inp.is_cuda
-    if inp.is_cuda:
-        torch.cuda.synchronize(inp.device)
-    t0 = time.perf_counter()
-    i = inp.cpu() if staged else inp
-    if op == "all_reduce":
-        o = i
-        dist.all_reduce(o, group=group)
-    else:
-        o = torch.empty_like(out, device="cpu") if staged else out
-        fn = (getattr(dist, f"{op}_single", None)      # newer torch's name
-              or getattr(dist, {"reduce_scatter": "reduce_scatter_tensor",
-                                "all_gather": "all_gather_into_tensor"}[op]))
-        fn(o, i, group=group)
-    if staged:
-        out.copy_(o)
-    if out.is_cuda:
-        torch.cuda.synchronize(out.device)
-    nbytes = (out if op == "all_gather" else inp).nbytes * _RING[op]
-    mesh.stats.add(abi, op, nbytes, time.perf_counter() - t0)
-
-
 def replica_mean(x: torch.Tensor, batch_axes: Sequence[str] = (),
                  mesh: PlatformMesh | None = None, abi: str = "generic"):
     """Mean of ``x`` over the replicas along ``batch_axes`` of ``mesh``
@@ -91,48 +64,51 @@ def replica_mean(x: torch.Tensor, batch_axes: Sequence[str] = (),
     if mesh is None or mesh.axes_size(batch_axes) == 1:
         return x
     out = x.detach().clone()
-    _collective(mesh, abi, "all_reduce", out, out, mesh.group(batch_axes))
+    collective(mesh, abi, "all_reduce", out, out, mesh.group(batch_axes))
     return out.div_(mesh.axes_size(batch_axes))
 
 
 def reduce_scatter_mean(x: torch.Tensor, sharding, abi: str = "host"):
-    """This rank's part (``sharding``: a ``dist.sharding.NamedSharding``
-    that splits one dim over every rank's batch axes) of the mean of ``x``
-    over all ranks: one reduce-scatter of the whole tensor."""
+    """This rank's part of the mean of ``x`` over the ranks of its batch
+    axes' group: one reduce-scatter of the whole tensor. ``sharding`` (a
+    ``dist.sharding.NamedSharding``) names the part by the dims it splits
+    over the batch axes; ``x`` is this rank's tensor as it stands, so on a
+    mesh with a ``model`` axis it is the rank's model-axis shard."""
     mesh = sharding.mesh
-    dim, parts, owners = sharding.split()
-    rows = x.movedim(dim, 0).reshape(parts, -1)
-    if owners != list(range(mesh.size)):
-        rows = rows[owners]          # ranks sharing a part each get a copy
+    baxes = batch_axes(mesh)
+    members = mesh.members(baxes)
+    rows = torch.stack([sharding.local(x, baxes, r).reshape(-1)
+                        for r in members])
     out = torch.empty(rows.shape[1], dtype=x.dtype, device=x.device)
-    _collective(mesh, abi, "reduce_scatter", out, rows.reshape(-1),
-                mesh.group(batch_axes(mesh)))
-    shape = list(x.shape)
-    shape[dim] //= parts
-    moved = [shape[dim]] + shape[:dim] + shape[dim + 1:]
-    return out.div_(mesh.size).view(moved).movedim(0, dim).contiguous()
+    collective(mesh, abi, "reduce_scatter", out, rows.reshape(-1),
+                mesh.group(baxes))
+    return out.div_(len(members)).view(sharding.local_shape(x.shape, baxes))
 
 
 def all_gather(part: torch.Tensor, sharding, abi: str = "host",
-               out: torch.Tensor | None = None) -> torch.Tensor:
-    """The whole tensor from every rank's ``part`` (the inverse of
-    ``sharding.local``), written into ``out`` when given."""
+               out: torch.Tensor | None = None, axes=None) -> torch.Tensor:
+    """The inverse of ``sharding.local(full, axes)``: the tensor whole
+    along the dims ``sharding`` splits over the mesh axes in ``axes``
+    (default: every axis it splits over), from the parts of the ranks
+    that differ from this one along them; written into ``out`` when
+    given."""
     mesh = sharding.mesh
-    dim, parts, owners = sharding.split()
-    src = part.movedim(dim, 0).contiguous().reshape(-1)
-    buf = torch.empty(mesh.size * src.numel(), dtype=part.dtype,
+    if axes is None:
+        axes = tuple(a for _, ax in sharding.split_axes() for a in ax)
+    members = mesh.members(axes)
+    src = part.contiguous().reshape(-1)
+    buf = torch.empty(len(members) * src.numel(), dtype=part.dtype,
                       device=part.device)
-    _collective(mesh, abi, "all_gather", buf, src,
-                mesh.group(batch_axes(mesh)))
-    rows = buf.view(mesh.size, -1)
-    if owners != list(range(mesh.size)):
-        rows = rows[[owners.index(i) for i in range(parts)]]
-    moved = [part.shape[dim] * parts] + [
-        n for i, n in enumerate(part.shape) if i != dim]
-    full = rows.reshape(moved).movedim(0, dim)
-    if out is None:
-        return full.contiguous()
-    return out.copy_(full)
+    collective(mesh, abi, "all_gather", buf, src, mesh.group(axes))
+    buf = buf.view(len(members), *part.shape)
+    shape = list(part.shape)
+    for dim, ax in sharding.split_axes(axes):
+        shape[dim] *= mesh.axes_size(ax)
+    full = out if out is not None else torch.empty(
+        shape, dtype=part.dtype, device=part.device)
+    for i, r in enumerate(members):
+        sharding.local(full, axes, r).copy_(buf[i])
+    return full
 
 
 @dataclass(frozen=True)

@@ -18,13 +18,21 @@ A Container binds the immutable image to
   * a writable overlay directory (checkpoints, metrics, container.json).
 
 ``param_shardings`` / ``opt_state_shardings`` are trees of
-``dist.sharding.NamedSharding`` (spec, mesh, device). Params are whole on
-every rank (data parallel); under ZeRO-1 a rank keeps its part of m, v
-and the master copy; PowerSGD's error and Q rows are per rank. A
-container of a multi-process job is one container: rank 0 names it and
-alone writes its overlay. Not ported, and raising where asked for (ROADMAP
-Queue 1 item 13): ``fsdp``, a ``model`` axis above 1, and MoE archs on
-more than one rank.
+``dist.sharding.NamedSharding`` (spec, mesh, device). A rank holds its
+part of every param (``init_params`` and ``load_params`` hand it over):
+whole on a mesh whose ``model`` axis is 1 (data parallel), its model-axis
+shard otherwise (tensor parallelism: heads, MLP columns, vocabulary and
+experts, as the JAX package's specs split them; the model then carries
+the mesh's ``ModelAxis``). Under ZeRO-1 a rank keeps its part of m, v and
+the master copy (split over the batch axes as well); PowerSGD's error and
+Q rows are per rank. A container of a multi-process job is one
+container: rank 0 names it and alone writes its overlay. ``mesh`` gives
+a container of a job a mesh other than its platform's (a ``(data,
+model)`` mesh of the job's ranks). Not ported, and raising where asked
+for (ROADMAP.md Queue 1 item 13): ``fsdp``, PowerSGD on a model axis,
+and ``ssm``/``rec`` archs there; an MoE arch with several batch replicas
+needs the expert-parallel dispatch (a model axis dividing its experts):
+ROADMAP.md Queue 3 item 14.
 """
 
 from __future__ import annotations
@@ -46,10 +54,10 @@ from repro_torch.configs import get_config, get_shape_cell
 from repro_torch.core.abi import CollectiveABI, abi_from_image_config
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.image import EnvImage
-from repro_torch.dist.mesh import (TENSOR_PARALLEL, batch_axes,
+from repro_torch.dist.mesh import (NOT_PORTED, PlatformMesh, batch_axes,
                                    make_platform_mesh, resolve_device)
 from repro_torch.dist.sharding import (NamedSharding, ShardingRules,
-                                       def_shardings)
+                                       def_shardings, model_axis)
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.params import (materialize, params_from_jax,
                                        tree_map)
@@ -73,7 +81,8 @@ def _torch_dtype(name: str) -> torch.dtype:
 class Container:
     def __init__(self, image: EnvImage, platform: str | None = None,
                  overlay_root: str | os.PathLike | None = None,
-                 compile_cache: CompileCache | None = None):
+                 compile_cache: CompileCache | None = None,
+                 mesh: PlatformMesh | None = None):
         self.image = image
         cfg = image.config()
         if cfg["arch"] is None:
@@ -90,18 +99,28 @@ class Container:
         # platform: image default, overridable at run time (docker-run style)
         mesh_cfg = dict(cfg.get("mesh") or {"platform": "local"})
         self.platform = platform or mesh_cfg.get("platform", "local")
-        self.mesh = make_platform_mesh(self.platform)
+        self.mesh = mesh or make_platform_mesh(self.platform)
         self.device: torch.device = resolve_device(self.platform)
         self.abi: CollectiveABI = abi_from_image_config(cfg)
         if self.settings.get("fsdp"):
-            raise NotImplementedError(f"settings fsdp=true: {TENSOR_PARALLEL}")
-        if self.arch.n_experts and self.mesh.size > 1:
-            # the JAX implicit path drops MoE tokens by a capacity over the
-            # GLOBAL batch (moe_forward); per-rank capacity is the
-            # expert-parallel moe_forward_spmd's rule
+            raise NotImplementedError(f"settings fsdp=true: {NOT_PORTED}")
+        tp = self.mesh.shape.get("model", 1)
+        replicas = self.mesh.axes_size(batch_axes(self.mesh))
+        if self.arch.n_experts and replicas > 1 and (
+                tp == 1 or self.arch.n_experts % tp
+                or self.settings.get("moe_impl", "spmd") != "spmd"):
+            # the JAX package drops MoE tokens by a capacity over the
+            # GLOBAL batch unless the expert-parallel moe_forward_spmd
+            # runs (a model axis dividing the experts): per data shard
             raise NotImplementedError(
-                f"{self.arch.name} (MoE) on {self.mesh.size} ranks: "
-                f"{TENSOR_PARALLEL}")
+                f"{self.arch.name} (MoE) on {replicas} batch replicas with "
+                f"no model axis dividing its {self.arch.n_experts} experts "
+                "(the expert-parallel dispatch, ROADMAP.md Queue 1 item "
+                "13): the reference's capacity over the global batch there "
+                "is not ported (ROADMAP.md Queue 3 item 14)")
+        if tp > 1 and self.abi.options.get("compression") == "powersgd":
+            raise NotImplementedError(
+                f"PowerSGD on a model axis of {tp}: {NOT_PORTED}")
 
         self.rules = ShardingRules.default(
             seq_parallel=bool(self.settings.get("seq_parallel", False)))
@@ -120,10 +139,11 @@ class Container:
                           if self.zero1 else self.rules)
 
         prec = cfg["precision"]
-        self.model = Model(self.arch, tp=self.mesh.shape.get("model", 1),
+        self.model = Model(self.arch, tp=tp,
                            act_dtype=_torch_dtype(prec.get("compute",
                                                            "bfloat16")),
-                           remat=str(self.settings.get("remat", "none")))
+                           remat=str(self.settings.get("remat", "none")),
+                           axis=model_axis(self.mesh))
         self.param_dtype = _torch_dtype(prec.get("params", "float32"))
         self.cache_dtype = _torch_dtype(prec.get("compute", "bfloat16"))
         self.opt = OptConfig(**self.settings.get("optimizer", {}))
@@ -144,14 +164,17 @@ class Container:
         return self.model.param_defs()
 
     def init_params(self, seed: int = 0):
-        """Materialise params on this container's device from ``seed``."""
-        return materialize(self.param_defs, seed, self.param_dtype,
-                           self.device)
+        """Materialise params on this container's device from ``seed``:
+        this rank's part of each (the whole leaf is drawn, so every mesh
+        gets the same values)."""
+        return self._parts(materialize(self.param_defs, seed,
+                                       self.param_dtype, self.device))
 
     def load_params(self, tree):
-        """Given params -- the port's tree of tensors, or the JAX package's
-        tree as numpy arrays -- cast to the image's param dtype and placed
-        on this container's device. Shapes are checked leaf by leaf."""
+        """Given whole params -- the port's tree of tensors, or the JAX
+        package's tree as numpy arrays -- this rank's part of each, cast to
+        the image's param dtype and placed on this container's device.
+        Shapes are checked leaf by leaf."""
         def leaf(d, a):
             t = (a if isinstance(a, torch.Tensor)
                  else params_from_jax(a))
@@ -159,7 +182,15 @@ class Container:
                 raise ValueError(f"param shape {tuple(t.shape)} != "
                                  f"expected {tuple(d.shape)}")
             return t.to(device=self.device, dtype=self.param_dtype)
-        return tree_map(leaf, self.param_defs, tree)
+        return self._parts(tree_map(leaf, self.param_defs, tree))
+
+    def _parts(self, params):
+        """This rank's part of each whole leaf: the leaf itself with
+        ``model`` at 1, else a copy of its shard (so the whole can go)."""
+        if self.model.axis is None:
+            return params
+        return tree_map(lambda sh, p: sh.local(p).clone(),
+                        self.param_shardings(), params)
 
     def param_shardings(self):
         return def_shardings(self.param_defs, self.mesh, self.rules,
@@ -201,7 +232,8 @@ class Container:
     def init_opt_state(self, params):
         """Optimizer state for ``params``: this rank's part of each leaf
         under ZeRO-1, the whole leaf otherwise."""
-        parts = tree_map(lambda sh, p: sh.local(p),
+        baxes = batch_axes(self.mesh)
+        parts = tree_map(lambda sh, p: sh.local(p, baxes),
                          self.opt_state_shardings()["m"], params)
         state = adamw_init(parts,
                            with_master=self.param_dtype != torch.float32)

@@ -53,12 +53,15 @@ class Runtime:
         ]
 
     # -- containers --------------------------------------------------------
-    def run(self, ref_or_image, platform: str | None = None) -> Container:
+    def run(self, ref_or_image, platform: str | None = None,
+            mesh=None) -> Container:
+        """A Container of the image on ``platform``; ``mesh`` (a
+        ``dist.mesh.PlatformMesh`` of this job) replaces the platform's."""
         image = (ref_or_image if isinstance(ref_or_image, EnvImage)
                  else self.pull(ref_or_image))
         c = Container(image, platform=platform,
                       overlay_root=self.overlay_root,
-                      compile_cache=self.compile_cache)
+                      compile_cache=self.compile_cache, mesh=mesh)
         c.ensure_overlay()
         return c
 

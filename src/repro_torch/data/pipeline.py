@@ -3,8 +3,9 @@
 batches from the same seed; the train step moves them to the device).
 
 Every rank of a multi-process job draws the same global batch and keeps
-its own rows (``rank_rows``), so the global batch does not depend on the
-world size: the JAX package's ``P(batch_axes)`` in-spec.
+the rows of its data replica (``rank_rows``), so the global batch does
+not depend on the world size: the JAX package's ``P(batch_axes)``
+in-spec.
 
 Paper §4.1 runs data I/O through *host mounts* into the container; here the
 "mount" is an array store on the host filesystem read into the container's
@@ -104,15 +105,17 @@ def batches(source, start_step: int = 0) -> Iterator[dict[str, np.ndarray]]:
         step += 1
 
 
-def rank_rows(batch: dict, rank: int, world: int) -> dict:
-    """Rows ``[rank * B / world, (rank + 1) * B / world)`` of every array
-    of a global batch of ``B`` rows (a rank's block of the batch dim
-    split row-major over the mesh's batch axes)."""
-    if world == 1:
+def rank_rows(batch: dict, index: int, replicas: int) -> dict:
+    """Rows ``[index * B / replicas, (index + 1) * B / replicas)`` of every
+    array of a global batch of ``B`` rows: ``index`` is a rank's
+    coordinate over the mesh's batch axes (row-major) and ``replicas``
+    their size, so the ranks of one data replica (its model axis) take the
+    same block."""
+    if replicas == 1:
         return batch
     rows = {len(v) for v in batch.values()}
-    if len(rows) != 1 or next(iter(rows)) % world:
+    if len(rows) != 1 or next(iter(rows)) % replicas:
         raise ValueError(f"a global batch of {sorted(rows)} rows does not "
-                         f"split over {world} ranks")
-    b = next(iter(rows)) // world
-    return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+                         f"split over {replicas} ranks")
+    b = next(iter(rows)) // replicas
+    return {k: v[index * b:(index + 1) * b] for k, v in batch.items()}

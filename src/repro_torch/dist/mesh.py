@@ -5,7 +5,7 @@ The JAX package runs one process over a ``(pod, data, model)`` device
 mesh; the port runs one process per rank (``torch.distributed``, one rank
 per device), and a ``PlatformMesh`` is that mesh seen from one rank: the
 axis names and sizes, this rank's coordinates, and a process group for
-each set of batch axes a collective reduces over.
+each set of axes a collective reduces over.
 
 ``local``    -- every rank of the job on the data axis, ``model`` = 1
                 (the JAX package: every visible device on the data axis);
@@ -16,22 +16,32 @@ each set of batch axes a collective reduces over.
 ``pod``      -- one 256-chip pod: 16-way data x 16-way model;
 ``multipod`` -- two pods: pod x data x model = 2 x 16 x 16.
 
-``pod`` and ``multipod`` keep the JAX package's shapes; their ``model``
-axis is 16, and tensor parallelism is not ported (ROADMAP.md Queue 1 item
-13), so naming them raises.
+``pod`` and ``multipod`` keep the JAX package's shapes; a job of 256 (or
+512) ranks resolves them, any other raises ``ValueError`` naming the
+count, as ``jax.make_mesh`` fails without the devices.
 
 Ranks are laid out row-major over the axes, so with torchrun's numbering
 ``make_mesh((nodes, per_node, 1), ("pod", "data", "model"))`` puts a node
-on ``pod`` and its local ranks on ``data``. Batch ("replica") axes are
-ordered slow-to-fast as ("pod", "data"), which the hierarchical means of
-``core/abi.py`` rely on. A mesh of one rank needs no process group and
-every collective over it is the identity.
+on ``pod`` and its local ranks on ``data``, and ``make_mesh((d, m),
+("data", "model"))`` puts ``m`` consecutive ranks in one tensor-parallel
+(``model``) group. Batch ("replica") axes are ordered slow-to-fast as
+("pod", "data"), which the hierarchical means of ``core/abi.py`` rely on.
+``make_mesh`` creates the process group of every set of axes whose ranks
+are fewer than the job's: one group per value of the other coordinates.
+A mesh of one rank needs no process group and every collective over it is
+the identity.
+
+``collective`` runs one collective over a group and counts what it was
+handed in the mesh's ``CollectiveStats`` under a label (the ABI's name,
+``"tp"`` for the model axis, ``"metrics"`` for the step's scalars).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -45,10 +55,10 @@ PLATFORMS: dict[str, dict] = {
                  "device": "cuda"},
 }
 
-TENSOR_PARALLEL = ("tensor parallelism (a 'model' mesh axis above 1), "
-                   "FSDP and the expert-parallel MoE are not ported yet "
-                   "(ROADMAP.md Queue 1 item 13: the next distribution "
-                   "slice)")
+NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1 item 13: FSDP, ssm "
+              "and rec layers at a 'model' axis above 1, and serving at a "
+              "'model' axis above 1)")
+_RING = {"all_reduce": 2, "reduce_scatter": 1, "all_gather": 1}
 
 
 @dataclass
@@ -112,14 +122,26 @@ class PlatformMesh:
     def axes_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape.get(a, 1) for a in axes)
 
+    def _key(self, axes: Sequence[str]) -> tuple[str, ...]:
+        return tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+
     def group(self, axes: Sequence[str]):
         """The process group of the ranks that differ from this one only
         along ``axes``; ``None`` for the default (whole-job) group."""
-        key = tuple(a for a in self.axis_names
-                    if a in axes and self.shape[a] > 1)
+        key = self._key(axes)
         if self.axes_size(key) == self.size:
             return None
         return self.groups[key]
+
+    def members(self, axes: Sequence[str]) -> list[int]:
+        """The ranks of ``group(axes)``, in the group's rank order (row-major
+        over ``axes``)."""
+        key = self._key(axes)
+        mine = self.coords()
+        return [r for r in range(self.size)
+                if all(v == mine[a] for a, v in self.coords(r).items()
+                       if a not in key)]
 
     def broadcast_object(self, obj: Any) -> Any:
         """Rank 0's ``obj`` on every rank (the identity on one rank)."""
@@ -153,33 +175,32 @@ def _world() -> tuple[int, int, str | None]:
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> PlatformMesh:
     """The mesh of ``shape`` over ``axes`` for this process's job, whose
-    world size must equal the mesh's size. Creating the batch axes'
-    process groups is collective: every rank calls this with the same
-    arguments, in the same order."""
+    world size must equal the mesh's size. Creating the axes' process
+    groups is collective: every rank calls this with the same arguments,
+    in the same order."""
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} does not match axes {axes}")
-    if dict(zip(axes, shape)).get("model", 1) > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
     rank, world, backend = _world()
     if math.prod(shape) != world:
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; "
                          f"this job has {world}")
     mesh = PlatformMesh(axes, shape, rank, backend)
     if world > 1:
-        batch = tuple(a for a in batch_axes(mesh) if mesh.shape[a] > 1)
-        for ax in batch:
-            if mesh.axes_size((ax,)) == world:
-                continue
-            # one group per value of the other coordinates
-            members: dict[tuple, list[int]] = {}
-            for r in range(world):
-                c = mesh.coords(r)
-                key = tuple(v for a, v in c.items() if a != ax)
-                members.setdefault(key, []).append(r)
-            mine, _ = torch.distributed.new_subgroups_by_enumeration(
-                sorted(members.values()))
-            mesh.groups[(ax,)] = mine
+        split = [a for a in axes if mesh.shape[a] > 1]
+        for n in range(1, len(split) + 1):
+            for key in itertools.combinations(split, n):
+                if mesh.axes_size(key) == world:
+                    continue
+                # one group per value of the other coordinates
+                members: dict[tuple, list[int]] = {}
+                for r in range(world):
+                    c = mesh.coords(r)
+                    other = tuple(v for a, v in c.items() if a not in key)
+                    members.setdefault(other, []).append(r)
+                mine, _ = torch.distributed.new_subgroups_by_enumeration(
+                    sorted(members.values()))
+                mesh.groups[key] = mine
     return mesh
 
 
@@ -225,3 +246,35 @@ def resolve_device(platform: str = "local") -> torch.device:
             "pass platform='cpu' to run on the host CPU")
     return torch.device(f"cuda:{local_rank() % torch.cuda.device_count()}")
 
+
+
+def collective(mesh: PlatformMesh, label: str, op: str, out: torch.Tensor,
+               inp: torch.Tensor, group, reduce: str = "sum") -> None:
+    """Run ``op`` from ``inp`` into ``out`` (the same tensor for an
+    all-reduce, which sums, or with ``reduce="max"`` takes the maximum)
+    over ``group``, staged through host memory where a gloo group meets a
+    CUDA tensor; time it and count its bytes under ``label``
+    (``CollectiveStats``)."""
+    dist = torch.distributed
+    staged = mesh.backend == "gloo" and inp.is_cuda
+    if inp.is_cuda:
+        torch.cuda.synchronize(inp.device)
+    t0 = time.perf_counter()
+    i = inp.cpu() if staged else inp
+    if op == "all_reduce":
+        o = i
+        dist.all_reduce(o, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[reduce],
+                        group=group)
+    else:
+        o = torch.empty_like(out, device="cpu") if staged else out
+        fn = (getattr(dist, f"{op}_single", None)      # newer torch's name
+              or getattr(dist, {"reduce_scatter": "reduce_scatter_tensor",
+                                "all_gather": "all_gather_into_tensor"}[op]))
+        fn(o, i, group=group)
+    if staged:
+        out.copy_(o)
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    nbytes = (out if op == "all_gather" else inp).nbytes * _RING[op]
+    mesh.stats.add(label, op, nbytes, time.perf_counter() - t0)

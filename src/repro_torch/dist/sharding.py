@@ -21,10 +21,23 @@ and, for ``safe_spec`` (which also sees the shape):
 A spec is a tuple with one entry per dim: ``None``, an axis name, or a
 tuple of axis names (what ``jax.sharding.PartitionSpec`` holds). A
 ``NamedSharding`` pairs a spec with a ``PlatformMesh``: each rank holds
-the part of a tensor at its coordinates along the spec's axes. With the
-``model`` axis at 1 (all this port runs, dist/mesh.py) at most one dim of
-a tensor is split, over the batch axes: ZeRO-1's optimizer state and
-PowerSGD's per-replica rows.
+the part of a tensor at its coordinates along the spec's axes, on every
+dim the spec splits (a ZeRO-1 moment of ``wq`` on a (data, model) mesh:
+``(("data",), "model", None)``, its embed dim over data and its heads
+over model).
+
+Tensor parallelism. Where the JAX package lets GSPMD insert the
+collectives a ``with_sharding_constraint`` implies (``constrain``), the
+port's model code places them itself, on the ``model`` axis
+(``ModelAxis``): ``copy_to_model`` at the entry of a region that a rank
+computes on its own part of the weights (the identity forward, an
+all-reduce of the gradient over ``model`` backward) and
+``reduce_from_model`` at its exit (an all-reduce of the rank's partial
+sum forward, the identity backward). What a region reads enters through
+``copy_to_model``; a replicated weight is never read inside one, so no
+parameter ends a backward with a partial gradient. Their bytes count in
+the mesh's ``CollectiveStats`` under ``TP``. With ``model`` at 1 there is
+no ``ModelAxis`` and both are the identity: no operator, no collective.
 """
 
 from __future__ import annotations
@@ -34,10 +47,11 @@ from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.dist.mesh import TENSOR_PARALLEL, PlatformMesh
+from repro_torch.dist.mesh import PlatformMesh, collective
 
 Rule = str | tuple[str, ...] | None
 Spec = tuple
+TP = "tp"           # the model axis's label in CollectiveStats
 
 # The canonical table. Batch-like dims shard over the replica axes
 # ("pod","data", slow-to-fast -- see dist.mesh.batch_axes); tensor-parallel
@@ -166,40 +180,52 @@ class NamedSharding:
     spec: Spec
     device: torch.device | str | None = None
 
-    def split(self) -> tuple[int | None, int, list[int]]:
-        """(dim, parts, part of each rank): the one dim the spec splits
-        over mesh axes of size above 1 (``None`` and 1 part when it
-        splits none); rank r holds part ``owners[r]``, its coordinates
-        along that dim's axes read row-major."""
-        split = [(i, tuple(a for a in _axes_of(e) if self.mesh.shape[a] > 1))
-                 for i, e in enumerate(self.spec)]
-        split = [(i, axes) for i, axes in split if axes]
-        if not split:
-            return None, 1, [0] * self.mesh.size
-        if len(split) > 1:
-            raise NotImplementedError(TENSOR_PARALLEL)
-        dim, axes = split[0]
-        owners = []
-        for r in range(self.mesh.size):
-            c, idx = self.mesh.coords(r), 0
-            for a in axes:
-                idx = idx * self.mesh.shape[a] + c[a]
-            owners.append(idx)
-        return dim, self.mesh.axes_size(axes), owners
+    def split_axes(self, axes=None) -> list[tuple[int, tuple[str, ...]]]:
+        """(dim, the mesh axes above size 1 that split it) for each dim the
+        spec splits, counting only the mesh axes in ``axes`` when given."""
+        out = []
+        for i, e in enumerate(self.spec):
+            ax = tuple(a for a in _axes_of(e) if self.mesh.shape[a] > 1
+                       and (axes is None or a in axes))
+            if ax:
+                out.append((i, ax))
+        return out
 
-    def local(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of ``full`` (a view)."""
-        dim, parts, owners = self.split()
-        if dim is None:
-            return full
-        n = full.shape[dim] // parts
-        return full.narrow(dim, owners[self.mesh.rank] * n, n)
+    def _part(self, rank: int, axes: tuple[str, ...]) -> int:
+        """``rank``'s coordinates along ``axes``, read row-major."""
+        c, idx = self.mesh.coords(rank), 0
+        for a in axes:
+            idx = idx * self.mesh.shape[a] + c[a]
+        return idx
 
-    def local_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
-        dim, parts, _ = self.split()
+    def split(self, axes=None) -> tuple[tuple[int, int, list[int]], ...]:
+        """(dim, parts, part of each rank) for each dim the spec splits
+        over mesh axes of size above 1 (only over those in ``axes`` when
+        given), in dim order; rank r holds part ``owners[r]`` of the dim,
+        its coordinates along the dim's axes read row-major. Empty when
+        the spec splits nothing."""
+        return tuple((dim, self.mesh.axes_size(ax),
+                      [self._part(r, ax) for r in range(self.mesh.size)])
+                     for dim, ax in self.split_axes(axes))
+
+    def local(self, full: torch.Tensor, axes=None,
+              rank: int | None = None) -> torch.Tensor:
+        """``rank``'s (default: this rank's) part of ``full`` -- over the
+        mesh axes in ``axes`` only, when given -- as a view."""
+        r = self.mesh.rank if rank is None else rank
+        for dim, ax in self.split_axes(axes):
+            n = full.shape[dim] // self.mesh.axes_size(ax)
+            full = full.narrow(dim, self._part(r, ax) * n, n)
+        return full
+
+    def local_shape(self, shape: Sequence[int], axes=None) -> tuple[int, ...]:
         out = list(shape)
-        if dim is not None:
-            out[dim] //= parts
+        for dim, ax in self.split_axes(axes):
+            k = self.mesh.axes_size(ax)
+            if out[dim] % k:
+                raise ValueError(f"dim {dim} of shape {tuple(shape)} does "
+                                 f"not split into {k} parts over {ax}")
+            out[dim] //= k
         return tuple(out)
 
 
@@ -221,9 +247,76 @@ def def_shardings(defs, mesh, rules: ShardingRules, device=None):
 def constrain(x: torch.Tensor, logical: Sequence[str | None], mesh,
               rules: ShardingRules,
               exclude_axes: Sequence[str] = ()) -> torch.Tensor:
-    """The injectable model hook: with ``model`` at 1 every activation is
-    whole on its rank (the batch is split before the step), so this is
-    the identity; a mesh with ``model`` above 1 is not ported."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
+    """The injectable model hook of the JAX package, the identity here at
+    any ``model`` size: a rank's activations are whole on it (the batch is
+    split before the step), and the model code places the tensor-parallel
+    collectives itself (``copy_to_model`` / ``reduce_from_model``)."""
     return x
+
+
+@dataclass(frozen=True, eq=False)
+class ModelAxis:
+    """This rank's place on its mesh's ``model`` axis (of size above 1):
+    the axis size, this rank's coordinate on it and the all-reduce over
+    its tensor-parallel group, counted under ``TP``."""
+
+    mesh: PlatformMesh
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape["model"]
+
+    @property
+    def coord(self) -> int:
+        return self.mesh.coords()["model"]
+
+    def all_reduce(self, x: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
+        """The sum (or ``reduce="max"``: the maximum) of ``x`` over the
+        model axis, in a new tensor."""
+        out = x.detach().contiguous().clone()
+        collective(self.mesh, TP, "all_reduce", out, out,
+                   self.mesh.group(("model",)), reduce)
+        return out
+
+
+def model_axis(mesh: PlatformMesh | None) -> ModelAxis | None:
+    """The ``ModelAxis`` of ``mesh``; ``None`` without a mesh or with
+    ``model`` at 1."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return ModelAxis(mesh)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """Entry of a tensor-parallel region: ``x`` (whole on every rank of
+    the model axis) forward, its gradient summed over the axis backward
+    (each rank's region contributed its part of it)."""
+    return x if axis is None else _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor,
+                      axis: ModelAxis | None) -> torch.Tensor:
+    """Exit of a tensor-parallel region: the sum of the ranks' partial
+    ``x`` forward, the gradient as it is backward."""
+    return x if axis is None else _ReduceFromModel.apply(x, axis)

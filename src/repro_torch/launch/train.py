@@ -15,11 +15,13 @@ checkpoint-on-trip. ``--keep N`` bounds the checkpoints on disk (see
 ``CheckpointStore``); the default keeps all, as the JAX package does.
 
 Under torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
-/ ``MASTER_PORT`` in the environment) every process is one data-parallel
-rank of the job: it joins the process group (``nccl`` when every rank of
-a node has its own card, else ``gloo``: a function of the topology, never
-a fallback), trains on its rows of each global batch, and leaves the
-group at exit. A caller that made the process group itself keeps it.
+/ ``MASTER_PORT`` in the environment) every process is one rank of the
+job's mesh (``local``: all of them on ``data``; ``pod`` and ``multipod``:
+the JAX package's (16, 16) and (2, 16, 16) meshes, at 256 and 512
+ranks): it joins the process group (``nccl`` when every rank of a node
+has its own card, else ``gloo``: a function of the topology, never a
+fallback), trains on its rows of each global batch and its shard of the
+params, and leaves the group at exit. A caller that made the process group itself keeps it.
 Rank 0 alone prints, pushes the image, writes the overlay, the metrics
 and the checkpoints; into the overlay it also writes ``ranks.json``, each
 rank's step and collective seconds, wire bytes, peak device memory and
@@ -114,7 +116,7 @@ def _train(rt: Runtime, image, platform: str, args) -> dict:
     cell = c.cell
     say(f"[train] image={image.short_digest} arch={c.arch.name} "
         f"platform={c.platform} device={c.device} cell={cell.name} "
-        f"abi={c.abi.describe()}"
+        f"abi={c.abi.describe()} mesh={_mesh_txt(mesh)}"
         + (f" ranks={mesh.size} backend={mesh.backend}" if in_job else ""))
 
     data = SyntheticLM(DataConfig(
@@ -133,7 +135,8 @@ def _train(rt: Runtime, image, platform: str, args) -> dict:
         params, opt = restored["params"], restored["opt"]
         start_step = int(opt["step"])
         say(f"[train] resumed from step {start_step} "
-            f"(elastic: device={c.device} ranks={mesh.size})")
+            f"(elastic: device={c.device} ranks={mesh.size} "
+            f"mesh={_mesh_txt(mesh)})")
     else:
         params = c.init_params(args.seed)
         opt = c.init_opt_state(params)
@@ -182,6 +185,11 @@ def _train(rt: Runtime, image, platform: str, args) -> dict:
     return {"final_loss": last_loss, "overlay": str(c.overlay),
             "steps": start_step + args.steps, "start_step": start_step,
             "losses": losses}
+
+
+def _mesh_txt(mesh) -> str:
+    """``data=2,model=2``: the mesh's axes and sizes."""
+    return ",".join(f"{a}={n}" for a, n in mesh.shape.items())
 
 
 def _write_ranks(c, per_step: list) -> None:

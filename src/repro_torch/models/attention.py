@@ -2,7 +2,17 @@
 
 Geometry, parameter layouts and the mask arithmetic follow
 ``repro.models.attention``: ``wq`` is (D, n_q, hd), q heads pad to the TP
-width (1 on one card) and kv heads replicate by gather.
+width and kv heads replicate by gather.
+
+Tensor parallelism (``axis``: the rank's ``dist.sharding.ModelAxis``) is
+the reference's padded geometry, computed explicitly: the rank holds
+``wq`` as (D, n_q/tp, hd) and ``wo`` as (n_q/tp, hd, D), ``wk``/``wv``
+whole (replicated, as ``("embed", None, None)`` keeps them). Every rank
+computes all ``n_kv_orig`` kv heads, which then enter the rank's region,
+replicates them to ``n_kv`` as the reference does and keeps its
+``n_kv/tp`` slots; attention runs on (n_q/tp, n_kv/tp) heads and the
+output projection's partial sum is reduced over the axis. Cached decode
+on a rank's shard (serving at tp > 1) is not ported and raises.
 
 Kernels
 -------
@@ -24,6 +34,9 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.dist.mesh import NOT_PORTED
+from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
+                                       reduce_from_model)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import ParamDef
@@ -219,37 +232,55 @@ def attend(q, k, v, q_pos, k_pos, window: int = 0,
 # ---------------------------------------------------------------------------
 
 def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, geom: AttnGeometry,
-                positions: torch.Tensor):
-    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,n_kv,hd) with RoPE + replication."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+                positions: torch.Tensor, axis: ModelAxis | None = None):
+    """x: (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,n_kv,hd) with RoPE + replication;
+    on a model axis the rank's Hq/tp q heads and n_kv/tp kv slots."""
+    q = torch.einsum("bsd,dhk->bshk", copy_to_model(x, axis),
+                     p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    k, v = replicate_kv(k, geom), replicate_kv(v, geom)
+    k, v = copy_to_model(k, axis), copy_to_model(v, axis)
+    k, v = replicate_kv(k, geom, axis), replicate_kv(v, geom, axis)
     return q, k, v
 
 
-def replicate_kv(kv: torch.Tensor, geom: AttnGeometry) -> torch.Tensor:
-    """(…, n_kv_orig, hd) -> (…, n_kv, hd).
+def replicate_kv(kv: torch.Tensor, geom: AttnGeometry,
+                 axis: ModelAxis | None = None) -> torch.Tensor:
+    """(…, n_kv_orig, hd) -> (…, n_kv, hd), or on a model axis the rank's
+    (…, n_kv/tp, hd) slots of it.
 
     Gather-based replication: target slot j serves padded q heads
     [j*g, (j+1)*g) and reads the kv head the FIRST of those q heads uses in
     the canonical (unpadded) grouping. For divisible cases this equals a
     repeat; for padded MHA the extra slots alias the last canonical head."""
     h = kv.shape[-2]
+    n = geom.n_kv // (axis.size if axis is not None else 1)
+    first = axis.coord * n if axis is not None else 0
     if h == geom.n_kv:
-        return kv
+        return kv if axis is None else kv.narrow(-2, first, n)
     g = geom.q_per_kv
     group = max(1, geom.n_q_orig // h)          # canonical q-heads per kv
-    q0 = torch.clamp(torch.arange(geom.n_kv, device=kv.device) * g,
+    q0 = torch.clamp(torch.arange(first, first + n, device=kv.device) * g,
                      max=geom.n_q_orig - 1)
     idx = torch.clamp(q0 // group, max=h - 1)
     return torch.index_select(kv, kv.dim() - 2, idx)
 
 
-def attn_out(p: dict, ctx: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype))
+def attn_out(p: dict, ctx: torch.Tensor,
+             axis: ModelAxis | None = None) -> torch.Tensor:
+    return reduce_from_model(
+        torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype)), axis)
+
+
+def _whole_heads(p: dict, geom: AttnGeometry) -> None:
+    """Cached decode needs every q head: a rank's shard of ``wq`` (serving
+    at a model axis above 1) raises."""
+    if p["wq"].shape[1] != geom.n_q:
+        raise NotImplementedError(
+            f"cached decode on {p['wq'].shape[1]} of {geom.n_q} q heads "
+            f"(serving at a model axis above 1): {NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +308,7 @@ def paged_decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
         raise NotImplementedError(
             "paged decode supports full attention only (ring-buffer windows "
             "keep the contiguous per-slot layout)")
+    _whole_heads(p, geom)
     from repro_torch.kernels.paged_attention.ops import paged_attention
     positions = idx[:, None].to(torch.int32)
     q, k, v = project_qkv(p, x, cfg, geom, positions)   # k/v: (B,1,n_kv,hd)
@@ -327,6 +359,7 @@ def decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
     slots: position p lives at slot ``p % S``, and the true position of
     slot j, seen from the write at idx, is ``idx - ((idx % S - j) mod S)``
     (negative for slots not written yet, which the mask hides)."""
+    _whole_heads(p, geom)
     B = x.shape[0]
     positions = idx[:, None].to(torch.int32)
     q, k, v = project_qkv(p, x, cfg, geom, positions)

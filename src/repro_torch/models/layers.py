@@ -2,6 +2,13 @@
 
 Plain functions on tensors with the JAX package's names and arithmetic:
 norms and RoPE upcast to f32 exactly where ``repro.models.layers`` does.
+
+On a rank of a ``model`` axis (``axis``: a ``dist.sharding.ModelAxis``)
+the weights are the rank's shards, as the JAX package's specs split them:
+the MLP is column-split in (``wg``/``wu``/``wi`` on F) and row-split out
+(``wd``), the embedding and the head are vocab-parallel (the rank holds
+rows ``[c * Vp/tp, (c+1) * Vp/tp)`` for its coordinate ``c``). With
+``axis=None`` (``model`` at 1) nothing changes.
 """
 
 from __future__ import annotations
@@ -11,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
+                                       reduce_from_model)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
@@ -101,12 +110,16 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor, kind: str,
+              axis: ModelAxis | None = None) -> torch.Tensor:
+    """The MLP; on a model axis ``x`` enters the region, the rank's F
+    columns run, and its partial output sums over the axis."""
     dt = x.dtype
+    x = copy_to_model(x, axis)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
         h = act(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
-        return h @ p["wd"].to(dt)
+        return reduce_from_model(h @ p["wd"].to(dt), axis)
     h = x @ p["wi"].to(dt)
     if kind == "gelu":
         h = _gelu(h)
@@ -114,7 +127,7 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = torch.square(F.relu(h))
     else:
         raise ValueError(kind)
-    return h @ p["wd"].to(dt)
+    return reduce_from_model(h @ p["wd"].to(dt), axis)
 
 
 # ---------------------------------------------------------------------------
@@ -137,15 +150,28 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 dtype: torch.dtype) -> torch.Tensor:
-    x = p["tokens"][tokens].to(dtype)       # gather, then cast: same values
+                 dtype: torch.dtype,
+                 axis: ModelAxis | None = None) -> torch.Tensor:
+    if axis is None:
+        x = p["tokens"][tokens].to(dtype)   # gather, then cast: same values
+    else:
+        # vocab-parallel: each rank gathers the tokens of its rows, zeros
+        # elsewhere, and the sum over the axis holds one row a token
+        rows = p["tokens"].shape[0]
+        local = tokens - axis.coord * rows
+        mine = (local >= 0) & (local < rows)
+        x = p["tokens"][torch.where(mine, local, 0)].to(dtype)
+        x = reduce_from_model(x.masked_fill(~mine[..., None], 0), axis)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype,
                              device=x.device)
     return x
 
 
-def lm_logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def lm_logits(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              axis: ModelAxis | None = None) -> torch.Tensor:
+    """(B, S, Vp) logits; on a model axis the rank's vocab slice."""
+    x = copy_to_model(x, axis)
     if cfg.tie_embeddings:
         return x @ p["tokens"].to(x.dtype).T
     return x @ p["head"].to(x.dtype)

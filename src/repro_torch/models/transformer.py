@@ -19,6 +19,17 @@ window keeps a ring-buffer cache), ``moe`` (attention + routed MoE),
 ``ssm`` (Mamba-2 SSD) and ``rec`` (RG-LRU + MLP). Frontend archs
 (musicgen, internvl2) prepend a modality prefix of embeddings to the
 tokens in ``forward``.
+
+Tensor parallelism: a ``Model`` given its mesh's ``ModelAxis`` (the
+``model`` group and this rank's coordinate) runs on the rank's shards of
+the params -- heads, MLP columns, vocabulary and experts split over the
+axis as the JAX package's specs split them -- and places the collectives
+GSPMD inserts there (``dist.sharding``); ``moe`` blocks switch to the
+expert-parallel ``moe_forward_spmd`` as the JAX package's ``_moe`` does
+when it has a mesh. ``forward`` returns the rank's vocab slice of the
+logits. Not ported, and raising (ROADMAP.md Queue 1 item 13): ``ssm`` and
+``rec`` blocks on a model axis (their ``rnn`` split), and serving there
+(a collected or prefixed cache, decode).
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from functools import partial
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch.dist.mesh import NOT_PORTED
+from repro_torch.dist.sharding import ModelAxis
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
@@ -125,11 +138,14 @@ def block_defs(kind: str, cfg: ModelConfig, geom: AttnGeometry) -> dict:
 # ---------------------------------------------------------------------------
 
 class Model:
-    """A config bound to a TP width (1 on one card: no head padding)."""
+    """A config bound to a TP width (head padding and kv replication).
+    With ``axis`` (the mesh's ``ModelAxis``, of size ``tp``) it runs one
+    rank's shards; without it, the whole model in one process, at the
+    padded geometry of ``tp``."""
 
     def __init__(self, cfg: ModelConfig, tp: int = 1,
                  act_dtype: torch.dtype = torch.bfloat16,
-                 remat: str = "none"):
+                 remat: str = "none", axis: ModelAxis | None = None):
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}; expected one "
                              f"of {REMAT_MODES}")
@@ -138,6 +154,16 @@ class Model:
         self.stages = build_stages(cfg)
         self.act_dtype = act_dtype
         self.remat = remat
+        if axis is not None:
+            if axis.size != tp:
+                raise ValueError(f"a model axis of {axis.size} ranks for a "
+                                 f"model bound to tp={tp}")
+            kinds = {k for st in self.stages for k in st.unit}
+            if kinds & {"ssm", "rec"}:
+                raise NotImplementedError(
+                    f"{cfg.name}: {sorted(kinds & {'ssm', 'rec'})} blocks "
+                    f"on a model axis of {tp}: {NOT_PORTED}")
+        self.axis = axis
 
     # -- params ---------------------------------------------------------
     def param_defs(self) -> dict:
@@ -249,6 +275,10 @@ class Model:
         offset past the prefix, every attention block attends over
         [prefix, suffix], and the collected cache covers the suffix only."""
         cfg = self.cfg
+        if self.axis is not None and (collect_cache or prefix_len):
+            raise NotImplementedError(
+                f"a serving prefill on a model axis of {self.axis.size}: "
+                f"{NOT_PORTED}")
         if prefix_len:
             if frontend_embeds is not None:
                 raise NotImplementedError(
@@ -257,7 +287,8 @@ class Model:
             if prefix_kv is None or prefix_pages is None:
                 raise ValueError("prefix_len > 0 needs prefix_kv + "
                                  "prefix_pages")
-        x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype)
+        x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype,
+                         self.axis)
         if frontend_embeds is not None:
             fe = frontend_embeds.to(device=x.device, dtype=self.act_dtype)
             x = torch.cat([fe, x], dim=1)
@@ -300,7 +331,7 @@ class Model:
                 caches[f"stage{si}"] = tree_map(
                     lambda *xs: torch.stack(xs), *layer_entries)
         x = apply_norm(params["final_norm"], x, cfg.norm)
-        logits = lm_logits(params["embed"], x, cfg)
+        logits = lm_logits(params["embed"], x, cfg, self.axis)
         if collect_cache:
             return logits, caches, aux
         return logits, aux
@@ -352,8 +383,10 @@ class Model:
             x = x + out
             h2 = apply_norm(p["ln2"], x, cfg.norm)
             return x + apply_mlp(p["mlp"], h2, cfg.mlp), None, entry
+        axis = self.axis
         h = apply_norm(p["ln1"], x, cfg.norm)
-        q, k, v = attn_mod.project_qkv(p["attn"], h, cfg, geom, positions)
+        q, k, v = attn_mod.project_qkv(p["attn"], h, cfg, geom, positions,
+                                       axis)
         k_all, v_all, kv_pos = k, v, positions
         if prefix_len:
             # gather the cached prefix pages (n_kv, kp, ps, hd) into a
@@ -377,21 +410,28 @@ class Model:
                               q_chunk=cfg.attn_q_chunk,
                               kv_chunk=cfg.attn_kv_chunk,
                               q_offset=prefix_len)
-        out = attn_mod.attn_out(p["attn"], ctx)
+        out = attn_mod.attn_out(p["attn"], ctx, axis)
         if collect_cache:
             entry = self._prefill_cache_entry(k, v, window, cache_len)
         aux = None
         if cfg.parallel_block:
-            x = x + out + apply_mlp(p["mlp"], h, cfg.mlp)
+            x = x + out + apply_mlp(p["mlp"], h, cfg.mlp, axis)
         else:
             x = x + out
             h2 = apply_norm(p["ln2"], x, cfg.norm)
             if kind == "moe":
-                moe_out, aux = moe_mod.moe_forward(p["moe"], h2, cfg)
+                moe_out, aux = self._moe(p["moe"], h2)
                 x = x + moe_out
             else:
-                x = x + apply_mlp(p["mlp"], h2, cfg.mlp)
+                x = x + apply_mlp(p["mlp"], h2, cfg.mlp, axis)
         return x, aux, entry
+
+    def _moe(self, p_moe, h):
+        """The MoE block: expert-parallel on a model axis, as the JAX
+        package's ``_moe`` switches to ``moe_forward_spmd`` with a mesh."""
+        if self.axis is not None:
+            return moe_mod.moe_forward_spmd(p_moe, h, self.cfg, self.axis)
+        return moe_mod.moe_forward(p_moe, h, self.cfg)
 
     def _prefill_cache_entry(self, k, v, window: int, cache_len: int):
         """Store the last ``cache_len`` (or window) positions into the cache,
@@ -429,6 +469,9 @@ class Model:
         recurrent block's new conv tail and state are copied into them,
         cast to the cache's dtype) and returned."""
         cfg = self.cfg
+        if self.axis is not None:
+            raise NotImplementedError(
+                f"decode on a model axis of {self.axis.size}: {NOT_PORTED}")
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype)
         idx = attn_mod.row_positions(idx, tokens.shape[0], x.device,
                                      lockstep=page_table is None)
@@ -471,7 +514,7 @@ class Model:
         x = x + out
         h2 = apply_norm(p["ln2"], x, cfg.norm)
         if kind == "moe":
-            return x + moe_mod.moe_forward(p["moe"], h2, cfg)[0]
+            return x + self._moe(p["moe"], h2)[0]
         return x + apply_mlp(p["mlp"], h2, cfg.mlp)
 
 

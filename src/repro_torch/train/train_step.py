@@ -33,11 +33,20 @@ ranks' own masked means gives: each rank weights its microbatches by
 their mask counts over the all-reduced counts of the global microbatches
 that hold them (``_mask_weights``). The explicit path keeps the JAX
 package's per-shard mean, then the mean over replicas.
+
+On a mesh with a ``model`` axis (tensor parallelism: the model carries
+the axis, the params are the rank's shards) a rank's rows are those of
+its batch coordinate -- the ranks of one data replica take the same rows
+-- every ABI collective runs over the batch axes' group only, the loss is
+``cross_entropy`` over the vocab-parallel logits, and ``grad_norm`` is
+the global norm with each shard counted once (``_global_norm``).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable
 
 import torch
@@ -45,7 +54,8 @@ import torch
 from repro_torch.core.abi import (CollectiveABI, all_gather,
                                   reduce_scatter_mean, replica_mean)
 from repro_torch.data.pipeline import rank_rows
-from repro_torch.dist.mesh import PlatformMesh, batch_axes
+from repro_torch.dist.mesh import PlatformMesh, batch_axes, collective
+from repro_torch.dist.sharding import ModelAxis, reduce_from_model
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.transformer import Model
 from repro_torch.train.compression import powersgd_sync
@@ -58,17 +68,37 @@ METRICS = "metrics"
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab_size: int, mask: torch.Tensor | None = None):
+                  vocab_size: int, mask: torch.Tensor | None = None,
+                  axis: ModelAxis | None = None):
     """logits: (B,S,Vp) with physical padding beyond vocab_size; labels
     (B,S). Padded vocab columns are masked to -1e30 so the partition
-    function is exact w.r.t. the canonical vocabulary."""
+    function is exact w.r.t. the canonical vocabulary.
+
+    On a model axis ``logits`` are the rank's vocab slice (columns
+    ``[c * Vp/tp, (c+1) * Vp/tp)``; the shard that holds padded columns
+    masks them): the row max, the sum of exponentials and the gold logit
+    are each all-reduced over the axis, the last two with the identity
+    backward, so each rank's slice gets its own columns' gradient."""
     vp = logits.shape[-1]
     lg = logits.float()
-    if vp != vocab_size:
-        col = torch.arange(vp, device=lg.device) >= vocab_size
+    if axis is None:
+        if vp != vocab_size:
+            col = torch.arange(vp, device=lg.device) >= vocab_size
+            lg = lg.masked_fill(col, -1e30)
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    else:
+        lo = axis.coord * vp
+        col = lo + torch.arange(vp, device=lg.device) >= vocab_size
         lg = lg.masked_fill(col, -1e30)
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+        m = axis.all_reduce(lg.detach().amax(dim=-1), "max")
+        sumexp = reduce_from_model(torch.exp(lg - m[..., None]).sum(-1),
+                                   axis)
+        logz = torch.log(sumexp) + m
+        local = labels.long() - lo
+        mine = (local >= 0) & (local < vp)
+        gold = torch.gather(lg, -1, torch.where(mine, local, 0)[..., None])
+        gold = reduce_from_model(gold[..., 0].masked_fill(~mine, 0.0), axis)
     nll = logz - gold
     if mask is not None:
         m = mask.float()
@@ -111,7 +141,7 @@ class TrainStepBuilder:
             # frontend prefix carries no LM loss; labels cover token positions
             logits = logits[:, fe.shape[1]:]
         loss = cross_entropy(logits, labels, cfg.vocab_size,
-                             batch.get("loss_mask"))
+                             batch.get("loss_mask"), self.model.axis)
         return loss + AUX_LOSS_WEIGHT * aux, (loss, aux)
 
     def _value_and_grad(self, params, batch, weight=None):
@@ -151,23 +181,26 @@ class TrainStepBuilder:
         return tree_map(lambda x: x / n, gacc), lacc / n, aacc / n
 
     def _mask_weights(self, batch):
-        """World size x each local microbatch's share of the global masked
+        """Replicas x each local microbatch's share of the global masked
         loss: its mask count over (microbatches x the count of the global
-        microbatch holding it), from one all-reduce of every rank's
-        counts. ``None`` without a mask or a job."""
+        microbatch holding it), from one all-reduce of every replica's
+        counts. ``None`` without a mask or without batch replicas."""
         mesh, n = self.mesh, self.microbatches
-        if "loss_mask" not in batch or mesh is None or mesh.size == 1:
+        if "loss_mask" not in batch or mesh is None:
             return None
-        w = mesh.size
+        baxes = self._baxes()
+        w = mesh.axes_size(baxes)
+        if w == 1:
+            return None
+        b = _batch_index(mesh)
         counts = batch["loss_mask"].float().reshape(n, -1).sum(1)
         table = torch.zeros((w, n), device=counts.device)
-        table[mesh.rank] = counts
-        table = (replica_mean(table, batch_axes(mesh), mesh, METRICS)
-                 * w).round()
-        # local microbatch k of rank r is microbatch (r n + k) // w of the
-        # global batch
+        table[b] = counts
+        table = (replica_mean(table, baxes, mesh, METRICS) * w).round()
+        # local microbatch k of replica b is microbatch (b n + k) // w of
+        # the global batch
         glob = table.reshape(n, w).sum(1)
-        idx = (mesh.rank * n + torch.arange(n)) // w
+        idx = (b * n + torch.arange(n)) // w
         return w * counts / (n * torch.clamp(glob[idx.to(glob.device)],
                                              min=1.0))
 
@@ -176,11 +209,32 @@ class TrainStepBuilder:
 
     def _local_batch(self, params, batch: dict) -> dict:
         if self.mesh is not None:
-            batch = rank_rows(batch, self.mesh.rank, self.mesh.size)
+            batch = rank_rows(batch, _batch_index(self.mesh),
+                              self.mesh.axes_size(self._baxes()))
         return _on_device(batch, self._device(params))
 
     def _baxes(self) -> tuple[str, ...]:
         return batch_axes(self.mesh) if self.mesh is not None else ("data",)
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """The global norm of gradients of which this rank holds a part of
+        each leaf (its model-axis shard, or under ZeRO-1 its part of
+        that): each part's square weighted by the share of the ranks that
+        hold it, summed over every rank in one all-reduce."""
+        mesh = self.mesh
+        full = [math.prod(d.shape) for d in tree_leaves(self._defs)]
+        sq = torch.zeros((), dtype=torch.float32,
+                         device=tree_leaves(grads)[0].device)
+        for g, n in zip(tree_leaves(grads), full):
+            sq = sq + g.float().square().sum() * (n / (g.numel()
+                                                       * mesh.size))
+        collective(mesh, METRICS, "all_reduce", sq, sq,
+                   mesh.group(mesh.axis_names))
+        return torch.sqrt(sq)
+
+    @cached_property
+    def _defs(self):
+        return self.model.param_defs()
 
     # -- implicit path ----------------------------------------------------
     def build_implicit(self) -> Callable:
@@ -204,8 +258,8 @@ class TrainStepBuilder:
         aux = replica_mean(aux, baxes, mesh, METRICS)
         shards = self.opt_shardings or tree_map(lambda p: None, params)
 
-        def split(sh) -> bool:          # this leaf's optimizer state is split
-            return sh is not None and sh.split()[0] is not None
+        def split(sh) -> bool:      # this leaf's optimizer state is split
+            return sh is not None and bool(sh.split(baxes))
 
         def sync(g, sh):
             if split(sh):
@@ -213,28 +267,19 @@ class TrainStepBuilder:
             return replica_mean(g.float(), baxes, mesh, name)
 
         part_g = tree_map(sync, grads, shards)
-        part_p = tree_map(lambda p, sh: sh.local(p) if split(sh) else p,
-                          params, shards)
+        part_p = tree_map(lambda p, sh: sh.local(p, baxes) if split(sh)
+                          else p, params, shards)
         gnorm = None
-        if any(split(sh) for sh in tree_leaves(shards)):
-            # the global norm: the parts' squares summed over the ranks
-            # (a part held by several ranks counts once), the whole
-            # leaves' here
-            part_sq, whole_sq = torch.zeros((), device=loss.device), 0.0
-            for g, sh in zip(tree_leaves(part_g), tree_leaves(shards)):
-                if split(sh):
-                    part_sq = part_sq + g.square().sum() * (
-                        sh.split()[1] / mesh.size)
-                else:
-                    whole_sq = whole_sq + g.square().sum()
-            gnorm = torch.sqrt(replica_mean(part_sq, baxes, mesh, METRICS)
-                               * mesh.size + whole_sq)
+        if self.model.axis is not None or any(
+                split(sh) for sh in tree_leaves(shards)):
+            gnorm = self._global_norm(part_g)
         new_parts, new_state, om = adamw_update(
             part_p, part_g, opt_state, self.opt, inplace=self.donate,
             gnorm=gnorm)
         new_params = tree_map(
             lambda p, new, sh: all_gather(new, sh, name,
-                                          out=p if self.donate else None)
+                                          out=p if self.donate else None,
+                                          axes=baxes)
             if split(sh) else new, params, new_parts, shards)
         return new_params, new_state, {"loss": loss, "aux_loss": aux, **om}
 
@@ -266,8 +311,11 @@ class TrainStepBuilder:
                 grads = self.abi.grad_sync(grads, baxes, mesh)
             loss = replica_mean(loss, baxes, mesh, METRICS)
             aux = replica_mean(aux, baxes, mesh, METRICS)
+            gnorm = (self._global_norm(grads)
+                     if self.model.axis is not None else None)
             new_params, new_state, om = adamw_update(
-                params, grads, opt_core, self.opt, inplace=self.donate)
+                params, grads, opt_core, self.opt, inplace=self.donate,
+                gnorm=gnorm)
             if comm is not None:
                 new_state["comm"] = comm
             metrics = {"loss": loss, "aux_loss": aux, **om}
@@ -281,6 +329,16 @@ class TrainStepBuilder:
         if self.abi.options.get("mode") == "explicit":
             return self.build_explicit()
         return self.build_implicit()
+
+
+def _batch_index(mesh: PlatformMesh) -> int:
+    """This rank's coordinate over the mesh's batch axes, row-major: the
+    block of the global batch its rows are (every rank of one data
+    replica has the same)."""
+    c, idx = mesh.coords(), 0
+    for a in batch_axes(mesh):
+        idx = idx * mesh.shape[a] + c[a]
+    return idx
 
 
 def _slice(x: torch.Tensor, i: int, n: int) -> torch.Tensor:

@@ -374,10 +374,10 @@ def test_serve_fabric_proc_then_validate_spans(tmp_path):
         assert tvalidate.main(["--spans", str(tmp_path / "empty")]) == 1
 
 
-def test_lint_raises_with_its_roadmap_item(tmp_path, monkeypatch, capsys):
-    """``lint`` no longer raises: the port's CLI runs the port's linter on
-    the tree, clean under --strict, directly and after ``--root X``, and
-    neither form creates a runtime root."""
+def test_lint_runs_with_and_without_root(tmp_path, monkeypatch, capsys):
+    """The port's CLI runs the port's linter on the tree, clean under
+    --strict, directly and after ``--root X``, and neither form creates a
+    runtime root."""
     from pathlib import Path
     monkeypatch.chdir(Path(__file__).resolve().parent.parent)
     root = tmp_path / "rt"

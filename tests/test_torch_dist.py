@@ -260,7 +260,7 @@ def _params_close(runs, prefix, tol):
 # ---------------------------------------------------------------------------
 
 MESHES = [((4, 1), ("data", "model")), ((2, 2, 1), ("pod", "data", "model")),
-          ((16, 16), ("data", "model")),
+          ((2, 2), ("data", "model")), ((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model"))]
 
 
@@ -352,7 +352,7 @@ def test_zero1_parts_and_batch_rows():
         sh = NamedSharding(mesh, safe_spec((6,), ("embed",), mesh,
                                            ShardingRules.default(fsdp=True)))
         assert sh.spec == (("pod",),)
-        assert sh.split()[2] == [0, 0, 1, 1]
+        assert sh.split() == ((0, 2, [0, 0, 1, 1]),)
         batch = {"tokens": np.arange(8)[:, None]}
         assert rank_rows(batch, rank, 4)["tokens"].ravel().tolist() == [
             2 * rank, 2 * rank + 1]
@@ -514,18 +514,39 @@ def test_checkpoint_of_four_ranks_loads_in_the_jax_package(runs):
 # ---------------------------------------------------------------------------
 
 def test_moe_on_several_ranks_raises(runs):
-    assert "Queue 1 item 13" in runs["port"]["moe_error"]
+    """An MoE arch on 4 data replicas with ``model`` at 1: the reference
+    drops by a capacity over the global batch there."""
+    assert "Queue 3 item 14" in runs["port"]["moe_error"]
     assert "MoE" in runs["port"]["moe_error"]
 
 
 def test_tensor_parallel_specs_raise():
+    """At ``model`` 16 a spec splits several dims: each rank's part is its
+    block along each (row-major over the dim's axes), ``local`` and
+    ``local_shape`` agree, a dim the axes do not divide raises, and
+    ``constrain`` is the identity (the model code places the
+    collectives)."""
     import torch
     from repro_torch.dist.sharding import constrain
-    mesh = PlatformMesh(("data", "model"), (16, 16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        NamedSharding(mesh, (("data",), "model")).split()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        constrain(torch.zeros(2), ("batch",), mesh, ShardingRules.default())
+    full = torch.arange(32 * 48 * 2).reshape(32, 48, 2)
+    for rank in (0, 17, 255):
+        mesh = PlatformMesh(("data", "model"), (16, 16), rank=rank)
+        sh = NamedSharding(mesh, (("data",), "model", None))
+        (d0, p0, o0), (d1, p1, o1) = sh.split()
+        assert (d0, p0, d1, p1) == (0, 16, 1, 16)
+        assert o0 == [r // 16 for r in range(256)]
+        assert o1 == [r % 16 for r in range(256)]
+        assert [d for d, _, _ in sh.split(("data",))] == [0]
+        d, m = divmod(rank, 16)
+        assert torch.equal(sh.local(full), full[2 * d:2 * d + 2,
+                                                3 * m:3 * m + 3])
+        assert torch.equal(sh.local(full, ("data",)), full[2 * d:2 * d + 2])
+        assert sh.local_shape(full.shape) == (2, 3, 2)
+        with pytest.raises(ValueError, match="does not split into 16"):
+            sh.local_shape((32, 40, 2))
+        assert sh.split(("pod",)) == ()
+        x = torch.zeros(2)
+        assert constrain(x, ("batch",), mesh, ShardingRules.default()) is x
     x = torch.zeros(2)
     assert constrain(x, ("batch",), PlatformMesh(("data", "model"), (4, 1)),
                      ShardingRules.default()) is x

@@ -118,8 +118,8 @@ def test_runtime_run_needs_cuda_unless_cpu_is_asked(tmp_path):
     assert params["embed"]["tokens"].device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown platform"):
         rt.run("stable", platform="tpu")
-    # the JAX package's pod meshes are known, and need tensor parallelism
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    # the JAX package's pod meshes are known, and need their 256 ranks
+    with pytest.raises(ValueError, match="needs 256 ranks; this job has 1"):
         rt.run("stable", platform="pod")
 
 

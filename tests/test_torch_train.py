@@ -291,9 +291,11 @@ def test_abi_generic_vs_host_parity_and_bf16_wire():
 def test_world_one_sync_is_identity_and_unported_settings_raise(
         monkeypatch, tmp_path):
     """On one process the ABI's mean is the identity (a cast to the wire
-    dtype and back). Multi-process data parallelism is ported; what is not
-    raises, naming its ROADMAP item: FSDP, a ``model`` axis above 1 (the
-    pod platforms), and an MoE arch on more than one rank."""
+    dtype and back). Multi-process data and tensor parallelism are ported;
+    what is not raises, naming its ROADMAP item: FSDP, and an MoE arch on
+    several batch replicas without a model axis (the global capacity). A
+    mesh (the pod platforms included) needs as many ranks as it has
+    devices, as ``jax.make_mesh`` does."""
     from repro_torch.dist.mesh import make_mesh
     g = {"w": torch.linspace(-1, 1, 7)}
     host = make_abi("host", mode="explicit")
@@ -308,11 +310,11 @@ def test_world_one_sync_is_identity_and_unported_settings_raise(
              + "SET fsdp=true\n", tag="fsdp")
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         rt.run("fsdp", platform="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(ValueError, match="needs 2 ranks; this job has 1"):
         make_mesh((1, 2), ("data", "model"))
     rt.build(IMAGEFILE.format(arch="llama3.2-3b-smoke"), tag="dense")
-    for platform in ("pod", "multipod"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    for platform, n in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks"):
             rt.run("dense", platform=platform)
     rt.build(IMAGEFILE.format(arch="moonshot-v1-16b-a3b-smoke"), tag="moe")
     assert rt.run("moe", platform="cpu").mesh.size == 1
@@ -324,7 +326,7 @@ def test_world_one_sync_is_identity_and_unported_settings_raise(
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
     monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
     monkeypatch.setattr(dist, "get_backend", lambda *a: "gloo")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 3 item 14"):
         rt.run("moe", platform="cpu")
 
 

@@ -1,5 +1,6 @@
-"""The JAX package's side of tests/test_torch_dist.py (not collected: the
-test runs it in a subprocess, whose XLA sees 4 host devices):
+"""The JAX package's side of tests/test_torch_dist.py and
+tests/test_torch_tp.py (not collected: the tests run it in a subprocess,
+whose XLA sees 4 host devices):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_dist_jax.py WORKDIR
@@ -52,10 +53,69 @@ def _run(step, params, opt, batches) -> tuple[list, dict]:
     return rec, params
 
 
+def main_tp(work: Path, plan: dict) -> None:
+    """tests/test_torch_tp.py's scenarios: ``Model(cfg, tp, constrain,
+    moe_mesh)`` and ``TrainStepBuilder`` over a ``jax.make_mesh`` of each
+    scenario's (data, model) shape, from the given weights placed by
+    their specs; losses, grad norms, the first step's gradients (the
+    implicit path's, on the global batch), the optimizer-state specs and
+    the final params."""
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.dist.sharding import constrain
+    from repro.models.params import shardings as def_shardings
+    from repro.models.transformer import Model
+
+    tp = plan["tp"]
+    batches = [_load(work / f"batch{i}.npz") for i in range(tp["steps"])]
+    rt = Runtime(work / "jrt")
+    out, arrays = {}, {}
+    for sc in tp["jax"]:
+        c = rt.run(rt.build(sc["imagefile"]))
+        shape = tuple(sc["shape"])
+        mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(
+            jax.sharding.AxisType.Auto,) * 2)
+        rules = c.rules
+        model = Model(
+            c.arch, tp=shape[1],
+            constrain=lambda x, logical, mesh=mesh: constrain(
+                x, logical, mesh, rules),
+            remat=str(c.settings.get("remat", "none")),
+            act_dtype=jnp.dtype(c.image.config()["precision"]["compute"]),
+            moe_mesh=mesh if c.arch.n_experts and shape[1] > 1 else None)
+        defs = model.param_defs()
+        weights = _load(work / f"params-{sc['weights']}.npz")
+        params = jax.device_put(_tree(defs, weights),
+                                def_shardings(defs, mesh, rules))
+        ps = def_shardings(defs, mesh, c.opt_rules)
+        opt = jax.jit(adamw_init, out_shardings={
+            "m": ps, "v": ps, "step": NamedSharding(mesh, P())})(params)
+        b = TrainStepBuilder(model=model, mesh=mesh, rules=rules,
+                             abi=c.abi, opt=c.opt)
+        if sc.get("grads"):
+            g = jax.jit(lambda p, x: b._grads(p, x)[0])(params, batches[0])
+            arrays.update({f"{sc['name']}/grad/{k}": np.asarray(v,
+                                                                np.float32)
+                           for k, v in _flat(g).items()})
+        rec, params = _run(jax.jit(b.build()), params, opt, batches)
+        out[sc["name"]] = {"steps": rec,
+                           "opt_specs": {k: _spec(v) for k, v in
+                                         _flat(ps).items()},
+                           "param_shapes": {k: list(v.shape) for k, v in
+                                            _flat(params).items()}}
+        arrays.update({f"{sc['name']}/{k}": np.asarray(v, np.float32)
+                       for k, v in _flat(params).items()})
+    (work / "jax.json").write_text(json.dumps(out))
+    np.savez(work / "jax.npz", **arrays)
+
+
 def main() -> None:
     work = Path(sys.argv[1])
     plan = json.loads((work / "plan.json").read_text())
     assert jax.device_count() == 4, jax.devices()
+    if "tp" in plan:
+        return main_tp(work, plan)
     weights = _load(work / "params.npz")
     batches = [_load(work / f"batch{i}.npz") for i in range(plan["steps"])]
     rt = Runtime(work / "jrt")

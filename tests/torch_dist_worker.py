@@ -1,6 +1,6 @@
-"""One rank of a torch.distributed job for tests/test_torch_dist.py (not
-collected: the test spawns it, one process a rank, with ``jax`` and
-``repro`` unimportable):
+"""One rank of a torch.distributed job for tests/test_torch_dist.py and
+tests/test_torch_tp.py (not collected: the tests spawn it, one process a
+rank, with ``jax`` and ``repro`` unimportable):
 
     python tests/torch_dist_worker.py JOB RANK WORLD WORKDIR
 
@@ -185,7 +185,108 @@ def job_card2(rank: int, world: int, work: Path, plan: dict) -> dict:
     return out
 
 
-JOBS = {"world4": job_world4, "world2": job_world2, "card2": job_card2}
+def _full(tree, shardings, mesh) -> dict:
+    """keystr path -> the whole leaf as float32 numpy, gathered over the
+    dims the shardings split."""
+    shs = dict(_flatten(shardings))
+    return {p: (all_gather(t, shs[p], "gather") if shs[p].split() else t)
+            .detach().float().numpy() for p, t in _flatten(tree)}
+
+
+def _tp_grads(c, params, batch, mesh) -> dict:
+    """The generic step's gradient on the global batch at ``params``:
+    each rank's model-axis shard of its replica's gradient, meaned over
+    the batch axes, gathered whole."""
+    b = TrainStepBuilder(model=c.model, abi=c.abi, opt=c.opt, mesh=mesh)
+    grads, _, _ = b._grads(params, b._local_batch(params, batch))
+    baxes = ("pod", "data")
+    grads = {p: replica_mean(g.float(), baxes, mesh, "gather")
+             for p, g in _flatten(grads)}
+    return _full(_unflat(c.param_defs, grads), c.param_shardings(), mesh)
+
+
+def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
+    """tests/test_torch_tp.py: each scenario of ``plan["tp"]["world<N>"]``
+    on its (data, model) mesh (one mesh of each shape, made once): 3 steps
+    from the given weights with losses, grad norms and the bytes each
+    step handed to the ABI's and the model axis's collectives; the final
+    params and (where asked) the first step's gradients, gathered whole;
+    a checkpoint of step 2 (where asked); the MoE's dropped
+    assignments."""
+    from repro_torch.checkpoint.elastic import reshard_restore
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.models import moe as moe_mod
+    tp = plan["tp"]
+    batches = [_load(work / f"batch{i}.npz") for i in range(tp["steps"])]
+    rt = Runtime(work / f"rt-{rank}")
+    meshes, out, arrays = {}, {}, {}
+    drops, real = [], moe_mod.dispatch_positions
+
+    def counting(idx, n_experts, C):
+        pos, keep, slot = real(idx, n_experts, C)
+        drops.append(int((~keep).sum()))
+        return pos, keep, slot
+    moe_mod.dispatch_positions = counting
+    for sc in tp[f"world{world}"]:
+        shape = tuple(sc["shape"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"))
+        mesh = meshes[shape]
+        weights = _load(work / f"params-{sc['weights']}.npz")
+        c = rt.run(rt.build(sc["imagefile"]), platform="cpu", mesh=mesh)
+        params = c.load_params(_unflat(c.param_defs, weights))
+        rec = {"param_shapes": {p: list(t.shape)
+                                for p, t in _flatten(params)},
+               "param_specs": _specs(c.param_shardings()),
+               "opt_specs": _specs(c.opt_state_shardings())}
+        if sc.get("grads"):
+            arrays.update({f"{sc['name']}/grad/{p}": a for p, a in
+                           _tp_grads(c, params, batches[0], mesh).items()})
+        opt = c.init_opt_state(params)
+        step, steps = c.train_step_fn(), []
+        del drops[:]
+        for i, b in enumerate(batches):
+            before = {k: mesh.stats.total(k) for k in (c.abi.name, "tp")}
+            by_op = json.loads(json.dumps(mesh.stats.bytes))
+            params, opt, m = step(params, opt, b)
+            steps.append({"loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "aux": float(m["aux_loss"]),
+                          "wire": mesh.stats.total(c.abi.name)
+                          - before[c.abi.name],
+                          "tp": mesh.stats.total("tp") - before["tp"],
+                          "abi_by_op": {
+                              op: n - by_op.get(c.abi.name, {}).get(op, 0)
+                              for op, n in mesh.stats.bytes.get(
+                                  c.abi.name, {}).items()}})
+            if i == 0:
+                rec["drops_step1"] = sum(drops)
+            if i + 1 == 2 and sc.get("ckpt"):
+                sh = {"params": c.param_shardings(),
+                      "opt": c.opt_state_shardings()}
+                store = CheckpointStore(work / f"ckpt-{sc['name']}",
+                                        mesh=mesh)
+                state = {"params": params, "opt": opt}
+                store.save(2, state, blocking=True, shardings=sh)
+                # and back onto this mesh: every rank's parts, exactly
+                back = reshard_restore(store, {
+                    "params": c.abstract_params(),
+                    "opt": c.abstract_opt_state()}, sh, step=2)
+                rec["restored_equal"] = all(
+                    torch.equal(a, b) for (_, a), (_, b) in
+                    zip(_flatten(state), _flatten(back)))
+        rec["steps"] = steps
+        arrays.update({f"{sc['name']}/{p}": a for p, a in
+                       _full(params, c.param_shardings(), mesh).items()})
+        out[sc["name"]] = rec
+    moe_mod.dispatch_positions = real
+    if rank == 0:
+        np.savez(work / f"tp{world}.npz", **arrays)
+    return out
+
+
+JOBS = {"world4": job_world4, "world2": job_world2, "card2": job_card2,
+        "tp4": job_tp, "tp2": job_tp}
 
 
 def main() -> None:
