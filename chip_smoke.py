@@ -146,19 +146,21 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             losses and grad norms agree, the card runs their kernels and
             the CPU none; (c) full-width llama3.2-3b (float32 params,
             bf16 compute, remat=full, 2 x 2048 tokens) through
-            ``repro_torch.cli run --steps 4 --ckpt-every 2 --keep 1``, then
-            ``run --resume --steps 2``: finite losses, the resumed run
-            starts at step 4 and its step 5 equals a straight 6-step run's
-            (``Container.train_step_fn``), K2 launches = 28 x 2 x steps and
-            nothing else, peak memory under 80 GB; step seconds, tokens/s
-            and the model-FLOPs share of 989 TFLOP/s printed
+            ``repro_torch.cli run --steps 2 --keep 1`` (its closing
+            checkpoint), then ``run --resume --steps 1``: finite losses,
+            the resumed run starts at step 2 and its step 3 equals a
+            straight 3-step run's (``Container.train_step_fn``), K2
+            launches = 28 x 2 x steps and nothing else, peak memory under
+            80 GB; step seconds, tokens/s and the model-FLOPs share of 989
+            TFLOP/s printed; each kernel's forward beside its bound at
+            the training shape
   dist      data-parallel training across processes, through ``torchrun
             -m repro_torch.cli run`` (run as ``python -m
             torch.distributed.run --standalone``): (a) one NCCL rank,
-            full-width full-depth llama3.2-3b (the train phase's image),
-            2 steps under ``generic`` and 2 under ``host``: the losses
-            equal the train phase's single-process run within 1e-6, K2 =
-            28 x 2 x steps, the backend is nccl; (b) two gloo ranks
+            llama3.2-3b at full width cut to 2 layers (the train phase's
+            settings), 2 steps under ``generic`` and 2 under ``host``: the
+            losses equal one process's on the same image within 1e-6, K2
+            = 2 x 2 x steps, the backend is nccl; (b) two gloo ranks
             sharing the card, llama3.2-3b at full width cut to 2 of 28
             layers, one 2048-token row a rank, 3 steps under each of
             ``generic``, ``host`` (ZeRO-1) and ``host mode=explicit``
@@ -171,26 +173,37 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             (b)'s within 1e-3; (d) tensor parallelism: two gloo ranks
             sharing the card under ``torchrun --nproc-per-node 2
             chip_smoke.py --tp-worker``, each building the (data 1, model
-            2) mesh and the port's ``TrainStepBuilder`` over it, 3
-            generic steps of llama3.2-3b and of moonshot-v1-16b-a3b (its
-            dense layer and one MoE layer: 32 experts a rank) at full
-            width cut to 2 layers, both rows of the 2 x 2048 global batch
-            on each rank: every rank's loss equal, losses and grad norms
-            within 1e-3 relative of one process, K2 = 2 x 2 x steps a
-            rank at the per-rank head counts of K2_TP (checked by the
-            kernels phase) and nothing else, the model axis's bytes a
-            step equal to
-            ``tp_wire_bytes``, each rank holds the card's device node
-            open. Printed: step seconds a rank, collective seconds and
-            wire bytes a step (the port's counter), peak memory a rank
+            2) mesh and the port's train step over it, 3 generic steps
+            at full width of llama3.2-3b and moonshot-v1-16b-a3b (its
+            dense layer and one MoE layer: 32 experts a rank) cut to 2
+            layers, mamba2-2.7b cut to 2 (40 of 80 heads a rank) and
+            recurrentgemma-2b cut to one rec, rec, attn cycle (1280 of
+            2560 RG-LRU channels, 5 of 10 q heads a rank), both rows of
+            the 2 x 2048 global batch on each rank: every rank's loss
+            equal, losses and grad norms within 1e-3 relative of one
+            process, launches a rank exactly 2 x steps per attention
+            (K2), rec (K4) and ssm (K5) layer and nothing else, each at
+            a per-rank shape the kernels phase held to its plain version
+            (K2_TP, K4_TP, K5_TP), the model axis's bytes a step equal
+            to ``tp_wire_bytes``, each rank holds the card's device node
+            open; (e) weight FSDP in the same torchrun job: a (data 2,
+            model 1) mesh, llama3.2-3b at (b)'s 2 layers, one row a rank,
+            3 steps under ``generic`` + ``fsdp=true`` and the paper's
+            Fig. 3 host arm (``host`` + ``fsdp=true`` + ``remat=dots``):
+            losses and grad norms within (b)'s bounds of (b)'s
+            two-microbatch process, the ABI's bytes a step a rank equal
+            to ``fsdp_wire_bytes``, peak memory a rank below (b)'s rank
+            of the same ABI, K2 = 2 x 2 x steps a rank at K2_FSDP.
+            Printed: step seconds a rank, collective seconds and wire
+            bytes a step (the port's counter), peak memory a rank
             (beside one process's in (d)), the card's memory in use while
-            (b) and (d) run
+            (b), (d) and (e) run
 
 The kernel counters are set to 0 just before each main path is driven
 (each pod of the serve phase, each prefill and decode run of the batch
 phase, the fig5 calls, each CLI serve, each example, each loopback fleet
 of the fabric phase, each CLI training run, (c) of the dist phase, each run of
-(d)) and read just
+(d) and (e)) and read just
 after; a kernel's launches are their sum. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
@@ -204,6 +217,7 @@ operator.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -439,12 +453,30 @@ K2_EXAMPLES = ((8, 4, 2, 16, 64, 64, 0, "float32"),
                (1, 6, 2, 64, 32, 32, 0, "bfloat16"),
                (1, 6, 2, 64, 64, 64, 0, "bfloat16"),
                (4, 8, 4, 64, 128, 128, 0, "bfloat16"))
-# K2 at the dist phase's (d) tensor-parallel ranks, untimed: the (1, 2)
-# mesh's global batch of 2 x 2048 tokens on each rank, bf16, llama3.2-3b
-# at 12 of 24 q heads over 4 of 8 kv heads and moonshot-v1-16b-a3b at 8
-# of 16 over 8 of 16. Phase (d) fails on a K2 call at a shape not here.
+# K2 at the dist phase's (d) tensor-parallel ranks: the (1, 2) mesh's
+# global batch of 2 x 2048 tokens on each rank, bf16, llama3.2-3b at 12 of
+# 24 q heads over 4 of 8 kv heads, moonshot-v1-16b-a3b at 8 of 16 over 8
+# of 16 and recurrentgemma-2b's local attention (window 2048) at 5 of 10
+# over its 1 kv head (replicated to 2, one a rank). Phases (d) and (e)
+# fail on a K2 call at a shape not here.
 K2_TP = ((2, 12, 4, 128, 2048, 2048, 0, "bfloat16"),
-         (2, 8, 8, 128, 2048, 2048, 0, "bfloat16"))
+         (2, 8, 8, 128, 2048, 2048, 0, "bfloat16"),
+         (2, 5, 1, 256, 2048, 2048, 2048, "bfloat16"))
+# K2 at the dist phase's (e) FSDP ranks: one 2048-token row of
+# llama3.2-3b a rank, all 24 q heads over 8 kv heads (params gathered
+# whole), bf16. The (d) and (e) shapes are timed, with their bound.
+K2_FSDP = ((1, 24, 8, 128, 2048, 2048, 0, "bfloat16"),)
+
+
+def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
+    """K2's bound: q, k, v read and out written once, and 4 flops a (q,
+    k) pair inside the causal window per head dim."""
+    nbytes = B * (2 * Hq * Sq + 2 * Hkv * Sk) * d * isz
+    off = Sk - Sq
+    pairs = sum(min(Sk, i + off + 1)
+                - (max(0, i + off - window + 1) if window else 0)
+                for i in range(Sq))
+    return bound_ms(nbytes, 4.0 * B * Hq * pairs * d, dtype)
 
 
 def k1_case(torch, dtype):
@@ -591,7 +623,8 @@ def phase_kernels(torch, state, timer) -> None:
     # the window start their key loop late) -----------------------------
     cases = ([((1, *c), tuple(dts), True) for c in K2_CASES]
              + [(c, tuple(dts), True) for c in K2_BATCH]
-             + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES + K2_TP])
+             + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES]
+             + [(c[:-1], c[-1:], "dist") for c in K2_TP + K2_FSDP])
     checked = state["k2_checked"] = set()
     for (Bq, Hq, Hkv, d, Sq, Sk, window), dnames, timed in cases:
         for dname in dnames:
@@ -620,6 +653,19 @@ def phase_kernels(torch, state, timer) -> None:
                                 f"Sq={Sq} Sk={Sk} window={window}")
             checked.add((Bq, Hq, Hkv, d, Sq, Sk, window, dname))
             del ref
+            if timed == "dist":
+                ms = timer(lambda: fa_ops.flash_attention_fwd_cuda(
+                    q, k, v, causal=True, window=window))
+                bms, by = k2_bound(Bq, Hq, Hkv, d, Sq, Sk, window,
+                                   out.element_size(), dname)
+                state.setdefault("kernel_dist", {})[
+                    f"K2 {Bq}x{Hq}/{Hkv}x{Sq}x{d} w{window}"] = dict(
+                    ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+                log(f"kernels: flash_attention_fwd at a dist rank's shape "
+                    f"B={Bq} Hq={Hq} Hkv={Hkv} d={d} S={Sq} window={window} "
+                    f"bf16: time {ms:.4f} ms, bound {bms:.4f} ms ({by}) "
+                    f"[{state['card']}]")
+                continue
             if not timed or Sq != Sk or dname != "bfloat16" or Bq > 1:
                 continue
             ms = timer(lambda: fa_ops.flash_attention_fwd_cuda(
@@ -636,14 +682,8 @@ def phase_kernels(torch, state, timer) -> None:
             lib = timer(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True))
-            isz = out.element_size()
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz
-            off = Sk - Sq
-            pairs = sum(min(Sk, i + off + 1)
-                        - (max(0, i + off - window + 1) if window else 0)
-                        for i in range(Sq))
-            flops = 4.0 * Hq * pairs * d
-            bms, by = bound_ms(nbytes, flops, dname)
+            bms, by = k2_bound(Bq, Hq, Hkv, d, Sq, Sk, window,
+                               out.element_size(), dname)
             if "flash_attention_fwd" not in records:
                 records["flash_attention_fwd"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -668,8 +708,11 @@ def phase_kernels(torch, state, timer) -> None:
 # whole-batch prefill (8 prompts of 512 tokens)
 K5_CASES = ((1, 512, 80, 64, 128, 256), (2, 192, 80, 64, 128, 192),
             (1, 64, 80, 64, 128, 64), (1, 768, 80, 64, 128, 256),
-            (8, 512, 80, 64, 128, 256))
+            (8, 512, 80, 64, 128, 256), (2, 2048, 40, 64, 128, 256))
 K5_POD = K5_CASES[2:4]
+# K5 at the dist phase's (d) mamba2-2.7b ranks: both 2048-token rows, 40
+# of 80 heads a rank (B and C whole); (d) fails on a K5 call not here
+K5_TP = K5_CASES[5:]
 
 
 def ssd_flops(b: int, S: int, H: int, P: int, N: int, Q: int) -> float:
@@ -712,7 +755,7 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
             f"{SSD_REL_TOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"ssd {case}")
-        if case != K5_CASES[0] and case not in K5_POD:
+        if case != K5_CASES[0] and case not in K5_POD + K5_TP:
             continue
         ms = timer(lambda: ssd_ops.ssd_cuda(x, dt, A, B, C, Q))
         nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
@@ -722,10 +765,17 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
         # the bound of the arithmetic the kernel runs: three TF32 products
         # for each float32 one, on the tensor cores
         tc_ms, tc_by = bound_ms(nbytes, 3 * flops, "tf32")
-        if case in K5_POD:
-            log(f"kernels: ssd at the mamba2 pod's prefill S={S} chunk={Q}: "
+        if case in K5_POD + K5_TP:
+            where = ("the mamba2 pod's prefill" if case in K5_POD
+                     else f"a (d) rank's b={b} H={H}")
+            log(f"kernels: ssd at {where} S={S} chunk={Q}: "
                 f"{ms:.4f} ms, bound {bms:.4f} ms (f32 FMA), {tc_ms:.4f} ms "
                 f"(3xTF32 {tc_by}) [{state['card']}]")
+            if case in K5_TP:
+                state.setdefault("kernel_dist", {})[
+                    "K5 {}x{}x{}x{}x{} c{}".format(*case)] = dict(
+                    ms=ms, bound_ms=bms, bound_by=by, tc_bound_ms=tc_ms,
+                    max_abs_err=err_y)
             continue
         plain = timer(lambda: _ssd_chunked(x, dt, A, B, C, Q))
         state["records"]["ssd"] = dict(
@@ -745,8 +795,11 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
 # recurrentgemma pod's shorter prefills (64 and 512 tokens), timed beside
 # the record; then the batch phase's whole-batch prefill (8 x 512 tokens)
 K4_CASES = ((1, 2304, 2560), (3, 100, 2560), (1, 64, 2560), (1, 512, 2560),
-            (8, 512, 2560))
-K4_TIMED = (K4_CASES[0], K4_CASES[2], K4_CASES[3])
+            (8, 512, 2560), (2, 2048, 1280))
+# K4 at the dist phase's (d) recurrentgemma-2b ranks: both 2048-token
+# rows, 1280 of 2560 channels a rank; (d) fails on a K4 call not here
+K4_TP = K4_CASES[5:]
+K4_TIMED = (K4_CASES[0], K4_CASES[2], K4_CASES[3], *K4_TP)
 
 
 def _kernels_rglru(torch, state, timer) -> list[str]:
@@ -790,6 +843,10 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
             f"float32 ({tile}): max_abs_err {err:.3e} (tol {tol:.3e}) "
             f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, bound {bms:.4f} "
             f"ms ({by}: {nbytes / 1e6:.2f} MB) [{state['card']}]")
+        if case in K4_TP:
+            state.setdefault("kernel_dist", {})[
+                "K4 {}x{}x{}".format(*case)] = dict(
+                ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
         if case != K4_CASES[0]:
             continue
         plain = timer(lambda: rglru_scan_ref(a, b))
@@ -2469,9 +2526,13 @@ PRECISION params=float32 compute=bfloat16
 COLLECTIVES generic
 SET remat=full optimizer={"lr":0.0003,"warmup_steps":2,"total_steps":1000}
 """
-TRAIN_RUN = ("--steps", "4", "--ckpt-every", "2", "--keep", "1")
-TRAIN_RESUME = ("--resume", "--steps", "2", "--keep", "1")
-# the resumed step 5 against a straight run's step 5: the same state and
+# 2 steps and the run's closing checkpoint, then a resume of 1 step (each
+# 38.5 GB checkpoint write or read costs 20-40 s of the script's time; the
+# periodic cadence is the CPU tests')
+TRAIN_RUN = ("--steps", "2", "--keep", "1")
+TRAIN_RESUME = ("--resume", "--steps", "1", "--keep", "1")
+TRAIN_STRAIGHT = 3          # the straight run's steps: the resumed one last
+# the resumed step 3 against a straight run's step 3: the same state and
 # batch on the same card; bf16 products and atomics in the embedding's
 # backward may sum in another order
 TRAIN_RESUME_TOL = 1e-3
@@ -2479,11 +2540,12 @@ PEAK_BF16 = PEAK_FLOPS["bfloat16"]
 
 
 def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
-               rel: bool):
+               rel: bool, bound: tuple):
     """``fn`` (a Function) against ``plain`` under autograd on the card:
     output and every input's grad within ``tol`` (of the reference's max
-    when ``rel``); times of the forward and of the backward. Returns
-    (ok, forward ms, backward ms)."""
+    when ``rel``); times of the forward and of the backward, beside the
+    forward's ``bound`` (ms, by). Returns (ok, forward ms, backward
+    ms)."""
     xs = [t.detach().requires_grad_() for t in inputs]
     rs = [t.detach().requires_grad_() for t in inputs]
     out, ref = fn(*xs), plain(*rs)
@@ -2502,9 +2564,9 @@ def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
     bwd = timer(lambda: torch.autograd.grad(out, xs, cot,
                                             retain_graph=True))
     log(f"train: {name}: max_abs_err out, grads (err/tol) "
-        f"{', '.join(errs)} {'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms, "
-        f"backward (vjp of the plain version) {bwd:.4f} ms "
-        f"[{state['card']}]")
+        f"{', '.join(errs)} {'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms "
+        f"(bound {bound[0]:.4f} ms, {bound[1]}), backward (vjp of the "
+        f"plain version) {bwd:.4f} ms [{state['card']}]")
     return ok, fwd, bwd
 
 
@@ -2534,7 +2596,8 @@ def _train_grads(torch, state, timer) -> list[str]:
             torch, timer, state, name,
             lambda *x: fa_ops.flash_attention(*x, causal=True, window=w),
             lambda *x: flash_attention_ref(*x, causal=True, window=w),
-            (q, k, v), cot, TOL["bfloat16"], rel=False)
+            (q, k, v), cot, TOL["bfloat16"], rel=False,
+            bound=k2_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16"))
         # the library's fused attention, forward and backward, as yardstick
         kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
         if w:
@@ -2555,7 +2618,8 @@ def _train_grads(torch, state, timer) -> list[str]:
             f"{lib_bwd:.4f} ms (library, not used by the port) "
             f"[{state['card']}]")
         state["train"][f"K2 {B}x{Hq}/{Hkv}x{S}x{d} w{w}"] = dict(
-            fwd_ms=fwd, bwd_ms=bwd, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd)
+            fwd_ms=fwd, bwd_ms=bwd, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+            bound_ms=k2_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16")[0])
         if not ok:
             failures.append(name)
         del q, k, v, kr, vr, xs, o
@@ -2565,9 +2629,10 @@ def _train_grads(torch, state, timer) -> list[str]:
     b = cuda(rng.standard_normal(GRAD_K4))
     cot = cuda(rng.standard_normal(GRAD_K4))
     name = "rglru_scan B={} S={} R={} float32".format(*GRAD_K4)
+    k4_bound = bound_ms(3 * a.numel() * 4, 2.0 * a.numel(), "float32")
     ok, fwd, bwd = _grad_case(torch, timer, state, name, rg_ops.rglru_scan,
                               rglru_scan_ref, (a, b), cot, RGLRU_TOL,
-                              rel=True)
+                              rel=True, bound=k4_bound)
     state["train"]["K4 {}x{}x{}".format(*GRAD_K4)] = dict(fwd_ms=fwd,
                                                           bwd_ms=bwd)
     if not ok:
@@ -2581,11 +2646,14 @@ def _train_grads(torch, state, timer) -> list[str]:
     Cm = cuda(rng.standard_normal((bsz, S, N)))
     cot = cuda(rng.standard_normal((bsz, S, H, P)))
     name = f"ssd b={bsz} S={S} H={H} P={P} N={N} chunk={Q} float32 (y)"
+    k5_bound = bound_ms(4 * (2 * x.numel() + dt.numel() + A.numel()
+                             + Bm.numel() + Cm.numel() + bsz * H * N * P),
+                        ssd_flops(bsz, S, H, P, N, Q), "float32")
     ok, fwd, bwd = _grad_case(
         torch, timer, state, name,
         lambda *t: ssd_ops.ssd(*t, Q)[0],
         lambda *t: _ssd_chunked(*t, Q)[0], (x, dt, A, Bm, Cm), cot,
-        SSD_REL_TOL, rel=True)
+        SSD_REL_TOL, rel=True, bound=k5_bound)
     state["train"][f"K5 {bsz}x{S}x{H}x{P}x{N} c{Q}"] = dict(fwd_ms=fwd,
                                                             bwd_ms=bwd)
     if not ok:
@@ -2727,13 +2795,13 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
             if n != want.get(name, 0):
                 failures.append(f"run {argv}: {name} launches {n} != "
                                 f"{want.get(name, 0)}")
-    state["train_losses"] = first["losses"]
-    if resumed["start_step"] != 4:
+    n_first = _flag(list(TRAIN_RUN), "--steps")
+    if resumed["start_step"] != n_first:
         failures.append(f"the resumed run started at step "
-                        f"{resumed['start_step']}, not 4")
+                        f"{resumed['start_step']}, not {n_first}")
 
-    # a straight 6-step run through Container.train_step_fn, in process:
-    # its step 5 against the resumed run's
+    # a straight run through Container.train_step_fn, in process: its last
+    # step against the resumed run's
     from repro_torch.core.runtime import Runtime
     torch.cuda.empty_cache()
     rt = Runtime(root / "rt")
@@ -2745,22 +2813,24 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
                                   seq_len=c.cell.seq_len,
                                   global_batch=c.cell.global_batch, seed=0))
     straight = {}
-    for i in range(6):
+    for i in range(TRAIN_STRAIGHT):
         params, opt, m = step(params, opt, data.batch(i))
         straight[i + 1] = float(m["loss"])
     del params, opt, m
     torch.cuda.empty_cache()
-    d5 = abs(straight[5] - resumed["losses"][5])
-    d14 = max(abs(straight[s] - first["losses"][s]) for s in range(1, 5))
-    ok = d5 <= TRAIN_RESUME_TOL
-    log(f"train: straight 6-step run (Container.train_step_fn): losses "
-        f"{[round(straight[s], 5) for s in range(1, 7)]}; step 5 resumed "
-        f"{resumed['losses'][5]:.6f} vs straight {straight[5]:.6f}: "
-        f"|diff| {d5:.2e} (tol {TRAIN_RESUME_TOL:g}) "
-        f"{'ok' if ok else 'FAIL'}; steps 1-4 against the first run: max "
-        f"|diff| {d14:.2e}")
+    last = TRAIN_STRAIGHT
+    d_last = abs(straight[last] - resumed["losses"][last])
+    d_first = max(abs(straight[s] - first["losses"][s])
+                  for s in range(1, n_first + 1))
+    ok = d_last <= TRAIN_RESUME_TOL
+    log(f"train: straight {last}-step run (Container.train_step_fn): "
+        f"losses {[round(straight[s], 5) for s in range(1, last + 1)]}; "
+        f"step {last} resumed {resumed['losses'][last]:.6f} vs straight "
+        f"{straight[last]:.6f}: |diff| {d_last:.2e} (tol "
+        f"{TRAIN_RESUME_TOL:g}) {'ok' if ok else 'FAIL'}; steps "
+        f"1-{n_first} against the first run: max |diff| {d_first:.2e}")
     if not ok:
-        failures.append(f"resumed step 5 differs by {d5:.2e}")
+        failures.append(f"resumed step {last} differs by {d_last:.2e}")
     return failures
 
 
@@ -2787,8 +2857,10 @@ PRECISION params=float32 compute=bfloat16
 COLLECTIVES {collectives}
 SET remat=full optimizer={{"lr":0.0003,"warmup_steps":2,"total_steps":1000}}
 """
-# (a) one NCCL rank at full depth, 2 steps an ABI: the losses of the train
-# phase's single-process run (the same image, weights and batches) within
+# (a) one NCCL rank, llama3.2-3b at full width cut to (b)'s 2 layers (at
+# full depth each run wrote a 38.5 GB checkpoint: 70 s a run), 2 steps an
+# ABI: the losses of one process on the same image, weights and batches
+# (the generic reference of (d), which the phase computes first) within
 # 1e-6
 DIST_A = {"generic": "generic", "host": "host"}
 DIST_A_STEPS = 2
@@ -2815,36 +2887,109 @@ DIST_B_CKPT = 2             # host's checkpoint that (c) restores
 
 
 def tp_wire_bytes(cfg, n_kv_orig: int, tokens: int, act_bytes: int,
-                  remat: str = "none") -> int:
-    """The bytes one rank hands to the ``model`` axis's all-reduces in one
-    training step (no microbatches), as ``CollectiveStats`` counts an
-    all-reduce (twice its tensor), for ``tokens`` = the rank's rows x
-    seq_len of ``cfg`` in a compute dtype of ``act_bytes``:
+                  remat: str = "none", param_bytes: int = 4) -> int:
+    """The bytes one rank hands to the ``model`` axis's collectives in one
+    training step (no microbatches), as ``CollectiveStats`` counts them
+    (an all-reduce twice its tensor, an all-gather its output, a
+    reduce-scatter its input), for ``tokens`` = the rank's rows x seq_len
+    of ``cfg`` in a compute dtype of ``act_bytes``, params of
+    ``param_bytes``:
 
     * the vocab-parallel embedding's exit, forward: (T, D);
     * each attention block: its output's exit forward (T, D), and
       backward the entries of the q projection's input (T, D) and of the
       k and v heads (T, n_kv_orig, hd) each;
-    * each dense MLP: its exit forward and its entry backward, (T, D)
-      each; each MoE block instead: its exit forward (T, D), and backward
-      the entries of its tokens (T, D) and of the routing weights (T, k)
-      in float32;
-    * ``remat="full"``: every block's attention exit again, when the
-      backward pass recomputes the block (the recompute stops at the last
-      tensor the backward needs -- torch.utils.checkpoint's early stop --
-      so the MLP's or MoE's exit, whose output only feeds the next
-      block's residual, is not re-run);
+    * each dense MLP (attention and ``rec`` blocks): its exit forward and
+      its entry backward, (T, D) each; each MoE block instead: its exit
+      forward (T, D), and backward the entries of its tokens (T, D) and
+      of the routing weights (T, k) in float32;
+    * each ``rec`` block: its region's exit forward and entry backward,
+      (T, D) each;
+    * each ``ssm`` block: its region's exit forward and entry backward,
+      (T, D) each, B's and C's entries backward, (T, ssm_state) float32
+      each;
+      ``rms_gated``'s sum of squares, (T,) float32, forward and backward;
+      the conv's whole rows (conv_w and conv_b, (d_inner + 2 ssm_state)
+      x (conv_kernel + 1) params) gathered forward and reduce-scattered
+      backward;
+    * ``remat="full"``: when the backward recomputes a unit (one stacked
+      layer: a block, or recurrentgemma's rec, rec, attn), everything in
+      it up to the last tensor the backward needs runs again -- every
+      exit of the unit but its last (torch.utils.checkpoint's early stop:
+      the last exit only feeds the next unit's residual), ``rms_gated``'s
+      forward sum and the conv rows' gathers;
     * the head's entry backward (T, D), and the vocab-parallel cross
       entropy's row max, sum of exponentials and gold logit forward, (T,)
       float32 each."""
+    from repro_torch.models.transformer import build_stages
     T, D, hd = tokens, cfg.d_model, cfg.head_dim_
     td = 2 * T * D * act_bytes
     total = td + td + 3 * 2 * T * 4
-    for kind in cfg.layer_types():
-        total += 2 * td + td + 2 * 2 * T * n_kv_orig * hd * act_bytes
-        total += td + (2 * T * cfg.top_k * 4 if kind == "moe" else 0)
+    for st in build_stages(cfg):
+        unit, exits, again = 0, [], 0       # entries, exits, recomputed
+        for kind in st.unit:
+            if kind == "ssm":
+                conv = ((cfg.d_inner + 2 * cfg.ssm_state)
+                        * (cfg.conv_kernel + 1) * param_bytes)
+                rms = 2 * T * 4
+                unit += (td + 2 * 2 * T * cfg.ssm_state * 4
+                         + 2 * rms + 2 * conv)
+                again += rms + conv
+                exits.append(td)
+                continue
+            if kind == "rec":
+                unit += td
+            else:
+                unit += td + 2 * 2 * T * n_kv_orig * hd * act_bytes
+            unit += td + (2 * T * cfg.top_k * 4 if kind == "moe" else 0)
+            exits += [td, td]
+        unit += sum(exits)
         if remat == "full":
-            total += td
+            unit += sum(exits[:-1]) + again
+        total += st.count * unit
+    return total
+
+
+def fsdp_wire_bytes(cfg, replicas: int, tp: int = 1, remat: str = "none",
+                    param_bytes: int = 4, microbatches: int = 1) -> int:
+    """The bytes one rank hands to the ABI's collectives in one implicit
+    training step under ``SET fsdp=true`` on a (``replicas``, ``tp``)
+    (data, model) mesh, counted as ``CollectiveStats`` counts them.
+    Every leaf (of the model bound to ``tp``) is the rank's model-axis
+    shard (``tp_shard``: the leaf over the parts its model-axis dim
+    splits into); FSDP splits it further when it has an ``embed`` dim
+    that ``replicas`` divides. For such a leaf, whole over the batch axes
+    (the shard, of ``param_bytes`` a param):
+
+    * an all-gather where the model reads it (its output: the shard), a
+      microbatch: once for the embedding and ``final_norm``, once for a
+      layer's leaf at its unit's start and, with ``remat`` other than
+      ``none``, again when the backward recomputes the unit (the gather
+      is its first operation, so the recompute never stops before it);
+    * the reduce-scatter of its float32 gradient in the backward (its
+      input: the shard, 4 bytes a param), a microbatch;
+
+    and for every other leaf the float32 all-reduce of its gradient once a
+    step (twice the shard, 4 bytes a param). No all-gather follows the
+    update: params stay parts."""
+    from repro_torch.dist.mesh import PlatformMesh
+    from repro_torch.dist.sharding import ShardingRules, def_shardings
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import Model
+    defs = Model(cfg, tp=tp).param_defs()
+    mesh = PlatformMesh(("data", "model"), (replicas, tp))
+    rules = ShardingRules.default(fsdp=True)
+    gathers_layer = 2 if remat != "none" else 1
+    total = 0
+    for name in sorted(defs):
+        shs = tree_leaves(def_shardings(defs[name], mesh, rules))
+        for d, sh in zip(tree_leaves(defs[name]), shs):
+            shard = math.prod(sh.local_shape(d.shape, ("model",)))
+            if not sh.split(("data",)):
+                total += 2 * shard * 4
+                continue
+            gathers = gathers_layer if name.startswith("stage") else 1
+            total += microbatches * shard * (gathers * param_bytes + 4)
     return total
 
 
@@ -2966,22 +3111,23 @@ def _dist_reference(torch, workdir: Path, imagefile: str, steps: int):
     return rec, peak
 
 
-def _dist_a(torch, state, workdir: Path) -> list[str]:
+def _dist_a(torch, state, workdir: Path, ref: list) -> list[str]:
+    """One NCCL rank per ABI against ``ref``, one process's (loss,
+    grad_norm) a step on the same image cut to DIST_B_LAYERS."""
     import shutil
-    from repro_torch.configs import get_config
     failures = []
-    n_layers = get_config("llama3.2-3b").n_layers
-    want = state.get("train_losses", {})
+    n_layers = DIST_B_LAYERS
     for name, coll in DIST_A.items():
         root = workdir / f"dist_a_{name}"
         root.mkdir()
         imagefile = root / "Imagefile"
         imagefile.write_text(DIST_IMAGEFILE.format(
-            arch="llama3.2-3b", layers="", collectives=coll))
+            arch="llama3.2-3b", layers=f" n_layers={n_layers}",
+            collectives=coll))
         torch.cuda.empty_cache()
         rc, tail, ranks, wall = _torchrun(1, root / "rt", imagefile,
                                           DIST_A_STEPS)
-        shutil.rmtree(root)         # a 38.5 GB checkpoint
+        shutil.rmtree(root)
         if rc != 0 or len(ranks) != 1:
             failures.append(f"(a) {name}: exit {rc}, {len(ranks)} rank "
                             f"records: {tail}")
@@ -2989,19 +3135,19 @@ def _dist_a(torch, state, workdir: Path) -> list[str]:
         _add_rank_launches(state, ranks)
         r = ranks[0]
         losses = [s["loss"] for s in r["steps"]]
-        diff = max(abs(l - want[i + 1]) for i, l in enumerate(losses)) \
-            if want else float("inf")
+        want = [l for l, _ in ref[:len(losses)]]
+        diff = max(abs(l - w) for l, w in zip(losses, want))
         k2 = r["kernel_launches"]["flash_attention_fwd"]
         ok = (r["backend"] == "nccl" and diff <= DIST_A_TOL
+              and len(want) == DIST_A_STEPS
               and k2 == n_layers * 2 * DIST_A_STEPS)
         log(f"dist: (a) torchrun --nproc-per-node 1 cli run, llama3.2-3b "
-            f"28 layers, {name}: losses {[round(l, 6) for l in losses]} vs "
-            f"the train phase's single process "
-            f"{[round(want.get(i + 1, float('nan')), 6) for i in range(len(losses))]}"
-            f": max |diff| {diff:.2e} (tol {DIST_A_TOL:g}); "
-            f"{_rank_summary(ranks)}; expected K2 {n_layers} x 2 x "
-            f"{DIST_A_STEPS}; {wall:.1f} s with the checkpoint "
-            f"{'ok' if ok else 'FAIL'} [{state['card']}]")
+            f"{n_layers} layers, {name}: losses "
+            f"{[round(l, 6) for l in losses]} vs one process "
+            f"{[round(w, 6) for w in want]}: max |diff| {diff:.2e} (tol "
+            f"{DIST_A_TOL:g}); {_rank_summary(ranks)}; expected K2 "
+            f"{n_layers} x 2 x {DIST_A_STEPS}; {wall:.1f} s with the "
+            f"checkpoint {'ok' if ok else 'FAIL'} [{state['card']}]")
         state["dist"][f"a {name}"] = dict(
             step_s=[s["seconds"] for s in r["steps"]],
             peak_gib=_gib(r["peak_memory_bytes"]), wall_s=wall)
@@ -3030,6 +3176,8 @@ def _dist_b(torch, state, workdir: Path) -> tuple[list[str], dict]:
                 text + f"SET microbatches={DIST_B_MICROBATCHES}\n",
                 DIST_B_STEPS)[0]
         ref = refs[path]
+        if path == "implicit":              # (e)'s reference
+            state["dist_b_ref"] = ref
         seen: dict[int, bool] = {}
         used = [_device_used_mib()]
 
@@ -3051,6 +3199,8 @@ def _dist_b(torch, state, workdir: Path) -> tuple[list[str], dict]:
                             f"records: {tail}")
             continue
         _add_rank_launches(state, ranks)
+        state.setdefault("dist_b_peak", {})[name] = min(
+            r["peak_memory_bytes"] for r in ranks)
         r0 = ranks[0]
         dl = max(abs(s["loss"] - l) for s, (l, _) in zip(r0["steps"], ref))
         dg = max(abs(s["grad_norm"] - g) / g
@@ -3136,113 +3286,51 @@ def _dist_c(torch, state, host: dict) -> list[str]:
 # (d) tensor parallelism: two gloo ranks sharing the card on a (data 1,
 # model 2) mesh, DIST_IMAGEFILE's settings (f32 params, bf16 compute,
 # remat=full, both rows of the 2 x 2048 global batch on each rank) at
-# full width cut to DIST_D_LAYERS layers (moonshot: its dense first layer
-# and one MoE layer of 32 experts a rank, the 2 shared experts split on
-# F), 3 steps under the generic ABI, against one process on the same
-# global batch: loss and grad_norm within 1e-3 relative. (b)'s loss gate
-# is 1e-3 absolute, where its ranks compute each row's forward as one
-# process does (its step 1 is bit-equal); here each output projection
-# sums two bf16 partials (two roundings more than one product), step 1's
-# loss already differs by about 2e-5 of itself, and two Adam steps at
-# this image's learning rate (the loss moves by 5 between steps) carry
-# it to about 1e-4 of the loss, 1.2-2e-3 absolute at losses of 12-17
-DIST_D = ("llama3.2-3b", "moonshot-v1-16b-a3b")
-DIST_D_LAYERS = 2
+# full width cut in depth (moonshot: its dense first layer and one MoE
+# layer of 32 experts a rank, the 2 shared experts split on F; mamba2:
+# two ssm layers, 40 of 80 heads a rank; recurrentgemma: one rec, rec,
+# attn cycle, 1280 of 2560 RG-LRU channels and 5 of 10 q heads over 1 of
+# 1 kv head a rank), 3 steps under the generic ABI, against one process
+# on the same global batch: loss and grad_norm within 1e-3 relative.
+# (b)'s loss gate is 1e-3 absolute, where its ranks compute each row's
+# forward as one process does (its step 1 is bit-equal); here each output
+# projection sums two bf16 partials (two roundings more than one
+# product), step 1's loss already differs by about 2e-5 of itself, and
+# two Adam steps at this image's learning rate (the loss moves by 5
+# between steps) carry it to about 1e-4 of the loss, 1.2-2e-3 absolute
+# at losses of 12-17
+DIST_D = {"llama3.2-3b": 2, "moonshot-v1-16b-a3b": 2, "mamba2-2.7b": 2,
+          "recurrentgemma-2b": 3}
 DIST_D_STEPS = 3
 DIST_D_TOL = 1e-3
 DIST_D_TOKENS = 2 * 2048            # a rank's rows x seq_len
+# (e) weight FSDP: the same two ranks on a (data 2, model 1) mesh,
+# llama3.2-3b at (b)'s depth, one 2048-token row a rank, 3 steps under
+# two arms -- generic + fsdp (DIST_IMAGEFILE's remat=full) and the paper's
+# Fig. 3 host arm (host + fsdp + remat=dots) -- against (b)'s one-process
+# run in two one-row microbatches, within (b)'s bounds (1e-3)
+DIST_E = {"generic": ("generic", "full"), "host": ("host", "dots")}
 
 
-def tp_worker(spec_path: str) -> int:
-    """One rank of the dist phase's (d), started by torchrun: joins a gloo
-    group, makes the (1, 2) mesh and, for each run of the spec, builds
-    the port's Container on it and a ``TrainStepBuilder`` over it, takes
-    the steps, and records its losses, grad norms, the bytes each step
-    handed to the model axis, step seconds, peak memory, kernel launches
-    and the shapes of its K2 calls; rank 0 writes every rank's records."""
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, str(SRC))
-    from repro_torch.core.runtime import Runtime
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.dist.mesh import make_mesh
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.train.train_step import TrainStepBuilder
-    spec = json.loads(Path(spec_path).read_text())
-    rank = int(os.environ["RANK"])
-    device = torch.device(
-        f"cuda:{int(os.environ['LOCAL_RANK']) % torch.cuda.device_count()}")
-    torch.cuda.set_device(device)
-    dist.init_process_group("gloo", init_method="env://", rank=rank,
-                            world_size=int(os.environ["WORLD_SIZE"]))
-    shapes, real = set(), fa_ops.flash_attention_fwd_cuda
-
-    def k2(q, k, v, *, causal=True, window=0, scale=None):
-        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3],
-                    q.shape[2], k.shape[2], int(window),
-                    str(q.dtype).removeprefix("torch."), bool(causal)))
-        return real(q, k, v, causal=causal, window=window, scale=scale)
-    fa_ops.flash_attention_fwd_cuda = k2
-    try:
-        mesh = make_mesh((1, 2), ("data", "model"))
-        records = []
-        for run in spec["runs"]:
-            rt = Runtime(Path(spec["root"]) / f"rank{rank}")
-            c = rt.run(rt.build(run["imagefile"]), mesh=mesh)
-            params = c.init_params(0)
-            opt = c.init_opt_state(params)
-            step = TrainStepBuilder(model=c.model, abi=c.abi, opt=c.opt,
-                                    mesh=mesh, donate=True).build()
-            data = SyntheticLM(DataConfig(
-                vocab_size=c.arch.vocab_size, seq_len=c.cell.seq_len,
-                global_batch=c.cell.global_batch, seed=0))
-            shapes.clear()
-            _reset_counts()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            steps = []
-            for i in range(spec["steps"]):
-                tp0, t0 = mesh.stats.total("tp"), time.perf_counter()
-                params, opt, m = step(params, opt, data.batch(i))
-                loss = float(m["loss"])        # waits for the step
-                steps.append({"loss": loss,
-                              "grad_norm": float(m["grad_norm"]),
-                              "tp": mesh.stats.total("tp") - tp0,
-                              "seconds": time.perf_counter() - t0})
-            records.append({
-                "arch": run["arch"], "rank": rank, "pid": os.getpid(),
-                "device": str(device), "steps": steps,
-                "peak": torch.cuda.max_memory_allocated(),
-                "launches": _launch_counts(), "k2_shapes": sorted(shapes),
-                "tp_seconds": mesh.stats.seconds})
-            mesh.stats.reset()
-            del params, opt, m, step, c
-            torch.cuda.empty_cache()
-        everything = mesh.gather_objects(records)
-        if rank == 0:
-            Path(spec["out"]).write_text(json.dumps(everything))
-    finally:
-        fa_ops.flash_attention_fwd_cuda = real
-        dist.destroy_process_group()
-    return 0
-
-
-def _dist_d(torch, state, workdir: Path) -> list[str]:
-    """Tensor parallelism on two ranks sharing the card: each run of
-    DIST_D against one process on the same global batch."""
-    import shutil
+def _dist_launches(arch: str, layers: int) -> dict:
+    """The kernel launches one rank of (d) or (e) makes in DIST_D_STEPS
+    steps under remat (a forward and the backward's recompute a step):
+    K2 a step per attention layer, K4 per rec layer, K5 per ssm layer."""
     from repro_torch.configs import get_config
-    failures, runs, refs = [], [], {}
-    root = workdir / "dist_d"
+    kinds = get_config(arch, n_layers=layers).layer_types()
+    per = {"flash_attention_fwd": sum(k in ("attn", "moe") for k in kinds),
+           "rglru_scan": kinds.count("rec"), "ssd": kinds.count("ssm")}
+    return {k: n * 2 * DIST_D_STEPS for k, n in per.items() if n}
+
+
+def _ranks_runs(torch, workdir: Path, runs: list) -> tuple:
+    """Run the (d) and (e) runs in one ``torchrun --nproc-per-node 2
+    chip_smoke.py --tp-worker`` job: (every rank's records by run name,
+    which ranks held the card's device node, card memory polled, seconds,
+    failure text or None)."""
+    root = workdir / "dist_de"
     root.mkdir()
-    for arch in DIST_D:
-        text = DIST_IMAGEFILE.format(arch=arch,
-                                     layers=f" n_layers={DIST_D_LAYERS}",
-                                     collectives="generic")
-        refs[arch] = _dist_reference(torch, workdir, text, DIST_D_STEPS)
-        runs.append({"arch": arch, "imagefile": text})
-    out = root / "ranks.json"
-    spec = root / "spec.json"
+    out, spec = root / "ranks.json", root / "spec.json"
     spec.write_text(json.dumps({"runs": runs, "steps": DIST_D_STEPS,
                                 "root": str(root / "rt"), "out": str(out)}))
     seen: dict[int, bool] = {}
@@ -3262,13 +3350,62 @@ def _dist_d(torch, state, workdir: Path) -> list[str]:
         2, [str(ROOT / "chip_smoke.py"), "--tp-worker", str(spec)], root,
         watch=watch)
     if rc != 0 or not out.exists():
-        return [f"(d): exit {rc}: {tail}"]
+        return {}, seen, used, wall, f"exit {rc}: {tail}"
     ranks = json.loads(out.read_text())
-    checked = {(*c, True) for c in state.get("k2_checked", ())}
-    for j, arch in enumerate(DIST_D):
-        rs = [r[j] for r in ranks]
+    by_run = {run["name"]: [r[j] for r in ranks]
+              for j, run in enumerate(runs)}
+    return by_run, seen, used, wall, None
+
+
+def _shape_gate(rs: list, state) -> tuple[dict, bool]:
+    """Every K2, K4 and K5 shape the ranks called, and whether each is one
+    the kernels phase held to its plain version."""
+    checked = {"k2": {(*c, True) for c in state.get("k2_checked", ())},
+               "k4": set(K4_TP), "k5": set(K5_TP)}
+    shapes = {k: sorted({tuple(x) for r in rs for x in r["shapes"][k]})
+              for k in checked}
+    return shapes, all(set(v) <= checked[k] for k, v in shapes.items())
+
+
+def _dist_d_image(arch: str) -> str:
+    return DIST_IMAGEFILE.format(arch=arch,
+                                 layers=f" n_layers={DIST_D[arch]}",
+                                 collectives="generic")
+
+
+def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
+    """(d) tensor parallelism and (e) FSDP on two ranks sharing the card,
+    in one torchrun job: each (d) run against one process on the same
+    global batch (``llama_ref``: llama3.2-3b's, computed by the phase),
+    each (e) arm against (b)'s two-microbatch process."""
+    import shutil
+    from repro_torch.configs import get_config
+    failures, runs, refs = [], [], {"llama3.2-3b": llama_ref}
+    for arch, layers in DIST_D.items():
+        text = _dist_d_image(arch)
+        if arch not in refs:
+            refs[arch] = _dist_reference(torch, workdir, text, DIST_D_STEPS)
+        runs.append({"name": arch, "mesh": [1, 2], "imagefile": text})
+    for name, (coll, remat) in DIST_E.items():
+        text = DIST_IMAGEFILE.format(arch="llama3.2-3b",
+                                     layers=f" n_layers={DIST_B_LAYERS}",
+                                     collectives=coll)
+        runs.append({"name": f"fsdp {name}", "mesh": [2, 1],
+                     "imagefile": text + f"SET fsdp=true remat={remat}\n"})
+    by_run, seen, used, wall, err = _ranks_runs(torch, workdir, runs)
+    shutil.rmtree(workdir / "dist_de")
+    if err:
+        return [f"(d)/(e): {err}"]
+    for rs in by_run.values():
+        for r in rs:
+            for name, n in r["launches"].items():
+                state["launches"][name] = state["launches"].get(name, 0) + n
+    mem = (f"card memory in use {used[0]} MiB before, {max(used)} MiB at "
+           f"most during the ranks' run of {wall:.1f} s")
+    for arch, layers in DIST_D.items():
+        rs = by_run[arch]
         ref, ref_peak = refs[arch]
-        cfg = get_config(arch, n_layers=DIST_D_LAYERS)
+        cfg = get_config(arch, n_layers=layers)
         r0 = rs[0]["steps"]
         same = all(r["steps"][i]["loss"] == r0[i]["loss"]
                    for r in rs for i in range(DIST_D_STEPS))
@@ -3277,39 +3414,31 @@ def _dist_d(torch, state, workdir: Path) -> list[str]:
         want_tp = tp_wire_bytes(cfg, cfg.n_kv_heads, DIST_D_TOKENS, 2,
                                 "full")
         tp = [s["tp"] for r in rs for s in r["steps"]]
-        k2 = [r["launches"]["flash_attention_fwd"] for r in rs]
-        want_k2 = DIST_D_LAYERS * 2 * DIST_D_STEPS
-        others = {k: n for r in rs for k, n in r["launches"].items()
-                  if k != "flash_attention_fwd" and n}
-        shapes = {tuple(x) for r in rs for x in r["k2_shapes"]}
+        want = _dist_launches(arch, layers)
+        counts = [{k: n for k, n in r["launches"].items() if n} for r in rs]
+        shapes, shapes_ok = _shape_gate(rs, state)
         on_card = [seen.get(r["pid"], False) for r in rs]
-        for r in rs:
-            for name, n in r["launches"].items():
-                state["launches"][name] = state["launches"].get(name, 0) + n
         ok = (same and dl <= DIST_D_TOL and dg <= DIST_D_TOL
-              and tp == [want_tp] * len(tp) and k2 == [want_k2] * 2
-              and not others and shapes and shapes <= checked
-              and all(on_card))
+              and tp == [want_tp] * len(tp) and counts == [want] * 2
+              and shapes_ok and all(on_card))
         med = [statistics.median(s["seconds"] for s in r["steps"][1:])
                for r in rs]
         log(f"dist: (d) torchrun --nproc-per-node 2, mesh (data 1, model "
-            f"2), {arch} {DIST_D_LAYERS} layers, generic: losses "
+            f"2), {arch} {layers} layers, generic: losses "
             f"{[round(s['loss'], 6) for s in r0]} vs one process "
             f"{[round(l, 6) for l, _ in ref]}: max loss rel diff {dl:.2e}, "
             f"max grad_norm rel diff {dg:.2e} (tol {DIST_D_TOL:g}); every "
             f"rank's loss equal {same}; TP bytes a step a rank {tp} "
-            f"(formula {want_tp}); K2 launches {k2} (expected "
-            f"{DIST_D_LAYERS} x 2 x {DIST_D_STEPS} a rank), other "
-            f"launches {others}; K2 shapes (B, Hq, Hkv, d, Sq, Sk, window, "
-            f"dtype, causal) {sorted(shapes)}, all checked by the kernels "
-            f"phase {shapes <= checked}; ranks hold /dev/nvidia* open "
+            f"(formula {want_tp}); launches a rank {counts} (expected "
+            f"{want}); K2 shapes (B, Hq, Hkv, d, Sq, Sk, window, dtype, "
+            f"causal) {shapes['k2']}, K4 (B, S, R) {shapes['k4']}, K5 (b, "
+            f"S, H, P, N, chunk) {shapes['k5']}, all checked by the "
+            f"kernels phase {shapes_ok}; ranks hold /dev/nvidia* open "
             f"{on_card}; step s after the first (median) {med}, model-axis "
-            f"collective s {[round(r['tp_seconds'], 3) for r in rs]}; peak "
-            f"memory a rank {[round(_gib(r['peak']), 2) for r in rs]} GiB "
-            f"vs one process {_gib(ref_peak):.2f} GiB; card memory in use "
-            f"{used[0]} MiB before, {max(used)} MiB at most during the "
-            f"ranks' run of {wall:.1f} s {'ok' if ok else 'FAIL'} "
-            f"[{state['card']}]")
+            f"collective s {[round(r['collective_seconds'], 3) for r in rs]}"
+            f"; peak memory a rank {[round(_gib(r['peak']), 2) for r in rs]}"
+            f" GiB vs one process {_gib(ref_peak):.2f} GiB; {mem} "
+            f"{'ok' if ok else 'FAIL'} [{state['card']}]")
         state["dist"][f"d {arch}"] = dict(
             step_s=[[s["seconds"] for s in r["steps"]] for r in rs],
             peak_gib=[_gib(r["peak"]) for r in rs],
@@ -3317,11 +3446,159 @@ def _dist_d(torch, state, workdir: Path) -> list[str]:
         if not ok:
             failures.append(
                 f"(d) {arch}: dloss {dl:.2e}, dgnorm {dg:.2e}, equal "
-                f"{same}, tp {tp} vs {want_tp}, K2 {k2}, others {others}, "
-                f"unchecked K2 shapes {sorted(shapes - checked)}, on card "
+                f"{same}, tp {tp} vs {want_tp}, launches {counts} vs "
+                f"{want}, shapes {shapes} checked {shapes_ok}, on card "
                 f"{on_card}")
-    shutil.rmtree(root)
+    cfg = get_config("llama3.2-3b", n_layers=DIST_B_LAYERS)
+    ref = state.get("dist_b_ref", [])
+    for name, (coll, remat) in DIST_E.items():
+        rs = by_run[f"fsdp {name}"]
+        r0 = rs[0]["steps"]
+        b_peak = state.get("dist_b_peak", {}).get(name, 0)
+        same = all(r["steps"][i]["loss"] == r0[i]["loss"]
+                   for r in rs for i in range(DIST_D_STEPS))
+        dl = max((abs(s["loss"] - l) for s, (l, _) in zip(r0, ref)),
+                 default=float("inf"))
+        dg = max((abs(s["grad_norm"] - g) / g
+                  for s, (_, g) in zip(r0, ref)), default=float("inf"))
+        bit = [s["loss"] == l for s, (l, _) in zip(r0, ref)]
+        want_wire = fsdp_wire_bytes(cfg, 2, 1, remat, 4)
+        wire = [s["wire"] for r in rs for s in r["steps"]]
+        want = _dist_launches("llama3.2-3b", DIST_B_LAYERS)
+        counts = [{k: n for k, n in r["launches"].items() if n} for r in rs]
+        shapes, shapes_ok = _shape_gate(rs, state)
+        on_card = [seen.get(r["pid"], False) for r in rs]
+        peaks = [r["peak"] for r in rs]
+        ok = (same and len(ref) == DIST_D_STEPS and dl <= DIST_B[name][1]
+              and dg <= DIST_B[name][1] and wire == [want_wire] * len(wire)
+              and 0 < max(peaks) < b_peak and counts == [want] * 2
+              and shapes_ok and all(on_card))
+        med = [statistics.median(s["seconds"] for s in r["steps"][1:])
+               for r in rs]
+        log(f"dist: (e) torchrun --nproc-per-node 2, mesh (data 2, model "
+            f"1), llama3.2-3b {DIST_B_LAYERS} layers, {coll} + fsdp=true, "
+            f"remat={remat}: losses {[round(s['loss'], 6) for s in r0]} vs "
+            f"(b)'s one process in two microbatches "
+            f"{[round(l, 6) for l, _ in ref]}: max |dloss| {dl:.2e}, max "
+            f"grad_norm rel diff {dg:.2e} (tol {DIST_B[name][1]:g}), "
+            f"bit-equal {bit}; every rank's loss equal {same}; ABI bytes a "
+            f"step a rank {wire} (fsdp_wire_bytes {want_wire}; by "
+            f"operation over the run {rs[0]['by_op'].get(coll)}); launches "
+            f"a rank {counts} (expected {want}); K2 shapes {shapes['k2']} "
+            f"checked {shapes_ok}; ranks hold /dev/nvidia* open {on_card}; "
+            f"step s after the first (median) {med}, collective s "
+            f"{[round(r['collective_seconds'], 3) for r in rs]}; peak "
+            f"memory a rank {[round(_gib(p), 2) for p in peaks]} GiB vs "
+            f"(b) {name}'s {_gib(b_peak):.2f} GiB; {mem} "
+            f"{'ok' if ok else 'FAIL'} [{state['card']}]")
+        state["dist"][f"e {name}"] = dict(
+            step_s=[[s["seconds"] for s in r["steps"]] for r in rs],
+            peak_gib=[_gib(p) for p in peaks], b_peak_gib=_gib(b_peak),
+            wire=want_wire, wall_s=wall)
+        if not ok:
+            failures.append(
+                f"(e) {name}: dloss {dl:.2e}, dgnorm {dg:.2e}, equal "
+                f"{same}, wire {wire} vs {want_wire}, peak {peaks} vs "
+                f"{b_peak}, launches {counts} vs {want}, shapes {shapes} "
+                f"checked {shapes_ok}, on card {on_card}")
     return failures
+
+
+def tp_worker(spec_path: str) -> int:
+    """One rank of the dist phase's (d) and (e), started by torchrun: joins
+    a gloo group and, for each run of the spec, makes the run's (data,
+    model) mesh (each shape once), builds the port's Container on it and
+    its train step (``Container.train_step_fn``), takes the steps, and
+    records its losses, grad norms, the bytes each step handed to the
+    model axis and to the ABI, step seconds, peak memory, kernel launches
+    and the shapes of its K2, K4 and K5 calls; rank 0 writes every rank's
+    records."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    device = torch.device(
+        f"cuda:{int(os.environ['LOCAL_RANK']) % torch.cuda.device_count()}")
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method="env://", rank=rank,
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    shapes = {"k2": set(), "k4": set(), "k5": set()}
+    real = (fa_ops.flash_attention_fwd_cuda, rg_ops.rglru_scan_cuda,
+            ssd_ops.ssd_cuda)
+
+    def k2(q, k, v, *, causal=True, window=0, scale=None):
+        shapes["k2"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[3],
+                          q.shape[2], k.shape[2], int(window),
+                          str(q.dtype).removeprefix("torch."), bool(causal)))
+        return real[0](q, k, v, causal=causal, window=window, scale=scale)
+
+    def k4(a, b):
+        shapes["k4"].add(tuple(a.shape))
+        return real[1](a, b)
+
+    def k5(x, dt, A, B, C, chunk):
+        shapes["k5"].add((*x.shape, B.shape[-1], chunk))
+        return real[2](x, dt, A, B, C, chunk)
+    fa_ops.flash_attention_fwd_cuda = k2
+    rg_ops.rglru_scan_cuda = k4
+    ssd_ops.ssd_cuda = k5
+    try:
+        meshes, records = {}, []
+        for run in spec["runs"]:
+            shape = tuple(run["mesh"])
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape, ("data", "model"))
+            mesh = meshes[shape]
+            rt = Runtime(Path(spec["root"]) / f"rank{rank}")
+            c = rt.run(rt.build(run["imagefile"]), mesh=mesh)
+            params = c.init_params(0)
+            opt = c.init_opt_state(params)
+            step = c.train_step_fn(donate=True)
+            data = SyntheticLM(DataConfig(
+                vocab_size=c.arch.vocab_size, seq_len=c.cell.seq_len,
+                global_batch=c.cell.global_batch, seed=0))
+            for seen in shapes.values():
+                seen.clear()
+            _reset_counts()
+            mesh.stats.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for i in range(spec["steps"]):
+                tp0, t0 = mesh.stats.total("tp"), time.perf_counter()
+                w0 = mesh.stats.total(c.abi.name)
+                params, opt, m = step(params, opt, data.batch(i))
+                loss = float(m["loss"])        # waits for the step
+                steps.append({"loss": loss,
+                              "grad_norm": float(m["grad_norm"]),
+                              "tp": mesh.stats.total("tp") - tp0,
+                              "wire": mesh.stats.total(c.abi.name) - w0,
+                              "seconds": time.perf_counter() - t0})
+            records.append({
+                "name": run["name"], "rank": rank, "pid": os.getpid(),
+                "device": str(device), "steps": steps,
+                "peak": torch.cuda.max_memory_allocated(),
+                "launches": _launch_counts(),
+                "shapes": {k: sorted(v) for k, v in shapes.items()},
+                "by_op": mesh.stats.bytes,
+                "collective_seconds": mesh.stats.seconds})
+            del params, opt, m, step, c
+            torch.cuda.empty_cache()
+        everything = mesh.gather_objects(records)
+        if rank == 0:
+            Path(spec["out"]).write_text(json.dumps(everything))
+    finally:
+        (fa_ops.flash_attention_fwd_cuda, rg_ops.rglru_scan_cuda,
+         ssd_ops.ssd_cuda) = real
+        dist.destroy_process_group()
+    return 0
 
 
 def phase_dist(torch, state, workdir: Path) -> None:
@@ -3329,10 +3606,15 @@ def phase_dist(torch, state, workdir: Path) -> None:
     state["dist"] = {}
     shutil.rmtree(workdir / "train", ignore_errors=True)   # 38.5 GB
     torch.cuda.empty_cache()
-    failures = _dist_a(torch, state, workdir)
+    # one process on (a)'s and (d)'s llama3.2-3b image: (a)'s reference
+    # (ZeRO-1 on one rank splits nothing: host's step is generic's) and
+    # (d)'s
+    llama_ref = _dist_reference(torch, workdir, _dist_d_image("llama3.2-3b"),
+                                DIST_D_STEPS)
+    failures = _dist_a(torch, state, workdir, llama_ref[0])
     b_failures, host = _dist_b(torch, state, workdir)
     failures += b_failures + _dist_c(torch, state, host)
-    failures += _dist_d(torch, state, workdir)
+    failures += _dist_de(torch, state, workdir, llama_ref)
     check(not failures, "dist: " + "; ".join(failures))
 
 

@@ -8,7 +8,8 @@ A Container binds the immutable image to
     torch.distributed job on the data axis, each on
     ``cuda:{LOCAL_RANK % cards}``; ``platform="cpu"`` must be asked for),
   * resolved sharding rules (the logical-axis table; ZeRO-1 splits the
-    optimizer state's ``embed`` dims over the batch axes),
+    optimizer state's ``embed`` dims over the batch axes, FSDP the
+    params' as well),
   * the arch and precision layers (param and compute dtypes) and the
     ``remat`` and ``microbatches`` settings,
   * the collective ABI named by the image and the optimizer settings,
@@ -28,11 +29,19 @@ the master copy (split over the batch axes as well); PowerSGD's error and
 Q rows are per rank. A container of a multi-process job is one
 container: rank 0 names it and alone writes its overlay. ``mesh`` gives
 a container of a job a mesh other than its platform's (a ``(data,
-model)`` mesh of the job's ranks). Not ported, and raising where asked
-for (ROADMAP.md Queue 1 item 13): ``fsdp``, PowerSGD on a model axis,
-and ``ssm``/``rec`` archs there; an MoE arch with several batch replicas
-needs the expert-parallel dispatch (a model axis dividing its experts):
-ROADMAP.md Queue 3 item 14.
+model)`` mesh of the job's ranks). ``SET fsdp=true`` (weight FSDP, the
+paper's Fig. 3 host arm with ``COLLECTIVES host``) splits every leaf's
+``embed`` dim over the batch axes as well: a rank holds that part of the
+params and of m, v and the master copy, the model gathers each leaf where
+it reads it (``dist.sharding.FSDP``), and the train step updates the
+parts. ``host mode=explicit`` keeps params whole over the batch axes
+under ``fsdp`` too, as the JAX package's ``shard_map`` region does (its
+``P()`` in_specs gather them at entry and its out_specs return them
+whole): the same values as without it. Not ported, and raising where
+asked for (ROADMAP.md Queue 1 item 13): PowerSGD on a model axis, and
+serving across ranks; an MoE arch with several batch replicas needs the
+expert-parallel dispatch (a model axis dividing its experts): ROADMAP.md
+Queue 3 item 14.
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ from repro_torch.core.image import EnvImage
 from repro_torch.dist.mesh import (NOT_PORTED, PlatformMesh, batch_axes,
                                    make_platform_mesh, resolve_device)
 from repro_torch.dist.sharding import (NamedSharding, ShardingRules,
-                                       def_shardings, model_axis)
+                                       def_shardings, fsdp_of, model_axis)
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.params import (materialize, params_from_jax,
                                        tree_map)
@@ -102,8 +111,6 @@ class Container:
         self.mesh = mesh or make_platform_mesh(self.platform)
         self.device: torch.device = resolve_device(self.platform)
         self.abi: CollectiveABI = abi_from_image_config(cfg)
-        if self.settings.get("fsdp"):
-            raise NotImplementedError(f"settings fsdp=true: {NOT_PORTED}")
         tp = self.mesh.shape.get("model", 1)
         replicas = self.mesh.axes_size(batch_axes(self.mesh))
         if self.arch.n_experts and replicas > 1 and (
@@ -122,7 +129,10 @@ class Container:
             raise NotImplementedError(
                 f"PowerSGD on a model axis of {tp}: {NOT_PORTED}")
 
+        explicit = self.abi.options.get("mode") == "explicit"
+        self.fsdp = bool(self.settings.get("fsdp", False)) and not explicit
         self.rules = ShardingRules.default(
+            fsdp=self.fsdp,
             seq_parallel=bool(self.settings.get("seq_parallel", False)))
         extra_rules = self.settings.get("rules")
         if extra_rules:
@@ -133,8 +143,7 @@ class Container:
         # ZeRO-1 on the implicit path: optimizer state splits over the
         # batch axes on 'embed' dims (the explicit path keeps it whole, as
         # the JAX package's shard_map region does)
-        self.zero1 = (self.abi.zero1
-                      and self.abi.options.get("mode") != "explicit")
+        self.zero1 = self.abi.zero1 and not explicit
         self.opt_rules = (self.rules.with_(embed=("pod", "data"))
                           if self.zero1 else self.rules)
 
@@ -144,6 +153,8 @@ class Container:
                                                            "bfloat16")),
                            remat=str(self.settings.get("remat", "none")),
                            axis=model_axis(self.mesh))
+        self.model.fsdp = fsdp_of(self.mesh, self.param_shardings(),
+                                  self.abi.name)
         self.param_dtype = _torch_dtype(prec.get("params", "float32"))
         self.cache_dtype = _torch_dtype(prec.get("compute", "bfloat16"))
         self.opt = OptConfig(**self.settings.get("optimizer", {}))
@@ -185,12 +196,11 @@ class Container:
         return self._parts(tree_map(leaf, self.param_defs, tree))
 
     def _parts(self, params):
-        """This rank's part of each whole leaf: the leaf itself with
-        ``model`` at 1, else a copy of its shard (so the whole can go)."""
-        if self.model.axis is None:
-            return params
-        return tree_map(lambda sh, p: sh.local(p).clone(),
-                        self.param_shardings(), params)
+        """This rank's part of each whole leaf over every mesh axis that
+        splits it (its model-axis shard, its FSDP part of that): a copy, so
+        the whole can go; the leaf itself where nothing splits it."""
+        return tree_map(lambda sh, p: sh.local(p).clone() if sh.split()
+                        else p, self.param_shardings(), params)
 
     def param_shardings(self):
         return def_shardings(self.param_defs, self.mesh, self.rules,
@@ -230,11 +240,13 @@ class Container:
         return out
 
     def init_opt_state(self, params):
-        """Optimizer state for ``params``: this rank's part of each leaf
-        under ZeRO-1, the whole leaf otherwise."""
+        """Optimizer state for ``params`` (this rank's parts): this rank's
+        part of each leaf under ZeRO-1 or FSDP, the whole leaf otherwise."""
         baxes = batch_axes(self.mesh)
-        parts = tree_map(lambda sh, p: sh.local(p, baxes),
-                         self.opt_state_shardings()["m"], params)
+        parts = tree_map(lambda sh, psh, p: p if psh.split(baxes)
+                         else sh.local(p, baxes),
+                         self.opt_state_shardings()["m"],
+                         self.param_shardings(), params)
         state = adamw_init(parts,
                            with_master=self.param_dtype != torch.float32)
         if self._powersgd_rank():
@@ -281,8 +293,8 @@ class Container:
             model=self.model, abi=self.abi, opt=self.opt,
             microbatches=int(self.settings.get("microbatches", 1)),
             donate=donate, mesh=self.mesh,
-            opt_shardings=(self.opt_state_shardings()["m"] if self.zero1
-                           else None))
+            opt_shardings=(self.opt_state_shardings()["m"]
+                           if self.zero1 or self.fsdp else None))
         return builder.build()
 
     # -- whole-batch serve steps ------------------------------------------------

@@ -55,9 +55,9 @@ PLATFORMS: dict[str, dict] = {
                  "device": "cuda"},
 }
 
-NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1 item 13: FSDP, ssm "
-              "and rec layers at a 'model' axis above 1, and serving at a "
-              "'model' axis above 1)")
+NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1 item 13: serving across "
+              "ranks -- a 'model' axis above 1, or FSDP parts -- and "
+              "PowerSGD at a 'model' axis above 1)")
 _RING = {"all_reduce": 2, "reduce_scatter": 1, "all_gather": 1}
 
 

@@ -38,6 +38,21 @@ sum forward, the identity backward). What a region reads enters through
 parameter ends a backward with a partial gradient. Their bytes count in
 the mesh's ``CollectiveStats`` under ``TP``. With ``model`` at 1 there is
 no ``ModelAxis`` and both are the identity: no operator, no collective.
+Two more model-axis operators serve the Mamba-2 block (``models/ssm.py``):
+``sum_over_model`` (an all-reduce both ways: a sum every rank's result
+depends on, as ``rms_gated``'s sum of squares over the whole ``d_inner``)
+and ``gather_from_model`` (an all-gather of a row-split leaf forward, the
+reduce-scatter of the ranks' gradients backward), with ``once_over_model``
+for the rows of such a leaf that every rank uses in replicated math.
+
+Weight FSDP (``ShardingRules.default(fsdp=True)``: ``embed`` dims over the
+batch axes): a rank holds its part of every leaf the rule splits, and the
+model gathers the whole leaf -- over the batch axes only, so on a ``model``
+axis the rank's model-axis shard -- where it reads it (``FSDP.gather``):
+an all-gather forward, the reduce-scatter of the gradient's replica mean
+backward, counted in ``CollectiveStats`` under the ABI's name. The
+gradient of such a leaf leaves the backward as this rank's part, already
+meaned over the replicas.
 """
 
 from __future__ import annotations
@@ -47,7 +62,7 @@ from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.dist.mesh import PlatformMesh, collective
+from repro_torch.dist.mesh import PlatformMesh, batch_axes, collective
 
 Rule = str | tuple[str, ...] | None
 Spec = tuple
@@ -239,7 +254,7 @@ def logical_sharding(logical: Sequence[str | None], mesh,
 def def_shardings(defs, mesh, rules: ShardingRules, device=None):
     """A ParamDef tree's NamedShardings, each from ``safe_spec`` of the
     def's shape: a dim the rule's axes do not divide stays whole."""
-    from repro_torch.models.params import tree_map
+    from repro_torch.models.params import tree_map  # models import dist
     return tree_map(lambda d: NamedSharding(
         mesh, safe_spec(d.shape, d.logical, mesh, rules), device), defs)
 
@@ -320,3 +335,129 @@ def reduce_from_model(x: torch.Tensor,
     """Exit of a tensor-parallel region: the sum of the ranks' partial
     ``x`` forward, the gradient as it is backward."""
     return x if axis is None else _ReduceFromModel.apply(x, axis)
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g), None
+
+
+def sum_over_model(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over the model axis, where every rank's
+    region goes on from the sum: its gradient is the sum of theirs (an
+    all-reduce forward and backward)."""
+    return x if axis is None else _SumOverModel.apply(x, axis)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        x = x.detach().contiguous()
+        out = torch.empty((axis.size * x.shape[0], *x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        collective(axis.mesh, TP, "all_gather", out, x,
+                   axis.mesh.group(("model",)))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        g = g.contiguous()
+        out = torch.empty((g.shape[0] // axis.size, *g.shape[1:]),
+                          dtype=g.dtype, device=g.device)
+        collective(axis.mesh, TP, "reduce_scatter", out, g,
+                   axis.mesh.group(("model",)))
+        return out, None
+
+
+def gather_from_model(x: torch.Tensor,
+                      axis: ModelAxis | None) -> torch.Tensor:
+    """The whole of a leaf split on its first dim over the model axis (the
+    ranks' rows in coordinate order) forward; backward, this rank's rows of
+    the sum of the ranks' gradients: each rank's region adds the gradient
+    of the rows it read."""
+    return x if axis is None else _GatherFromModel.apply(x, axis)
+
+
+class _OnceOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.axis.coord == 0 else torch.zeros_like(g)), None
+
+
+def once_over_model(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """``x`` forward; backward, the gradient on the axis's first rank and
+    zeros on the others. For rows of a ``gather_from_model`` leaf that
+    replicated math reads: every rank computes the same gradient for them,
+    which the reduce-scatter would otherwise sum once a rank."""
+    return x if axis is None else _OnceOverModel.apply(x, axis)
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, sharding, label):
+        from repro_torch.core.abi import all_gather   # core.abi imports dist
+        ctx.sharding, ctx.label = sharding, label
+        return all_gather(part.detach(), sharding, label,
+                          axes=batch_axes(sharding.mesh))
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.abi import reduce_scatter_mean
+        # float32 on the wire, as the implicit path's other gradients
+        return reduce_scatter_mean(g.float(), ctx.sharding,
+                                   ctx.label), None, None
+
+
+@dataclass(frozen=True, eq=False)
+class FSDP:
+    """Weight FSDP on a mesh: the params' NamedShardings (stacked leaves,
+    as ``def_shardings`` gives them under ``ShardingRules.default(fsdp=
+    True)``) and the label their collectives count under (the ABI's
+    name)."""
+
+    shardings: dict
+    label: str
+
+    def gather(self, params, shardings):
+        """``params`` (a subtree of the param tree, its ``shardings``
+        alike) with every leaf the shardings split over the batch axes
+        gathered whole over them."""
+        from repro_torch.models.params import tree_map
+
+        def leaf(p, sh):
+            if not sh.split(batch_axes(sh.mesh)):
+                return p
+            return _GatherBatch.apply(p, sh, self.label)
+        return tree_map(leaf, params, shardings)
+
+    def layer(self, stage: str):
+        """The per-layer shardings of a stacked stage (its leading
+        ``layers`` dim, never split, dropped)."""
+        from repro_torch.models.params import tree_map
+        return tree_map(lambda sh: NamedSharding(sh.mesh, sh.spec[1:],
+                                                 sh.device),
+                        self.shardings[stage])
+
+
+def fsdp_of(mesh: PlatformMesh | None, shardings, label: str) -> FSDP | None:
+    """The ``FSDP`` of a param tree's ``shardings`` on ``mesh``; ``None``
+    when no leaf is split over a batch axis above 1 (FSDP off, or one
+    replica)."""
+    from repro_torch.models.params import tree_leaves
+    if mesh is None or not any(sh.split(batch_axes(mesh))
+                               for sh in tree_leaves(shardings)):
+        return None
+    return FSDP(shardings, label)

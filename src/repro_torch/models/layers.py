@@ -6,7 +6,8 @@ norms and RoPE upcast to f32 exactly where ``repro.models.layers`` does.
 On a rank of a ``model`` axis (``axis``: a ``dist.sharding.ModelAxis``)
 the weights are the rank's shards, as the JAX package's specs split them:
 the MLP is column-split in (``wg``/``wu``/``wi`` on F) and row-split out
-(``wd``), the embedding and the head are vocab-parallel (the rank holds
+(``wd``), ``rms_gated`` normalises over the ranks' slices together, the
+embedding and the head are vocab-parallel (the rank holds
 rows ``[c * Vp/tp, (c+1) * Vp/tp)`` for its coordinate ``c``). With
 ``axis=None`` (``model`` at 1) nothing changes.
 """
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
-                                       reduce_from_model)
+                                       reduce_from_model, sum_over_model)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
@@ -50,11 +51,24 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.
 
 
 def rms_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """Mamba-2 gated RMSNorm: rmsnorm(x * silu(z)) * scale."""
+              eps: float = 1e-6, axis: ModelAxis | None = None
+              ) -> torch.Tensor:
+    """Mamba-2 gated RMSNorm: rmsnorm(x * silu(z)) * scale.
+
+    On a model axis ``x``, ``z`` and ``scale`` are the rank's slice of
+    ``d_inner``, while the mean runs over the whole of it (the reference's
+    norm): the slices' sums of squares are summed over the axis by
+    ``sum_over_model``, whose backward sums too -- every rank's
+    normalisation depends on every slice (neither ``copy_to_model`` nor
+    ``reduce_from_model`` is that operator)."""
     dt = x.dtype
     y = x.float() * F.silu(z.float())
-    y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + eps)
+    if axis is None:
+        ms = torch.mean(y * y, dim=-1, keepdim=True)
+    else:
+        ms = (sum_over_model((y * y).sum(dim=-1, keepdim=True), axis)
+              / (y.shape[-1] * axis.size))
+    y = y * torch.rsqrt(ms + eps)
     return (y * scale.float()).to(dt)
 
 

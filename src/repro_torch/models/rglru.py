@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
+                                       reduce_from_model)
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _gelu
@@ -83,16 +85,24 @@ def _rglru_coeffs(p: dict, x: torch.Tensor):
 
 
 def rec_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                return_cache: bool = False):
+                return_cache: bool = False, axis: ModelAxis | None = None):
     """Training/prefill. x: (B,S,D) -> (B,S,D) [, decode cache: the raw
-    (pre-conv) tail of the input branch and the last step's state]."""
+    (pre-conv) tail of the input branch and the last step's state].
+
+    On a model axis the block is one split region: ``x`` enters through
+    ``copy_to_model``, the rank holds its ``rnn`` channels of ``wx``,
+    ``wy``, the conv, ``lam`` and whole gate blocks (16 blocks split over
+    the axis, so the channels a rank scans are its blocks' channels), the
+    scan runs on its (B, S, R/tp), and the row-split ``wo``'s partial
+    output leaves through ``reduce_from_model``."""
     dt_ = x.dtype
+    x = copy_to_model(x, axis)
     y = _gelu(x @ p["wy"].to(dt_))
     raw = x @ p["wx"].to(dt_)
     xr = _causal_conv(raw, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
     a, b = _rglru_coeffs(p, xr)
     h = rglru_scan(a.contiguous(), b.contiguous())         # (B,S,R) f32
-    out = (h.to(dt_) * y) @ p["wo"].to(dt_)
+    out = reduce_from_model((h.to(dt_) * y) @ p["wo"].to(dt_), axis)
     if return_cache:
         return out, {"conv": raw[:, -(cfg.conv_kernel - 1):],
                      "state": h[:, -1]}

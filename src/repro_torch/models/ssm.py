@@ -24,6 +24,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
+                                       gather_from_model, once_over_model,
+                                       reduce_from_model)
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_gated
@@ -60,38 +63,59 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                return_cache: bool = False):
+                return_cache: bool = False, axis: ModelAxis | None = None):
     """Training/prefill forward. x: (B,S,D) -> (B,S,D) [, decode cache].
 
     Padded tail steps (to a chunk multiple) only influence later positions,
     so real outputs are unaffected; BUT the final *state* must be taken at
     the true position S, so a cached prefill must be chunk-divisible (the
     reference's rule, kept as it is: a prompt longer than ``ssm_chunk``
-    that is not a multiple of it raises)."""
+    that is not a multiple of it raises).
+
+    On a model axis (``axis``; no cache) the rank runs its ``rnn`` slice of
+    ``d_inner`` (``wz``, ``wx``, ``gate_norm``, the rows of ``out``) and
+    its ``heads`` (``wdt``, ``A_log``, ``D``, ``dt_bias``; ``xi`` reshapes
+    to (B, S, nh/tp, P), since d_inner = nh P), inside one split region
+    that ``x`` enters through ``copy_to_model`` and the out projection's
+    partial sum leaves through ``reduce_from_model``. B and C are shared
+    by every head: their products and conv are replicated math outside the
+    region, and enter it through ``copy_to_model`` as the scan's float32
+    inputs. The conv and the norm are ``_conv_on_model``'s and
+    ``rms_gated``'s traps."""
     Bsz, S, D = x.shape
-    di, ds, nh, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    di, ds, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
     dt_ = x.dtype
 
-    z = x @ p["wz"].to(dt_)
-    xi = x @ p["wx"].to(dt_)
+    xr = copy_to_model(x, axis)
+    z = xr @ p["wz"].to(dt_)
+    xi = xr @ p["wx"].to(dt_)
     Bm = x @ p["wB"].to(dt_)
     Cm = x @ p["wC"].to(dt_)
-    dt = x @ p["wdt"].to(dt_)
+    dt = xr @ p["wdt"].to(dt_)
 
-    conv_in = torch.cat([xi, Bm, Cm], dim=-1)
-    conv_out = _causal_conv(conv_in, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
-    xi, Bm, Cm = torch.split(conv_out, [di, ds, ds], dim=-1)
+    if axis is None:
+        conv_in = torch.cat([xi, Bm, Cm], dim=-1)
+        conv_out = _causal_conv(conv_in, p["conv_w"].to(dt_),
+                                p["conv_b"].to(dt_))
+        xi, Bm, Cm = torch.split(conv_out, [di, ds, ds], dim=-1)
+    else:
+        xi, Bm, Cm = _conv_on_model(p, xi, Bm, Cm, di, axis)
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())                     # (H,)
 
+    nh = dt.shape[-1]                                      # the rank's heads
     xh = xi.reshape(Bsz, S, nh, P)
     chunk = min(cfg.ssm_chunk, S)
     pad = (-S) % chunk
     if pad and return_cache:
         raise ValueError(f"prefill length {S} must be divisible by ssm_chunk "
                          f"{chunk} when a decode cache is requested")
-    xs, dts, Bs, Cs = xh.float(), dt, Bm.float(), Cm.float()
+    # B and C enter the heads' region in float32, where each rank's heads
+    # add their part of B's and C's gradient (GSPMD's all-reduce of the
+    # scan's head-summed float32 gradient, not of a bf16-rounded one)
+    xs, dts = xh.float(), dt
+    Bs, Cs = copy_to_model(Bm.float(), axis), copy_to_model(Cm.float(), axis)
     if pad:
         # zero-pad the tail to a chunk multiple; padded steps only influence
         # later (sliced-off) positions, so real outputs are unaffected.
@@ -104,15 +128,45 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if pad:
         y = y[:, :S]
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(Bsz, S, di).to(dt_)
+    y = y.reshape(Bsz, S, nh * P).to(dt_)
 
-    y = rms_gated(y, z, p["gate_norm"])
-    out = y @ p["out"].to(dt_)
+    y = rms_gated(y, z, p["gate_norm"], axis=axis)
+    out = reduce_from_model(y @ p["out"].to(dt_), axis)
     if return_cache:
         cache = {"conv": conv_in[:, -(cfg.conv_kernel - 1):],
                  "state": final_state}
         return out, cache
     return out
+
+
+def _conv_on_model(p: dict, xi, Bm, Cm, di: int, axis: ModelAxis):
+    """The causal conv of a model-axis rank: its ``xi`` channels, and the
+    B and C channels as replicated math.
+
+    The trap: ``conv_w``/``conv_b`` hold conv_ch = d_inner + 2 ssm_state
+    rows, split on ``rnn`` into tp equal blocks that do not line up with
+    ``xi``'s d_inner / tp (tp 2 at full width: rows 2688 | 2688 against
+    2560 | 2560; mamba2-smoke 80 | 80 against 64 | 64), so a rank's block
+    holds channels of another rank's ``xi``, and the B/C rows sit on the
+    last rank. The rows are gathered whole (``gather_from_model``: its
+    backward sums the ranks' gradients and hands each rank its rows): a
+    rank reads the rows of its own channels, whose gradient only it adds,
+    and the B/C rows through ``once_over_model``, whose gradient every
+    rank computes alike and only the first adds -- so each row gets its
+    gradient exactly once. A conv leaf the axis does not divide stays
+    whole on every rank and enters through ``copy_to_model`` instead."""
+    dt_ = xi.dtype
+    whole = p["conv_w"].shape[0] == di + 2 * Bm.shape[-1]
+    enter = copy_to_model if whole else gather_from_model
+    w, b = enter(p["conv_w"], axis), enter(p["conv_b"], axis)
+    n = xi.shape[-1]
+    lo = axis.coord * n
+    xi = _causal_conv(xi, w[lo:lo + n].to(dt_), b[lo:lo + n].to(dt_))
+    bc = _causal_conv(torch.cat([Bm, Cm], dim=-1),
+                      once_over_model(w[di:], axis).to(dt_),
+                      once_over_model(b[di:], axis).to(dt_))
+    Bm, Cm = torch.split(bc, [Bm.shape[-1]] * 2, dim=-1)
+    return xi, Bm, Cm
 
 
 # ---------------------------------------------------------------------------

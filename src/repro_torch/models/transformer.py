@@ -26,10 +26,19 @@ the params -- heads, MLP columns, vocabulary and experts split over the
 axis as the JAX package's specs split them -- and places the collectives
 GSPMD inserts there (``dist.sharding``); ``moe`` blocks switch to the
 expert-parallel ``moe_forward_spmd`` as the JAX package's ``_moe`` does
-when it has a mesh. ``forward`` returns the rank's vocab slice of the
-logits. Not ported, and raising (ROADMAP.md Queue 1 item 13): ``ssm`` and
-``rec`` blocks on a model axis (their ``rnn`` split), and serving there
-(a collected or prefixed cache, decode).
+when it has a mesh; ``ssm`` and ``rec`` blocks run their ``rnn`` and
+``heads`` shards (``ssm.py``, ``rglru.py``). ``forward`` returns the
+rank's vocab slice of the logits.
+
+Weight FSDP: a ``Model`` whose ``fsdp`` is an ``FSDP``
+(``dist.sharding``) runs on the rank's parts of the leaves it splits
+over the batch axes, and gathers them where they are read: each layer's
+at the start of its unit,
+inside the remat region (``remat=full|dots`` gathers again when the
+backward recomputes the unit, so no whole stack stays alive), the
+embedding (and tied head) and ``final_norm`` once a forward. Not ported,
+and raising (ROADMAP.md Queue 1 item 13): serving across ranks (a
+collected or prefixed cache, decode) on a model axis or from FSDP parts.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.dist.mesh import NOT_PORTED
-from repro_torch.dist.sharding import ModelAxis
+from repro_torch.dist.sharding import FSDP, ModelAxis
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
@@ -154,16 +163,13 @@ class Model:
         self.stages = build_stages(cfg)
         self.act_dtype = act_dtype
         self.remat = remat
-        if axis is not None:
-            if axis.size != tp:
-                raise ValueError(f"a model axis of {axis.size} ranks for a "
-                                 f"model bound to tp={tp}")
-            kinds = {k for st in self.stages for k in st.unit}
-            if kinds & {"ssm", "rec"}:
-                raise NotImplementedError(
-                    f"{cfg.name}: {sorted(kinds & {'ssm', 'rec'})} blocks "
-                    f"on a model axis of {tp}: {NOT_PORTED}")
+        if axis is not None and axis.size != tp:
+            raise ValueError(f"a model axis of {axis.size} ranks for a "
+                             f"model bound to tp={tp}")
         self.axis = axis
+        # weight FSDP: the Container sets it from the param shardings,
+        # which it reads off this model's param defs
+        self.fsdp: FSDP | None = None
 
     # -- params ---------------------------------------------------------
     def param_defs(self) -> dict:
@@ -275,10 +281,7 @@ class Model:
         offset past the prefix, every attention block attends over
         [prefix, suffix], and the collected cache covers the suffix only."""
         cfg = self.cfg
-        if self.axis is not None and (collect_cache or prefix_len):
-            raise NotImplementedError(
-                f"a serving prefill on a model axis of {self.axis.size}: "
-                f"{NOT_PORTED}")
+        self._no_serving(collect_cache or prefix_len, "a serving prefill")
         if prefix_len:
             if frontend_embeds is not None:
                 raise NotImplementedError(
@@ -287,6 +290,13 @@ class Model:
             if prefix_kv is None or prefix_pages is None:
                 raise ValueError("prefix_len > 0 needs prefix_kv + "
                                  "prefix_pages")
+        fsdp = self.fsdp
+        if fsdp is not None:
+            params = {**params,
+                      "embed": fsdp.gather(params["embed"],
+                                           fsdp.shardings["embed"]),
+                      "final_norm": fsdp.gather(params["final_norm"],
+                                                fsdp.shardings["final_norm"])}
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype,
                          self.axis)
         if frontend_embeds is not None:
@@ -318,6 +328,7 @@ class Model:
             # would write each layer's grad into a zero-filled full leaf
             sp = tree_map(torch.unbind, params[f"stage{si}"])
             spk = prefix_kv[f"stage{si}"] if prefix_len else None
+            unit_fsdp = fsdp.layer(f"stage{si}") if fsdp else None
             layer_entries = []
             for li in range(st.count):
                 unit_params = tree_map(lambda a: a[li], sp)
@@ -325,7 +336,8 @@ class Model:
                                if spk is not None else None)
                 x, aux, entries = unit(
                     st, unit_params, x, aux, positions, collect_cache,
-                    cache_len or S, unit_prefix, prefix_pages, prefix_len)
+                    cache_len or S, unit_prefix, prefix_pages, prefix_len,
+                    unit_fsdp)
                 layer_entries.append(entries)
             if collect_cache:
                 caches[f"stage{si}"] = tree_map(
@@ -336,11 +348,24 @@ class Model:
             return logits, caches, aux
         return logits, aux
 
+    def _no_serving(self, serving, what: str) -> None:
+        """Raise for a serving step on a rank's shards or FSDP parts."""
+        if serving and self.axis is not None:
+            raise NotImplementedError(
+                f"{what} on a model axis of {self.axis.size}: {NOT_PORTED}")
+        if serving and self.fsdp is not None:
+            raise NotImplementedError(
+                f"{what} from FSDP parts: {NOT_PORTED}")
+
     def _unit(self, st: Stage, unit_params: dict, x, aux, positions,
               collect_cache: bool, cache_len: int, unit_prefix=None,
-              prefix_pages=None, prefix_len: int = 0):
+              prefix_pages=None, prefix_len: int = 0, unit_fsdp=None):
         """One stacked unit's blocks (the JAX package's scan body) ->
-        (x, aux, the blocks' cache entries)."""
+        (x, aux, the blocks' cache entries). Under FSDP (``unit_fsdp``:
+        the layer's shardings) its params are gathered first, inside the
+        remat region."""
+        if unit_fsdp is not None:
+            unit_params = self.fsdp.gather(unit_params, unit_fsdp)
         entries = {}
         for bi, kind in enumerate(st.unit):
             pkv = unit_prefix.get(f"b{bi}") if unit_prefix else None
@@ -365,13 +390,14 @@ class Model:
         if prefix_len and (window or kind in ("ssm", "rec")):
             raise NotImplementedError(
                 "prefix-cached suffix prefill supports full attention only")
+        axis = self.axis
         if kind == "ssm":
             h = apply_norm(p["ln1"], x, cfg.norm)
             if collect_cache:
                 out, entry = ssm_mod.ssm_forward(p["ssm"], h, cfg,
                                                  return_cache=True)
             else:
-                out = ssm_mod.ssm_forward(p["ssm"], h, cfg)
+                out = ssm_mod.ssm_forward(p["ssm"], h, cfg, axis=axis)
             return x + out, None, entry
         if kind == "rec":
             h = apply_norm(p["ln1"], x, cfg.norm)
@@ -379,11 +405,10 @@ class Model:
                 out, entry = rec_mod.rec_forward(p["rec"], h, cfg,
                                                  return_cache=True)
             else:
-                out = rec_mod.rec_forward(p["rec"], h, cfg)
+                out = rec_mod.rec_forward(p["rec"], h, cfg, axis=axis)
             x = x + out
             h2 = apply_norm(p["ln2"], x, cfg.norm)
-            return x + apply_mlp(p["mlp"], h2, cfg.mlp), None, entry
-        axis = self.axis
+            return x + apply_mlp(p["mlp"], h2, cfg.mlp, axis), None, entry
         h = apply_norm(p["ln1"], x, cfg.norm)
         q, k, v = attn_mod.project_qkv(p["attn"], h, cfg, geom, positions,
                                        axis)
@@ -469,9 +494,7 @@ class Model:
         recurrent block's new conv tail and state are copied into them,
         cast to the cache's dtype) and returned."""
         cfg = self.cfg
-        if self.axis is not None:
-            raise NotImplementedError(
-                f"decode on a model axis of {self.axis.size}: {NOT_PORTED}")
+        self._no_serving(True, "decode")
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype)
         idx = attn_mod.row_positions(idx, tokens.shape[0], x.device,
                                      lockstep=page_table is None)

@@ -34,6 +34,12 @@ their mask counts over the all-reduced counts of the global microbatches
 that hold them (``_mask_weights``). The explicit path keeps the JAX
 package's per-shard mean, then the mean over replicas.
 
+Weight FSDP (the model carries a ``dist.sharding.FSDP``; implicit path
+only): a leaf the model gathers arrives from the backward as this rank's
+part of its replica mean (the gather's reduce-scatter), is not synced
+again, and is updated as the part it is -- no all-gather after the
+update; m/v split alike (``opt_shardings``).
+
 On a mesh with a ``model`` axis (tensor parallelism: the model carries
 the axis, the params are the rank's shards) a rank's rows are those of
 its batch coordinate -- the ranks of one data replica take the same rows
@@ -256,19 +262,26 @@ class TrainStepBuilder:
                                        self._mask_weights(batch))
         loss = replica_mean(loss, baxes, mesh, METRICS)
         aux = replica_mean(aux, baxes, mesh, METRICS)
-        shards = self.opt_shardings or tree_map(lambda p: None, params)
+        none = tree_map(lambda p: None, params)
+        shards = self.opt_shardings or none
+        fsdp = self.model.fsdp.shardings if self.model.fsdp else none
 
         def split(sh) -> bool:      # this leaf's optimizer state is split
             return sh is not None and bool(sh.split(baxes))
 
-        def sync(g, sh):
+        def sync(g, sh, psh):
+            if split(psh):          # an FSDP part: meaned in the backward
+                return g.float()
             if split(sh):
                 return reduce_scatter_mean(g.float(), sh, name)
             return replica_mean(g.float(), baxes, mesh, name)
 
-        part_g = tree_map(sync, grads, shards)
-        part_p = tree_map(lambda p, sh: sh.local(p, baxes) if split(sh)
-                          else p, params, shards)
+        def whole(sh, psh) -> bool:     # a whole leaf, its state split
+            return split(sh) and not split(psh)
+
+        part_g = tree_map(sync, grads, shards, fsdp)
+        part_p = tree_map(lambda p, sh, psh: sh.local(p, baxes)
+                          if whole(sh, psh) else p, params, shards, fsdp)
         gnorm = None
         if self.model.axis is not None or any(
                 split(sh) for sh in tree_leaves(shards)):
@@ -277,10 +290,9 @@ class TrainStepBuilder:
             part_p, part_g, opt_state, self.opt, inplace=self.donate,
             gnorm=gnorm)
         new_params = tree_map(
-            lambda p, new, sh: all_gather(new, sh, name,
-                                          out=p if self.donate else None,
-                                          axes=baxes)
-            if split(sh) else new, params, new_parts, shards)
+            lambda p, new, sh, psh: all_gather(
+                new, sh, name, out=p if self.donate else None, axes=baxes)
+            if whole(sh, psh) else new, params, new_parts, shards, fsdp)
         return new_params, new_state, {"loss": loss, "aux_loss": aux, **om}
 
     # -- explicit path ------------------------------------------------------

@@ -16,7 +16,11 @@ Scenarios: llama3.2-3b-smoke at (data 2, model 2) under ``generic``,
 its ``n_heads=6`` variant at (1, 4) -- q heads padded 6 -> 8, kv heads
 replicated 2 -> 4; moonshot-v1-16b-a3b-smoke at (2, 2) with
 ``capacity_factor=0.5``, at which the expert-parallel dispatch drops
-assignments by a capacity per data shard.
+assignments by a capacity per data shard; weight FSDP (``SET
+fsdp=true``) for llama at (2, 2) and (4, 1) under the three ABIs and for
+moonshot at (2, 2) with drops; mamba2-2.7b-smoke and
+recurrentgemma-2b-smoke at (1, 4) and (2, 2). The 4-rank job also runs
+``cli run`` of an FSDP image on its (4, 1) mesh.
 
 Tolerances, those of tests/test_torch_dist.py: loss and grad_norm within
 FP32_TOL = 1e-5 relative (the runs show 1.2e-7 and 4.3e-7 at most),
@@ -99,9 +103,14 @@ def _sc(name, arch, shape, weights, collectives="generic", extra="", **kw):
             "shape": list(shape), "weights": weights, **kw}
 
 
+MAMBA = "mamba2-2.7b-smoke"
+RGEMMA = "recurrentgemma-2b-smoke"
+FSDP = " fsdp=true"
 # (weights key) -> (arch, the tp its geometry is padded for)
-WEIGHTS = {"l2": (LLAMA, 2), "l4": (LLAMA, 4), "pad": (PADDED, 4),
-           "m2": (MOE, 2), "m4": (MOE, 4)}
+WEIGHTS = {"l1": (LLAMA, 1), "l2": (LLAMA, 2), "l4": (LLAMA, 4),
+           "pad": (PADDED, 4), "m2": (MOE, 2), "m4": (MOE, 4),
+           "s2": (MAMBA, 2), "s4": (MAMBA, 4), "r2": (RGEMMA, 2),
+           "r4": (RGEMMA, 4)}
 HELD = [  # held to the JAX step over the same mesh
     _sc("llama_generic", LLAMA, (2, 2), "l2", grads=True),
     _sc("llama_host", LLAMA, (2, 2), "l2", "host", ckpt=True),
@@ -109,9 +118,24 @@ HELD = [  # held to the JAX step over the same mesh
     _sc("llama_explicit", LLAMA, (2, 2), "l2", EXPLICIT),
     _sc("padded", PADDED, (1, 4), "pad", grads=True),
     _sc("moe", MOE, (2, 2), "m2", grads=True),
+    # weight FSDP: SET fsdp=true on the same meshes
+    _sc("fsdp_generic", LLAMA, (2, 2), "l2", extra=FSDP, grads=True),
+    _sc("fsdp_host", LLAMA, (2, 2), "l2", "host", FSDP, ckpt=True),
+    _sc("fsdp_explicit", LLAMA, (2, 2), "l2", EXPLICIT_F32, FSDP),
+    _sc("fsdp_generic_41", LLAMA, (4, 1), "l1", extra=FSDP, grads=True),
+    _sc("fsdp_host_41", LLAMA, (4, 1), "l1", "host", FSDP),
+    _sc("fsdp_explicit_41", LLAMA, (4, 1), "l1", EXPLICIT_F32, FSDP),
+    _sc("fsdp_moe", MOE, (2, 2), "m2", extra=FSDP, grads=True),
+    # ssm and rec blocks on a model axis
+    _sc("mamba_14", MAMBA, (1, 4), "s4", grads=True),
+    _sc("mamba_22", MAMBA, (2, 2), "s2", grads=True),
+    _sc("rgemma_14", RGEMMA, (1, 4), "r4", grads=True),
+    _sc("rgemma_22", RGEMMA, (2, 2), "r2", grads=True),
 ]
+CLI_STEPS = 3
 PLAN = {"tp": {
     "steps": STEPS,
+    "cli": CLI_STEPS,
     "jax": HELD,
     "world4": HELD + [_sc("llama_14", LLAMA, (1, 4), "l4"),
                       _sc("moe_14", MOE, (1, 4), "m4")],
@@ -120,10 +144,24 @@ PLAN = {"tp": {
                    extra=" remat=full"),
                _sc("moe_12", MOE, (1, 2), "m2"),
                _sc("llama_21", LLAMA, (2, 1), "l2"),
-               _sc("llama_21_host", LLAMA, (2, 1), "l2", "host")],
+               _sc("llama_21_host", LLAMA, (2, 1), "l2", "host"),
+               _sc("mamba_12_remat", MAMBA, (1, 2), "s2",
+                   extra=" remat=full"),
+               _sc("rgemma_12_remat", RGEMMA, (1, 2), "r2",
+                   extra=" remat=full"),
+               _sc("fsdp_21_full", LLAMA, (2, 1), "l1",
+                   extra=FSDP + " remat=full"),
+               _sc("fsdp_21_dots", LLAMA, (2, 1), "l1", "host",
+                   FSDP + " remat=dots")],
 }}
 ONE_PROCESS = {"llama_12": ("l2", 2), "llama_14": ("l4", 4),
-               "moe_12": ("m2", 2), "moe_14": ("m4", 4)}
+               "moe_12": ("m2", 2), "moe_14": ("m4", 4),
+               "rgemma_14": ("r4", 4), "rgemma_22": ("r2", 2)}
+# runs whose final params are held to the port's one process at the same
+# geometry rather than to the JAX step's (test_tp_training_matches_jax
+# says why); their losses, grad norms and first-step gradients are held
+# to the JAX step
+PARAMS_TO_ONE_PROCESS = ("rgemma_14", "rgemma_22")
 
 
 def _jax_weights(arch: str, tp: int) -> dict:
@@ -168,6 +206,7 @@ def tp_runs(tmp_path_factory):
     batches = [data.batch(i) for i in range(STEPS)]
     for i, b in enumerate(batches):
         np.savez(work / f"batch{i}.npz", **b)
+    (work / "Imagefile.fsdp").write_text(_image(LLAMA, extra=FSDP))
 
     src = str(ROOT / "src")
     port_env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -214,37 +253,83 @@ def _pick(arrays: dict, prefix: str) -> dict:
     ("llama_explicit_f32", FP32_TOL, PARAM_TOL),
     ("llama_explicit", BF16_TOL, BF16_PARAM_TOL),
     ("padded", FP32_TOL, PARAM_TOL),
-    ("moe", FP32_TOL, PARAM_TOL)])
+    ("moe", FP32_TOL, PARAM_TOL),
+    ("fsdp_generic", FP32_TOL, PARAM_TOL),
+    ("fsdp_host", FP32_TOL, PARAM_TOL),
+    ("fsdp_explicit", FP32_TOL, PARAM_TOL),
+    ("fsdp_generic_41", FP32_TOL, PARAM_TOL),
+    ("fsdp_host_41", FP32_TOL, PARAM_TOL),
+    ("fsdp_explicit_41", FP32_TOL, PARAM_TOL),
+    ("fsdp_moe", FP32_TOL, PARAM_TOL),
+    ("mamba_14", FP32_TOL, PARAM_TOL),
+    ("mamba_22", FP32_TOL, PARAM_TOL),
+    ("rgemma_14", FP32_TOL, PARAM_TOL),
+    ("rgemma_22", FP32_TOL, PARAM_TOL)])
 def test_tp_training_matches_jax(tp_runs, name, tol, ptol):
     """Losses and grad norms of 3 steps, and every leaf of the final
-    params, against the JAX step over the same (data, model) mesh."""
+    params, against the JAX step over the same (data, model) mesh: under
+    ``fsdp=true`` the JAX step's too (its explicit path gathers the params
+    at its region's entry and returns them whole, which the port's
+    explicit path keeps them), and for mamba2 and recurrentgemma with
+    their ``rnn``/``heads`` dims on the model axis.
+
+    recurrentgemma's final params are held to the port's one process at
+    the same geometry instead: with no model axis at all the port's
+    ``gate_a_b`` (zero-initialised, its gradient a near-cancelling sum
+    through the RG-LRU's sqrt(1 - a^2)) ends 3 steps 3.27e-5 relative L2
+    from the JAX step's (its scan sums in another order than
+    ``jax.lax.associative_scan``, and Adam divides each element by its
+    own RMS), over PARAM_TOL before any rank splits it; the ranks end
+    within PARAM_TOL of that one process
+    (test_tp_ranks_equal_one_process), and every leaf's first-step
+    gradient within PARAM_TOL of JAX's (test_tp_gradients_match_jax)."""
     _steps_close(tp_runs["jax"][name]["steps"],
                  tp_runs["port"][name]["steps"], tol)
-    _leaves_close(_pick(tp_runs["jax_arrays"], name + "/"),
-                  _pick(tp_runs["port_arrays"], name + "/"), ptol)
+    want = (tp_runs["one"][name]["params"] if name in PARAMS_TO_ONE_PROCESS
+            else _pick(tp_runs["jax_arrays"], name + "/"))
+    _leaves_close(want, _pick(tp_runs["port_arrays"], name + "/"), ptol)
 
 
-@pytest.mark.parametrize("name", ["llama_generic", "padded", "moe"])
+# a leaf of each run whose gradient the test must see (a replicated one
+# every rank's region adds a part of, or a trap of the ssm layout)
+GRAD_LEAVES = {"llama_generic": ("wk",), "padded": ("wk",),
+               "moe": ("wk", "router"), "fsdp_generic": ("wk",),
+               "fsdp_generic_41": ("wk",), "fsdp_moe": ("router",),
+               "mamba_14": ("conv_w", "conv_b", "gate_norm", "wB"),
+               "mamba_22": ("conv_w", "conv_b", "gate_norm", "wC"),
+               "rgemma_14": ("conv_w", "gate_a_w", "lam", "wk"),
+               "rgemma_22": ("conv_w", "gate_x_w", "wo", "wv")}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_LEAVES))
 def test_tp_gradients_match_jax(tp_runs, name):
     """Every leaf's gradient of the first step (the global batch's, at the
     initial weights): the replicated leaves (``wk``, ``wv``, the router,
-    the norms) included, whose gradient each rank's region adds a part
-    of."""
+    the norms, mamba2's ``wB``/``wC``) included, whose gradient each
+    rank's region adds a part of; under FSDP each rank's part of it,
+    reduce-scattered in the backward. For mamba2 this is the check of
+    the layout's two traps: the conv rows (``conv_w``/``conv_b``: d_inner
+    + 2 ssm_state rows split where ``xi``'s d_inner is not, the B/C rows
+    on the last rank) each get their gradient exactly once, and
+    ``gate_norm``'s gradient comes through ``rms_gated``'s mean over the
+    whole d_inner."""
     prefix = f"{name}/grad/"
     want = {k[len(prefix):]: v for k, v in tp_runs["jax_arrays"].items()
             if k.startswith(prefix)}
     got = {k[len(prefix):]: v for k, v in tp_runs["port_arrays"].items()
            if k.startswith(prefix)}
-    assert any("wk" in k for k in want) and len(want) == len(got)
+    assert want and set(want) == set(got)
+    for leaf in GRAD_LEAVES[name]:
+        assert any(f"['{leaf}']" in k for k in want), leaf
     _leaves_close(want, got, PARAM_TOL)
 
 
 @pytest.mark.parametrize("name", sorted(ONE_PROCESS))
 def test_tp_ranks_equal_one_process(tp_runs, name):
-    """(1, 2) and (1, 4) equal the port's own one-process run at the same
-    padded geometry (for the MoE one data replica's capacity per shard is
-    the global one): losses and grad norms within FP32_TOL, final params
-    within PARAM_TOL. The ranks sum each region's partial outputs and
+    """(1, 2) and (1, 4) -- and recurrentgemma's (2, 2) -- equal the
+    port's own one-process run at the same padded geometry (for the MoE
+    one data replica's capacity per shard is the global one): losses and
+    grad norms within FP32_TOL, final params within PARAM_TOL. The ranks sum each region's partial outputs and
     input gradients over the axis where one process sums them in one
     product, a rounding apart; Adam divides each gradient element by its
     own RMS and so carries that rounding to a share of the learning rate
@@ -297,22 +382,66 @@ def test_param_shards_and_zero1_specs_match_jax(tp_runs):
         assert _norm(t[k]) == _norm(j[k]), k
 
 
+@pytest.mark.parametrize("name", ["fsdp_generic", "fsdp_host",
+                                  "fsdp_moe"])
+def test_fsdp_param_and_opt_specs_match_jax_at_2x2(tp_runs, name):
+    """Under ``fsdp=true`` each rank holds the part of every leaf that the
+    JAX package's param specs give it at (2, 2) (its ``embed`` dim over
+    ``data`` as well as its model-axis dim), and m and v split alike,
+    leaf by leaf."""
+    port, jx = tp_runs["port"][name], tp_runs["jax"][name]
+    assert set(port["param_specs"]) == set(jx["param_specs"])
+    for k, spec in jx["param_specs"].items():
+        assert _norm(port["param_specs"][k]) == _norm(spec), k
+        parts = [2 if e else 1 for e in _norm(spec)]
+        assert [w // n for w, n in zip(jx["param_shapes"][k], parts)] == \
+            port["param_shapes"][k], k
+    assert any("data" in json.dumps(v) for v in jx["param_specs"].values())
+    t = {k[len("['m']"):]: v for k, v in port["opt_specs"].items()
+         if k.startswith("['m']")}
+    assert set(t) == set(jx["opt_specs"])
+    for k, spec in jx["opt_specs"].items():
+        assert _norm(t[k]) == _norm(spec), k
+
+
+@pytest.mark.parametrize("arch,abi", [(LLAMA, "generic"), (LLAMA, "host"),
+                                      (MOE, "generic"), (MAMBA, "host")])
+def test_fsdp_specs_match_jax_at_16x16(tmp_path, arch, abi):
+    """At the ``pod`` platform's (16, 16) the port's FSDP param and
+    optimizer-state specs (the container's rules over its mesh's shape)
+    equal the JAX package's (its container's rules, ``safe_spec`` over a
+    mesh of that shape) leaf by leaf, the full archs' shapes included."""
+    from types import SimpleNamespace
+
+    from repro.dist.sharding import safe_spec as j_safe_spec
+    from repro_torch.configs import get_config
+    full = arch.split()[0].removesuffix("-smoke")
+    img = _image(arch, abi, FSDP)
+    rt = Runtime(tmp_path / "p")
+    c = rt.run(rt.build(img), platform="cpu")
+    jrt = JRuntime(tmp_path / "j")
+    jc = jrt.run(jrt.build(img))
+    assert c.fsdp and jc.rules.rules["embed"] == ("pod", "data")
+    shape = {"data": 16, "model": 16}
+    jmesh = SimpleNamespace(shape=shape, axis_names=("data", "model"))
+    mesh = PlatformMesh(("data", "model"), (16, 16))
+    defs = Model(get_config(full), tp=16).param_defs()
+    for rules, jrules in ((c.rules, jc.rules), (c.opt_rules, jc.opt_rules)):
+        got = dict(_flatten(def_shardings(defs, mesh, rules)))
+        split = 0
+        for k, d in _flatten(defs):
+            want = tuple(j_safe_spec(d.shape, d.logical, jmesh, jrules))
+            assert _norm(got[k].spec) == _norm(want), k
+            split += "data" in json.dumps(want)
+        assert split
+
+
 # ---------------------------------------------------------------------------
 # wire bytes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name,tokens", [
-    ("llama_generic", 4 * S), ("llama_host", 4 * S), ("padded", 8 * S),
-    ("moe", 4 * S), ("llama_12", 8 * S), ("llama_12_remat", 8 * S),
-    ("moe_14", 8 * S)])
-def test_tp_wire_bytes_equal_the_formula(tp_runs, name, tokens):
-    """The bytes each step hands to the model axis equal
-    ``chip_smoke.tp_wire_bytes`` of the shapes (its docstring states the
-    formula: per block the entry and exit all-reduces of (B_local, S, D)
-    and of the k/v heads in the compute dtype, the MoE's routing weights,
-    remat's recomputed exits, the embedding's exit, the head's entry and
-    the cross entropy's three float32 row reductions); the explicit wire
-    is the same."""
+def _scenario(name: str) -> tuple[dict, object, str]:
+    """A scenario of the plan, its arch's config and its remat mode."""
     from repro_torch.configs import get_config
     sc = next(sc for sc in PLAN["tp"]["world4"] + PLAN["tp"]["world2"]
               if sc["name"] == name)
@@ -321,13 +450,61 @@ def test_tp_wire_bytes_equal_the_formula(tp_runs, name, tokens):
     base, *kv = line.split()[1:]
     cfg = get_config(base, **{k: json.loads(v) for k, v in
                               (x.split("=") for x in kv)})
-    remat = "full" if "remat=full" in sc["imagefile"] else "none"
+    remat = next((m for m in ("full", "dots")
+                  if f"remat={m}" in sc["imagefile"]), "none")
+    return sc, cfg, remat
+
+
+@pytest.mark.parametrize("name,tokens", [
+    ("llama_generic", 4 * S), ("llama_host", 4 * S), ("padded", 8 * S),
+    ("moe", 4 * S), ("llama_12", 8 * S), ("llama_12_remat", 8 * S),
+    ("moe_14", 8 * S), ("mamba_14", 8 * S), ("mamba_22", 4 * S),
+    ("rgemma_14", 8 * S), ("rgemma_22", 4 * S),
+    ("mamba_12_remat", 8 * S), ("rgemma_12_remat", 8 * S),
+    ("fsdp_generic", 4 * S), ("fsdp_moe", 4 * S)])
+def test_tp_wire_bytes_equal_the_formula(tp_runs, name, tokens):
+    """The bytes each step hands to the model axis equal
+    ``chip_smoke.tp_wire_bytes`` of the shapes (its docstring states the
+    formula: per block the entry and exit all-reduces of (B_local, S, D)
+    and of the k/v heads in the compute dtype, the MoE's routing weights,
+    the ssm block's B/C entries, norm sums and conv-row gathers, remat's
+    recomputed exits, the embedding's exit, the head's entry and the
+    cross entropy's three float32 row reductions); the explicit wire is
+    the same, and FSDP adds nothing on the model axis. A remat=full run
+    takes the steps of the run without it."""
+    sc, cfg, remat = _scenario(name)
     want = tp_wire_bytes(cfg, cfg.n_kv_heads, tokens, 4, remat)
     assert [s["tp"] for s in tp_runs["port"][name]["steps"]] == \
         [want] * STEPS
     if remat == "full":
-        _steps_close(tp_runs["port"]["llama_12"]["steps"],
+        plain = {"llama_12_remat": "llama_12", "mamba_12_remat": "mamba_14",
+                 "rgemma_12_remat": "rgemma_14"}[name]
+        _steps_close(tp_runs["port"][plain]["steps"],
                      tp_runs["port"][name]["steps"], FP32_TOL)
+
+
+@pytest.mark.parametrize("name", ["fsdp_generic", "fsdp_host",
+                                  "fsdp_generic_41", "fsdp_host_41",
+                                  "fsdp_moe", "fsdp_21_full",
+                                  "fsdp_21_dots"])
+def test_fsdp_wire_bytes_equal_the_formula(tp_runs, name):
+    """The bytes each FSDP step hands to the ABI equal
+    ``chip_smoke.fsdp_wire_bytes`` (its docstring states the formula: the
+    all-gathers at use and at remat's recompute, the reduce-scatters of
+    the gradients, the all-reduces of the leaves FSDP does not split; no
+    all-gather after the update), by operation; and remat=full and
+    remat=dots take the steps of the run without remat."""
+    from chip_smoke import fsdp_wire_bytes
+    sc, cfg, remat = _scenario(name)
+    want = fsdp_wire_bytes(cfg, *sc["shape"], remat)
+    steps = tp_runs["port"][name]["steps"]
+    assert [s["wire"] for s in steps] == [want] * STEPS
+    assert set(steps[0]["abi_by_op"]) <= {"all_gather", "reduce_scatter",
+                                          "all_reduce"}
+    assert steps[0]["abi_by_op"]["all_gather"] > 0
+    if remat != "none":
+        _steps_close(tp_runs["port"]["fsdp_generic_41"]["steps"], steps,
+                     FP32_TOL)
 
 
 @pytest.mark.parametrize("abi", ["generic", "host"])
@@ -361,23 +538,26 @@ def test_abi_bytes_are_each_ranks_shards(tp_runs, abi):
 # checkpoints
 # ---------------------------------------------------------------------------
 
-def _host_ckpt(tp_runs) -> Path:
-    return tp_runs["work"] / "ckpt-llama_host"
+def _host_ckpt(tp_runs, name) -> Path:
+    return tp_runs["work"] / f"ckpt-{name}"
 
 
-def test_tp_checkpoint_resumes_on_one_process(tp_runs):
+@pytest.mark.parametrize("name,extra", [("llama_host", ""),
+                                        ("fsdp_host", FSDP)])
+def test_tp_checkpoint_resumes_on_one_process(tp_runs, name, extra):
     """The (2, 2) host run's step-2 checkpoint (model shards and ZeRO-1
-    parts, gathered whole) restored onto the same mesh gives every rank
-    its parts back exactly, and restored onto one process its step 3
-    equals a straight one-process run's within FP32_TOL."""
-    assert tp_runs["port"]["llama_host"]["restored_equal"] is True
+    parts -- under FSDP the params' parts too -- gathered whole) restored
+    onto the same mesh gives every rank its parts back exactly, and
+    restored onto one process its step 3 equals a straight one-process
+    run's within FP32_TOL."""
+    assert tp_runs["port"][name]["restored_equal"] is True
     work = tp_runs["work"]
-    rt = Runtime(work / "resume")
-    c = rt.run(rt.build(_image(LLAMA, "host")), platform="cpu")
+    rt = Runtime(work / f"resume-{name}")
+    c = rt.run(rt.build(_image(LLAMA, "host", extra)), platform="cpu")
     t = {"params": c.abstract_params(), "opt": c.abstract_opt_state()}
     sh = {"params": c.param_shardings(), "opt": c.opt_state_shardings()}
-    restored = reshard_restore(CheckpointStore(_host_ckpt(tp_runs)), t, sh,
-                               step=2)
+    restored = reshard_restore(CheckpointStore(_host_ckpt(tp_runs, name)),
+                               t, sh, step=2)
     assert int(restored["opt"]["step"]) == 2
     _, _, m = c.train_step_fn()(restored["params"], restored["opt"],
                                 tp_runs["batches"][2])
@@ -386,13 +566,15 @@ def test_tp_checkpoint_resumes_on_one_process(tp_runs):
     _close(straight["grad_norm"], float(m["grad_norm"]), FP32_TOL)
 
 
-def test_tp_checkpoint_loads_in_the_jax_package(tp_runs):
+@pytest.mark.parametrize("name,extra", [("llama_host", ""),
+                                        ("fsdp_host", FSDP)])
+def test_tp_checkpoint_loads_in_the_jax_package(tp_runs, name, extra):
     """The checkpoint holds whole tensors in the single-process layout:
     the JAX package restores it into its own template, equal to the
     port's restore."""
-    root = _host_ckpt(tp_runs)
-    jrt = JRuntime(tp_runs["work"] / "jload")
-    jc = jrt.run(jrt.build(_image(LLAMA, "host")))
+    root = _host_ckpt(tp_runs, name)
+    jrt = JRuntime(tp_runs["work"] / f"jload-{name}")
+    jc = jrt.run(jrt.build(_image(LLAMA, "host", extra)))
     tmpl = {"params": jc.abstract_params(), "opt": jc.abstract_opt_state()}
     jtree = _flat(JStore(root).restore(tmpl, 2))
     ttree = dict(_flatten(CheckpointStore(root).restore(
@@ -400,6 +582,27 @@ def test_tp_checkpoint_loads_in_the_jax_package(tp_runs):
     assert set(jtree) == set(ttree)
     for k, a in jtree.items():
         np.testing.assert_array_equal(np.asarray(a), ttree[k].numpy())
+
+
+def test_cli_run_under_fsdp_equals_one_process(tp_runs, tmp_path):
+    """``cli run`` of an image with ``SET fsdp=true`` on the 4 ranks' local
+    (4, 1) mesh (the ranks' process group, as torchrun's) trains: rank 0's
+    losses equal one process's run of the same image, whose FSDP splits
+    nothing, within FP32_TOL."""
+    from repro_torch.cli import main as cli_main
+
+    def losses(root: Path) -> list:
+        recs = [json.loads(ln) for p in sorted(root.glob(
+            "overlays/*/metrics.jsonl")) for ln in p.read_text().splitlines()]
+        return [r["loss"] for r in sorted(recs, key=lambda r: r["step"])]
+    ranks = losses(tp_runs["work"] / "cli-fsdp")
+    assert cli_main(["--root", str(tmp_path / "one"), "run",
+                     str(tp_runs["work"] / "Imagefile.fsdp"), "--platform",
+                     "cpu", "--steps", str(CLI_STEPS)]) == 0
+    one = losses(tmp_path / "one")
+    assert len(ranks) == len(one) == CLI_STEPS
+    for a, b in zip(one, ranks):
+        _close(a, b, FP32_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -437,27 +640,18 @@ def _raises_13(fn):
         fn()
 
 
-@pytest.mark.parametrize("what", ["fsdp", "ssm", "rec", "decode", "paged",
-                                  "prefill_cache", "powersgd",
-                                  "moe_model_1"])
+@pytest.mark.parametrize("what", ["decode", "paged", "prefill_cache",
+                                  "powersgd", "moe_model_1"])
 def test_unported_raises_naming_item_13(what, tmp_path):
     """What this slice leaves unported raises, naming ROADMAP.md Queue 1
-    item 13: FSDP, ``ssm``/``rec`` blocks on a model axis, decode and
-    paged serving (and a serving prefill) on a rank's shards, PowerSGD on
-    a model axis (the reference compresses whole matrices), and an MoE
-    arch on several data replicas with ``model`` at 1 (which also names
-    Queue 3 item 14, the global capacity)."""
+    item 13: decode and paged serving (and a serving prefill) on a rank's
+    shards, PowerSGD on a model axis (the reference compresses whole
+    matrices), and an MoE arch on several data replicas with ``model`` at
+    1 (which also names Queue 3 item 14, the global capacity)."""
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attn_mod
     rt = Runtime(tmp_path / "rt")
-    if what == "fsdp":
-        rt.build(_image(LLAMA) + "SET fsdp=true\n", tag="f")
-        _raises_13(lambda: rt.run("f", platform="cpu"))
-    elif what in ("ssm", "rec"):
-        arch = {"ssm": "mamba2-2.7b-smoke", "rec": "recurrentgemma-2b-smoke"}
-        _raises_13(lambda: Model(get_config(arch[what]), tp=2,
-                                 axis=_axis(2)))
-    elif what in ("decode", "prefill_cache"):
+    if what in ("decode", "prefill_cache"):
         cfg = get_config(LLAMA)
         m = Model(cfg, tp=2, act_dtype=torch.float32, axis=_axis(2))
         tok = torch.zeros((1, 4), dtype=torch.long)

@@ -291,11 +291,12 @@ def test_abi_generic_vs_host_parity_and_bf16_wire():
 def test_world_one_sync_is_identity_and_unported_settings_raise(
         monkeypatch, tmp_path):
     """On one process the ABI's mean is the identity (a cast to the wire
-    dtype and back). Multi-process data and tensor parallelism are ported;
-    what is not raises, naming its ROADMAP item: FSDP, and an MoE arch on
-    several batch replicas without a model axis (the global capacity). A
-    mesh (the pod platforms included) needs as many ranks as it has
-    devices, as ``jax.make_mesh`` does."""
+    dtype and back), and FSDP splits nothing: its step equals the step
+    without it, bit for bit. Multi-process data and tensor parallelism and
+    FSDP are ported; what is not raises, naming its ROADMAP item: an MoE
+    arch on several batch replicas without a model axis (the global
+    capacity). A mesh (the pod platforms included) needs as many ranks as
+    it has devices, as ``jax.make_mesh`` does."""
     from repro_torch.dist.mesh import make_mesh
     g = {"w": torch.linspace(-1, 1, 7)}
     host = make_abi("host", mode="explicit")
@@ -308,8 +309,21 @@ def test_world_one_sync_is_identity_and_unported_settings_raise(
     rt = Runtime(tmp_path / "rt")
     rt.build(IMAGEFILE.format(arch="llama3.2-3b-smoke")
              + "SET fsdp=true\n", tag="fsdp")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        rt.run("fsdp", platform="cpu")
+    rt.build(IMAGEFILE.format(arch="llama3.2-3b-smoke"), tag="plain")
+    batch = SyntheticLM(DataConfig(vocab_size=256, seq_len=16,
+                                   global_batch=4, seed=1)).batch(0)
+    runs = []
+    for tag in ("fsdp", "plain"):
+        c = rt.run(tag, platform="cpu")
+        assert c.model.fsdp is None
+        params = c.init_params(0)
+        runs.append(c.train_step_fn()(params, c.init_opt_state(params),
+                                      batch))
+    (p1, _, m1), (p2, _, m2) = runs
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p1),
+                                                 tree_leaves(p2)))
     with pytest.raises(ValueError, match="needs 2 ranks; this job has 1"):
         make_mesh((1, 2), ("data", "model"))
     rt.build(IMAGEFILE.format(arch="llama3.2-3b-smoke"), tag="dense")

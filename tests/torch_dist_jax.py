@@ -102,6 +102,8 @@ def main_tp(work: Path, plan: dict) -> None:
         out[sc["name"]] = {"steps": rec,
                            "opt_specs": {k: _spec(v) for k, v in
                                          _flat(ps).items()},
+                           "param_specs": {k: _spec(v) for k, v in _flat(
+                               def_shardings(defs, mesh, rules)).items()},
                            "param_shapes": {k: list(v.shape) for k, v in
                                             _flat(params).items()}}
         arrays.update({f"{sc['name']}/{k}": np.asarray(v, np.float32)

@@ -196,11 +196,14 @@ def _full(tree, shardings, mesh) -> dict:
 def _tp_grads(c, params, batch, mesh) -> dict:
     """The generic step's gradient on the global batch at ``params``:
     each rank's model-axis shard of its replica's gradient, meaned over
-    the batch axes, gathered whole."""
+    the batch axes (an FSDP part arrives meaned from the backward),
+    gathered whole."""
     b = TrainStepBuilder(model=c.model, abi=c.abi, opt=c.opt, mesh=mesh)
     grads, _, _ = b._grads(params, b._local_batch(params, batch))
     baxes = ("pod", "data")
-    grads = {p: replica_mean(g.float(), baxes, mesh, "gather")
+    shs = dict(_flatten(c.param_shardings()))
+    grads = {p: g.float() if shs[p].split(baxes)
+             else replica_mean(g.float(), baxes, mesh, "gather")
              for p, g in _flatten(grads)}
     return _full(_unflat(c.param_defs, grads), c.param_shardings(), mesh)
 
@@ -248,6 +251,7 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
         for i, b in enumerate(batches):
             before = {k: mesh.stats.total(k) for k in (c.abi.name, "tp")}
             by_op = json.loads(json.dumps(mesh.stats.bytes))
+            tp_by_op = dict(mesh.stats.bytes.get("tp", {}))
             params, opt, m = step(params, opt, b)
             steps.append({"loss": float(m["loss"]),
                           "grad_norm": float(m["grad_norm"]),
@@ -258,7 +262,10 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
                           "abi_by_op": {
                               op: n - by_op.get(c.abi.name, {}).get(op, 0)
                               for op, n in mesh.stats.bytes.get(
-                                  c.abi.name, {}).items()}})
+                                  c.abi.name, {}).items()},
+                          "tp_by_op": {
+                              op: n - tp_by_op.get(op, 0) for op, n in
+                              mesh.stats.bytes.get("tp", {}).items()}})
             if i == 0:
                 rec["drops_step1"] = sum(drops)
             if i + 1 == 2 and sc.get("ckpt"):
@@ -280,6 +287,13 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
                        _full(params, c.param_shardings(), mesh).items()})
         out[sc["name"]] = rec
     moe_mod.dispatch_positions = real
+    if world == 4 and "cli" in tp:
+        # the user's entry point: `cli run` of an FSDP image on the job's
+        # local (4, 1) mesh (this process group, as torchrun's would be)
+        from repro_torch.cli import main as cli_main
+        root = work / "cli-fsdp"
+        cli_main(["--root", str(root), "run", str(work / "Imagefile.fsdp"),
+                  "--platform", "cpu", "--steps", str(tp["cli"])])
     if rank == 0:
         np.savez(work / f"tp{world}.npz", **arrays)
     return out
