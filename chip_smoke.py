@@ -198,12 +198,36 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             bytes a step (the port's counter), peak memory a rank
             (beside one process's in (d)), the card's memory in use while
             (b), (d) and (e) run
+  dryrun    the port's dry run (``repro_torch.launch.dryrun``: one rank
+            of a job of fake ranks traced on the meta device under the
+            counter, at H100 data-sheet constants): (a) the paper's
+            Fig. 3 at its scale, deepseek-67b ``train_4k`` under generic
+            and the host arm (host + fsdp, ``--tag host``) and
+            llama4-scout-17b-a16e generic, on the pod (256) and multipod
+            (512) meshes, six processes with no card visible: every cell
+            ok, model FLOPs equal to ``model_flops``, the useful and
+            roofline fractions in (0, 1], cross-pod bytes 0 at pod and
+            above 0 at multipod, deepseek-67b's host arm above generic
+            in wire bytes (pod, multipod) and cross-pod bytes
+            (multipod), as the JAX package's dry run orders the two
+            arms (held on the CPU by tests/test_torch_dryrun.py); the
+            reference's report rows, wire and cross-pod bytes a device
+            printed; (b) the dist phase's (b), (d) and (e) jobs on 2 fake
+            ranks with their images: bytes a step by label and operation
+            and kernel calls a step equal to what the real ranks counted
+            in this run, exactly; (c) one step of (b)'s 2-layer
+            llama3.2-3b on the card under the counter against its meta
+            trace: FLOPs, kernel calls (K2 = 2 x 2, launched) and bytes
+            equal (else every operator that took another path printed);
+            the train phase's full-width step: the trace's bound beside
+            the measured median step, K2 = 28 x 2, the resident estimate
+            beside the measured peak, both on the same side of 80 GB
 
 The kernel counters are set to 0 just before each main path is driven
 (each pod of the serve phase, each prefill and decode run of the batch
 phase, the fig5 calls, each CLI serve, each example, each loopback fleet
 of the fabric phase, each CLI training run, (c) of the dist phase, each run of
-(d) and (e)) and read just
+(d) and (e), the dryrun phase's real step) and read just
 after; a kernel's launches are their sum. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
@@ -230,12 +254,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "fig5", "parity", "serve", "batch",
-          "cli", "examples", "fabric", "train", "dist")
+          "cli", "examples", "fabric", "train", "dist", "dryrun")
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
-# and operations per second by input type (float32 outside tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+# the H100's published peaks (memory rate, operations per second by input
+# type), ``bound_ms`` and each kernel's work (``cost()``) live in the port:
+# ``repro_torch.launch.analysis`` and ``repro_torch.kernels.*.ops``
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 KERNELS = {
@@ -340,12 +363,6 @@ class Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
-
-
-def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -469,14 +486,12 @@ K2_FSDP = ((1, 24, 8, 128, 2048, 2048, 0, "bfloat16"),)
 
 
 def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
-    """K2's bound: q, k, v read and out written once, and 4 flops a (q,
-    k) pair inside the causal window per head dim."""
-    nbytes = B * (2 * Hq * Sq + 2 * Hkv * Sk) * d * isz
-    off = Sk - Sq
-    pairs = sum(min(Sk, i + off + 1)
-                - (max(0, i + off - window + 1) if window else 0)
-                for i in range(Sq))
-    return bound_ms(nbytes, 4.0 * B * Hq * pairs * d, dtype)
+    """K2's bound from its ``cost()``: q, k, v read and out written once,
+    and 4 flops a (q, k) pair inside the causal window per head dim."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.analysis import bound_ms
+    flops, nbytes = fa_ops.cost(B, Hq, Hkv, Sq, Sk, d, isz, window=window)
+    return bound_ms(nbytes, flops, dtype)
 
 
 def k1_case(torch, dtype):
@@ -504,13 +519,18 @@ def k1_pod_case(torch, shape=K1_SHAPE, dtype=None):
     return args, lengths
 
 
-def _k1_bytes(args, lengths, ps, n_kv, hd, g):
-    """Bytes K1 must move: live K+V pages, q and out, table and lengths."""
-    B = len(lengths)
-    isz = args[0].element_size()
-    pages = sum(-(-int(n) // ps) for n in lengths)
-    return (2 * pages * n_kv * ps * hd * isz + 2 * B * n_kv * g * hd * isz
-            + args[3].numel() * 4 + B * 4)
+def k1_bound(args, lengths, dtype):
+    """K1's bound from its ``cost()`` at these inputs and lengths: live K+V
+    pages, q and out, table and lengths moved once; 4 flops a live
+    position per head dim. Returns (ms, by, bytes)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.analysis import bound_ms
+    q, kp, table = args[0], args[1], args[3]
+    n_kv, _, ps, hd = kp.shape
+    flops, nbytes = pa_ops.cost(q.shape[0], q.shape[1], n_kv, hd, ps,
+                                table.shape[1], [int(n) for n in lengths],
+                                q.element_size())
+    return (*bound_ms(nbytes, flops, dtype), nbytes)
 
 
 def phase_kernels(torch, state, timer) -> None:
@@ -546,9 +566,7 @@ def phase_kernels(torch, state, timer) -> None:
             if window == 0 and dname == "bfloat16":
                 ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
                 plain = timer(lambda: paged_attention_ref(*args))
-                nbytes = _k1_bytes(args, lengths, ps, n_kv, hd, g)
-                flops = 4.0 * B * n_kv * g * hd * float(lengths.sum())
-                bms, by = bound_ms(nbytes, flops, dname)
+                bms, by, nbytes = k1_bound(args, lengths, dname)
                 records["paged_attention"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=None)
@@ -575,9 +593,7 @@ def phase_kernels(torch, state, timer) -> None:
     err = float((out.float() - ref.float()).abs().max())
     ok = bool(torch.isfinite(out).all()) and err <= TOL["bfloat16"]
     ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
-    nbytes = _k1_bytes(args, lengths, ps, n_kv, hd, g)
-    bms, by = bound_ms(nbytes, 4.0 * B * n_kv * g * hd * float(lengths.sum()),
-                       "bfloat16")
+    bms, by, nbytes = k1_bound(args, lengths, "bfloat16")
     log(f"kernels: paged_attention at the llama pod's decode (B={B}, lengths "
         f"{sorted(int(n) for n in lengths)}, mp={K1_POD_MP}) bfloat16: "
         f"max_abs_err {err:.3e} (tol {TOL['bfloat16']:g}) "
@@ -608,9 +624,7 @@ def phase_kernels(torch, state, timer) -> None:
             if dname == "bfloat16":
                 ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
                 plain = timer(lambda: paged_attention_ref(*args))
-                nbytes = _k1_bytes(args, lengths, sps, skv, shd, sg)
-                bms, by = bound_ms(nbytes, 4.0 * sb * skv * sg * shd
-                                   * float(lengths.sum()), dname)
+                bms, by, nbytes = k1_bound(args, lengths, dname)
                 line += (f"; time {ms:.4f} ms, plain {plain:.4f} ms, bound "
                          f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB), "
                          f"library none [{state['card']}]")
@@ -715,19 +729,11 @@ K5_POD = K5_CASES[2:4]
 K5_TP = K5_CASES[5:]
 
 
-def ssd_flops(b: int, S: int, H: int, P: int, N: int, Q: int) -> float:
-    """Operations of the chunked SSD, products at or below the diagonal
-    only: head-shared C.B^T, the causal intra-chunk product, the
-    inter-chunk product and the state update (2 flops a multiply-add)."""
-    tri = Q * (Q + 1) // 2
-    per_chunk = 2.0 * (N * tri + H * (tri * P + 2 * Q * N * P))
-    return b * (S // Q) * per_chunk
-
-
 def _kernels_ssd(torch, state, timer) -> list[str]:
     import numpy as np
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import _ssd_chunked
+    from repro_torch.launch.analysis import bound_ms
 
     failures = []
     for case in K5_CASES:
@@ -758,9 +764,7 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
         if case != K5_CASES[0] and case not in K5_POD + K5_TP:
             continue
         ms = timer(lambda: ssd_ops.ssd_cuda(x, dt, A, B, C, Q))
-        nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
-                      + C.numel() + st.numel())
-        flops = ssd_flops(b, S, H, P, N, Q)
+        flops, nbytes = ssd_ops.cost(b, S, H, P, N, Q)
         bms, by = bound_ms(nbytes, flops, "float32")
         # the bound of the arithmetic the kernel runs: three TF32 products
         # for each float32 one, on the tensor cores
@@ -807,6 +811,7 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
     from repro_torch.kernels._launch import device_sms
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.launch.analysis import bound_ms
 
     failures = []
     for case in K4_CASES:
@@ -837,8 +842,8 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
                 f"{'ok' if ok else 'FAIL'}")
             continue
         ms = timer(lambda: rg_ops.rglru_scan_cuda(a, b))
-        nbytes = 3 * a.numel() * 4
-        bms, by = bound_ms(nbytes, 2.0 * a.numel(), "float32")
+        flops, nbytes = rg_ops.cost(*case)
+        bms, by = bound_ms(nbytes, flops, "float32")
         log(f"kernels: rglru_scan B={case[0]} S={case[1]} R={case[2]} "
             f"float32 ({tile}): max_abs_err {err:.3e} (tol {tol:.3e}) "
             f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, bound {bms:.4f} "
@@ -883,6 +888,7 @@ def _mm_inputs(torch, M, K, N, dt, device="cuda"):
 def _kernels_matmul(torch, state, timer) -> list[str]:
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.launch.analysis import bound_ms
 
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     cases = list(K3_CASES) + [(M, K, N, d) for M, K, N in K3_LLAMA
@@ -907,9 +913,7 @@ def _kernels_matmul(torch, state, timer) -> list[str]:
         ms = timer(lambda: mm_ops.matmul_cuda(a, b))
         plain = timer(lambda: matmul_ref(a, b))
         lib = timer(lambda: torch.matmul(a, b))
-        isz = a.element_size()
-        nbytes = (M * K + K * N + M * N) * isz
-        flops = 2.0 * M * N * K
+        flops, nbytes = mm_ops.cost(M, N, K, a.element_size())
         bms, by = bound_ms(nbytes, flops, dname)
         if "matmul" not in state["records"] and (M, K, N) in K3_LLAMA:
             state["records"]["matmul"] = dict(
@@ -2536,7 +2540,6 @@ TRAIN_STRAIGHT = 3          # the straight run's steps: the resumed one last
 # batch on the same card; bf16 products and atomics in the embedding's
 # backward may sum in another order
 TRAIN_RESUME_TOL = 1e-3
-PEAK_BF16 = PEAK_FLOPS["bfloat16"]
 
 
 def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
@@ -2579,6 +2582,7 @@ def _train_grads(torch, state, timer) -> list[str]:
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import _ssd_chunked
+    from repro_torch.launch.analysis import bound_ms
 
     failures = []
     rng = np.random.default_rng(21)
@@ -2629,7 +2633,7 @@ def _train_grads(torch, state, timer) -> list[str]:
     b = cuda(rng.standard_normal(GRAD_K4))
     cot = cuda(rng.standard_normal(GRAD_K4))
     name = "rglru_scan B={} S={} R={} float32".format(*GRAD_K4)
-    k4_bound = bound_ms(3 * a.numel() * 4, 2.0 * a.numel(), "float32")
+    k4_bound = bound_ms(*reversed(rg_ops.cost(*GRAD_K4)), "float32")
     ok, fwd, bwd = _grad_case(torch, timer, state, name, rg_ops.rglru_scan,
                               rglru_scan_ref, (a, b), cot, RGLRU_TOL,
                               rel=True, bound=k4_bound)
@@ -2646,9 +2650,8 @@ def _train_grads(torch, state, timer) -> list[str]:
     Cm = cuda(rng.standard_normal((bsz, S, N)))
     cot = cuda(rng.standard_normal((bsz, S, H, P)))
     name = f"ssd b={bsz} S={S} H={H} P={P} N={N} chunk={Q} float32 (y)"
-    k5_bound = bound_ms(4 * (2 * x.numel() + dt.numel() + A.numel()
-                             + Bm.numel() + Cm.numel() + bsz * H * N * P),
-                        ssd_flops(bsz, S, H, P, N, Q), "float32")
+    k5_bound = bound_ms(*reversed(ssd_ops.cost(bsz, S, H, P, N, Q)),
+                        "float32")
     ok, fwd, bwd = _grad_case(
         torch, timer, state, name,
         lambda *t: ssd_ops.ssd(*t, Q)[0],
@@ -2727,6 +2730,7 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
     from repro_torch.configs import get_config, get_shape_cell
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import train as train_mod
+    from repro_torch.launch.analysis import PEAK_FLOPS
 
     failures = []
     root = workdir / "train"
@@ -2780,13 +2784,14 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
             f"{[round(out['losses'][s], 5) for s in sorted(out['losses'])]}; "
             f"step seconds {[round(t, 4) for t in secs]}, median after the "
             f"first {med:.4f} s = {tokens / med:.1f} tokens/s, model FLOPs "
-            f"{flops / 1e12:.1f} T a step = {100 * flops / med / PEAK_BF16:.1f}"
+            f"{flops / 1e12:.1f} T a step = "
+            f"{100 * flops / med / PEAK_FLOPS['bfloat16']:.1f}"
             f"% of 989 TFLOP/s; peak memory {pk / 2**30:.2f} GiB; "
             f"{wl:.1f} s with checkpoints; launches {cnt}, expected K2 "
             f"{cfg.n_layers} x 2 x {steps} [{state['card']}]")
         state["train"][f"llama run {' '.join(argv)}"] = dict(
             step_s=med, tokens_per_s=tokens / med, peak_gib=pk / 2**30,
-            mfu=flops / med / PEAK_BF16, wall_s=wl)
+            mfu=flops / med / PEAK_FLOPS["bfloat16"], wall_s=wl)
         if not all(np.isfinite(v) for v in out["losses"].values()):
             failures.append(f"run {argv}: a loss is not finite")
         if pk >= 80e9:
@@ -3227,6 +3232,9 @@ def _dist_b(torch, state, workdir: Path) -> tuple[list[str], dict]:
             step_s=[[s["seconds"] for s in r["steps"]] for r in ranks],
             peak_gib=[_gib(r["peak_memory_bytes"]) for r in ranks],
             wire=r0["steps"][-1]["wire_bytes"], wall_s=wall)
+        state["dist_ranks"][f"b {name}"] = dict(
+            text=text, mesh=(2, 1), steps=DIST_B_STEPS,
+            by_op=r0["wire_bytes_by_op"], launches=r0["kernel_launches"])
         if name == "host":
             host_steps = {"root": root, "steps": r0["steps"], "tol": tol,
                           "text": text}
@@ -3381,6 +3389,7 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
     import shutil
     from repro_torch.configs import get_config
     failures, runs, refs = [], [], {"llama3.2-3b": llama_ref}
+    texts = {}
     for arch, layers in DIST_D.items():
         text = _dist_d_image(arch)
         if arch not in refs:
@@ -3390,8 +3399,9 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
         text = DIST_IMAGEFILE.format(arch="llama3.2-3b",
                                      layers=f" n_layers={DIST_B_LAYERS}",
                                      collectives=coll)
+        texts[f"fsdp {name}"] = text + f"SET fsdp=true remat={remat}\n"
         runs.append({"name": f"fsdp {name}", "mesh": [2, 1],
-                     "imagefile": text + f"SET fsdp=true remat={remat}\n"})
+                     "imagefile": texts[f"fsdp {name}"]})
     by_run, seen, used, wall, err = _ranks_runs(torch, workdir, runs)
     shutil.rmtree(workdir / "dist_de")
     if err:
@@ -3443,6 +3453,9 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
             step_s=[[s["seconds"] for s in r["steps"]] for r in rs],
             peak_gib=[_gib(r["peak"]) for r in rs],
             ref_peak_gib=_gib(ref_peak), tp_bytes=want_tp, wall_s=wall)
+        state["dist_ranks"][f"d {arch}"] = dict(
+            text=_dist_d_image(arch), mesh=(1, 2), steps=DIST_D_STEPS,
+            by_op=rs[0]["by_op"], launches=rs[0]["launches"])
         if not ok:
             failures.append(
                 f"(d) {arch}: dloss {dl:.2e}, dgnorm {dg:.2e}, equal "
@@ -3495,6 +3508,9 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
             step_s=[[s["seconds"] for s in r["steps"]] for r in rs],
             peak_gib=[_gib(p) for p in peaks], b_peak_gib=_gib(b_peak),
             wire=want_wire, wall_s=wall)
+        state["dist_ranks"][f"e {name}"] = dict(
+            text=texts[f"fsdp {name}"], mesh=(2, 1), steps=DIST_D_STEPS,
+            by_op=rs[0]["by_op"], launches=rs[0]["launches"])
         if not ok:
             failures.append(
                 f"(e) {name}: dloss {dl:.2e}, dgnorm {dg:.2e}, equal "
@@ -3572,14 +3588,14 @@ def tp_worker(spec_path: str) -> int:
             torch.cuda.reset_peak_memory_stats()
             steps = []
             for i in range(spec["steps"]):
-                tp0, t0 = mesh.stats.total("tp"), time.perf_counter()
-                w0 = mesh.stats.total(c.abi.name)
+                tp0, t0 = mesh.stats.wire_bytes("tp"), time.perf_counter()
+                w0 = mesh.stats.wire_bytes(c.abi.name)
                 params, opt, m = step(params, opt, data.batch(i))
                 loss = float(m["loss"])        # waits for the step
                 steps.append({"loss": loss,
                               "grad_norm": float(m["grad_norm"]),
-                              "tp": mesh.stats.total("tp") - tp0,
-                              "wire": mesh.stats.total(c.abi.name) - w0,
+                              "tp": mesh.stats.wire_bytes("tp") - tp0,
+                              "wire": mesh.stats.wire_bytes(c.abi.name) - w0,
                               "seconds": time.perf_counter() - t0})
             records.append({
                 "name": run["name"], "rank": rank, "pid": os.getpid(),
@@ -3603,7 +3619,7 @@ def tp_worker(spec_path: str) -> int:
 
 def phase_dist(torch, state, workdir: Path) -> None:
     import shutil
-    state["dist"] = {}
+    state["dist"], state["dist_ranks"] = {}, {}
     shutil.rmtree(workdir / "train", ignore_errors=True)   # 38.5 GB
     torch.cuda.empty_cache()
     # one process on (a)'s and (d)'s llama3.2-3b image: (a)'s reference
@@ -3616,6 +3632,272 @@ def phase_dist(torch, state, workdir: Path) -> None:
     failures += b_failures + _dist_c(torch, state, host)
     failures += _dist_de(torch, state, workdir, llama_ref)
     check(not failures, "dist: " + "; ".join(failures))
+
+
+# ---------------------------------------------------------------------------
+# dryrun: one rank of a 256- or 512-card job traced on the meta device
+# ---------------------------------------------------------------------------
+
+# (a) the paper's Fig. 3 at its scale: deepseek-67b train_4k under fig3's
+# two arms (benchmarks/fig3_collective_abi.py:27-31's VARIANTS: generic,
+# and the host arm with FSDP), and llama4-scout-17b-a16e's expert-parallel
+# cell, on the pod (256) and multipod (512) meshes
+DRYRUN_CELLS = (("deepseek-67b", "generic", {"remat": "dots"}, ""),
+                ("deepseek-67b", "host", {"remat": "dots", "fsdp": True},
+                 "host"),
+                ("llama4-scout-17b-a16e", "generic", {"remat": "dots"}, ""))
+DRYRUN_MESHES = ("pod", "multipod")
+
+
+def _dryrun_start(workdir: Path) -> list:
+    """Start (a)'s six cells, one ``python -m repro_torch.launch.dryrun``
+    process each, all at once; no card visible to them."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for arch, abi, settings, tag in DRYRUN_CELLS:
+        for mesh in DRYRUN_MESHES:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", "train_4k", "--mesh", mesh,
+                   "--collectives", abi, "--settings", json.dumps(settings),
+                   "--out", str(workdir / "dryrun")]
+            if tag:
+                cmd += ["--tag", tag]
+            procs.append(subprocess.Popen(
+                cmd, env=env, cwd=str(workdir), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _dryrun_cells(state, workdir: Path, procs: list) -> list[str]:
+    """(a): wait for the six cells and gate their records."""
+    from repro_torch.configs import get_config, get_shape_cell
+    from repro_torch.launch import report
+    from repro_torch.launch.analysis import model_flops
+    failures = []
+    for p in procs:
+        out, _ = p.communicate(timeout=600)
+        for line in out.strip().splitlines():
+            if line.startswith(("[ok", "[FAILED", "[skip")):
+                log(f"dryrun: (a) {line}")
+        if p.returncode != 0:
+            failures.append(f"(a) {p.args[4]} {p.args[8]}: exit "
+                            f"{p.returncode}: {out[-500:]}")
+    recs = {}
+    for arch, abi, _, tag in DRYRUN_CELLS:
+        for mesh in DRYRUN_MESHES:
+            path = (workdir / "dryrun"
+                    / f"{arch}__train_4k__{mesh}{'-' + tag if tag else ''}"
+                    ".json")
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            recs[(arch, abi, mesh)] = rec
+            if rec.get("status") != "ok":
+                failures.append(f"(a) {arch} {abi} {mesh}: "
+                                f"{rec.get('status')} {rec.get('error')}")
+    ok_recs = [r for r in recs.values() if r.get("status") == "ok"]
+    for line in report.table(ok_recs).splitlines():
+        log(f"dryrun: (a) {line}")
+    for (arch, abi, mesh), rec in recs.items():
+        if rec.get("status") != "ok":
+            continue
+        rl, cost = rec["roofline"], rec["cost"]
+        want = model_flops(get_config(arch), get_shape_cell("train_4k"))
+        labels = cost["collective_bytes_by_label"]
+        cross = cost["cross_pod_bytes_per_device"]
+        ok = (rl["model_flops_global"] == want
+              and 0 < rl["useful_flops_fraction"] <= 1
+              and 0 < rl["roofline_fraction"] <= 1
+              and (cross > 0 if mesh == "multipod" else cross == 0))
+        log(f"dryrun: (a) {arch} train_4k {mesh} {abi}"
+            f"{' + fsdp' if rec['settings'].get('fsdp') else ''}: wire "
+            f"bytes a device {cost['wire_bytes_per_device']:,} ({labels}), "
+            f"cross-pod {cross:,}; model FLOPs {rl['model_flops_global']:.4e}"
+            f" (model_flops {want:.4e}); kernel calls {rec['kernel_calls']};"
+            f" resident {rec['memory']['resident_bytes_per_device'] / 2**30:.2f}"
+            f" GiB a rank; traced in {rec['seconds']['lower']:.1f} s "
+            f"{'ok' if ok else 'FAIL'} (H100 data-sheet constants; "
+            f"{state['card']})")
+        if not ok:
+            failures.append(f"(a) {arch} {abi} {mesh}: gates")
+    # Fig. 3's two arms: the JAX package's dry run puts host + fsdp above
+    # generic in wire bytes on both meshes and in cross-pod bytes at
+    # multipod (tests/test_torch_dryrun.py holds the port's ordering to
+    # it at 2 layers); the port's must stand on the same side
+    for mesh, key in (("pod", "wire_bytes_per_device"),
+                      ("multipod", "wire_bytes_per_device"),
+                      ("multipod", "cross_pod_bytes_per_device")):
+        gen = recs.get(("deepseek-67b", "generic", mesh), {})
+        host = recs.get(("deepseek-67b", "host", mesh), {})
+        if not gen.get("status") == host.get("status") == "ok":
+            continue
+        g, h = gen["cost"][key], host["cost"][key]
+        ok = h > g
+        log(f"dryrun: (a) deepseek-67b {mesh} {key}: host + fsdp {h:,} / "
+            f"generic {g:,} = {h / g:.3f} (the JAX package's arms: host "
+            f"above generic) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(a) deepseek-67b {mesh} {key}: host {h} "
+                            f"not above generic {g}")
+    state["dryrun"]["cells"] = {f"{a} {b} {m}": r
+                                for (a, b, m), r in recs.items()}
+    return failures
+
+
+def _dryrun_ranks(state) -> list[str]:
+    """(b): the dist phase's jobs on rank 0 of 2 fake ranks, their bytes a
+    step by label and operation and kernel calls a step against what the
+    ranks counted in this run."""
+    from repro_torch.core.container import Container
+    from repro_torch.core.imagefile import parse_imagefile
+    from repro_torch.dist.mesh import fake_job, make_mesh
+    failures = []
+    ranks = state.get("dist_ranks", {})
+    if len(ranks) != len(DIST_B) + len(DIST_D) + len(DIST_E):
+        failures.append(f"(b) the dist phase recorded {sorted(ranks)}")
+    for name, run in ranks.items():
+        steps = run["steps"]
+        with fake_job(2):
+            mesh = make_mesh(run["mesh"], ("data", "model"))
+            c = Container(parse_imagefile(run["text"]), platform="local",
+                          mesh=mesh, device="meta")
+            low = c.lower_step("train")
+        got = low.collectives.bytes
+        # the checkpoint store's gathers (ZeRO-1 parts made whole for a
+        # save) are the run's, not a step's: the dry run traces one step
+        want = {label: {op: n / steps for op, n in by_op.items()}
+                for label, by_op in run["by_op"].items()
+                if label != "checkpoint"}
+        calls = low.counter.kernel_calls
+        want_calls = {k: n / steps for k, n in run["launches"].items() if n}
+        ok = got == want and calls == want_calls
+        ckpt = run["by_op"].get("checkpoint")
+        log(f"dryrun: (b) {name} on 2 fake ranks, mesh {run['mesh']}: "
+            f"bytes a step {got} (ranks {want}"
+            f"{f'; their checkpoint saves over the run {ckpt}' if ckpt else ''}"
+            f"); kernel calls a step "
+            f"{calls} (ranks' launches {want_calls}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(b) {name}: {got} vs {want}, {calls} vs "
+                            f"{want_calls}")
+    return failures
+
+
+def _op_diffs(a, b) -> dict:
+    return {op: (a.by_op.get(op), b.by_op.get(op))
+            for op in sorted(set(a.by_op) | set(b.by_op))
+            if a.by_op.get(op) != b.by_op.get(op)}
+
+
+def _dryrun_real_step(torch, state) -> list[str]:
+    """(c): one real step on the card under the counter against its meta
+    trace; the full-width step's trace against the train phase."""
+    from repro_torch.core.container import Container
+    from repro_torch.core.imagefile import parse_imagefile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.core.trace import trace
+    from repro_torch.launch import analysis
+    failures = []
+    text = DIST_IMAGEFILE.format(arch="llama3.2-3b",
+                                 layers=f" n_layers={DIST_B_LAYERS}",
+                                 collectives="generic")
+    c = Container(parse_imagefile(text))
+    params = c.init_params(0)
+    opt = c.init_opt_state(params)
+    step = c.train_step_fn(donate=True)
+    data = SyntheticLM(DataConfig(vocab_size=c.arch.vocab_size,
+                                  seq_len=c.cell.seq_len,
+                                  global_batch=c.cell.global_batch, seed=0))
+    # the batch as the step keeps it (int64 on the card), made before the
+    # counter, as a meta trace's inputs are
+    batch = {k: torch.as_tensor(v).long().to(c.device)
+             for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    real, _ = trace(step, (params, opt, batch), c.mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = _main_path_counts(state)
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    meta = Container(parse_imagefile(text), device="meta").lower_step()
+    r, m = real.counter, meta.counter
+    diffs = _op_diffs(r, m)
+    other_path = any(a is None or b is None or a[2] != b[2]
+                     for a, b in diffs.values())
+    want_k2 = {"flash_attention_fwd": DIST_B_LAYERS * 2}
+    launched = {k: n for k, n in launches.items() if n}
+    ok = (r.flops == m.flops and r.kernel_calls == m.kernel_calls == want_k2
+          and launched == want_k2 and (r.bytes == m.bytes or other_path))
+    est = meta.memory()["resident_bytes"]
+    log(f"dryrun: (c) one step of llama3.2-3b at {DIST_B_LAYERS} layers on "
+        f"the card under the counter vs its meta trace: FLOPs "
+        f"{r.flops:,} / {m.flops:,}; bytes {r.bytes:,} / {m.bytes:,}; "
+        f"kernel calls {r.kernel_calls} / {m.kernel_calls}, launches "
+        f"{launched}; operators that differ (flops, bytes, calls) card / "
+        f"meta {diffs}; resident estimate {est / 2**30:.2f} GiB, measured "
+        f"peak {peak / 2**30:.2f} GiB, ratio {est / peak:.3f} "
+        f"{'ok' if ok else 'FAIL'} [{state['card']}]")
+    if not ok:
+        failures.append(f"(c) real step vs trace: {diffs}")
+
+    # the train phase's full-width step: its bound beside the measured
+    # median, its K2 calls, and whether it fits the card
+    full = Container(parse_imagefile(TRAIN_IMAGEFILE), device="meta")
+    low = full.lower_step()
+    rl = analysis.roofline(low.cost(), analysis.model_flops(full.arch,
+                                                            full.cell), 1)
+    mem = low.memory()
+    run = state.get("train", {}).get(f"llama run {' '.join(TRAIN_RUN)}",
+                                     {})
+    measured = run.get("peak_gib", float("nan")) * 2**30
+    fits = mem["resident_bytes"] <= analysis.HBM_PER_CHIP
+    total = torch.cuda.get_device_properties(0).total_memory
+    want_k2 = {"flash_attention_fwd": full.arch.n_layers * 2}
+    ok = (low.counter.kernel_calls == want_k2 and bool(run)
+          and fits == (measured <= analysis.HBM_PER_CHIP))
+    log(f"dryrun: (c) llama3.2-3b full width, 2 x 2048 tokens, remat=full: "
+        f"bound {rl.bound_s:.4f} s ({rl.dominant}: compute "
+        f"{rl.compute_s:.4f}, memory {rl.memory_s:.4f} s at H100 data-sheet "
+        f"peaks) beside the train phase's median step "
+        f"{run.get('step_s', float('nan')):.4f} s; FLOPs "
+        f"{low.counter.flops:.4e}, bytes {low.counter.bytes:.4e}; K2 calls "
+        f"{low.counter.kernel_calls} (want {want_k2}); resident estimate "
+        f"{mem['resident_bytes'] / 2**30:.2f} GiB (arguments "
+        f"{mem['argument_bytes'] / 2**30:.2f}, temp "
+        f"{mem['temp_bytes'] / 2**30:.2f}) vs the train phase's measured "
+        f"peak {measured / 2**30:.2f} GiB, ratio "
+        f"{mem['resident_bytes'] / measured:.3f}; fits {fits} "
+        f"(HBM_PER_CHIP {analysis.HBM_PER_CHIP:,}, the card's total_memory "
+        f"{total:,}) {'ok' if ok else 'FAIL'} [{state['card']}]")
+    state["dryrun"]["real_step"] = dict(
+        flops=r.flops, bytes=[r.bytes, m.bytes], diffs=diffs,
+        est_gib=est / 2**30, peak_gib=peak / 2**30,
+        full_bound_s=rl.bound_s, full_step_s=run.get("step_s"),
+        full_est_gib=mem["resident_bytes"] / 2**30,
+        full_peak_gib=measured / 2**30)
+    if not ok:
+        failures.append("(c) the full-width step's trace")
+    return failures
+
+
+def phase_dryrun(torch, state, workdir: Path) -> None:
+    """(a) in six processes while (b) and (c) run here."""
+    state["dryrun"] = {}
+    t0 = time.perf_counter()
+    procs = _dryrun_start(workdir)
+    try:
+        failures = _dryrun_ranks(state)
+        failures += _dryrun_real_step(torch, state)
+        failures += _dryrun_cells(state, workdir, procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    took = time.perf_counter() - t0
+    log(f"dryrun: {took:.1f} s by the phase's clock")
+    check(not failures, "dryrun: " + "; ".join(failures))
 
 
 def main() -> int:
@@ -3671,6 +3953,8 @@ def main() -> int:
                     phase_train(torch, state, timer, workdir)
                 elif phase == "dist":
                     phase_dist(torch, state, workdir)
+                elif phase == "dryrun":
+                    phase_dryrun(torch, state, workdir)
             except Exception as e:          # report every phase, then fail
                 failed.append(phase)
                 log(f"FAIL {phase}: {type(e).__name__}: {e}")

@@ -42,6 +42,15 @@ asked for (ROADMAP.md Queue 1 item 13): PowerSGD on a model axis, and
 serving across ranks; an MoE arch with several batch replicas needs the
 expert-parallel dispatch (a model axis dividing its experts): ROADMAP.md
 Queue 3 item 14.
+
+The dry run's entry points (the JAX package's lowering methods):
+``input_specs``, ``slot_cache_specs``/``paged_cache_specs`` and their
+shardings, ``lower_step`` and ``lower_unit_probe``, which trace one step
+(or one unit of a stage) under ``core.trace.Counter`` on this
+container's device and return its ``Lowered`` (``cost()``,
+``memory()``), and ``compile_step``. ``device`` names the device outright
+(only the dry run passes one: ``meta``, one rank of a job of fake ranks,
+``dist.mesh.fake_job``); without it the platform's.
 """
 
 from __future__ import annotations
@@ -63,13 +72,14 @@ from repro_torch.configs import get_config, get_shape_cell
 from repro_torch.core.abi import CollectiveABI, abi_from_image_config
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.image import EnvImage
+from repro_torch.core.trace import Lowered, trace
 from repro_torch.dist.mesh import (NOT_PORTED, PlatformMesh, batch_axes,
                                    make_platform_mesh, resolve_device)
 from repro_torch.dist.sharding import (NamedSharding, ShardingRules,
                                        def_shardings, fsdp_of, model_axis)
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.params import (materialize, params_from_jax,
-                                       tree_map)
+                                       tree_leaves, tree_map)
 from repro_torch.models.transformer import Model
 from repro_torch.serve.serve_step import ServeStepBuilder, dispatch_class
 from repro_torch.train.optimizer import OptConfig, adamw_init
@@ -91,7 +101,8 @@ class Container:
     def __init__(self, image: EnvImage, platform: str | None = None,
                  overlay_root: str | os.PathLike | None = None,
                  compile_cache: CompileCache | None = None,
-                 mesh: PlatformMesh | None = None):
+                 mesh: PlatformMesh | None = None,
+                 device: torch.device | str | None = None):
         self.image = image
         cfg = image.config()
         if cfg["arch"] is None:
@@ -109,7 +120,8 @@ class Container:
         mesh_cfg = dict(cfg.get("mesh") or {"platform": "local"})
         self.platform = platform or mesh_cfg.get("platform", "local")
         self.mesh = mesh or make_platform_mesh(self.platform)
-        self.device: torch.device = resolve_device(self.platform)
+        self.device: torch.device = (torch.device(device) if device is not None
+                                     else resolve_device(self.platform))
         self.abi: CollectiveABI = abi_from_image_config(cfg)
         tp = self.mesh.shape.get("model", 1)
         replicas = self.mesh.axes_size(batch_axes(self.mesh))
@@ -414,6 +426,165 @@ class Container:
         acct["misses"] += stats.misses - miss0
         acct["seconds"] += stats.last_seconds
         return fn
+
+    # -- input specs (meta stand-ins; no allocation) --------------------------
+    def _local_meta(self, defs, shardings, dtype_of) -> dict:
+        """Meta tensors of this rank's part of each def."""
+        return tree_map(lambda d, sh: _meta(sh.local_shape(d.shape),
+                                            dtype_of(d)), defs, shardings)
+
+    def _replicas(self) -> int:
+        return self.mesh.axes_size(batch_axes(self.mesh))
+
+    def input_specs(self, kind: str | None = None) -> dict:
+        """Meta tensors of this rank's inputs to a ``kind`` step at the
+        cell's shapes (the JAX package's keys): its rows of the batch
+        (tokens and labels as int64, what the step reads), the cache of its
+        rows, a (B, 1) token column and a 0-d int32 position."""
+        cell = self.cell
+        if cell is None:
+            raise ValueError("image has no SHAPE layer")
+        kind = kind or cell.kind
+        B, S = cell.global_batch, cell.seq_len
+        reps = self._replicas()
+        if B % reps:
+            raise ValueError(f"a global batch of {B} rows does not split "
+                             f"over {reps} replicas")
+        B //= reps
+        fe_len = self.arch.frontend_len if self.arch.frontend else 0
+        tok = _meta((B, S - fe_len), torch.int64)
+        fe = (_meta((B, fe_len, self.arch.d_model), self.cache_dtype)
+              if fe_len else None)
+        if kind == "train":
+            batch = {"tokens": tok, "labels": _meta((B, S - fe_len),
+                                                    torch.int64)}
+            if fe is not None:
+                batch["frontend_embeds"] = fe
+            return {"batch": batch}
+        if kind == "prefill":
+            out = {"tokens": tok}
+            if fe is not None:
+                out["frontend_embeds"] = fe
+            return out
+        if kind == "decode":
+            defs = self.model.cache_defs(cell.global_batch, S)
+            return {"cache": self._local_meta(
+                        defs, def_shardings(defs, self.mesh, self.rules),
+                        self.cache_leaf_dtype),
+                    "tokens": _meta((B, 1), torch.int64),
+                    "idx": _meta((), torch.int32)}
+        raise ValueError(f"unknown step kind {kind!r}")
+
+    def slot_cache_specs(self, n_slots: int, max_len: int):
+        """Meta tensors of a slot cache (``init_slot_cache``'s shapes and
+        dtypes, whole)."""
+        return tree_map(lambda d: _meta(d.shape, self.cache_leaf_dtype(d)),
+                        self.model.cache_defs(n_slots, max_len))
+
+    def slot_cache_shardings(self, n_slots: int, max_len: int):
+        return def_shardings(self.model.cache_defs(n_slots, max_len),
+                             self.mesh, self.rules, self.device)
+
+    def paged_cache_specs(self, n_pages: int, page_size: int):
+        """Meta tensors of a page pool (``init_paged_cache``'s, whole)."""
+        return tree_map(lambda d: _meta(d.shape, self.cache_leaf_dtype(d)),
+                        self.model.paged_cache_defs(n_pages, page_size))
+
+    def paged_cache_shardings(self, n_pages: int, page_size: int):
+        return def_shardings(self.model.paged_cache_defs(n_pages, page_size),
+                             self.mesh, self.rules, self.device)
+
+    # -- lowering (the dry run's entry) ------------------------------------------
+    def _rank_params(self):
+        """This rank's parts of the params, uninitialised, on this
+        container's device (``meta`` in the dry run)."""
+        return tree_map(lambda d, sh: torch.empty(
+            sh.local_shape(d.shape), dtype=self.param_dtype,
+            device=self.device), self.param_defs, self.param_shardings())
+
+    def _on_device(self, tree):
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=self.device), tree)
+
+    def lower_step(self, kind: str | None = None,
+                   donate: bool = True) -> Lowered:
+        """Trace one ``kind`` step of this image's cell on this container's
+        device (``core.trace.trace``): this rank's params and
+        optimizer state, uninitialised, and its inputs (``input_specs``).
+        A train step takes the global batch and keeps its rows (a view),
+        so its arguments count this rank's rows only; ``donate`` updates
+        params and optimizer state in place."""
+        kind = kind or (self.cell.kind if self.cell else "train")
+        specs = self._on_device(self.input_specs(kind))
+        params = self._rank_params()
+        if kind == "train":
+            opt_state = self.init_opt_state(params)
+            args_bytes = sum(t.nbytes for t in tree_leaves(
+                {"p": params, "o": opt_state, "b": specs["batch"]})
+                if t is not None)
+            reps = self._replicas()
+            batch = {k: v.new_empty((v.shape[0] * reps, *v.shape[1:]))
+                     for k, v in specs["batch"].items()}
+            step = self.train_step_fn(donate=donate)
+            return trace(step, (params, opt_state, batch), self.mesh,
+                         args_bytes)[0]
+        if kind == "prefill":
+            args = (params, specs["tokens"])
+            if "frontend_embeds" in specs:
+                args += (specs["frontend_embeds"],)
+            return trace(self.prefill_fn(), args, self.mesh)[0]
+        if kind == "decode":
+            return trace(self.decode_fn(), (params, specs["cache"],
+                                            specs["tokens"], specs["idx"]),
+                         self.mesh)[0]
+        raise ValueError(f"unknown step kind {kind!r}")
+
+    def lower_unit_probe(self, si: int,
+                         kind: str | None = None) -> tuple[Lowered, int]:
+        """Trace one unit of stage ``si`` (``Model.unit_probe``) on this
+        rank's parts and rows -> (its ``Lowered``, the stage's unit
+        count)."""
+        kind = kind or (self.cell.kind if self.cell else "train")
+        st = self.model.stages[si]
+        cell = self.cell
+        B = cell.global_batch // self._replicas()
+        S = cell.seq_len if kind != "decode" else 1
+        udefs = self.model.unit_param_defs(si)
+        up = tree_map(lambda d, sh: torch.empty(
+            sh.local_shape(d.shape), dtype=self.param_dtype,
+            device=self.device), udefs,
+            def_shardings(udefs, self.mesh, self.rules))
+        x = torch.empty((B, S, self.arch.d_model), dtype=self.model.act_dtype,
+                        device=self.device)
+        probe = self.model.unit_probe(si, kind)
+        if kind in ("train", "prefill"):
+            pos = torch.empty((1, S), dtype=torch.int32, device=self.device)
+            return trace(probe, (up, x, pos), self.mesh)[0], st.count
+        if kind == "decode":
+            cdefs = self.model.unit_cache_defs(si, cell.global_batch,
+                                               cell.seq_len)
+            cache = self._on_device(self._local_meta(
+                cdefs, def_shardings(cdefs, self.mesh, self.rules),
+                self.cache_leaf_dtype))
+            idx = torch.empty((), dtype=torch.int32, device=self.device)
+            return trace(probe, (up, cache, x, idx), self.mesh)[0], st.count
+        raise ValueError(f"unknown step kind {kind!r}")
+
+    def compile_step(self, kind: str | None = None) -> Callable:
+        """The built ``kind`` step (``train_step_fn``, ``prefill_fn`` or
+        ``decode_fn``), through the CompileCache when one is attached:
+        the built callable is the port's one level (an eager step has no
+        executable to keep)."""
+        kind = kind or (self.cell.kind if self.cell else "train")
+        builders = {"train": self.train_step_fn, "prefill": self.prefill_fn,
+                    "decode": self.decode_fn}
+        if kind not in builders:
+            raise ValueError(f"unknown step kind {kind!r}")
+        if self.compile_cache is None:
+            return builders[kind]()
+        key = self.compile_cache.key(image_digest=self.image.digest,
+                                     step_kind=kind, device=self.device)
+        return self.compile_cache.get_or_build(key, builders[kind])
 
     # -- overlay (writable layer) ----------------------------------------------
     def ensure_overlay(self) -> Path:

@@ -33,7 +33,16 @@ the identity.
 
 ``collective`` runs one collective over a group and counts what it was
 handed in the mesh's ``CollectiveStats`` under a label (the ABI's name,
-``"tp"`` for the model axis, ``"metrics"`` for the step's scalars).
+``"tp"`` for the model axis, ``"metrics"`` for the step's scalars), and
+as cross-pod where the group's ranks lie in more than one pod of
+``POD_SIZE`` (a mesh of more than one pod). On ``meta`` tensors it neither
+stages nor synchronises.
+
+``fake_job`` makes this process rank 0 of a job of fake ranks
+(``torch.distributed``'s ``fake`` backend: every collective returns at
+once and moves nothing), so a Container can build one rank's parts of a
+256- or 512-rank job on the ``meta`` device and trace its step: the dry
+run (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import itertools
 import math
 import os
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -59,32 +69,66 @@ NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1 item 13: serving across "
               "ranks -- a 'model' axis above 1, or FSDP parts -- and "
               "PowerSGD at a 'model' axis above 1)")
 _RING = {"all_reduce": 2, "reduce_scatter": 1, "all_gather": 1}
+POD_SIZE = 256          # ranks a pod: the JAX package's 16 x 16
 
 
 @dataclass
 class CollectiveStats:
-    """What this rank handed to collectives: bytes by ABI name and
-    operation, counted as the JAX package's HLO analysis counts them
-    (``repro/launch/analysis.py``): an all-reduce twice its tensor (the
-    ring's reduce-scatter and all-gather), a reduce-scatter its input, an
-    all-gather its output; plus the collectives' seconds and calls."""
+    """What this rank handed to collectives: bytes by label (the ABI's
+    name) and operation, counted as the JAX package's HLO analysis counts
+    them (``repro/launch/analysis.py``): an all-reduce twice its tensor
+    (the ring's reduce-scatter and all-gather; the JAX package doubles it
+    in ``wire_bytes`` instead), a reduce-scatter its input, an all-gather
+    its output; calls by operation, the bytes of collectives whose group
+    spans a pod boundary, and the collectives' seconds and calls."""
 
     bytes: dict = field(default_factory=dict)
     seconds: float = 0.0
     calls: int = 0
+    count_by_op: dict = field(default_factory=dict)
+    cross_pod_bytes: int = 0
 
-    def add(self, abi: str, op: str, nbytes: int, seconds: float) -> None:
+    def add(self, abi: str, op: str, nbytes: int, seconds: float,
+            cross_pod: bool = False) -> None:
         by_op = self.bytes.setdefault(abi, {})
         by_op[op] = by_op.get(op, 0) + nbytes
+        self.count_by_op[op] = self.count_by_op.get(op, 0) + 1
+        if cross_pod:
+            self.cross_pod_bytes += nbytes
         self.seconds += seconds
         self.calls += 1
 
-    def total(self, abi: str | None = None) -> int:
-        rows = [self.bytes.get(abi, {})] if abi else self.bytes.values()
+    def merge(self, other: "CollectiveStats", scale: int = 1) -> None:
+        """Add ``other``'s bytes, counts and cross-pod bytes ``scale``
+        times (the JAX package's ``CollectiveStats.add``)."""
+        for abi, by_op in other.bytes.items():
+            mine = self.bytes.setdefault(abi, {})
+            for op, b in by_op.items():
+                mine[op] = mine.get(op, 0) + b * scale
+        for op, c in other.count_by_op.items():
+            self.count_by_op[op] = self.count_by_op.get(op, 0) + c * scale
+        self.cross_pod_bytes += other.cross_pod_bytes * scale
+        self.seconds += other.seconds * scale
+        self.calls += other.calls * scale
+
+    @property
+    def bytes_by_op(self) -> dict:
+        """Bytes by operation, over every label."""
+        out: dict = {}
+        for by_op in self.bytes.values():
+            for op, b in by_op.items():
+                out[op] = out.get(op, 0) + b
+        return out
+
+    def wire_bytes(self, label: str | None = None) -> int:
+        """This rank's bytes on the wire (an all-reduce already counted
+        twice): ``label``'s, or every label's."""
+        rows = [self.bytes.get(label, {})] if label else self.bytes.values()
         return sum(n for by_op in rows for n in by_op.values())
 
     def reset(self) -> None:
         self.bytes, self.seconds, self.calls = {}, 0.0, 0
+        self.count_by_op, self.cross_pod_bytes = {}, 0
 
 
 @dataclass(eq=False)
@@ -101,6 +145,7 @@ class PlatformMesh:
     backend: str | None = None
     groups: dict = field(default_factory=dict, repr=False)
     stats: CollectiveStats = field(default_factory=CollectiveStats)
+    _memo: dict = field(default_factory=dict, repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -114,10 +159,13 @@ class PlatformMesh:
     def coords(self, rank: int | None = None) -> dict[str, int]:
         """The mesh coordinates of ``rank`` (default: this process)."""
         r = self.rank if rank is None else rank
-        out = {}
-        for name, n in reversed(list(zip(self.axis_names, self.dims))):
-            r, out[name] = divmod(r, n)
-        return {a: out[a] for a in self.axis_names}
+        key = ("coords", r)
+        if key not in self._memo:
+            out = {}
+            for name, n in reversed(list(zip(self.axis_names, self.dims))):
+                r, out[name] = divmod(r, n)
+            self._memo[key] = {a: out[a] for a in self.axis_names}
+        return dict(self._memo[key])
 
     def axes_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape.get(a, 1) for a in axes)
@@ -137,11 +185,36 @@ class PlatformMesh:
     def members(self, axes: Sequence[str]) -> list[int]:
         """The ranks of ``group(axes)``, in the group's rank order (row-major
         over ``axes``)."""
+        axes = self._key(axes)
+        key = ("members", self.rank, axes)
+        if key not in self._memo:
+            mine = self.coords()
+            self._memo[key] = [r for r in range(self.size)
+                               if all(v == mine[a]
+                                      for a, v in self.coords(r).items()
+                                      if a not in axes)]
+        return list(self._memo[key])
+
+    def group_lists(self, axes: Sequence[str]) -> list[list[int]]:
+        """Every group of ranks that differ only along ``axes`` (one for
+        each value of the other coordinates), each in rank order."""
         key = self._key(axes)
-        mine = self.coords()
-        return [r for r in range(self.size)
-                if all(v == mine[a] for a, v in self.coords(r).items()
-                       if a not in key)]
+        members: dict[tuple, list[int]] = {}
+        for r in range(self.size):
+            other = tuple(v for a, v in self.coords(r).items()
+                          if a not in key)
+            members.setdefault(other, []).append(r)
+        return sorted(members.values())
+
+    def crosses_pod(self, axes: Sequence[str]) -> bool:
+        """Whether a group over ``axes`` holds ranks of two pods (rank //
+        ``POD_SIZE``); never on a mesh of one pod or less."""
+        key = ("crosses_pod", self._key(axes))
+        if key not in self._memo:
+            self._memo[key] = self.size > POD_SIZE and any(
+                len({r // POD_SIZE for r in g}) > 1
+                for g in self.group_lists(key[1]))
+        return self._memo[key]
 
     def broadcast_object(self, obj: Any) -> Any:
         """Rank 0's ``obj`` on every rank (the identity on one rank)."""
@@ -192,16 +265,31 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> PlatformMesh:
             for key in itertools.combinations(split, n):
                 if mesh.axes_size(key) == world:
                     continue
-                # one group per value of the other coordinates
-                members: dict[tuple, list[int]] = {}
-                for r in range(world):
-                    c = mesh.coords(r)
-                    other = tuple(v for a, v in c.items() if a not in key)
-                    members.setdefault(other, []).append(r)
                 mine, _ = torch.distributed.new_subgroups_by_enumeration(
-                    sorted(members.values()))
+                    mesh.group_lists(key))
                 mesh.groups[key] = mine
     return mesh
+
+
+@contextmanager
+def fake_job(world: int):
+    """This process as rank 0 of a job of ``world`` ranks on
+    ``torch.distributed``'s ``fake`` backend: groups are made and every
+    collective returns at once, moving nothing. The job ends (its process
+    group destroyed) when the block does. For tracing one rank's step on
+    the ``meta`` device (``launch/dryrun.py``); it raises inside another
+    job."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist = torch.distributed
+    if dist.is_initialized():
+        raise RuntimeError("fake_job: this process is already in a "
+                           "torch.distributed job")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_platform_mesh(platform: str = "local") -> PlatformMesh:
@@ -277,4 +365,13 @@ def collective(mesh: PlatformMesh, label: str, op: str, out: torch.Tensor,
     if out.is_cuda:
         torch.cuda.synchronize(out.device)
     nbytes = (out if op == "all_gather" else inp).nbytes * _RING[op]
-    mesh.stats.add(label, op, nbytes, time.perf_counter() - t0)
+    cross = mesh.size > POD_SIZE and mesh.crosses_pod(_group_axes(mesh,
+                                                                  group))
+    mesh.stats.add(label, op, nbytes, time.perf_counter() - t0, cross)
+
+
+def _group_axes(mesh: PlatformMesh, group) -> tuple[str, ...]:
+    """The axes whose process group ``group`` is (``None``: all)."""
+    if group is None:
+        return mesh.axis_names
+    return next(k for k, g in mesh.groups.items() if g is group)

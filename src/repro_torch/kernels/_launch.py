@@ -1,6 +1,7 @@
 """What every kernel wrapper shares: dtype codes, the current stream, the
-card's SM count, and turning a launcher's return code into an
-exception."""
+card's SM count, turning a launcher's return code into an exception, and
+the counter of a traced step (``core.trace.Counter``) that a wrapper
+reports its work to."""
 
 from __future__ import annotations
 
@@ -51,3 +52,31 @@ def raise_on_error(rc: int, lib, error_fn: str, kernel: str) -> None:
         msg = getattr(lib, error_fn)(rc)
         raise RuntimeError(f"{kernel}: CUDA error {rc} "
                            f"({msg.decode() if msg else 'unknown'})")
+
+
+# the counter entered last (``core.trace.Counter``): process-wide, as
+# torch's dispatch-mode stack is
+_active = None
+
+
+def active():
+    """The counter entered last and not yet left (``None`` outside one):
+    the one check a kernel wrapper makes on each call. A wrapper inside
+    one adds its ``cost()`` through ``counter.kernel`` and, on ``meta``
+    tensors, returns empty outputs of the kernel's shapes."""
+    return _active
+
+
+def set_active(counter):
+    """Make ``counter`` (or ``None``) the active one; returns the one it
+    replaces."""
+    global _active
+    prev, _active = _active, counter
+    return prev
+
+
+def on_card_route(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's route where the model code chooses
+    one by device: a CUDA tensor, or a ``meta`` tensor inside a counter
+    (a traced step stands for the card)."""
+    return t.is_cuda or (t.is_meta and _active is not None)

@@ -18,17 +18,23 @@ the saved inputs and returns that version's vjp, as the JAX package's
 ``launches`` counts forward kernel launches (CPU calls do not count), so a
 run can show that its prefill or training path went through the kernel;
 under ``torch.utils.checkpoint`` the recomputed forward launches again.
+
+Inside a ``core.trace.Counter`` the forward adds ``cost()`` there, on
+any device, and on a ``meta`` tensor returns an empty output of the
+kernel's shape (a traced step: the dry run). Outside one a ``meta``
+tensor raises like any device without a kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (dtype_code, raise_on_error, require,
-                                         stream_ptr)
+from repro_torch.kernels._launch import (active, dtype_code, raise_on_error,
+                                         require, stream_ptr)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the kernels' compiled head dims
@@ -102,7 +108,40 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+@lru_cache(maxsize=256)
+def _pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head attends: inside the causal window, with
+    the Sk - Sq offset."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq
+    return sum(min(Sk, i + off + 1)
+               - (max(0, i + off - window + 1) if window else 0)
+               for i in range(Sq))
+
+
+def cost(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, d: int, isz: int,
+         causal: bool = True, window: int = 0) -> tuple[float, int]:
+    """(FLOPs, bytes) of one forward: q, k, v read and out written once
+    (``isz`` bytes an element), and 4 flops a (q, k) pair inside the
+    causal window per head dim."""
+    nbytes = B * (2 * Hq * Sq + 2 * Hkv * Sk) * d * isz
+    return 4.0 * B * Hq * _pairs(Sq, Sk, causal, window) * d, nbytes
+
+
 def _forward(q, k, v, causal, window, scale):
+    counter = active()
+    if counter is None:
+        return _run(q, k, v, causal, window, scale)
+    (B, Hq, Sq, d), (Hkv, Sk) = q.shape, k.shape[1:3]
+    with counter.kernel("flash_attention_fwd", *cost(
+            B, Hq, Hkv, Sq, Sk, d, q.element_size(), causal, window)):
+        if q.is_meta:
+            return torch.empty_like(q)
+        return _run(q, k, v, causal, window, scale)
+
+
+def _run(q, k, v, causal, window, scale):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)

@@ -27,7 +27,9 @@ kernels phase of ``chip_smoke.py`` reports beside each row.
 
 ``launches`` counts every kernel launch, wherever it comes from (CPU calls
 and empty products do not count), so a run can show that its path went
-through the kernel.
+through the kernel. Inside a ``core.trace.Counter`` ``matmul`` adds
+``cost()`` there, on any device, and on ``meta`` tensors returns an empty
+product (the dry run).
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (dtype_code, raise_on_error, require,
-                                         stream_ptr)
+from repro_torch.kernels._launch import (active, dtype_code, raise_on_error,
+                                         require, stream_ptr)
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 # csrc/matmul.cu's compiled tiles (BM, BN), largest first, per kernel
@@ -175,10 +177,29 @@ def launch_tile(a: torch.Tensor, b: torch.Tensor, kernel: str, bm: int,
     return out
 
 
+def cost(M: int, N: int, K: int, isz: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of an (M, K) @ (K, N) product of ``isz``-byte
+    elements: a and b read and c written once, 2 flops a multiply-add."""
+    return 2.0 * M * N * K, (M * K + K * N + M * N) * isz
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor,
            platform: str | None = None) -> torch.Tensor:
     """(M,K) @ (K,N), f32 accumulation, result in a.dtype. ``platform``
     names a block-table entry; None resolves it from ``a``'s device."""
+    counter = active()
+    if counter is None:
+        return _run(a, b, platform)
+    _check_shapes(a, b)
+    (M, K), N = a.shape, b.shape[1]
+    with counter.kernel("matmul", *cost(M, N, K, a.element_size())):
+        if a.is_meta:
+            return a.new_empty((M, N))
+        return _run(a, b, platform)
+
+
+def _run(a: torch.Tensor, b: torch.Tensor,
+         platform: str | None) -> torch.Tensor:
     platform = platform or _platform(a.device)
     if platform not in BLOCK_TABLE:
         raise ValueError(f"matmul: unknown platform {platform!r}; expected "

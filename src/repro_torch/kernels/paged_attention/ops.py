@@ -18,7 +18,9 @@ spans. ``span_ranges`` is the plan in plain Python: the positions each
 block covers.
 
 ``launches`` counts wrapper calls that launch a kernel (CPU calls do not
-count), so a run can show that its decode path went through it.
+count), so a run can show that its decode path went through it. Inside a
+``core.trace.Counter`` a call adds ``cost()`` there, on any device,
+and on ``meta`` tensors returns an empty output (the dry run).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (device_sms, dtype_code,
+from repro_torch.kernels._launch import (active, device_sms, dtype_code,
                                          raise_on_error, require, stream_ptr)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -187,12 +189,41 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def cost(B: int, Hq: int, n_kv: int, hd: int, ps: int, mp: int, lengths,
+         isz: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call: the live K+V pages of every slot, q
+    and out (``isz`` bytes an element), table and lengths read once, and
+    4 flops a live position per head dim. ``lengths`` are the slots'
+    (host integers); ``None`` counts every slot full to its ``mp`` pages
+    (a trace on ``meta``, which has no values)."""
+    if lengths is None:
+        lengths = [mp * ps] * B
+    pages = sum(-(-int(n) // ps) for n in lengths)
+    nbytes = (2 * pages * n_kv * ps * hd * isz + 2 * B * Hq * hd * isz
+              + B * mp * 4 + B * 4)
+    return 4.0 * Hq * hd * sum(int(n) for n in lengths), nbytes
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor, *, window: int = 0,
                     scale: float | None = None) -> torch.Tensor:
     """q: (B, Hq, hd); k/v_pages: (n_kv, n_pages, page_size, hd);
     page_table: (B, max_pages); lengths: (B,) -> (B, Hq, hd)."""
+    counter = active()
+    if counter is None:
+        return _run(q, k_pages, v_pages, page_table, lengths, window, scale)
+    n_kv, _, ps, hd = k_pages.shape
+    with counter.kernel("paged_attention", *cost(
+            q.shape[0], q.shape[1], n_kv, hd, ps, page_table.shape[1],
+            None if lengths.is_meta else lengths.tolist(),
+            q.element_size())):
+        if q.is_meta:
+            return torch.empty_like(q)
+        return _run(q, k_pages, v_pages, page_table, lengths, window, scale)
+
+
+def _run(q, k_pages, v_pages, page_table, lengths, window, scale):
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, lengths,
                                    window=window, scale=scale)

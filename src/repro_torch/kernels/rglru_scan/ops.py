@@ -22,6 +22,8 @@ stream, and one whenever a larger call grows it).
 
 ``launches`` counts forward kernel launches (CPU calls do not count), so a
 run can show that its prefill or training path went through the kernel.
+Inside a ``core.trace.Counter`` the forward adds ``cost()`` there, on
+any device, and on a ``meta`` tensor returns an empty h (the dry run).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (device_index, device_sms,
+from repro_torch.kernels._launch import (active, device_index, device_sms,
                                          raise_on_error, require, stream_ptr)
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -139,7 +141,24 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def cost(B: int, S: int, R: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of one forward over (B, S, R) float32: a and b read
+    and h written once, a multiply and an add a step and channel."""
+    n = B * S * R
+    return 2.0 * n, 3 * n * 4
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    counter = active()
+    if counter is None:
+        return _run(a, b)
+    with counter.kernel("rglru_scan", *cost(*a.shape)):
+        if a.is_meta:
+            return torch.empty_like(a)
+        return _run(a, b)
+
+
+def _run(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":

@@ -21,7 +21,9 @@ function of the shape decided before the launch.
 
 ``launches`` counts wrapper calls that launch the forward kernel (CPU
 calls do not count), so a run can show that its prefill or training path
-went through it.
+went through it. Inside a ``core.trace.Counter`` the forward adds
+``cost()`` there, on any device, and on ``meta`` tensors returns empty
+outputs (the dry run).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import raise_on_error, require, stream_ptr
+from repro_torch.kernels._launch import (active, raise_on_error, require,
+                                         stream_ptr)
 from repro_torch.kernels.ssd.ref import _ssd_chunked
 
 MAX_CHUNK = 256        # the kernel's shared-memory arrays of one chunk
@@ -126,7 +129,37 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def flops(b: int, S: int, H: int, P: int, N: int, Q: int) -> float:
+    """Operations of the chunked SSD, products at or below the diagonal
+    only: head-shared C.B^T, the causal intra-chunk product, the
+    inter-chunk product and the state update (2 flops a multiply-add)."""
+    tri = Q * (Q + 1) // 2
+    per_chunk = 2.0 * (N * tri + H * (tri * P + 2 * Q * N * P))
+    return b * (S // Q) * per_chunk
+
+
+def cost(b: int, S: int, H: int, P: int, N: int,
+         chunk: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of one forward in float32: x, dt, A, B and C read,
+    y and the final state written once."""
+    nbytes = 4 * (2 * b * S * H * P + b * S * H + H + 2 * b * S * N
+                  + b * H * N * P)
+    return flops(b, S, H, P, N, chunk), nbytes
+
+
 def _forward(x, dt, A, B, C, chunk: int):
+    counter = active()
+    if counter is None:
+        return _run(x, dt, A, B, C, chunk)
+    (b, S, H, P), N = x.shape, B.shape[-1]
+    with counter.kernel("ssd", *cost(b, S, H, P, N, chunk)):
+        if x.is_meta:
+            return (torch.empty_like(x),
+                    x.new_empty((b, H, N, P), dtype=torch.float32))
+        return _run(x, dt, A, B, C, chunk)
+
+
+def _run(x, dt, A, B, C, chunk: int):
     if x.device.type == "cpu":
         require(chunk > 0 and x.shape[1] % chunk == 0,
                 f"ssd: chunk {chunk} must divide S={x.shape[1]}")

@@ -1,2 +1,2 @@
-# launch: the serving and training entry points and the production meshes
-# (dry-run and analysis come with a later slice: ROADMAP.md Queue 1 item 12).
+# launch: the serving and training entry points, the production meshes, and
+# the dry run (dryrun, analysis, opdump, report) on ranks of a fake job.

@@ -148,7 +148,7 @@ def _train(rt: Runtime, image, platform: str, args) -> dict:
     per_step = []
     for i in range(start_step, start_step + args.steps):
         batch = data.batch(i)
-        wire0, coll0 = mesh.stats.total(c.abi.name), mesh.stats.seconds
+        wire0, coll0 = mesh.stats.wire_bytes(c.abi.name), mesh.stats.seconds
         mon.start()
         params, opt, metrics = step_fn(params, opt, batch)
         last_loss = float(metrics["loss"])   # waits for the step's kernels
@@ -158,7 +158,7 @@ def _train(rt: Runtime, image, platform: str, args) -> dict:
             "step": i + 1, "loss": last_loss,
             "seconds": timing["step_seconds"],
             "collective_seconds": mesh.stats.seconds - coll0,
-            "wire_bytes": mesh.stats.total(c.abi.name) - wire0,
+            "wire_bytes": mesh.stats.wire_bytes(c.abi.name) - wire0,
             "grad_norm": float(metrics["grad_norm"])})
         c.log_metrics(i + 1, {**metrics, "step_seconds":
                               timing["step_seconds"],

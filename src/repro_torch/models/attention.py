@@ -37,6 +37,7 @@ import torch
 from repro_torch.dist.mesh import NOT_PORTED
 from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
                                        reduce_from_model)
+from repro_torch.kernels._launch import on_card_route
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import ParamDef
@@ -190,18 +191,19 @@ def attend(q, k, v, q_pos, k_pos, window: int = 0,
 
     k/v carry the *replicated* kv heads (geom.n_kv). On CUDA with Sq > 1
     and float32 scores the flash-attention kernel runs instead of the
-    plain path. It derives its mask from the canonical causal layout alone
-    -- q positions ``q_offset + arange(Sq)`` and k positions
-    ``arange(Sk)``, one row shared by the batch, ``Sk - Sq == q_offset``
-    -- so a call outside that layout (checked by shape, since reading the
-    position values would stall the host on the card) raises there rather
-    than compute something else. Another ``score_dtype`` is the
-    reference's low-precision score chain, which it computes in XLA, not
+    plain path (so does a ``meta`` tensor in a traced step, which stands
+    for the card: ``kernels._launch.on_card_route``). It derives its mask
+    from the canonical causal layout alone -- q positions ``q_offset +
+    arange(Sq)`` and k positions ``arange(Sk)``, one row shared by the
+    batch, ``Sk - Sq == q_offset`` -- so a call outside that layout
+    (checked by shape, since reading the position values would stall the
+    host on the card) raises there rather than compute something else.
+    Another ``score_dtype`` is the reference's low-precision score chain, which it computes in XLA, not
     in its Pallas kernel: it takes the chunked path here too, chosen by
     dtype before any launch."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
-    if q.is_cuda and Sq > 1 and score_dtype == torch.float32:
+    if on_card_route(q) and Sq > 1 and score_dtype == torch.float32:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         Sk = k.shape[1]
         if not (Sk - Sq == q_offset and tuple(q_pos.shape) == (1, Sq)

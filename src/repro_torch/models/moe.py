@@ -61,6 +61,15 @@ def moe_defs(cfg: ModelConfig) -> dict:
     return d
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as its CUDA kernel computes it (zeros, then a
+    scatter of ones), on every device: the CPU's first checks the indices'
+    range on the host, which a ``meta`` trace cannot, so the three would
+    run different operators for the same integers."""
+    out = torch.zeros((*idx.shape, n), dtype=torch.int64, device=idx.device)
+    return out.scatter_(-1, idx[..., None], 1)
+
+
 def _router(p, x: torch.Tensor, cfg: ModelConfig):
     """x: (T, D) -> (idx (T,k) int64, weight (T,k) f32, aux_loss scalar)."""
     logits = (x @ p["router"].to(x.dtype)).float()              # (T, E)
@@ -75,7 +84,7 @@ def _router(p, x: torch.Tensor, cfg: ModelConfig):
     me = probs.mean(0)                                           # (E,)
     # counts as a one-hot sum: exact, and no host sync on the card (a CUDA
     # bincount reads the max index back first)
-    ce = F.one_hot(idx.reshape(-1), E).sum(0).float() / idx.numel()
+    ce = _one_hot(idx.reshape(-1), E).sum(0).float() / idx.numel()
     aux = E * torch.sum(me * ce)
     return idx, weight, aux
 
@@ -91,7 +100,7 @@ def dispatch_positions(idx: torch.Tensor, n_experts: int, C: int):
     the capacity ``C``, and its row of the (E*C, D) buffer (row ``e*C``
     for a dropped one, as in the reference)."""
     flat_e = idx.reshape(-1)                                     # (T*k,)
-    onehot = F.one_hot(flat_e, n_experts)                        # (T*k, E)
+    onehot = _one_hot(flat_e, n_experts)                        # (T*k, E)
     pos = torch.cumsum(onehot, dim=0) - onehot                   # from 0
     pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
     keep = pos < C

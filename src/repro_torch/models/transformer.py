@@ -66,7 +66,8 @@ from repro_torch.models.layers import (
     mlp_defs,
     norm_defs,
 )
-from repro_torch.models.params import ParamDef, stack_defs, tree_map
+from repro_torch.models.params import (ParamDef, stack_defs, tree_leaves,
+                                      tree_map)
 
 REMAT_MODES = ("none", "full", "dots")
 
@@ -176,11 +177,7 @@ class Model:
         cfg = self.cfg
         d: dict = {"embed": embed_defs(cfg), "final_norm": norm_defs(cfg)}
         for si, st in enumerate(self.stages):
-            unit = {
-                f"b{bi}": block_defs(kind, cfg, self.geom)
-                for bi, kind in enumerate(st.unit)
-            }
-            d[f"stage{si}"] = stack_defs(unit, st.count)
+            d[f"stage{si}"] = stack_defs(self.unit_param_defs(si), st.count)
         return d
 
     # -- caches -----------------------------------------------------------
@@ -189,13 +186,9 @@ class Model:
         slabs (batch, S, n_kv, hd) with S = max_len, or the ring
         min(window, max_len) for local attention; conv tails and recurrent
         states for ``ssm`` and ``rec`` blocks."""
-        d: dict = {}
-        for si, st in enumerate(self.stages):
-            d[f"stage{si}"] = {
-                f"b{bi}": stack_defs(
-                    self._block_cache_defs(kind, batch, max_len), st.count)
-                for bi, kind in enumerate(st.unit)}
-        return d
+        return {f"stage{si}": stack_defs(
+                    self.unit_cache_defs(si, batch, max_len), st.count)
+                for si, st in enumerate(self.stages)}
 
     def _block_cache_defs(self, kind: str, batch: int, max_len: int) -> dict:
         cfg = self.cfg
@@ -539,6 +532,69 @@ class Model:
         if kind == "moe":
             return x + self._moe(p["moe"], h2)[0]
         return x + apply_mlp(p["mlp"], h2, cfg.mlp)
+
+
+    # -- per-unit cost probes (the dry run's per-stage records) -----------
+    def unit_param_defs(self, si: int) -> dict:
+        """The param defs of one unit of stage ``si`` (unstacked)."""
+        return {
+            f"b{bi}": block_defs(kind, self.cfg, self.geom)
+            for bi, kind in enumerate(self.stages[si].unit)
+        }
+
+    def unit_cache_defs(self, si: int, batch: int, max_len: int) -> dict:
+        """The contiguous cache defs of one unit of stage ``si``."""
+        return {f"b{bi}": self._block_cache_defs(kind, batch, max_len)
+                for bi, kind in enumerate(self.stages[si].unit)}
+
+    def unit_probe(self, si: int, kind: str):
+        """A standalone function that runs one unit of stage ``si`` as the
+        step runs it -- ``train``: forward and backward under the model's
+        remat (the grads of the unit's params and input, from the JAX
+        package's stand-in loss); ``prefill``: forward and cache collect;
+        ``decode``: a one-token step with a cache update -- on this rank's
+        parts (its model-axis shard, FSDP gathers included)."""
+        st = self.stages[si]
+        unit_fsdp = self.fsdp.layer(f"stage{si}") if self.fsdp else None
+
+        def fwd(unit_params, x, positions, collect):
+            unit = self._unit
+            if self.remat != "none" and kind == "train":
+                unit = _remat(unit, self.remat)
+            # aux starts as a number: the step makes its zero once, not
+            # a unit
+            return unit(st, unit_params, x, 0.0, positions, collect,
+                        x.shape[1], None, None, 0, unit_fsdp)
+
+        if kind == "train":
+            def probe(unit_params, x, positions):
+                up = tree_map(lambda p: p.detach().requires_grad_(),
+                              unit_params)
+                xx = x.detach().requires_grad_()
+                x2, aux, _ = fwd(up, xx, positions, False)
+                loss = (x2.float() ** 2).sum() * 1e-6 + aux
+                leaves = tree_leaves(up)
+                grads = torch.autograd.grad(loss, [*leaves, xx],
+                                            allow_unused=True,
+                                            materialize_grads=True)
+                by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+                return tree_map(lambda t: by_leaf[id(t)], up), grads[-1]
+            return probe
+        self._no_serving(True, f"a {kind} unit probe")
+        if kind == "prefill":
+            def probe(unit_params, x, positions):
+                return fwd(unit_params, x, positions, True)
+            return probe
+        if kind == "decode":
+            def probe(unit_params, unit_cache, x, idx):
+                idx = attn_mod.row_positions(idx, x.shape[0], x.device)
+                for bi, k in enumerate(st.unit):
+                    x = self._decode_block(k, unit_params[f"b{bi}"],
+                                           unit_cache[f"b{bi}"], x, idx,
+                                           None)
+                return x, unit_cache
+            return probe
+        raise ValueError(f"unknown probe kind {kind!r}")
 
 
 def _save_dots(ctx, op, *args, **kwargs):

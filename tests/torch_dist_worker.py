@@ -43,11 +43,11 @@ def _run(step, params, opt, batches, mesh, label) -> tuple[list, dict]:
     bytes the mesh's counter gained under ``label``."""
     rec = []
     for b in batches:
-        before = mesh.stats.total(label)
+        before = mesh.stats.wire_bytes(label)
         params, opt, m = step(params, opt, b)
         rec.append({"loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"]),
-                    "wire": mesh.stats.total(label) - before})
+                    "wire": mesh.stats.wire_bytes(label) - before})
     return rec, params
 
 
@@ -134,7 +134,7 @@ def job_world4(rank: int, world: int, work: Path, plan: dict) -> dict:
     g = {"w": torch.from_numpy(_load(work / "g512.npz")["w"])}
     replica_mean(g["w"], ("data",), c.mesh, "plain")
     powersgd_sync(g, powersgd_init(g, 4), ("data",), 4, c.mesh, "powersgd")
-    out["wire512"] = {k: c.mesh.stats.total(k) for k in ("plain",
+    out["wire512"] = {k: c.mesh.stats.wire_bytes(k) for k in ("plain",
                                                          "powersgd")}
 
     # (g) an MoE arch on more than one rank
@@ -249,16 +249,16 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
         step, steps = c.train_step_fn(), []
         del drops[:]
         for i, b in enumerate(batches):
-            before = {k: mesh.stats.total(k) for k in (c.abi.name, "tp")}
+            before = {k: mesh.stats.wire_bytes(k) for k in (c.abi.name, "tp")}
             by_op = json.loads(json.dumps(mesh.stats.bytes))
             tp_by_op = dict(mesh.stats.bytes.get("tp", {}))
             params, opt, m = step(params, opt, b)
             steps.append({"loss": float(m["loss"]),
                           "grad_norm": float(m["grad_norm"]),
                           "aux": float(m["aux_loss"]),
-                          "wire": mesh.stats.total(c.abi.name)
+                          "wire": mesh.stats.wire_bytes(c.abi.name)
                           - before[c.abi.name],
-                          "tp": mesh.stats.total("tp") - before["tp"],
+                          "tp": mesh.stats.wire_bytes("tp") - before["tp"],
                           "abi_by_op": {
                               op: n - by_op.get(c.abi.name, {}).get(op, 0)
                               for op, n in mesh.stats.bytes.get(
