@@ -193,11 +193,29 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             losses and grad norms within (b)'s bounds of (b)'s
             two-microbatch process, the ABI's bytes a step a rank equal
             to ``fsdp_wire_bytes``, peak memory a rank below (b)'s rank
-            of the same ABI, K2 = 2 x 2 x steps a rank at K2_FSDP.
+            of the same ABI, K2 = 2 x 2 x steps a rank at K2_FSDP; (f)
+            serving on the model axis in the same torchrun job: each rank
+            builds a port ``Pod`` on the (data 1, model 2) mesh and runs
+            the same ``ContinuousScheduler`` over the same requests, in
+            float32: llama3.2-3b at full width and full depth (28 layers,
+            paged, page 16, 8 slots, prefix cache) on 8 of the serve
+            phase's requests (64-512 tokens, 4 sharing a prefix), 32 new
+            tokens each, decode chunk 4, then recurrentgemma-2b cut to one
+            rec, rec, attn cycle and mamba2-2.7b cut to 2 layers
+            (contiguous, 4 prompts each): every request done, every
+            rank's tokens and admit ticks equal, llama's equal to one
+            float32 process's Pod on the same requests (run first and
+            released), launches a rank exactly K1 = 28 x decode steps and
+            K2 = 28 x prefills (K4 2 and K2 1 x prefills, K5 2 x
+            prefills) and nothing else, each at a per-rank shape the
+            kernels phase held to its plain version (``_pod_tp_shapes``:
+            K1 at 12 q over 4 kv heads), each rank on the card.
             Printed: step seconds a rank, collective seconds and wire
             bytes a step (the port's counter), peak memory a rank
-            (beside one process's in (d)), the card's memory in use while
-            (b), (d) and (e) run
+            (beside one process's in (d) and (f)), the card's memory in
+            use while (b), (d), (e) and (f) run; for (f) decode tokens/s
+            a rank and the model axis's seconds and bytes a decode step
+            and token
   dryrun    the port's dry run (``repro_torch.launch.dryrun``: one rank
             of a job of fake ranks traced on the meta device under the
             counter, at H100 data-sheet constants): (a) the paper's
@@ -212,8 +230,13 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             (multipod), as the JAX package's dry run orders the two
             arms (held on the CPU by tests/test_torch_dryrun.py); the
             reference's report rows, wire and cross-pod bytes a device
-            printed; (b) the dist phase's (b), (d) and (e) jobs on 2 fake
-            ranks with their images: bytes a step by label and operation
+            printed; and serving on the model axis, three more processes:
+            deepseek-67b prefill_32k and decode_32k on the pod,
+            mamba2-2.7b long_500k on the multipod: each ok with its unit
+            probes, ``fits_hbm`` the resident bytes against 80 GB, the
+            rank's KV bytes (mamba2's cache bytes) the whole's over the
+            model axis's 16 and the rows; (b) the dist phase's (b), (d)
+            and (e) jobs on 2 fake ranks with their images: bytes a step by label and operation
             and kernel calls a step equal to what the real ranks counted
             in this run, exactly; (c) one step of (b)'s 2-layer
             llama3.2-3b on the card under the counter against its meta
@@ -227,7 +250,8 @@ The kernel counters are set to 0 just before each main path is driven
 (each pod of the serve phase, each prefill and decode run of the batch
 phase, the fig5 calls, each CLI serve, each example, each loopback fleet
 of the fabric phase, each CLI training run, (c) of the dist phase, each run of
-(d) and (e), the dryrun phase's real step) and read just
+(d) and (e), each pod of (f) and its one-process reference, the dryrun
+phase's real step) and read just
 after; a kernel's launches are their sum. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
@@ -483,6 +507,12 @@ K2_TP = ((2, 12, 4, 128, 2048, 2048, 0, "bfloat16"),
 # llama3.2-3b a rank, all 24 q heads over 8 kv heads (params gathered
 # whole), bf16. The (d) and (e) shapes are timed, with their bound.
 K2_FSDP = ((1, 24, 8, 128, 2048, 2048, 0, "bfloat16"),)
+# K1 (B, n_kv, g, hd, ps, mp, dtype) at the dist phase's (f) ranks: the
+# llama3.2-3b pod's 8 slots, 12 of 24 q heads over 4 of 8 kv heads a rank,
+# its table of 1024 / 16 pages, float32 (the FMA kernel); (f) fails on a K1
+# call not here. Its K2, K4 and K5 shapes follow from its requests
+# (``_pod_tp_shapes``).
+K1_TP = ((8, 4, 3, 128, 16, K1_POD_MP, "float32"),)
 
 
 def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
@@ -632,13 +662,43 @@ def phase_kernels(torch, state, timer) -> None:
             if not ok:
                 failures.append(f"paged_attention {arch} {dname}")
 
+    # K1 at (f)'s per-rank decode: llama3.2-3b's 12 q heads over 4 kv heads
+    # a rank of the model axis, float32 (the FMA kernel), the pod's table
+    checked = state["k1_checked"] = set()
+    for case in K1_TP:
+        sb, skv, sg, shd, sps, smp, dname = case
+        shape = dict(B=sb, n_kv=skv, g=sg, hd=shd, ps=sps)
+        args, lengths = k1_pod_case(torch, shape, dts[dname])
+        check(args[3].shape[1] == smp, f"K1 case table {args[3].shape}")
+        out = pa_ops.paged_attention_cuda(*args)
+        ref = paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        ok = bool(torch.isfinite(out).all()) and err <= TOL[dname]
+        ms = timer(lambda: pa_ops.paged_attention_cuda(*args))
+        bms, by, nbytes = k1_bound(args, lengths, dname)
+        state.setdefault("kernel_dist", {})[
+            f"K1 {sb}x{skv * sg}/{skv}x{shd} mp{smp} {dname}"] = dict(
+            ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+        log(f"kernels: paged_attention at an (f) rank's decode (B={sb} "
+            f"n_kv={skv} g={sg} hd={shd} ps={sps} mp={smp}, kernel "
+            f"{pa_ops.kernel_choice(dts[dname], sg, shd)[0]}) {dname}: "
+            f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
+            f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}: {nbytes / 1e6:.2f} MB) [{state['card']}]")
+        if ok:
+            checked.add(case)
+        else:
+            failures.append(f"paged_attention (f) {case}")
+
     # -- K2: llama3.2-3b prefill and suffix prefill; recurrentgemma-2b's
     # local-attention prefill of 2304 tokens, window 2048 (query tiles past
     # the window start their key loop late) -----------------------------
     cases = ([((1, *c), tuple(dts), True) for c in K2_CASES]
              + [(c, tuple(dts), True) for c in K2_BATCH]
              + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES]
-             + [(c[:-1], c[-1:], "dist") for c in K2_TP + K2_FSDP])
+             + [(c[:-1], c[-1:], "dist") for c in
+                (*K2_TP, *K2_FSDP, *_pod_tp_shapes()["k2"])])
     checked = state["k2_checked"] = set()
     for (Bq, Hq, Hkv, d, Sq, Sk, window), dnames, timed in cases:
         for dname in dnames:
@@ -672,13 +732,15 @@ def phase_kernels(torch, state, timer) -> None:
                     q, k, v, causal=True, window=window))
                 bms, by = k2_bound(Bq, Hq, Hkv, d, Sq, Sk, window,
                                    out.element_size(), dname)
+                over = f"/{Sk}" if Sk != Sq else ""
                 state.setdefault("kernel_dist", {})[
-                    f"K2 {Bq}x{Hq}/{Hkv}x{Sq}x{d} w{window}"] = dict(
-                    ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+                    f"K2 {Bq}x{Hq}/{Hkv}x{Sq}{over}x{d} w{window} "
+                    f"{dname}"] = dict(ms=ms, bound_ms=bms, bound_by=by,
+                                       max_abs_err=err)
                 log(f"kernels: flash_attention_fwd at a dist rank's shape "
-                    f"B={Bq} Hq={Hq} Hkv={Hkv} d={d} S={Sq} window={window} "
-                    f"bf16: time {ms:.4f} ms, bound {bms:.4f} ms ({by}) "
-                    f"[{state['card']}]")
+                    f"B={Bq} Hq={Hq} Hkv={Hkv} d={d} Sq={Sq} Sk={Sk} "
+                    f"window={window} {dname}: time {ms:.4f} ms, bound "
+                    f"{bms:.4f} ms ({by}) [{state['card']}]")
                 continue
             if not timed or Sq != Sk or dname != "bfloat16" or Bq > 1:
                 continue
@@ -736,7 +798,8 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
     from repro_torch.launch.analysis import bound_ms
 
     failures = []
-    for case in K5_CASES:
+    pod = tuple(c for c in _pod_tp_shapes()["k5"] if c not in K5_CASES)
+    for case in K5_CASES + pod:
         b, S, H, P, N, Q = case
         rng = np.random.default_rng(3)
         t = lambda a: torch.from_numpy(                    # noqa: E731
@@ -761,7 +824,7 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
             f"{SSD_REL_TOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"ssd {case}")
-        if case != K5_CASES[0] and case not in K5_POD + K5_TP:
+        if case != K5_CASES[0] and case not in K5_POD + K5_TP + pod:
             continue
         ms = timer(lambda: ssd_ops.ssd_cuda(x, dt, A, B, C, Q))
         flops, nbytes = ssd_ops.cost(b, S, H, P, N, Q)
@@ -769,13 +832,13 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
         # the bound of the arithmetic the kernel runs: three TF32 products
         # for each float32 one, on the tensor cores
         tc_ms, tc_by = bound_ms(nbytes, 3 * flops, "tf32")
-        if case in K5_POD + K5_TP:
+        if case in K5_POD + K5_TP + pod:
             where = ("the mamba2 pod's prefill" if case in K5_POD
-                     else f"a (d) rank's b={b} H={H}")
+                     else f"a (d) or (f) rank's b={b} H={H}")
             log(f"kernels: ssd at {where} S={S} chunk={Q}: "
                 f"{ms:.4f} ms, bound {bms:.4f} ms (f32 FMA), {tc_ms:.4f} ms "
                 f"(3xTF32 {tc_by}) [{state['card']}]")
-            if case in K5_TP:
+            if case in K5_TP + pod:
                 state.setdefault("kernel_dist", {})[
                     "K5 {}x{}x{}x{}x{} c{}".format(*case)] = dict(
                     ms=ms, bound_ms=bms, bound_by=by, tc_bound_ms=tc_ms,
@@ -814,7 +877,8 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
     from repro_torch.launch.analysis import bound_ms
 
     failures = []
-    for case in K4_CASES:
+    pod = tuple(c for c in _pod_tp_shapes()["k4"] if c not in K4_CASES)
+    for case in K4_CASES + pod:
         rng = np.random.default_rng(4)
         a = torch.from_numpy((1.0 / (1.0 + np.exp(-rng.standard_normal(
             case)))).astype(np.float32)).to("cuda")
@@ -835,7 +899,7 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
         tile = (f"tile 32 x {plan.T} ({plan.steps} steps a warp), "
                 f"{plan.n_tiles} tiles; a second call "
                 f"{'bit-identical' if same else 'DIFFERS'}")
-        if case not in K4_TIMED:
+        if case not in K4_TIMED + pod:
             log(f"kernels: rglru_scan B={case[0]} S={case[1]} R={case[2]} "
                 f"float32 ({tile}): max_abs_err {err:.3e} against the "
                 f"sequential version (tol {tol:.3e}) "
@@ -848,7 +912,7 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
             f"float32 ({tile}): max_abs_err {err:.3e} (tol {tol:.3e}) "
             f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, bound {bms:.4f} "
             f"ms ({by}: {nbytes / 1e6:.2f} MB) [{state['card']}]")
-        if case in K4_TP:
+        if case in K4_TP + pod:
             state.setdefault("kernel_dist", {})[
                 "K4 {}x{}x{}".format(*case)] = dict(
                 ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
@@ -1288,6 +1352,23 @@ def _drive_pod(torch, state, rt, arch, reqs, expect, watch=None, **kw):
     return pod
 
 
+def _llama_reqs(GenRequest, vocab: int) -> list:
+    """The paged pods' 16 requests: 8 prompts of 64-512 tokens, then 8 of
+    300-512 sharing a 256-token prefix (declared shared), 32 new tokens
+    each."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, vocab, 256)
+    reqs = [GenRequest(rid=i, prompt=rng.integers(
+                0, vocab, int(rng.integers(64, 513))), max_new_tokens=32)
+            for i in range(8)]
+    for i in range(8, 16):
+        tail = rng.integers(0, vocab, int(rng.integers(300, 513)) - 256)
+        reqs.append(GenRequest(rid=i, prompt=np.concatenate([shared, tail]),
+                               max_new_tokens=32, prefix_len=256))
+    return reqs
+
+
 def phase_serve(torch, state, workdir: Path) -> None:
     import numpy as np
     from repro_torch.configs import get_config
@@ -1313,18 +1394,7 @@ def phase_serve(torch, state, workdir: Path) -> None:
         torch.cuda.empty_cache()
 
     def llama_reqs(arch):
-        vocab = get_config(arch).vocab_size
-        rng = np.random.default_rng(11)
-        shared = rng.integers(0, vocab, 256)
-        reqs = [GenRequest(rid=i, prompt=rng.integers(
-                    0, vocab, int(rng.integers(64, 513))), max_new_tokens=32)
-                for i in range(8)]
-        for i in range(8, 16):
-            tail = rng.integers(0, vocab, int(rng.integers(300, 513)) - 256)
-            reqs.append(GenRequest(rid=i,
-                                   prompt=np.concatenate([shared, tail]),
-                                   max_new_tokens=32, prefix_len=256))
-        return reqs
+        return _llama_reqs(GenRequest, get_config(arch).vocab_size)
 
     def mamba2_reqs(arch):
         # a cached prefill longer than the 256-step chunk must be a multiple
@@ -3318,6 +3388,96 @@ DIST_D_TOKENS = 2 * 2048            # a rank's rows x seq_len
 # Fig. 3 host arm (host + fsdp + remat=dots) -- against (b)'s one-process
 # run in two one-row microbatches, within (b)'s bounds (1e-3)
 DIST_E = {"generic": ("generic", "full"), "host": ("host", "dots")}
+# (f) serving on the model axis: the same two ranks run a port Pod on their
+# (data 1, model 2) mesh with a ContinuousScheduler over the same
+# requests, in float32 compute and params: llama3.2-3b at full width and
+# full depth (28 layers; 12 of 24 q heads over 4 of 8 kv heads a rank),
+# paged (page 16, 8 slots of 1024, prefix cache) on 8 of the serve
+# phase's requests (four of 64-512 tokens, four sharing its 256-token
+# prefix), 32 new tokens each, decode chunk 4 -- its tokens held to one
+# float32 process's Pod on the same requests; then recurrentgemma-2b cut
+# to one (rec, rec, attn) cycle and mamba2-2.7b cut to 2 layers,
+# contiguous, on 4 prompts each (mamba2's multiples of its 256-step
+# chunk), 32 new tokens: their prefills launch K4 and K5 on the serving
+# path. Each entry: (layers or None for the arch's own, Pod keywords,
+# kernel -> (per "prefill" dispatch | "decode" step, launches), prompt
+# lengths or None for the serve phase's)
+POD_TP_IMAGEFILE = """\
+FROM scratch
+ARCH {arch}{layers}
+MESH local
+PRECISION compute=float32 params=float32
+"""
+POD_TP = {
+    "llama3.2-3b": (None, dict(n_slots=8, max_len=1024, paged=True,
+                               page_size=16, prefix_cache=True),
+                    {"paged_attention": ("decode", 28),
+                     "flash_attention_fwd": ("prefill", 28)}, None),
+    "recurrentgemma-2b": (3, dict(n_slots=4, max_len=1024),
+                          {"rglru_scan": ("prefill", 2),
+                           "flash_attention_fwd": ("prefill", 1)},
+                          (64, 512, 64, 512)),
+    "mamba2-2.7b": (2, dict(n_slots=4, max_len=1024), {"ssd": ("prefill", 2)},
+                    (256, 512, 256, 512)),
+}
+POD_TP_NEW = 32
+
+
+def _pod_tp_image(arch: str) -> str:
+    layers = POD_TP[arch][0]
+    return POD_TP_IMAGEFILE.format(
+        arch=arch, layers=f" n_layers={layers}" if layers else "")
+
+
+def _pod_tp_requests(GenRequest, arch: str) -> list:
+    """(f)'s requests for ``arch``: for llama3.2-3b the serve phase's
+    first four and the first four that share its prefix; else one prompt
+    of each length (seed 15)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    vocab = get_config(arch).vocab_size
+    lengths = POD_TP[arch][3]
+    if lengths is None:
+        reqs = _llama_reqs(GenRequest, vocab)
+        return [GenRequest(rid=i, prompt=r.prompt, max_new_tokens=POD_TP_NEW,
+                           prefix_len=r.prefix_len)
+                for i, r in enumerate(reqs[:4] + reqs[8:12])]
+    rng = np.random.default_rng(15)
+    return [GenRequest(rid=i, prompt=rng.integers(0, vocab, n),
+                       max_new_tokens=POD_TP_NEW)
+            for i, n in enumerate(lengths)]
+
+
+def _pod_tp_shapes() -> dict:
+    """The per-rank kernel shapes (f)'s prefills and decodes call, from
+    the requests and the engine's rules: a prefill of a prompt in its
+    bucket (a recurrent arch's at its exact length), a prompt that finds
+    the registered 256-token prefix (every shared one after the first:
+    the scheduler admits the requests in order) as its suffix's bucket
+    over the prefix; K1 at llama's 8 slots over a table
+    of 1024 / 16 pages (K1_TP). Keys as ``_shape_gate`` reads them: k1 (B,
+    n_kv, g, hd, ps, mp, dtype), k2 (B, Hq, Hkv, d, Sq, Sk, window, dtype),
+    k4 (B, S, R), k5 (b, S, H, P, N, chunk)."""
+    from repro_torch.orchestrator import GenRequest
+    from repro_torch.orchestrator.scheduler import _PREFILL_BUCKETS
+    bucket = lambda n: next(b for b in _PREFILL_BUCKETS if b >= n)  # noqa
+    out = {"k1": set(K1_TP), "k2": set(), "k4": set(), "k5": set()}
+    registered = False
+    for r in _pod_tp_requests(GenRequest, "llama3.2-3b"):
+        n, L = len(r.prompt), r.prefix_len
+        if L and registered:
+            b = min(bucket(n - L), 1024 - L)
+            out["k2"].add((1, 12, 4, 128, b, L + b, 0, "float32"))
+        else:
+            out["k2"].add((1, 12, 4, 128, bucket(n), bucket(n), 0,
+                           "float32"))
+            registered |= bool(L)
+    for n in POD_TP["recurrentgemma-2b"][3]:
+        out["k2"].add((1, 5, 1, 256, n, n, 2048, "float32"))
+        out["k4"].add((1, n, 1280))
+    for n in POD_TP["mamba2-2.7b"][3]:
+        out["k5"].add((1, n, 40, 64, 128, min(256, n)))
+    return {k: sorted(v) for k, v in out.items()}
 
 
 def _dist_launches(arch: str, layers: int) -> dict:
@@ -3331,15 +3491,17 @@ def _dist_launches(arch: str, layers: int) -> dict:
     return {k: n * 2 * DIST_D_STEPS for k, n in per.items() if n}
 
 
-def _ranks_runs(torch, workdir: Path, runs: list) -> tuple:
-    """Run the (d) and (e) runs in one ``torchrun --nproc-per-node 2
-    chip_smoke.py --tp-worker`` job: (every rank's records by run name,
-    which ranks held the card's device node, card memory polled, seconds,
-    failure text or None)."""
+def _ranks_runs(torch, workdir: Path, runs: list, pods=()) -> tuple:
+    """Run the (d) and (e) runs and (f)'s pods in one ``torchrun
+    --nproc-per-node 2 chip_smoke.py --tp-worker`` job: (every rank's
+    records by run name -- a pod's is ``pod {arch}`` --, which ranks held
+    the card's device node, card memory polled, seconds, failure text or
+    None)."""
     root = workdir / "dist_de"
     root.mkdir()
     out, spec = root / "ranks.json", root / "spec.json"
-    spec.write_text(json.dumps({"runs": runs, "steps": DIST_D_STEPS,
+    spec.write_text(json.dumps({"runs": runs, "pods": list(pods),
+                                "steps": DIST_D_STEPS,
                                 "root": str(root / "rt"), "out": str(out)}))
     seen: dict[int, bool] = {}
     used = [_device_used_mib()]
@@ -3360,16 +3522,19 @@ def _ranks_runs(torch, workdir: Path, runs: list) -> tuple:
     if rc != 0 or not out.exists():
         return {}, seen, used, wall, f"exit {rc}: {tail}"
     ranks = json.loads(out.read_text())
-    by_run = {run["name"]: [r[j] for r in ranks]
-              for j, run in enumerate(runs)}
+    names = [run["name"] for run in runs] + [f"pod {a}" for a in pods]
+    by_run = {name: [r[j] for r in ranks] for j, name in enumerate(names)}
     return by_run, seen, used, wall, None
 
 
 def _shape_gate(rs: list, state) -> tuple[dict, bool]:
-    """Every K2, K4 and K5 shape the ranks called, and whether each is one
-    the kernels phase held to its plain version."""
-    checked = {"k2": {(*c, True) for c in state.get("k2_checked", ())},
-               "k4": set(K4_TP), "k5": set(K5_TP)}
+    """Every K1, K2, K4 and K5 shape the ranks called, and whether each is
+    one the kernels phase held to its plain version."""
+    pod = _pod_tp_shapes()
+    checked = {"k1": set(state.get("k1_checked", ())),
+               "k2": {(*c, True) for c in state.get("k2_checked", ())},
+               "k4": set(K4_TP) | set(pod["k4"]),
+               "k5": set(K5_TP) | set(pod["k5"])}
     shapes = {k: sorted({tuple(x) for r in rs for x in r["shapes"][k]})
               for k in checked}
     return shapes, all(set(v) <= checked[k] for k, v in shapes.items())
@@ -3382,14 +3547,19 @@ def _dist_d_image(arch: str) -> str:
 
 
 def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
-    """(d) tensor parallelism and (e) FSDP on two ranks sharing the card,
-    in one torchrun job: each (d) run against one process on the same
-    global batch (``llama_ref``: llama3.2-3b's, computed by the phase),
-    each (e) arm against (b)'s two-microbatch process."""
+    """(d) tensor parallelism, (e) FSDP and (f) serving on the model axis
+    on two ranks sharing the card, in one torchrun job: each (d) run
+    against one process on the same global batch (``llama_ref``:
+    llama3.2-3b's, computed by the phase), each (e) arm against (b)'s
+    two-microbatch process, (f)'s llama3.2-3b pod against one float32
+    process's pod on the same requests, run here first and released."""
     import shutil
     from repro_torch.configs import get_config
     failures, runs, refs = [], [], {"llama3.2-3b": llama_ref}
     texts = {}
+    pod_ref = _pod_tp_serve(torch, "llama3.2-3b", workdir / "pod_ref")
+    for name, n in pod_ref["launches"].items():
+        state["launches"][name] = state["launches"].get(name, 0) + n
     for arch, layers in DIST_D.items():
         text = _dist_d_image(arch)
         if arch not in refs:
@@ -3402,7 +3572,8 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
         texts[f"fsdp {name}"] = text + f"SET fsdp=true remat={remat}\n"
         runs.append({"name": f"fsdp {name}", "mesh": [2, 1],
                      "imagefile": texts[f"fsdp {name}"]})
-    by_run, seen, used, wall, err = _ranks_runs(torch, workdir, runs)
+    by_run, seen, used, wall, err = _ranks_runs(torch, workdir, runs,
+                                                POD_TP)
     shutil.rmtree(workdir / "dist_de")
     if err:
         return [f"(d)/(e): {err}"]
@@ -3517,18 +3688,92 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
                 f"{same}, wire {wire} vs {want_wire}, peak {peaks} vs "
                 f"{b_peak}, launches {counts} vs {want}, shapes {shapes} "
                 f"checked {shapes_ok}, on card {on_card}")
+    for arch in POD_TP:
+        failures += _pod_tp_gate(state, arch, by_run[f"pod {arch}"],
+                                 pod_ref if arch == "llama3.2-3b" else None,
+                                 seen, mem)
     return failures
 
 
+def _pod_tp_gate(state, arch: str, rs: list, ref: dict | None, seen: dict,
+                 mem: str) -> list[str]:
+    """(f)'s gates on one pod's rank records: every request done with
+    POD_TP_NEW tokens, tokens and admit ticks equal on every rank (and,
+    given ``ref``, to one process's), launches a rank exactly the layers
+    of each kernel's path times its prefill dispatches or decode steps
+    and nothing else, every K1/K2/K4/K5 shape one the kernels phase held
+    to its plain version, every rank on the card; and its printout."""
+    layers, _, expect, _ = POD_TP[arch]
+    r0 = rs[0]
+    same = all(r["tokens"] == r0["tokens"] and r["admit"] == r0["admit"]
+               for r in rs)
+    done = all(r0["done"]) and all(len(t) == POD_TP_NEW
+                                   for t in r0["tokens"])
+    to_ref = ref is None or (ref["tokens"] == r0["tokens"]
+                             and ref["admit"] == r0["admit"])
+    want = [{k: n * (r["prefills"] if per == "prefill" else
+                     r["decode_steps"]) for k, (per, n) in expect.items()}
+            for r in rs]
+    counts = [{k: n for k, n in r["launches"].items() if n} for r in rs]
+    shapes, shapes_ok = _shape_gate(rs, state)
+    on_card = [seen.get(r["pid"], False) for r in rs]
+    ok = (same and done and to_ref and counts == want and shapes_ok
+          and all(on_card))
+    tok_s = [r["decode_tokens"] / r["decode_s"] for r in rs]
+    steps = r0["decode_steps"]
+    tp_b = [r["tp_decode"]["bytes"] for r in rs]
+    tp_s = [r["tp_decode"]["seconds"] for r in rs]
+    ref_txt = ("" if ref is None else
+               f"; tokens and admit ticks equal one float32 process's pod "
+               f"{to_ref} (its decode {ref['decode_tokens']} tokens in "
+               f"{ref['decode_s']:.3f} s = "
+               f"{ref['decode_tokens'] / ref['decode_s']:.1f} tokens/s, "
+               f"peak memory {_gib(ref['peak']):.2f} GiB)")
+    log(f"dist: (f) Pod on the (data 1, model 2) mesh, {arch}"
+        f"{f' cut to {layers} layers' if layers else ' full depth'}, "
+        f"float32, {len(r0['tokens'])} requests: all done with "
+        f"{POD_TP_NEW} tokens {done}; every rank's tokens and admit ticks "
+        f"equal {same}{ref_txt}; prefill dispatches {r0['prefills']}, "
+        f"decode steps {steps}, prefix hits {r0['prefix_hits']}; launches "
+        f"a rank {counts} (expected {want}); shapes K1 (B, n_kv, g, hd, ps,"
+        f" mp, dtype) {shapes['k1']}, K2 {shapes['k2']}, K4 "
+        f"{shapes['k4']}, K5 {shapes['k5']}, all checked by the kernels "
+        f"phase {shapes_ok}; ranks hold /dev/nvidia* open {on_card}; "
+        f"decode tokens/s a rank {[round(t, 1) for t in tok_s]}; model-axis"
+        f" collectives over the decode {tp_b} bytes in "
+        f"{[round(t, 3) for t in tp_s]} s a rank = "
+        f"{[b // max(steps, 1) for b in tp_b]} bytes and "
+        f"{[round(1e3 * t / max(steps, 1), 3) for t in tp_s]} ms a decode "
+        f"step ({[round(b / max(r['decode_tokens'], 1)) for b, r in zip(tp_b, rs)]}"
+        f" bytes a decode token); prefill s a rank "
+        f"{[round(r['prefill_s'], 3) for r in rs]}, decode s "
+        f"{[round(r['decode_s'], 3) for r in rs]}, wall s "
+        f"{[round(r['wall_s'], 2) for r in rs]}; peak memory a rank "
+        f"{[round(_gib(r['peak']), 2) for r in rs]} GiB; {mem} "
+        f"{'ok' if ok else 'FAIL'} [{state['card']}]")
+    state["dist"][f"f {arch}"] = dict(
+        decode_tok_s=tok_s, tp_decode=[r["tp_decode"] for r in rs],
+        decode_steps=steps, peak_gib=[_gib(r["peak"]) for r in rs],
+        ref_peak_gib=None if ref is None else _gib(ref["peak"]),
+        wall_s=[r["wall_s"] for r in rs])
+    if ok:
+        return []
+    return [f"(f) {arch}: done {done}, ranks equal {same}, equal one "
+            f"process {to_ref}, launches {counts} vs {want}, shapes "
+            f"{shapes} checked {shapes_ok}, on card {on_card}"]
+
+
 def tp_worker(spec_path: str) -> int:
-    """One rank of the dist phase's (d) and (e), started by torchrun: joins
-    a gloo group and, for each run of the spec, makes the run's (data,
-    model) mesh (each shape once), builds the port's Container on it and
-    its train step (``Container.train_step_fn``), takes the steps, and
-    records its losses, grad norms, the bytes each step handed to the
+    """One rank of the dist phase's (d), (e) and (f), started by torchrun:
+    joins a gloo group and, for each run of the spec, makes the run's
+    (data, model) mesh (each shape once), builds the port's Container on
+    it and its train step (``Container.train_step_fn``), takes the steps,
+    and records its losses, grad norms, the bytes each step handed to the
     model axis and to the ABI, step seconds, peak memory, kernel launches
-    and the shapes of its K2, K4 and K5 calls; rank 0 writes every rank's
-    records."""
+    and the shapes of its K1, K2, K4 and K5 calls; then, for each pod of
+    the spec, serves the pod's requests through a ``Pod`` on the (data 1,
+    model 2) mesh and a ``ContinuousScheduler`` (``_pod_tp_rank``); rank
+    0 writes every rank's records."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
@@ -3536,6 +3781,7 @@ def tp_worker(spec_path: str) -> int:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.dist.mesh import make_mesh
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     spec = json.loads(Path(spec_path).read_text())
@@ -3545,9 +3791,15 @@ def tp_worker(spec_path: str) -> int:
     torch.cuda.set_device(device)
     dist.init_process_group("gloo", init_method="env://", rank=rank,
                             world_size=int(os.environ["WORLD_SIZE"]))
-    shapes = {"k2": set(), "k4": set(), "k5": set()}
+    shapes = {"k1": set(), "k2": set(), "k4": set(), "k5": set()}
     real = (fa_ops.flash_attention_fwd_cuda, rg_ops.rglru_scan_cuda,
-            ssd_ops.ssd_cuda)
+            ssd_ops.ssd_cuda, pa_ops.paged_attention_cuda)
+
+    def k1(q, kp, vp, table, lengths, **kw):
+        shapes["k1"].add((q.shape[0], kp.shape[0], q.shape[1] // kp.shape[0],
+                          q.shape[2], kp.shape[2], table.shape[1],
+                          str(q.dtype).removeprefix("torch.")))
+        return real[3](q, kp, vp, table, lengths, **kw)
 
     def k2(q, k, v, *, causal=True, window=0, scale=None):
         shapes["k2"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[3],
@@ -3565,6 +3817,7 @@ def tp_worker(spec_path: str) -> int:
     fa_ops.flash_attention_fwd_cuda = k2
     rg_ops.rglru_scan_cuda = k4
     ssd_ops.ssd_cuda = k5
+    pa_ops.paged_attention_cuda = k1
     try:
         meshes, records = {}, []
         for run in spec["runs"]:
@@ -3603,18 +3856,89 @@ def tp_worker(spec_path: str) -> int:
                 "peak": torch.cuda.max_memory_allocated(),
                 "launches": _launch_counts(),
                 "shapes": {k: sorted(v) for k, v in shapes.items()},
-                "by_op": mesh.stats.bytes,
+                "by_op": json.loads(json.dumps(mesh.stats.bytes)),
                 "collective_seconds": mesh.stats.seconds})
             del params, opt, m, step, c
             torch.cuda.empty_cache()
+        for arch in spec.get("pods", ()):
+            if (1, 2) not in meshes:
+                meshes[(1, 2)] = make_mesh((1, 2), ("data", "model"))
+            mesh = meshes[(1, 2)]
+            mesh.stats.reset()
+            for seen in shapes.values():
+                seen.clear()
+            records.append({"name": f"pod {arch}", "rank": rank,
+                            "pid": os.getpid(), **_pod_tp_serve(
+                                torch, arch, Path(spec["root"])
+                                / f"pod{rank}", mesh),
+                            "shapes": {k: sorted(v)
+                                       for k, v in shapes.items()}})
         everything = mesh.gather_objects(records)
         if rank == 0:
             Path(spec["out"]).write_text(json.dumps(everything))
     finally:
         (fa_ops.flash_attention_fwd_cuda, rg_ops.rglru_scan_cuda,
-         ssd_ops.ssd_cuda) = real
+         ssd_ops.ssd_cuda, pa_ops.paged_attention_cuda) = real
         dist.destroy_process_group()
     return 0
+
+
+def _pod_tp_serve(torch, arch: str, root: Path, mesh=None) -> dict:
+    """Serve (f)'s requests for ``arch`` through a port Pod (params from
+    seed 0; on ``mesh`` when given, else one process) and a
+    ContinuousScheduler, the kernel counters set to 0 just before the
+    scheduler runs and read just after: tokens and admit ticks a request,
+    launches, prefill dispatches, decode steps and tokens, prefill and
+    decode seconds, the model axis's bytes and seconds over the decode
+    dispatches, the run's wall seconds and peak memory."""
+    import shutil
+
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.orchestrator import ContinuousScheduler, GenRequest, Pod
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt = Runtime(root)
+    rt.build(_pod_tp_image(arch), tag=arch)
+    pod = Pod(rt, arch, replicas=1, seed=0, decode_chunk=4, mesh=mesh,
+              **POD_TP[arch][1])
+    eng = pod.engines[0]
+    tp = {"bytes": 0, "seconds": 0.0}
+    if mesh is not None:
+        decode = eng.decode
+
+        def counted(*args):
+            b0, s0 = mesh.stats.wire_bytes("tp"), mesh.stats.seconds
+            out = decode(*args)
+            tp["bytes"] += mesh.stats.wire_bytes("tp") - b0
+            tp["seconds"] += mesh.stats.seconds - s0
+            return out
+        eng.decode = counted
+    reqs = _pod_tp_requests(GenRequest, arch)
+    sched = ContinuousScheduler(pod)
+    sched.submit(reqs)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sched.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    prefills = eng._c_prefill_disp.value
+    out = {"tokens": [list(map(int, r.tokens)) for r in reqs],
+           "admit": [r.admit_tick for r in reqs],
+           "done": [r.state == "done" for r in reqs],
+           "launches": launches, "prefills": prefills,
+           "decode_steps": eng.decode_ticks,
+           "decode_tokens": eng.tokens_generated - prefills,
+           "prefill_s": eng.prefill_s, "decode_s": eng.decode_s,
+           "prefix_hits": eng.prefix_hits, "tp_decode": tp, "wall_s": wall,
+           "peak": torch.cuda.max_memory_allocated()}
+    for e in pod.engines:
+        e.release()
+    del pod, eng, sched
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def phase_dist(torch, state, workdir: Path) -> None:
@@ -3647,6 +3971,13 @@ DRYRUN_CELLS = (("deepseek-67b", "generic", {"remat": "dots"}, ""),
                  "host"),
                 ("llama4-scout-17b-a16e", "generic", {"remat": "dots"}, ""))
 DRYRUN_MESHES = ("pod", "multipod")
+# and serving on the model axis: deepseek-67b's prefill_32k and decode_32k
+# on the pod (its 125.6 GiB of bf16 params serve on no single card) and
+# mamba2-2.7b's long_500k on the multipod (one row, whole on every
+# replica), each in its own process beside (a)'s
+DRYRUN_SERVE = (("deepseek-67b", "prefill_32k", "pod"),
+                ("deepseek-67b", "decode_32k", "pod"),
+                ("mamba2-2.7b", "long_500k", "multipod"))
 
 
 def _dryrun_start(workdir: Path) -> list:
@@ -3665,6 +3996,12 @@ def _dryrun_start(workdir: Path) -> list:
             procs.append(subprocess.Popen(
                 cmd, env=env, cwd=str(workdir), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
+    for arch, shape, mesh in DRYRUN_SERVE:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             str(workdir / "dryrun")], env=env, cwd=str(workdir),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
 
@@ -3739,6 +4076,45 @@ def _dryrun_cells(state, workdir: Path, procs: list) -> list[str]:
                             f"not above generic {g}")
     state["dryrun"]["cells"] = {f"{a} {b} {m}": r
                                 for (a, b, m), r in recs.items()}
+    return failures + _dryrun_serve_cells(state, workdir)
+
+
+def _dryrun_serve_cells(state, workdir: Path) -> list[str]:
+    """(a)'s serve cells: each ``ok``, ``fits_hbm`` the resident bytes
+    against one card's, and the rank's part of the cache (of its KV
+    leaves, where the arch has attention) the whole over the model axis's
+    16 and over the replicas where they divide the batch."""
+    from repro_torch.configs import get_shape_cell
+    from repro_torch.launch.analysis import HBM_PER_CHIP
+    failures = []
+    for arch, shape, mesh in DRYRUN_SERVE:
+        path = workdir / "dryrun" / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if rec.get("status") != "ok":
+            failures.append(f"(a) {arch} {shape} {mesh}: "
+                            f"{rec.get('status')} {rec.get('error')}")
+            continue
+        mem, cache = rec["memory"], rec["cache"]
+        reps = rec["n_devices"] // 16
+        batch = get_shape_cell(shape).global_batch
+        rows = reps if batch % reps == 0 else 1
+        key = "kv_bytes" if cache["kv_bytes"] else "bytes"
+        ok = (mem["fits_hbm"] == (mem["resident_bytes_per_device"]
+                                  <= HBM_PER_CHIP)
+              and cache[key + "_per_device"] * 16 * rows == cache[key])
+        log(f"dryrun: (a) {arch} {shape} {mesh}: {key.replace('_', ' ')} "
+            f"{cache[key]:,} whole, {cache[key + '_per_device']:,} a rank "
+            f"(1/16 over the model axis x 1/{rows} over the rows); resident "
+            f"{mem['resident_bytes_per_device'] / 2**30:.2f} GiB a rank, "
+            f"fits {mem['fits_hbm']}; kernel calls {rec['kernel_calls']}; "
+            f"roofline {rec['roofline']['dominant']} "
+            f"{max(rec['roofline'][k] for k in ('compute_s', 'memory_s', 'collective_s')):.4e} s;"
+            f" probes {len(rec['probes'])} stages; traced in "
+            f"{rec['seconds']['lower']:.1f} s {'ok' if ok else 'FAIL'} "
+            f"(H100 data-sheet constants; {state['card']})")
+        state["dryrun"]["cells"][f"{arch} {shape} {mesh}"] = rec
+        if not ok:
+            failures.append(f"(a) {arch} {shape} {mesh}: gates {cache}")
     return failures
 
 

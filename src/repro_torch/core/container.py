@@ -37,9 +37,15 @@ it reads it (``dist.sharding.FSDP``), and the train step updates the
 parts. ``host mode=explicit`` keeps params whole over the batch axes
 under ``fsdp`` too, as the JAX package's ``shard_map`` region does (its
 ``P()`` in_specs gather them at entry and its out_specs return them
-whole): the same values as without it. Not ported, and raising where
-asked for (ROADMAP.md Queue 1 item 13): PowerSGD on a model axis, and
-serving across ranks; an MoE arch with several batch replicas needs the
+whole): the same values as without it. The serve steps run on the same
+parts: ``init_slot_cache``/``init_paged_cache`` allocate the rank's part
+of the cache (``slot_cache_shardings``/``paged_cache_shardings``), a
+step takes the rank's rows of the batch (a batch the replicas do not
+divide stays whole on every replica, as ``safe_spec`` keeps it) and
+returns the rank's vocab slice of the logits, and greedy tokens are the
+same on every rank. Not ported, and raising where asked for (ROADMAP.md
+Queue 1 item 13): PowerSGD on a model axis; an MoE arch with several
+batch replicas needs the
 expert-parallel dispatch (a model axis dividing its experts): ROADMAP.md
 Queue 3 item 14.
 
@@ -189,9 +195,13 @@ class Container:
     def init_params(self, seed: int = 0):
         """Materialise params on this container's device from ``seed``:
         this rank's part of each (the whole leaf is drawn, so every mesh
-        gets the same values)."""
-        return self._parts(materialize(self.param_defs, seed,
-                                       self.param_dtype, self.device))
+        gets the same values, and dropped for its part before the next
+        is drawn)."""
+        shs = dict(zip(map(id, tree_leaves(self.param_defs)),
+                       tree_leaves(self.param_shardings())))
+        return materialize(self.param_defs, seed, self.param_dtype,
+                           self.device,
+                           keep=lambda d, t: self._part(shs[id(d)], t))
 
     def load_params(self, tree):
         """Given whole params -- the port's tree of tensors, or the JAX
@@ -205,14 +215,15 @@ class Container:
                 raise ValueError(f"param shape {tuple(t.shape)} != "
                                  f"expected {tuple(d.shape)}")
             return t.to(device=self.device, dtype=self.param_dtype)
-        return self._parts(tree_map(leaf, self.param_defs, tree))
+        return tree_map(self._part, self.param_shardings(),
+                        tree_map(leaf, self.param_defs, tree))
 
-    def _parts(self, params):
-        """This rank's part of each whole leaf over every mesh axis that
+    @staticmethod
+    def _part(sh: NamedSharding, p: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole leaf over every mesh axis that
         splits it (its model-axis shard, its FSDP part of that): a copy, so
         the whole can go; the leaf itself where nothing splits it."""
-        return tree_map(lambda sh, p: sh.local(p).clone() if sh.split()
-                        else p, self.param_shardings(), params)
+        return sh.local(p).clone() if sh.split() else p
 
     def param_shardings(self):
         return def_shardings(self.param_defs, self.mesh, self.rules,
@@ -337,17 +348,21 @@ class Container:
         return self.cache_dtype
 
     def _zeros(self, defs):
-        return tree_map(lambda d: torch.zeros(
-            d.shape, dtype=self.cache_leaf_dtype(d), device=self.device), defs)
+        """This rank's part of each cache def, zeroed, on this device."""
+        return tree_map(lambda d, sh: torch.zeros(
+            sh.local_shape(d.shape), dtype=self.cache_leaf_dtype(d),
+            device=self.device), defs,
+            def_shardings(defs, self.mesh, self.rules))
 
     def init_slot_cache(self, n_slots: int, max_len: int):
-        """Zero-initialised contiguous slot cache on this device."""
+        """Zero-initialised contiguous slot cache on this device: this
+        rank's part (``slot_cache_shardings``)."""
         return self._zeros(self.model.cache_defs(n_slots, max_len))
 
     def init_paged_cache(self, n_pages: int, page_size: int):
         """Zero-initialised page pool: per attention layer (n_kv, n_pages,
-        page_size, hd); slots address it through the host PagePool's
-        table."""
+        page_size, hd), this rank's part (``paged_cache_shardings``);
+        slots address it through the host PagePool's table."""
         return self._zeros(self.model.paged_cache_defs(n_pages, page_size))
 
     def build_serve_step(self, kind: str, *, batch: int | None = None,
@@ -436,21 +451,30 @@ class Container:
     def _replicas(self) -> int:
         return self.mesh.axes_size(batch_axes(self.mesh))
 
+    def _rows(self, batch: int) -> int:
+        """This rank's rows of a ``batch``: its share where the replicas
+        divide it, else the whole batch (``safe_spec`` keeps it
+        replicated, as the reference's ``_safe_spec`` does)."""
+        reps = self._replicas()
+        return batch // reps if batch % reps == 0 else batch
+
     def input_specs(self, kind: str | None = None) -> dict:
         """Meta tensors of this rank's inputs to a ``kind`` step at the
         cell's shapes (the JAX package's keys): its rows of the batch
         (tokens and labels as int64, what the step reads), the cache of its
-        rows, a (B, 1) token column and a 0-d int32 position."""
+        rows, a (B, 1) token column and a 0-d int32 position. A batch the
+        replicas do not divide is whole on every replica (``_rows``); a
+        train step's still raises."""
         cell = self.cell
         if cell is None:
             raise ValueError("image has no SHAPE layer")
         kind = kind or cell.kind
         B, S = cell.global_batch, cell.seq_len
         reps = self._replicas()
-        if B % reps:
+        if kind == "train" and B % reps:
             raise ValueError(f"a global batch of {B} rows does not split "
                              f"over {reps} replicas")
-        B //= reps
+        B = self._rows(B)
         fe_len = self.arch.frontend_len if self.arch.frontend else 0
         tok = _meta((B, S - fe_len), torch.int64)
         fe = (_meta((B, fe_len, self.arch.d_model), self.cache_dtype)
@@ -547,7 +571,7 @@ class Container:
         kind = kind or (self.cell.kind if self.cell else "train")
         st = self.model.stages[si]
         cell = self.cell
-        B = cell.global_batch // self._replicas()
+        B = self._rows(cell.global_batch)
         S = cell.seq_len if kind != "decode" else 1
         udefs = self.model.unit_param_defs(si)
         up = tree_map(lambda d, sh: torch.empty(

@@ -65,9 +65,9 @@ PLATFORMS: dict[str, dict] = {
                  "device": "cuda"},
 }
 
-NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1 item 13: serving across "
-              "ranks -- a 'model' axis above 1, or FSDP parts -- and "
-              "PowerSGD at a 'model' axis above 1)")
+NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1 item 13: PowerSGD at a "
+              "'model' axis above 1, and an MoE arch on several batch "
+              "replicas with no model axis dividing its experts)")
 _RING = {"all_reduce": 2, "reduce_scatter": 1, "all_gather": 1}
 POD_SIZE = 256          # ranks a pod: the JAX package's 16 x 16
 

@@ -20,16 +20,19 @@ Usage:
       --arch all --shape all --mesh pod,multipod --out results/dryrun
 
 Per-cell JSON artifacts land under --out with the JAX package's names and
-keys; rerunning skips cells whose artifact already exists. A cell the
-port cannot run (serving on a ``model`` axis: ROADMAP.md Queue 1 item 13)
-is recorded as ``failed`` with its error, as the JAX package records its
-failures.
+keys, and the port's ``kernel_calls`` and, for a serve cell (prefill or
+decode), ``cache``: the bytes of the step's cache whole and on this rank
+(its rows and its ``kv_heads``/``rnn``/``heads`` blocks), and of its KV
+leaves alone. Rerunning skips cells whose artifact already exists. A cell
+the port cannot run is recorded as ``failed`` with its error, as the JAX
+package records its failures.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -38,8 +41,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.container import Container
 from repro_torch.core.image import ImageBuilder
 from repro_torch.launch.analysis import HBM_PER_CHIP, model_flops, roofline
+from repro_torch.dist.sharding import def_shardings
 from repro_torch.launch.mesh import fake_platform_mesh
 from repro_torch.models.config import SHAPE_CELLS, long_context_capable
+from repro_torch.models.params import tree_leaves
 
 MESH_PLATFORMS = {"pod": "pod", "multipod": "multipod", "local": "local"}
 
@@ -67,6 +72,24 @@ def skip_reason(arch: str, shape: str) -> str | None:
         return ("pure full-attention arch: 512k cached decode is quadratic-"
                 "cost; cell skipped per assignment (DESIGN.md §4)")
     return None
+
+
+def cache_bytes(c: Container) -> dict:
+    """The bytes of a serve cell's cache (its ``global_batch`` rows of
+    ``seq_len`` positions): whole and this rank's part, over every leaf
+    and over the KV leaves (those with a ``kv_heads`` dim) alone."""
+    defs = c.model.cache_defs(c.cell.global_batch, c.cell.seq_len)
+    out = dict.fromkeys(("bytes", "bytes_per_device", "kv_bytes",
+                         "kv_bytes_per_device"), 0)
+    for d, sh in zip(tree_leaves(defs), tree_leaves(
+            def_shardings(defs, c.mesh, c.rules))):
+        isz = c.cache_leaf_dtype(d).itemsize
+        whole = math.prod(d.shape) * isz
+        part = math.prod(sh.local_shape(d.shape)) * isz
+        for pre in ("", "kv_") if "kv_heads" in d.logical else ("",):
+            out[pre + "bytes"] += whole
+            out[pre + "bytes_per_device"] += part
+    return out
 
 
 def run_cell(arch: str, shape: str, platform: str, *,
@@ -100,6 +123,7 @@ def run_cell(arch: str, shape: str, platform: str, *,
                     "unit_wire_bytes": uc.collectives.wire_bytes(),
                 })
         n_dev = mesh.size
+        cache = cache_bytes(c) if kind in ("prefill", "decode") else None
     total = lowered.cost()
     mf = model_flops(c.arch, c.cell)
     rl = roofline(total, mf, n_dev)
@@ -135,6 +159,7 @@ def run_cell(arch: str, shape: str, platform: str, *,
             "cross_pod_bytes_per_device": total.collectives.cross_pod_bytes,
         },
         "kernel_calls": lowered.counter.kernel_calls,
+        **({"cache": cache} if cache else {}),
         "stages": [st.count for st in c.model.stages],
         "probes": probe_info,
         "roofline": rl.to_dict(),

@@ -12,7 +12,10 @@ computes all ``n_kv_orig`` kv heads, which then enter the rank's region,
 replicates them to ``n_kv`` as the reference does and keeps its
 ``n_kv/tp`` slots; attention runs on (n_q/tp, n_kv/tp) heads and the
 output projection's partial sum is reduced over the axis. Cached decode
-on a rank's shard (serving at tp > 1) is not ported and raises.
+runs the same way on the rank's part of the cache: its ``n_kv/tp`` kv
+slots of a contiguous slab (B, S, n_kv/tp, hd) or of a page pool
+(n_kv/tp, n_pages, ps, hd), the ``kv_heads`` block the reference's cache
+spec gives each rank.
 
 Kernels
 -------
@@ -34,7 +37,6 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.dist.mesh import NOT_PORTED
 from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
                                        reduce_from_model)
 from repro_torch.kernels._launch import on_card_route
@@ -276,15 +278,6 @@ def attn_out(p: dict, ctx: torch.Tensor,
         torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype)), axis)
 
 
-def _whole_heads(p: dict, geom: AttnGeometry) -> None:
-    """Cached decode needs every q head: a rank's shard of ``wq`` (serving
-    at a model axis above 1) raises."""
-    if p["wq"].shape[1] != geom.n_q:
-        raise NotImplementedError(
-            f"cached decode on {p['wq'].shape[1]} of {geom.n_q} q heads "
-            f"(serving at a model axis above 1): {NOT_PORTED}")
-
-
 # ---------------------------------------------------------------------------
 # decode with KV cache
 # ---------------------------------------------------------------------------
@@ -292,11 +285,12 @@ def _whole_heads(p: dict, geom: AttnGeometry) -> None:
 def paged_decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
                       idx: torch.Tensor, page_table: torch.Tensor,
                       cfg: ModelConfig, geom: AttnGeometry,
-                      window: int = 0):
+                      window: int = 0, axis: ModelAxis | None = None):
     """One-token decode over a PAGED KV pool (slot-granular only).
 
     x: (B,1,D); layer_cache k/v: (n_kv, n_pages, page_size, hd) -- the
-    layer's global page pool; idx: (B,) per-row positions; page_table:
+    layer's global page pool, or on a model axis the rank's n_kv/tp
+    heads of it (the rank's q heads attend over them); idx: (B,) per-row positions; page_table:
     (B, max_pages) int32 physical page ids (garbage page 0 where unmapped).
 
     Writes the new token's K/V IN PLACE into page ``table[b, idx//ps]`` at
@@ -305,15 +299,17 @@ def paged_decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
     the plain version on the CPU). Free slots write through table rows reset
     to the garbage page -- several at once, in no defined order, which is
     harmless because page 0 is never read unmasked. Returns (out, cache)
-    with ``cache`` the same, updated, tensors."""
+    with ``cache`` the same, updated, tensors. On several batch replicas
+    (a step from FSDP parts on the rank's rows) each rank writes its own
+    rows' K/V into its copy of the pool, which the reference keeps whole
+    on every replica."""
     if window:
         raise NotImplementedError(
             "paged decode supports full attention only (ring-buffer windows "
             "keep the contiguous per-slot layout)")
-    _whole_heads(p, geom)
     from repro_torch.kernels.paged_attention.ops import paged_attention
     positions = idx[:, None].to(torch.int32)
-    q, k, v = project_qkv(p, x, cfg, geom, positions)   # k/v: (B,1,n_kv,hd)
+    q, k, v = project_qkv(p, x, cfg, geom, positions, axis)  # (B,1,n_kv,hd)
     ck, cv = layer_cache["k"], layer_cache["v"]
     n_kv, n_pages, ps, hd = ck.shape
     mp = page_table.shape[1]
@@ -328,7 +324,7 @@ def paged_decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
                           page_table.to(torch.int32).contiguous(),
                           (idx.to(torch.int32) + 1).contiguous(),
                           window=window)
-    return attn_out(p, ctx[:, None]), {"k": ck, "v": cv}
+    return attn_out(p, ctx[:, None], axis), {"k": ck, "v": cv}
 
 
 def row_positions(idx, batch: int, device, lockstep: bool = True):
@@ -350,9 +346,10 @@ def row_positions(idx, batch: int, device, lockstep: bool = True):
 
 def decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
                 idx: torch.Tensor, cfg: ModelConfig, geom: AttnGeometry,
-                window: int = 0):
+                window: int = 0, axis: ModelAxis | None = None):
     """One-token decode over contiguous per-slot slabs. x: (B,1,D);
-    layer_cache k/v: (B,S,n_kv,hd); idx: (B,) per-row positions, as
+    layer_cache k/v: (B,S,n_kv,hd), on a model axis (B,S,n_kv/tp,hd);
+    idx: (B,) per-row positions, as
     ``row_positions`` gives them (a lockstep batch's scalar position is
     broadcast there, once a step). Row b's new K/V is written IN PLACE at
     position idx[b]. Returns (out, cache).
@@ -361,10 +358,9 @@ def decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
     slots: position p lives at slot ``p % S``, and the true position of
     slot j, seen from the write at idx, is ``idx - ((idx % S - j) mod S)``
     (negative for slots not written yet, which the mask hides)."""
-    _whole_heads(p, geom)
     B = x.shape[0]
     positions = idx[:, None].to(torch.int32)
-    q, k, v = project_qkv(p, x, cfg, geom, positions)
+    q, k, v = project_qkv(p, x, cfg, geom, positions, axis)
     ck, cv = layer_cache["k"], layer_cache["v"]
     S = ck.shape[1]
     idx_l = idx.long()
@@ -379,4 +375,4 @@ def decode_attn(p: dict, x: torch.Tensor, layer_cache: dict,
         k_pos = ring.expand(B, -1)
     ctx = attend(q, ck, cv, positions, k_pos, window,
                  score_dtype=getattr(torch, cfg.attn_score_dtype))
-    return attn_out(p, ctx), {"k": ck, "v": cv}
+    return attn_out(p, ctx, axis), {"k": ck, "v": cv}

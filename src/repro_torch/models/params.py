@@ -103,16 +103,20 @@ def _init_one(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
 
 
 def materialize(tree, seed: int, dtype: torch.dtype = torch.float32,
-                device: torch.device | str = "cpu"):
+                device: torch.device | str = "cpu", keep=None):
     """Instantiate a ParamDef tree from one ``torch.Generator`` seeded with
     ``seed`` on ``device``, leaves drawn in sorted-key order. The draws
     follow the JAX package's distributions, not its numbers (torch cannot
-    replay jax's per-leaf ``fold_in``)."""
+    replay jax's per-leaf ``fold_in``). ``keep(def, leaf)``, when given,
+    maps each whole leaf as it is drawn to what is kept (a rank's part),
+    so no more than one whole leaf lives at a time."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    made = {id(d): _init_one(d, gen, dtype, device)
-            for d in tree_leaves(tree)}
+    made = {}
+    for d in tree_leaves(tree):
+        t = _init_one(d, gen, dtype, device)
+        made[id(d)] = t if keep is None else keep(d, t)
     return tree_map(lambda d: made[id(d)], tree)
 
 

@@ -124,11 +124,17 @@ def init_rec_cache(n_layers: int, batch: int, cfg: ModelConfig,
     }
 
 
-def rec_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+def rec_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+               axis: ModelAxis | None = None):
     """x: (B,1,D); cache conv (B,K-1,R), state (B,R).
-    Returns (out (B,1,D), new cache entries)."""
+    Returns (out (B,1,D), new cache entries).
+
+    On a model axis the rank runs its ``rnn`` channels and whole gate
+    blocks, as ``rec_forward`` does: its cache is (B,K-1,R/tp) and
+    (B,R/tp), the reference's ``rnn`` blocks, and the out projection's
+    partial sum leaves through ``reduce_from_model``."""
     dt_ = x.dtype
-    xt = x[:, 0]
+    xt = copy_to_model(x[:, 0], axis)
     y = _gelu(xt @ p["wy"].to(dt_))
     xr = xt @ p["wx"].to(dt_)
     win = torch.cat([cache["conv"].to(dt_), xr[:, None]], dim=1)    # (B,K,R)
@@ -138,5 +144,5 @@ def rec_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     a, b = a[:, 0], b[:, 0]
     state = a * cache["state"].float() + b
     h = state.to(dt_)
-    out = ((h * y) @ p["wo"].to(dt_))[:, None]
+    out = reduce_from_model((h * y) @ p["wo"].to(dt_), axis)[:, None]
     return out, {"conv": win[:, 1:], "state": state}

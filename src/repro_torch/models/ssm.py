@@ -72,7 +72,7 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     reference's rule, kept as it is: a prompt longer than ``ssm_chunk``
     that is not a multiple of it raises).
 
-    On a model axis (``axis``; no cache) the rank runs its ``rnn`` slice of
+    On a model axis (``axis``) the rank runs its ``rnn`` slice of
     ``d_inner`` (``wz``, ``wx``, ``gate_norm``, the rows of ``out``) and
     its ``heads`` (``wdt``, ``A_log``, ``D``, ``dt_bias``; ``xi`` reshapes
     to (B, S, nh/tp, P), since d_inner = nh P), inside one split region
@@ -81,7 +81,9 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     by every head: their products and conv are replicated math outside the
     region, and enter it through ``copy_to_model`` as the scan's float32
     inputs. The conv and the norm are ``_conv_on_model``'s and
-    ``rms_gated``'s traps."""
+    ``rms_gated``'s traps. The collected cache is the rank's part of the
+    reference's: the final state of its heads, and its block of the conv
+    tail (``_conv_tail_block``)."""
     Bsz, S, D = x.shape
     di, ds, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
     dt_ = x.dtype
@@ -93,6 +95,12 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Cm = x @ p["wC"].to(dt_)
     dt = xr @ p["wdt"].to(dt_)
 
+    K = cfg.conv_kernel
+    if return_cache:
+        # the raw (pre-conv) tail the decode's conv window starts from
+        tail = _conv_tail_block(torch.cat(
+            [_gather_channels(xi[:, -(K - 1):], axis), Bm[:, -(K - 1):],
+             Cm[:, -(K - 1):]], dim=-1), axis)
     if axis is None:
         conv_in = torch.cat([xi, Bm, Cm], dim=-1)
         conv_out = _causal_conv(conv_in, p["conv_w"].to(dt_),
@@ -133,10 +141,39 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = rms_gated(y, z, p["gate_norm"], axis=axis)
     out = reduce_from_model(y @ p["out"].to(dt_), axis)
     if return_cache:
-        cache = {"conv": conv_in[:, -(cfg.conv_kernel - 1):],
-                 "state": final_state}
-        return out, cache
+        return out, {"conv": tail, "state": final_state}
     return out
+
+
+def _gather_channels(x: torch.Tensor, axis: ModelAxis | None) -> torch.Tensor:
+    """The ranks' channel slices of ``x`` (last dim) joined whole, in
+    coordinate order; ``x`` itself without an axis."""
+    if axis is None:
+        return x
+    return gather_from_model(x.movedim(-1, 0).contiguous(),
+                             axis).movedim(0, -1)
+
+
+def _conv_tail_block(tail: torch.Tensor,
+                     axis: ModelAxis | None) -> torch.Tensor:
+    """The rank's part of a whole (B, K-1, d_inner + 2 ssm_state) conv
+    tail: the block of its coordinate where the axis divides the channels
+    (the reference's ``("batch", None, "rnn")`` spec, whose blocks do not
+    line up with the rank's ``xi`` channels), the whole tail where it does
+    not (``safe_spec`` keeps the dim whole)."""
+    if axis is None or tail.shape[-1] % axis.size:
+        return tail
+    n = tail.shape[-1] // axis.size
+    return tail.narrow(-1, axis.coord * n, n)
+
+
+def _whole_conv_rows(t: torch.Tensor, conv_ch: int,
+                     axis: ModelAxis | None) -> torch.Tensor:
+    """A conv leaf or cache block split on ``rnn`` (dim 0 of ``conv_w`` /
+    ``conv_b``, or the channel dim of a tail moved there) made whole."""
+    if axis is None or t.shape[0] == conv_ch:
+        return t
+    return gather_from_model(t.contiguous(), axis)
 
 
 def _conv_on_model(p: dict, xi, Bm, Cm, di: int, axis: ModelAxis):
@@ -185,38 +222,57 @@ def init_ssm_cache(n_layers: int, batch: int, cfg: ModelConfig,
     }
 
 
-def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+               axis: ModelAxis | None = None):
     """x: (B,1,D); cache: {conv (B,K-1,Ch), state (B,H,N,P)}.
-    Returns (out (B,1,D), new cache entries)."""
+    Returns (out (B,1,D), new cache entries).
+
+    On a model axis the rank runs its ``rnn`` channels and ``heads`` as
+    ``ssm_forward`` does, and its cache is its part of the reference's:
+    the state of its heads and its block of the conv tail. The conv
+    window needs channels other ranks hold, so the tail's blocks and the
+    new token's ``xi`` row are gathered over the axis, the whole window
+    convolved (a K-tap product a channel) and the rank's block of the
+    shifted window written back."""
     Bsz = x.shape[0]
-    di, ds, nh, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    di, ds, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
+    conv_ch = di + 2 * ds
     dt_ = x.dtype
     xt = x[:, 0]                                           # (B,D)
 
-    z = xt @ p["wz"].to(dt_)
-    xi = xt @ p["wx"].to(dt_)
+    xr = copy_to_model(xt, axis)
+    z = xr @ p["wz"].to(dt_)
+    xi = xr @ p["wx"].to(dt_)
     Bm = xt @ p["wB"].to(dt_)
     Cm = xt @ p["wC"].to(dt_)
-    dt = xt @ p["wdt"].to(dt_)
+    dt = xr @ p["wdt"].to(dt_)
+    n = xi.shape[-1]                                       # the rank's channels
 
-    conv_in = torch.cat([xi, Bm, Cm], dim=-1)              # (B,Ch)
-    win = torch.cat([cache["conv"].to(dt_), conv_in[:, None]], dim=1)  # (B,K,Ch)
-    conv_out = torch.einsum("bkc,ck->bc", win, p["conv_w"].to(dt_))
-    conv_out = F.silu(conv_out + p["conv_b"].to(dt_))
-    xi, Bm, Cm = torch.split(conv_out, [di, ds, ds], dim=-1)
-    new_conv = win[:, 1:]
+    conv_in = torch.cat([_gather_channels(xi, axis), Bm, Cm], dim=-1)
+    old = _whole_conv_rows(cache["conv"].movedim(-1, 0), conv_ch,
+                           axis).movedim(0, -1)
+    win = torch.cat([old.to(dt_), conv_in[:, None]], dim=1)   # (B,K,Ch)
+    conv_w = _whole_conv_rows(p["conv_w"], conv_ch, axis)
+    conv_b = _whole_conv_rows(p["conv_b"], conv_ch, axis)
+    conv_out = torch.einsum("bkc,ck->bc", win, conv_w.to(dt_))
+    conv_out = F.silu(conv_out + conv_b.to(dt_))
+    lo = axis.coord * n if axis is not None else 0
+    xi = conv_out[:, lo:lo + n]
+    Bm, Cm = conv_out[:, di:di + ds], conv_out[:, di + ds:]
+    new_conv = _conv_tail_block(win[:, 1:], axis)
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     a = torch.exp(dt * A)                                  # (B,H)
 
+    nh = dt.shape[-1]                                      # the rank's heads
     xh = xi.reshape(Bsz, nh, P).float()
     dBx = torch.einsum("bh,bn,bhp->bhnp", dt, Bm.float(), xh)
     state = a[..., None, None] * cache["state"].float() + dBx
     y = torch.einsum("bn,bhnp->bhp", Cm.float(), state)
     y = y + p["D"].float()[None, :, None] * xh
-    y = y.reshape(Bsz, di).to(dt_)
+    y = y.reshape(Bsz, nh * P).to(dt_)
 
-    y = rms_gated(y, z, p["gate_norm"])
-    out = (y @ p["out"].to(dt_))[:, None]                  # (B,1,D)
+    y = rms_gated(y, z, p["gate_norm"], axis=axis)
+    out = reduce_from_model(y @ p["out"].to(dt_), axis)[:, None]   # (B,1,D)
     return out, {"conv": new_conv, "state": state}

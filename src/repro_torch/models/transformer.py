@@ -27,8 +27,12 @@ axis as the JAX package's specs split them -- and places the collectives
 GSPMD inserts there (``dist.sharding``); ``moe`` blocks switch to the
 expert-parallel ``moe_forward_spmd`` as the JAX package's ``_moe`` does
 when it has a mesh; ``ssm`` and ``rec`` blocks run their ``rnn`` and
-``heads`` shards (``ssm.py``, ``rglru.py``). ``forward`` returns the
-rank's vocab slice of the logits.
+``heads`` shards (``ssm.py``, ``rglru.py``). ``forward`` and
+``decode_step`` return the rank's vocab slice of the logits. Serving runs
+on the same shards: a collected or prefixed cache and every decode hold
+the rank's part of the reference's cache (its ``kv_heads`` block of the
+KV slabs and page pools, its ``rnn`` and ``heads`` blocks of the
+recurrent tails and states).
 
 Weight FSDP: a ``Model`` whose ``fsdp`` is an ``FSDP``
 (``dist.sharding``) runs on the rank's parts of the leaves it splits
@@ -36,9 +40,9 @@ over the batch axes, and gathers them where they are read: each layer's
 at the start of its unit,
 inside the remat region (``remat=full|dots`` gathers again when the
 backward recomputes the unit, so no whole stack stays alive), the
-embedding (and tied head) and ``final_norm`` once a forward. Not ported,
-and raising (ROADMAP.md Queue 1 item 13): serving across ranks (a
-collected or prefixed cache, decode) on a model axis or from FSDP parts.
+embedding (and tied head) and ``final_norm`` once a forward or decode
+step. A serving step runs from FSDP parts on the rank's rows of the
+batch.
 """
 
 from __future__ import annotations
@@ -49,7 +53,6 @@ from functools import partial
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
-from repro_torch.dist.mesh import NOT_PORTED
 from repro_torch.dist.sharding import FSDP, ModelAxis
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -274,7 +277,6 @@ class Model:
         offset past the prefix, every attention block attends over
         [prefix, suffix], and the collected cache covers the suffix only."""
         cfg = self.cfg
-        self._no_serving(collect_cache or prefix_len, "a serving prefill")
         if prefix_len:
             if frontend_embeds is not None:
                 raise NotImplementedError(
@@ -284,12 +286,7 @@ class Model:
                 raise ValueError("prefix_len > 0 needs prefix_kv + "
                                  "prefix_pages")
         fsdp = self.fsdp
-        if fsdp is not None:
-            params = {**params,
-                      "embed": fsdp.gather(params["embed"],
-                                           fsdp.shardings["embed"]),
-                      "final_norm": fsdp.gather(params["final_norm"],
-                                                fsdp.shardings["final_norm"])}
+        params = self._outer_whole(params)
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype,
                          self.axis)
         if frontend_embeds is not None:
@@ -341,14 +338,15 @@ class Model:
             return logits, caches, aux
         return logits, aux
 
-    def _no_serving(self, serving, what: str) -> None:
-        """Raise for a serving step on a rank's shards or FSDP parts."""
-        if serving and self.axis is not None:
-            raise NotImplementedError(
-                f"{what} on a model axis of {self.axis.size}: {NOT_PORTED}")
-        if serving and self.fsdp is not None:
-            raise NotImplementedError(
-                f"{what} from FSDP parts: {NOT_PORTED}")
+    def _outer_whole(self, params: dict) -> dict:
+        """``params`` with the embedding (and tied head) and
+        ``final_norm`` gathered whole under FSDP, once a forward or decode
+        step; as they are without it."""
+        fsdp = self.fsdp
+        if fsdp is None:
+            return params
+        return {**params, **{k: fsdp.gather(params[k], fsdp.shardings[k])
+                             for k in ("embed", "final_norm")}}
 
     def _unit(self, st: Stage, unit_params: dict, x, aux, positions,
               collect_cache: bool, cache_len: int, unit_prefix=None,
@@ -388,7 +386,8 @@ class Model:
             h = apply_norm(p["ln1"], x, cfg.norm)
             if collect_cache:
                 out, entry = ssm_mod.ssm_forward(p["ssm"], h, cfg,
-                                                 return_cache=True)
+                                                 return_cache=True,
+                                                 axis=axis)
             else:
                 out = ssm_mod.ssm_forward(p["ssm"], h, cfg, axis=axis)
             return x + out, None, entry
@@ -396,7 +395,8 @@ class Model:
             h = apply_norm(p["ln1"], x, cfg.norm)
             if collect_cache:
                 out, entry = rec_mod.rec_forward(p["rec"], h, cfg,
-                                                 return_cache=True)
+                                                 return_cache=True,
+                                                 axis=axis)
             else:
                 out = rec_mod.rec_forward(p["rec"], h, cfg, axis=axis)
             x = x + out
@@ -485,53 +485,69 @@ class Model:
         it they are contiguous per-slot slabs. Either way the cache is
         updated IN PLACE (per-layer views of the stacked tensors; a
         recurrent block's new conv tail and state are copied into them,
-        cast to the cache's dtype) and returned."""
+        cast to the cache's dtype) and returned.
+
+        On a model axis the cache is the rank's part and the logits its
+        vocab slice; under FSDP the embedding, ``final_norm`` and each
+        layer's parts are gathered where they are read, as in
+        ``forward``."""
         cfg = self.cfg
-        self._no_serving(True, "decode")
-        x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype)
+        fsdp, axis = self.fsdp, self.axis
+        params = self._outer_whole(params)
+        x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype, axis)
         idx = attn_mod.row_positions(idx, tokens.shape[0], x.device,
                                      lockstep=page_table is None)
         for si, st in enumerate(self.stages):
             sp = params[f"stage{si}"]
             sc = cache[f"stage{si}"]
+            unit_fsdp = fsdp.layer(f"stage{si}") if fsdp else None
             for li in range(st.count):
-                unit_params = tree_map(lambda a: a[li], sp)
-                unit_cache = tree_map(lambda a: a[li], sc)
-                for bi, kind in enumerate(st.unit):
-                    x = self._decode_block(kind, unit_params[f"b{bi}"],
-                                           unit_cache[f"b{bi}"], x, idx,
-                                           page_table)
+                x = self._decode_unit(st, tree_map(lambda a: a[li], sp),
+                                      tree_map(lambda a: a[li], sc), x, idx,
+                                      page_table, unit_fsdp)
         x = apply_norm(params["final_norm"], x, cfg.norm)
-        logits = lm_logits(params["embed"], x, cfg)
+        logits = lm_logits(params["embed"], x, cfg, axis)
         return logits, cache
 
+    def _decode_unit(self, st: Stage, unit_params: dict, unit_cache: dict,
+                     x, idx, page_table, unit_fsdp=None):
+        """One stacked unit's one-token decode (its params gathered first
+        under FSDP), its cache views updated in place -> x."""
+        if unit_fsdp is not None:
+            unit_params = self.fsdp.gather(unit_params, unit_fsdp)
+        for bi, kind in enumerate(st.unit):
+            x = self._decode_block(kind, unit_params[f"b{bi}"],
+                                   unit_cache[f"b{bi}"], x, idx, page_table)
+        return x
+
     def _decode_block(self, kind: str, p: dict, c: dict, x, idx, page_table):
-        cfg = self.cfg
+        cfg, axis = self.cfg, self.axis
         h = apply_norm(p["ln1"], x, cfg.norm)
         if kind == "ssm":
-            out, new = ssm_mod.ssm_decode(p["ssm"], h, c, cfg)
+            out, new = ssm_mod.ssm_decode(p["ssm"], h, c, cfg, axis)
             _write_state(c, new)
             return x + out
         if kind == "rec":
-            out, new = rec_mod.rec_decode(p["rec"], h, c, cfg)
+            out, new = rec_mod.rec_decode(p["rec"], h, c, cfg, axis)
             _write_state(c, new)
             x = x + out
             h2 = apply_norm(p["ln2"], x, cfg.norm)
-            return x + apply_mlp(p["mlp"], h2, cfg.mlp)
+            return x + apply_mlp(p["mlp"], h2, cfg.mlp, axis)
         window = _window(kind, cfg)
         if page_table is not None:
             out, _ = attn_mod.paged_decode_attn(
-                p["attn"], h, c, idx, page_table, cfg, self.geom, window)
+                p["attn"], h, c, idx, page_table, cfg, self.geom, window,
+                axis)
         else:
             out, _ = attn_mod.decode_attn(p["attn"], h, c, idx, cfg,
-                                          self.geom, window)
+                                          self.geom, window, axis)
         if cfg.parallel_block:
-            return x + out + apply_mlp(p["mlp"], h, cfg.mlp)
+            return x + out + apply_mlp(p["mlp"], h, cfg.mlp, axis)
         x = x + out
         h2 = apply_norm(p["ln2"], x, cfg.norm)
         if kind == "moe":
             return x + self._moe(p["moe"], h2)[0]
-        return x + apply_mlp(p["mlp"], h2, cfg.mlp)
+        return x + apply_mlp(p["mlp"], h2, cfg.mlp, axis)
 
 
     # -- per-unit cost probes (the dry run's per-stage records) -----------
@@ -580,7 +596,6 @@ class Model:
                 by_leaf = {id(t): g for t, g in zip(leaves, grads)}
                 return tree_map(lambda t: by_leaf[id(t)], up), grads[-1]
             return probe
-        self._no_serving(True, f"a {kind} unit probe")
         if kind == "prefill":
             def probe(unit_params, x, positions):
                 return fwd(unit_params, x, positions, True)
@@ -588,10 +603,8 @@ class Model:
         if kind == "decode":
             def probe(unit_params, unit_cache, x, idx):
                 idx = attn_mod.row_positions(idx, x.shape[0], x.device)
-                for bi, k in enumerate(st.unit):
-                    x = self._decode_block(k, unit_params[f"b{bi}"],
-                                           unit_cache[f"b{bi}"], x, idx,
-                                           None)
+                x = self._decode_unit(st, unit_params, unit_cache, x, idx,
+                                      None, unit_fsdp)
                 return x, unit_cache
             return probe
         raise ValueError(f"unknown probe kind {kind!r}")

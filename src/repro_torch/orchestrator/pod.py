@@ -15,6 +15,16 @@ PyTorch port of ``repro.orchestrator.pod``. ``params=`` serves given
 weights (the port's tree, or the JAX package's as numpy) instead of a
 seeded init; ``platform`` picks the device (``None`` -> the image's MESH
 layer, ``local`` = cuda:0; ``"cpu"`` must be asked for).
+
+``mesh=`` serves on a ``(data 1, model tp)`` mesh of torch.distributed
+ranks (the port's analog of the reference's platform with a model axis):
+every rank builds the same Pod, each replica's Container holds the
+rank's param shards and cache part, and every rank runs the same
+deterministic scheduler over the same requests -- the model's
+collectives run inside each step and the greedy tokens agree, so the
+host state (queue, page pool, prefix registry, ticks) is the same on
+every rank. A mesh whose batch axes hold more than one replica raises
+(ROADMAP.md Queue 1 item 13d).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import uuid
 from pathlib import Path
 
 from repro_torch.core.image import EnvImage
+from repro_torch.dist.mesh import batch_axes
 from repro_torch.orchestrator.obs.metrics import MetricsRegistry
 from repro_torch.orchestrator.obs.tracing import TraceBuffer
 from repro_torch.orchestrator.scheduler import SlotEngine
@@ -38,9 +49,16 @@ class Pod:
                  page_size: int = 16, n_pages: int | None = None,
                  prefix_cache: bool = False,
                  spill_pages: int | None = 0,
-                 pod_id: str | None = None, params=None):
+                 pod_id: str | None = None, params=None, mesh=None):
         if replicas < 1:
             raise ValueError("a Pod needs at least one replica")
+        if mesh is not None and mesh.axes_size(batch_axes(mesh)) > 1:
+            raise NotImplementedError(
+                f"a Pod on a mesh of {dict(mesh.shape)}: a batch axis above "
+                "1 splits the slot bank over replicas, which needs the "
+                "tokens gathered over the batch axes (not ported yet: "
+                "ROADMAP.md Queue 1 item 13d)")
+        self.mesh = mesh
         self.runtime = runtime
         self.ref = ref if isinstance(ref, str) else None
         self.image: EnvImage = (ref if isinstance(ref, EnvImage)
@@ -96,7 +114,7 @@ class Pod:
         materialized once per image generation and shared by every replica
         (engines never mutate it), and the compiled steps come warm out of
         the shared CompileCache after the first replica."""
-        c = self.runtime.run(image, platform=self.platform)
+        c = self.runtime.run(image, platform=self.platform, mesh=self.mesh)
         params = self._params.get(image.digest)
         if params is None:
             params = self._params[image.digest] = (

@@ -32,6 +32,12 @@ JAX package scans.
 
 Sampling masks physically-padded vocab columns so padded ids are never
 emitted.
+
+On a model axis (the model's ``ModelAxis``) a rank holds its shards of
+the params and its part of the cache, the logits a step returns are its
+vocab slice (the reference's ``("batch", "vocab")`` out-sharding), and
+the greedy sample is an exact argmax over the slices (``greedy_sample``):
+every rank gets the same token, the one a single process picks.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist.sharding import ModelAxis, gather_from_model
 from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import Model
 
@@ -61,14 +68,31 @@ def dispatch_class(kind: str) -> str:
     return "other"
 
 
-def greedy_sample(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+def greedy_sample(logits: torch.Tensor, vocab_size: int,
+                  axis: ModelAxis | None = None) -> torch.Tensor:
     """Argmax over the real vocab (padded columns masked); ties go to the
-    first index, as ``jnp.argmax``."""
+    first index, as ``jnp.argmax``.
+
+    On a model axis ``logits`` is the rank's vocab slice: each rank masks
+    its columns past ``vocab_size``, takes its slice's maximum and first
+    index, and the (max, global index) pairs are gathered over the axis
+    -- B pairs a rank, not B x Vp logits. The largest value wins, a tie
+    going to the lowest global index (the first rank that holds it), so
+    every rank returns the token one process would."""
     vp = logits.shape[-1]
-    if vp != vocab_size:
-        col = torch.arange(vp, device=logits.device) >= vocab_size
+    lo = axis.coord * vp if axis is not None else 0
+    if lo + vp > vocab_size:
+        col = lo + torch.arange(vp, device=logits.device) >= vocab_size
         logits = logits.masked_fill(col, float("-inf"))
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    best = torch.argmax(logits, dim=-1)
+    if axis is None:
+        return best.to(torch.int32)
+    # value and index in float64: exact for any logit dtype and any id
+    pair = torch.stack([torch.gather(logits, -1, best[..., None])[..., 0]
+                        .double(), (best + lo).double()])
+    pairs = gather_from_model(pair[None], axis)      # (tp, 2, ...)
+    win = torch.argmax(pairs[:, 0], dim=0)           # first rank at the max
+    return torch.gather(pairs[:, 1], 0, win[None])[0].to(torch.int32)
 
 
 def _rows_at(logits: torch.Tensor, pos) -> torch.Tensor:
@@ -87,7 +111,8 @@ class ServeStepBuilder:
         ``frontend_embeds`` prefix, where the arch has one) into a cache
         of ``cache_len`` positions -> (last logits (B, Vp), cache). The
         last row is copied out, so the full (B, S, Vp) logits are freed
-        when the step returns."""
+        when the step returns. On a model axis the logits are the rank's
+        (B, Vp/tp) vocab slice and the cache its part."""
         def prefill(params, tokens, frontend_embeds=None):
             logits, cache, _ = self.model.forward(
                 params, tokens, frontend_embeds=frontend_embeds,
@@ -98,7 +123,8 @@ class ServeStepBuilder:
 
     def build_decode(self) -> Callable:
         """One decode step at ``idx``: a scalar (lockstep batch) or (B,)
-        per-row positions -> (logits (B, Vp), cache)."""
+        per-row positions -> (logits (B, Vp), cache); on a model axis the
+        rank's (B, Vp/tp) vocab slice."""
         def decode(params, cache, tokens, idx):
             logits, cache = self.model.decode_step(params, cache, tokens, idx)
             return logits[:, -1], cache
@@ -123,7 +149,7 @@ class ServeStepBuilder:
         Right padding is causally safe for full attention: pad-position K/V
         land at positions >= the real content, which the causal mask hides
         until the decode loop overwrites them in place."""
-        vocab = self.model.cfg.vocab_size
+        vocab, axis = self.model.cfg.vocab_size, self.model.axis
 
         if frontend_len:
             def prefill_slot_fe(params, tokens, length, frontend_embeds,
@@ -135,7 +161,9 @@ class ServeStepBuilder:
                 last_pos = (torch.as_tensor(fe_len, device=logits.device)
                             + torch.as_tensor(length, device=logits.device)
                             - 1)
-                return greedy_sample(_rows_at(logits, last_pos), vocab), cache
+                first = greedy_sample(_rows_at(logits, last_pos), vocab,
+                                      axis)
+                return first, cache
 
             return prefill_slot_fe
 
@@ -143,7 +171,7 @@ class ServeStepBuilder:
             logits, cache, _ = self.model.forward(
                 params, tokens, collect_cache=True, cache_len=cache_len)
             last = _rows_at(logits, torch.as_tensor(length) - 1)
-            return greedy_sample(last, vocab), cache
+            return greedy_sample(last, vocab, axis), cache
 
         return prefill_slot
 
@@ -152,11 +180,11 @@ class ServeStepBuilder:
         at its own position. Free slots decode garbage into their own rows,
         which the next insertion overwrites."""
         decode = self.build_decode()
-        vocab = self.model.cfg.vocab_size
+        vocab, axis = self.model.cfg.vocab_size, self.model.axis
 
         def decode_slots(params, cache, tokens, pos):
             logits, cache = decode(params, cache, tokens, pos)
-            return greedy_sample(logits, vocab), cache
+            return greedy_sample(logits, vocab, axis), cache
 
         return decode_slots
 
@@ -169,14 +197,14 @@ class ServeStepBuilder:
             (toks (B, n_steps), next_tokens (B,1), pos+n_steps, cache)
         """
         decode = self.build_decode()
-        vocab = self.model.cfg.vocab_size
+        vocab, axis = self.model.cfg.vocab_size, self.model.axis
 
         def decode_chunk(params, cache, tokens, pos):
             toks = []
             tok = tokens
             for _ in range(n_steps):
                 logits, cache = decode(params, cache, tok, pos)
-                tok = greedy_sample(logits, vocab)[:, None]
+                tok = greedy_sample(logits, vocab, axis)[:, None]
                 toks.append(tok[:, 0])
                 pos = pos + 1
             return torch.stack(toks, dim=1), tok, pos, cache
@@ -212,7 +240,7 @@ class ServeStepBuilder:
                     "prefix-cached suffix prefill does not compose with "
                     "frontend embeddings")
             span = prompt_len                  # the suffix bucket
-            vocab = self.model.cfg.vocab_size
+            vocab, axis = self.model.cfg.vocab_size, self.model.axis
             frac = prefix_len % page_size      # front-partial merge width
             np_ = -(-(frac + span) // page_size)
             pad = np_ * page_size - (frac + span)
@@ -224,7 +252,8 @@ class ServeStepBuilder:
                     prefix_kv=pool, prefix_pages=prefix_pages,
                     prefix_len=prefix_len)
                 first = greedy_sample(
-                    _rows_at(logits, torch.as_tensor(length) - 1), vocab)
+                    _rows_at(logits, torch.as_tensor(length) - 1), vocab,
+                    axis)
 
                 def to_pages(e, pl):
                     # e: (count, 1, S, n_kv, hd) suffix cache;
@@ -272,12 +301,12 @@ class ServeStepBuilder:
     def build_decode_slots_paged(self) -> Callable:
         """One decode tick over the slot bank with paged KV: identical
         semantics to decode_slots plus the (B, max_pages) page table."""
-        vocab = self.model.cfg.vocab_size
+        vocab, axis = self.model.cfg.vocab_size, self.model.axis
 
         def decode_slots_paged(params, cache, tokens, pos, page_table):
             logits, cache = self.model.decode_step(
                 params, cache, tokens, pos, page_table=page_table)
-            return greedy_sample(logits[:, -1], vocab), cache
+            return greedy_sample(logits[:, -1], vocab, axis), cache
 
         return decode_slots_paged
 
@@ -285,7 +314,7 @@ class ServeStepBuilder:
         """Multi-step paged slot decode. The page table is FIXED for the
         whole chunk: the scheduler pre-allocates pages covering every write
         position pos..pos+n_steps-1 before dispatch."""
-        vocab = self.model.cfg.vocab_size
+        vocab, axis = self.model.cfg.vocab_size, self.model.axis
 
         def decode_chunk_paged(params, cache, tokens, pos, page_table):
             toks = []
@@ -293,7 +322,7 @@ class ServeStepBuilder:
             for _ in range(n_steps):
                 logits, cache = self.model.decode_step(
                     params, cache, tok, pos, page_table=page_table)
-                tok = greedy_sample(logits[:, -1], vocab)[:, None]
+                tok = greedy_sample(logits[:, -1], vocab, axis)[:, None]
                 toks.append(tok[:, 0])
                 pos = pos + 1
             return torch.stack(toks, dim=1), tok, pos, cache

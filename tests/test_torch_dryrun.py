@@ -18,8 +18,9 @@ process, tensors on ``meta``.
   Fig. 3's two arms order their wire and cross-pod bytes as the JAX
   package's dry run orders them (one JAX subprocess,
   tests/torch_dryrun_jax.py);
-* (9) serve cells on the pod mesh record ``failed`` naming Queue 1 item
-  13; on ``local`` they trace;
+* (9) serve cells trace on the pod and multipod meshes, unit probes
+  included, a rank holding 1/16 of the KV cache's ``kv_heads``, and on
+  ``local``;
 * (10) ``python -m repro_torch.launch.dryrun`` where ``import jax`` and
   ``import repro`` raise: an artifact, a cached rerun, the report beside a
   record in the reference's format, and ``opdump`` of the same cell.
@@ -45,6 +46,7 @@ from repro_torch.dist.mesh import fake_job, make_mesh
 from repro_torch.launch import dryrun, report
 from repro_torch.launch.mesh import fake_platform_mesh
 from repro_torch.models import attention
+from repro_torch.models.config import SHAPE_CELLS
 from repro_torch.models.params import tree_leaves, tree_map
 
 REPO = Path(__file__).resolve().parents[1]
@@ -361,26 +363,45 @@ def test_lower_step_arguments_are_params_opt_state_and_rows():
 
 # -- (9) serve cells -------------------------------------------------------------------
 
-def test_serve_cells_fail_on_pod_and_trace_on_local(tmp_path):
-    """Serving on a model axis is not ported: the pod's prefill_32k and
-    decode_32k cells record ``failed`` with the error naming Queue 1 item
-    13; on ``local`` (one rank) the same cells of llama3.2-3b-smoke trace
-    (``ok``) and the decode runs no kernel (a contiguous cache)."""
-    dryrun.main(["--arch", "llama3.2-3b-smoke", "--shape",
-                 "prefill_32k,decode_32k", "--mesh", "pod,local", "--out",
-                 str(tmp_path), "--no-probes"])
+SERVE_ARCHS = {"llama3.2-3b-smoke": ("prefill_32k", "decode_32k"),
+               "recurrentgemma-2b-smoke": ("prefill_32k", "decode_32k",
+                                           "long_500k"),
+               "musicgen-medium-smoke": ("prefill_32k", "decode_32k")}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_ARCHS))
+def test_serve_cells_trace_on_pod_and_multipod(tmp_path, arch):
+    """The serve cells trace (``ok``) on one rank of the pod (16 x 16)
+    and multipod (2 x 16 x 16) meshes, unit probes included, and on
+    ``local``: the rank holds 1/16 of the KV cache's ``kv_heads`` and its
+    rows of the batch (long_500k's one row stays whole on every replica),
+    ``fits_hbm`` is the resident bytes against one card's, and on
+    ``local`` llama's prefill runs its two flash-attention calls and its
+    decode no kernel (a contiguous cache)."""
+    shapes = SERVE_ARCHS[arch]
+    dryrun.main(["--arch", arch, "--shape", ",".join(shapes), "--mesh",
+                 "pod,multipod,local", "--out", str(tmp_path)])
     recs = {(r["shape"], r["mesh"]): r for r in report.load(str(tmp_path))}
-    for shape in ("prefill_32k", "decode_32k"):
-        failed = recs[(shape, "pod")]
-        assert failed["status"] == "failed"
-        assert "ROADMAP.md Queue 1 item 13" in failed["error"]
-        ok = recs[(shape, "local")]
-        assert ok["status"] == "ok" and ok["n_devices"] == 1
-        assert ok["memory"]["fits_hbm"] == (
-            ok["memory"]["resident_bytes_per_device"] <= 80e9)
-    assert recs[("prefill_32k", "local")]["kernel_calls"] == {
-        "flash_attention_fwd": 2}
-    assert recs[("decode_32k", "local")]["kernel_calls"] == {}
+    for shape in shapes:
+        batch = SHAPE_CELLS[shape].global_batch
+        for mesh, reps in (("pod", 16), ("multipod", 32), ("local", 1)):
+            rec = recs[(shape, mesh)]
+            assert rec["status"] == "ok", rec.get("error")
+            assert rec["memory"]["fits_hbm"] == (
+                rec["memory"]["resident_bytes_per_device"] <= 80e9)
+            assert len(rec["probes"]) == len(rec["stages"])
+            tp = 1 if mesh == "local" else 16
+            rows = reps if batch % reps == 0 else 1
+            cache = rec["cache"]
+            assert cache["kv_bytes"] > 0
+            assert cache["kv_bytes_per_device"] * tp * rows == \
+                cache["kv_bytes"], (shape, mesh, cache)
+            assert 0 < cache["bytes_per_device"] < cache["bytes"] or \
+                mesh == "local"
+    if arch == "llama3.2-3b-smoke":
+        assert recs[("prefill_32k", "local")]["kernel_calls"] == {
+            "flash_attention_fwd": 2}
+        assert recs[("decode_32k", "local")]["kernel_calls"] == {}
 
 
 # -- (10) the command line, without jax ---------------------------------------------

@@ -8,7 +8,9 @@ whose XLA sees 4 host devices):
 It runs the scenarios of ``WORKDIR/plan.json`` with ``TrainStepBuilder``
 over 4-device meshes, from the weights and global batches the test wrote,
 and writes ``WORKDIR/jax.json`` (losses, grad norms, optimizer-state
-specs) and ``WORKDIR/jax.npz`` (final params).
+specs) and ``WORKDIR/jax.npz`` (final params); for
+tests/test_torch_tp_serve.py's plan (``"serve"``) the serve steps and
+pods of ``main_serve``.
 """
 
 import json
@@ -112,10 +114,131 @@ def main_tp(work: Path, plan: dict) -> None:
     np.savez(work / "jax.npz", **arrays)
 
 
+def _rank_parts(tree, mesh, prefix: str, out: dict) -> None:
+    """Each rank's part of every leaf of ``tree`` (a rank numbered
+    row-major over the (data, model) mesh, as the port's are), as
+    ``out[f"{prefix}/r{rank}{keystr}"]``."""
+    coords = {d: (i, j) for (i, j), d in np.ndenumerate(mesh.devices)}
+    for path, a in _flat(tree).items():
+        for sh in a.addressable_shards:
+            i, j = coords[sh.device]
+            out[f"{prefix}/r{i * mesh.shape['model'] + j}{path}"] = \
+                np.asarray(sh.data, np.float32)
+
+
+def main_serve(work: Path, plan: dict) -> None:
+    """tests/test_torch_tp_serve.py's scenarios on the JAX package: the
+    step cases through ``Container.lower_serve_step(...).compile()`` and
+    the pod cases through ``Pod`` + ``ContinuousScheduler``, each on a
+    platform of its (data, model) shape registered in
+    ``repro.dist.mesh.PLATFORMS`` from here (the package is not edited).
+    Writes every rank's part of each output to ``jax_serve.npz`` and the
+    pods' tokens and ticks to ``jax_serve.json`` (a process given only the
+    steps or only the pods writes ``jax_serve_steps.npz`` or
+    ``jax_serve_pods.json``)."""
+    import jax.numpy as jnp
+
+    import torch_serve_case as case
+    from repro.dist import mesh as jmesh
+    from repro.orchestrator import ContinuousScheduler, GenRequest, Pod
+    from repro.orchestrator.scheduler import (_insert_pages_jit,
+                                              _insert_slot_jit)
+
+    for shape in {tuple(c["mesh"]) for c in plan["steps"] + plan["pods"]}:
+        jmesh.PLATFORMS[case.mesh_name(shape)] = {
+            "axes": ("data", "model"), "shape": shape}
+    rt = Runtime(work / "jrt-serve")
+    arrays, pods = {}, {}
+    for sc in plan["steps"]:
+        c = rt.run(rt.build(case.imagefile(sc, case.mesh_name(sc["mesh"]))))
+        weights = _load(work / f"params-{sc['weights']}.npz")
+        params = jax.device_put(_tree(c.abstract_params(), weights),
+                                c.param_shardings())
+        fe_len = c.arch.frontend_len if c.arch.frontend else 0
+        x = case.step_inputs(c.arch.vocab_size, c.arch.d_model, fe_len,
+                             sc["arch"])
+        name = sc["name"]
+
+        def put(prefix, tree):
+            _rank_parts(tree, c.mesh, f"{name}/{prefix}", arrays)
+
+        if sc["prefill"]:
+            f = c.lower_serve_step("prefill", batch=2, prompt_len=case.P,
+                                   cache_len=case.CACHE).compile()
+            put("prefill", dict(zip(("logits", "cache"),
+                                    f(params, x["prefill"]))))
+        f = c.lower_serve_step("prefill_slot", prompt_len=case.P,
+                               cache_len=case.CACHE,
+                               frontend_len=fe_len or None).compile()
+        args = (x["fe"], np.int32(fe_len)) if fe_len else ()
+        first, small = f(params, x["slot"], x["length"], *args)
+        put("slot", {"first": first, "cache": small})
+        bank = _insert_slot_jit(c.init_slot_cache(case.BANK, case.CACHE),
+                                small, jnp.int32(case.SLOT))
+        tok = np.zeros((case.BANK, 1), np.int32)
+        tok[case.SLOT, 0] = int(first[0])
+        pos = np.zeros((case.BANK,), np.int32)
+        pos[case.SLOT] = fe_len + int(x["length"])
+        f = c.lower_serve_step("decode_chunk", batch=case.BANK,
+                               cache_len=case.CACHE,
+                               gen_steps=case.GEN).compile()
+        toks, _, _, bank = f(params, bank, tok, pos)
+        put("chunk", {"toks": toks, "cache": bank})
+        if sc["paged"]:
+            kw = dict(page_size=case.PAGE, n_pages=case.N_PAGES)
+            pool = c.init_paged_cache(case.N_PAGES, case.PAGE)
+            f = c.lower_serve_step("prefill_slot_paged", prompt_len=case.PA,
+                                   **kw).compile()
+            first_a, small = f(params, x["paged_a"], np.int32(case.PA))
+            put("paged_a", {"first": first_a, "cache": small})
+            pool = _insert_pages_jit(pool, small,
+                                     jnp.asarray(x["table"][0, :3]))
+            f = c.lower_serve_step("prefill_slot_paged", prompt_len=case.SUF,
+                                   prefix_len=case.PFX, **kw).compile()
+            first_b, small = f(params, pool, x["paged_b"][:, case.PFX:],
+                               np.int32(case.SUF), x["table"][1, :2])
+            put("paged_b", {"first": first_b, "cache": small})
+            pool = _insert_pages_jit(pool, small,
+                                     jnp.asarray(x["table"][1, 2:3]))
+            f = c.lower_serve_step("decode_chunk_paged", batch=case.BANK,
+                                   max_pages=case.MAX_PAGES,
+                                   gen_steps=case.GEN, **kw).compile()
+            tok = np.asarray([[int(first_a[0])], [int(first_b[0])]],
+                             np.int32)
+            pos = np.full((case.BANK,), case.PA, np.int32)
+            toks, _, _, pool = f(params, pool, tok, pos, x["table"])
+            put("paged_chunk", {"toks": toks, "cache": pool})
+    for sc in plan["pods"]:
+        tag = sc["name"]
+        rt.build(case.imagefile(sc, case.mesh_name(sc["mesh"])), tag=tag)
+        kw = (dict(paged=True, page_size=case.PAGE, prefix_cache=True)
+              if sc["paged"] else {})
+        pod = Pod(rt, tag, replicas=1, n_slots=case.POD_SLOTS,
+                  max_len=case.POD_MAX_LEN, **kw)
+        vocab = pod.engines[0].container.arch.vocab_size
+        reqs = [GenRequest(**r) for r in case.requests_spec(vocab,
+                                                             sc["paged"])]
+        sched = ContinuousScheduler(pod)
+        sched.submit(reqs)
+        sched.run(max_ticks=1000)
+        pods[tag] = {"tokens": [list(map(int, r.tokens)) for r in reqs],
+                     "admit": [r.admit_tick for r in reqs],
+                     "done": [r.done_tick for r in reqs],
+                     "prefix_hits": pod.engines[0].prefix_hits}
+    if plan["pods"]:
+        (work / "jax_serve_pods.json").write_text(json.dumps(pods))
+    if plan["steps"]:
+        np.savez(work / "jax_serve_steps.npz", **arrays)
+
+
 def main() -> None:
     work = Path(sys.argv[1])
     plan = json.loads((work / "plan.json").read_text())
     assert jax.device_count() == 4, jax.devices()
+    if "serve" in plan:
+        part = sys.argv[2] if len(sys.argv) > 2 else None
+        return main_serve(work, {k: v if part in (None, k) else []
+                                 for k, v in plan["serve"].items()})
     if "tp" in plan:
         return main_tp(work, plan)
     weights = _load(work / "params.npz")

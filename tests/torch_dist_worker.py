@@ -1,5 +1,5 @@
-"""One rank of a torch.distributed job for tests/test_torch_dist.py and
-tests/test_torch_tp.py (not collected: the tests spawn it, one process a
+"""One rank of a torch.distributed job for tests/test_torch_dist.py,
+tests/test_torch_tp.py and tests/test_torch_tp_serve.py (not collected: the tests spawn it, one process a
 rank, with ``jax`` and ``repro`` unimportable):
 
     python tests/torch_dist_worker.py JOB RANK WORLD WORKDIR
@@ -299,8 +299,149 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
     return out
 
 
+def _serve_steps(c, params, sc, rank: int, arrays: dict) -> None:
+    """A step case of tests/torch_serve_case.py on this rank: its rows of
+    each batch, its part of every cache, as the JAX package's
+    ``main_serve`` runs the case; every output into ``arrays``."""
+    import torch_serve_case as case
+    from repro_torch.orchestrator.scheduler import (_insert_pages,
+                                                    _insert_slot)
+    fe_len = c.arch.frontend_len if c.arch.frontend else 0
+    x = {k: torch.from_numpy(np.asarray(v)) for k, v in case.step_inputs(
+        c.arch.vocab_size, c.arch.d_model, fe_len, sc["arch"]).items()}
+    shape = sc["mesh"]
+    mine = lambda a: a[case.rows(a.shape[0], shape, rank)]  # noqa: E731
+
+    def put(prefix, tree):
+        arrays.update({f"{sc['name']}/{prefix}/r{rank}{p}":
+                       t.detach().float().numpy() for p, t in _flatten(tree)})
+
+    if sc["prefill"]:
+        f = c.build_serve_step("prefill", batch=2, prompt_len=case.P,
+                               cache_len=case.CACHE)
+        put("prefill", dict(zip(("logits", "cache"),
+                                f(params, mine(x["prefill"])))))
+    f = c.build_serve_step("prefill_slot", prompt_len=case.P,
+                           cache_len=case.CACHE, frontend_len=fe_len or None)
+    args = (x["fe"], fe_len) if fe_len else ()
+    first, small = f(params, x["slot"], int(x["length"]), *args)
+    put("slot", {"first": first, "cache": small})
+    bank = c.init_slot_cache(case.BANK, case.CACHE)
+    held = case.rows(case.BANK, shape, rank)
+    if held.start <= case.SLOT < held.stop:
+        bank = _insert_slot(bank, small, case.SLOT - held.start)
+    tok = torch.zeros((case.BANK, 1), dtype=torch.int32)
+    tok[case.SLOT, 0] = int(first[0])
+    pos = torch.zeros((case.BANK,), dtype=torch.int32)
+    pos[case.SLOT] = fe_len + int(x["length"])
+    f = c.build_serve_step("decode_chunk", batch=case.BANK,
+                           cache_len=case.CACHE, gen_steps=case.GEN)
+    toks, _, _, bank = f(params, bank, mine(tok), mine(pos))
+    put("chunk", {"toks": toks, "cache": bank})
+    if not sc["paged"]:
+        return
+    kw = dict(page_size=case.PAGE, n_pages=case.N_PAGES)
+    pool = c.init_paged_cache(case.N_PAGES, case.PAGE)
+    table = x["table"]
+    f = c.build_serve_step("prefill_slot_paged", prompt_len=case.PA, **kw)
+    first_a, small = f(params, x["paged_a"], case.PA)
+    put("paged_a", {"first": first_a, "cache": small})
+    pool = _insert_pages(pool, small, table[0, :3])
+    f = c.build_serve_step("prefill_slot_paged", prompt_len=case.SUF,
+                           prefix_len=case.PFX, **kw)
+    first_b, small = f(params, pool, x["paged_b"][:, case.PFX:], case.SUF,
+                       table[1, :2])
+    put("paged_b", {"first": first_b, "cache": small})
+    pool = _insert_pages(pool, small, table[1, 2:3])
+    f = c.build_serve_step("decode_chunk_paged", batch=case.BANK,
+                           max_pages=case.MAX_PAGES, gen_steps=case.GEN, **kw)
+    tok = torch.stack([first_a, first_b]).to(torch.int32)
+    pos = torch.full((case.BANK,), case.PA, dtype=torch.int32)
+    toks, _, _, pool = f(params, pool, mine(tok), mine(pos), mine(table))
+    put("paged_chunk", {"toks": toks, "cache": pool})
+
+
+def _serve_pod(rt, sc, mesh, weights: dict) -> dict:
+    """A pod case of tests/torch_serve_case.py on this job's mesh (or in
+    one process, without one), serving ``weights`` (keystr path ->
+    array): every request's tokens and ticks."""
+    import torch_serve_case as case
+    from repro_torch.orchestrator import ContinuousScheduler, GenRequest, Pod
+    rt.build(case.imagefile(sc, "local"), tag=sc["name"])
+    defs = rt.run(sc["name"], platform="cpu", mesh=mesh).param_defs
+    kw = (dict(paged=True, page_size=case.PAGE, prefix_cache=True)
+          if sc["paged"] else {})
+    pod = Pod(rt, sc["name"], replicas=1, n_slots=case.POD_SLOTS,
+              max_len=case.POD_MAX_LEN, platform="cpu", mesh=mesh,
+              params=_unflat(defs, weights), **kw)
+    eng = pod.engines[0]
+    reqs = [GenRequest(**r) for r in case.requests_spec(
+        eng.container.arch.vocab_size, sc["paged"])]
+    sched = ContinuousScheduler(pod)
+    sched.submit(reqs)
+    sched.run(max_ticks=1000)
+    return {"tokens": [list(map(int, r.tokens)) for r in reqs],
+            "admit": [r.admit_tick for r in reqs],
+            "done": [r.done_tick for r in reqs],
+            "prefix_hits": eng.prefix_hits, "tick": sched.tick,
+            "cache_numel": sum(t.numel() for _, t in _flatten(eng.cache))}
+
+
+def job_serve(rank: int, world: int, work: Path, plan: dict) -> dict:
+    """tests/test_torch_tp_serve.py: the step and pod cases of
+    ``plan["serve"]`` whose mesh has this job's size (one mesh of each
+    shape, made once), every rank's step outputs into
+    ``serve{world}-r{rank}.npz`` and every rank's pod records returned;
+    on 2 ranks also a Pod on the (2, 1) mesh, which raises."""
+    import torch_serve_case as case
+    plan = plan["serve"]
+    rt = Runtime(work / f"rt-serve{world}-{rank}")
+    meshes, arrays, pods = {}, {}, {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"))
+        return meshes[shape]
+    for sc in plan["steps"]:
+        shape = tuple(sc["mesh"])
+        if shape[0] * shape[1] == world:
+            c = rt.run(rt.build(case.imagefile(sc, "local")),
+                       platform="cpu", mesh=mesh_of(shape))
+            params = c.load_params(_unflat(c.param_defs, _load(
+                work / f"params-{sc['weights']}.npz")))
+            _serve_steps(c, params, sc, rank, arrays)
+    for sc in plan["pods"]:
+        shape = tuple(sc["mesh"])
+        if shape[0] * shape[1] == world:
+            pods[sc["name"]] = _serve_pod(
+                rt, sc, mesh_of(shape),
+                _load(work / f"params-{sc['weights']}.npz"))
+    out = {"pods": meshes[(1, world)].gather_objects(pods)}
+    # the distributed argmax on ties and padded columns
+    from repro_torch.dist.sharding import model_axis
+    from repro_torch.serve.serve_step import greedy_sample
+    axis = model_axis(meshes[(1, world)])
+    glob = torch.from_numpy(case.tie_logits())
+    n = glob.shape[1] // world
+    out["ties"] = axis.mesh.gather_objects(greedy_sample(
+        glob[:, axis.coord * n:(axis.coord + 1) * n], case.TIE_VOCAB,
+        axis).tolist())
+    if world == 2:
+        from repro_torch.orchestrator import Pod
+        rt.build(case.imagefile(plan["pods"][0], "local"), tag="batch2")
+        try:
+            Pod(rt, "batch2", replicas=1, platform="cpu",
+                mesh=mesh_of((2, 1)))
+            out["batch_axis_error"] = None
+        except NotImplementedError as e:
+            out["batch_axis_error"] = str(e)
+    np.savez(work / f"serve{world}-r{rank}.npz", **arrays)
+    return out
+
+
 JOBS = {"world4": job_world4, "world2": job_world2, "card2": job_card2,
-        "tp4": job_tp, "tp2": job_tp}
+        "tp4": job_tp, "tp2": job_tp, "serve4": job_serve,
+        "serve2": job_serve}
 
 
 def main() -> None:
