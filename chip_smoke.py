@@ -144,13 +144,14 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             recurrentgemma, moonshot, musicgen) trained 3 steps on the card
             and on the CPU from the same weights and batches, float32:
             losses and grad norms agree, the card runs their kernels and
-            the CPU none; (c) full-width llama3.2-3b (float32 params,
-            bf16 compute, remat=full, 2 x 2048 tokens) through
+            the CPU none; (c) full-width llama3.2-3b cut to 8 layers
+            (float32 params, bf16 compute, remat=full, 2 x 2048 tokens)
+            through
             ``repro_torch.cli run --steps 2 --keep 1`` (its closing
             checkpoint), then ``run --resume --steps 1``: finite losses,
             the resumed run starts at step 2 and its step 3 equals a
             straight 3-step run's (``Container.train_step_fn``), K2
-            launches = 28 x 2 x steps and nothing else, peak memory under
+            launches = 8 x 2 x steps and nothing else, peak memory under
             80 GB; step seconds, tokens/s and the model-FLOPs share of 989
             TFLOP/s printed; each kernel's forward beside its bound at
             the training shape
@@ -209,13 +210,40 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             K2 = 28 x prefills (K4 2 and K2 1 x prefills, K5 2 x
             prefills) and nothing else, each at a per-rank shape the
             kernels phase held to its plain version (``_pod_tp_shapes``:
-            K1 at 12 q over 4 kv heads), each rank on the card.
+            K1 at 12 q over 4 kv heads), each rank on the card; (g)
+            PowerSGD on the model axis in the same job: llama3.2-3b at
+            6 layers on the (data 1, model 2) mesh, ``host mode=explicit
+            grad_compression=float32 compression=powersgd rank=1``, both
+            rows on each rank, 3 steps: leaves compressed on each of
+            ``powersgd_sync``'s branches (rows, columns, strided columns:
+            ``powersgd_splits``), losses and grad norms within 1e-3
+            relative of one process's PowerSGD steps at model 1 (the same
+            initial Q), the model axis's PowerSGD bytes a step =
+            ``powersgd_wire_bytes``, TP bytes = ``tp_wire_bytes``, K2 at
+            K2_TP; (h) the MoE over data replicas: a (data 2, model 1)
+            mesh, moonshot-v1-16b-a3b at (d)'s 2 layers (64 experts whole
+            a rank), generic, one 2048-token row a rank, 3 steps: the
+            dispatch's positions and capacity over the global batch,
+            losses and grad norms within 1e-3 relative of (d)'s one
+            process on both rows in one microbatch, the dropped
+            assignments equal at step 1 (later steps within 1e-3 of the
+            routed, ``DIST_H_DROPS``), ABI bytes a step =
+            ``generic_wire_bytes``, the count gathers' bytes a step =
+            ``moe_count_bytes``, K2 at K2_DP; (i) a Pod with a batch
+            axis: (f)'s llama3.2-3b Pod on the (data 2, model 1) mesh,
+            each rank holding and decoding 4 of the 8 slots and gathering
+            every slot's tokens a decode dispatch: tokens and admit ticks
+            equal on both ranks and to (f)'s one float32 process, K1 = 28
+            x decode steps at K1_DP and K2 = 28 x prefills a rank (the
+            prefill whole on each rank), the gather's bytes = dispatches x
+            8 x chunk x 4.
             Printed: step seconds a rank, collective seconds and wire
             bytes a step (the port's counter), peak memory a rank
             (beside one process's in (d) and (f)), the card's memory in
-            use while (b), (d), (e) and (f) run; for (f) decode tokens/s
+            use while (b), (d)-(i) run; for (f) decode tokens/s
             a rank and the model axis's seconds and bytes a decode step
-            and token
+            and token; for (i) decode tokens/s a rank, the gather's bytes
+            a decode dispatch and peak memory a rank
   dryrun    the port's dry run (``repro_torch.launch.dryrun``: one rank
             of a job of fake ranks traced on the meta device under the
             counter, at H100 data-sheet constants): (a) the paper's
@@ -243,7 +271,7 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             trace: FLOPs, kernel calls (K2 = 2 x 2, launched) and bytes
             equal (else every operator that took another path printed);
             the train phase's full-width step: the trace's bound beside
-            the measured median step, K2 = 28 x 2, the resident estimate
+            the measured median step, K2 = 8 x 2, the resident estimate
             beside the measured peak, both on the same side of 80 GB
 
 The kernel counters are set to 0 just before each main path is driven
@@ -272,7 +300,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -513,6 +541,14 @@ K2_FSDP = ((1, 24, 8, 128, 2048, 2048, 0, "bfloat16"),)
 # call not here. Its K2, K4 and K5 shapes follow from its requests
 # (``_pod_tp_shapes``).
 K1_TP = ((8, 4, 3, 128, 16, K1_POD_MP, "float32"),)
+# K1 at the dist phase's (i) ranks: a (data 2, model 1) mesh, each rank
+# decoding its 4 of the llama3.2-3b pod's 8 slots over all 24 q / 8 kv
+# heads, the same table, float32; (i) fails on a K1 call not here
+K1_DP = ((4, 8, 3, 128, 16, K1_POD_MP, "float32"),)
+# K2 at the dist phase's (h) ranks: moonshot-v1-16b-a3b's attention on
+# one 2048-token row a rank of a (data 2, model 1) mesh, 16 over 16 heads
+# of 128, bf16; (h) fails on a K2 call not here
+K2_DP = ((1, 16, 16, 128, 2048, 2048, 0, "bfloat16"),)
 
 
 def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
@@ -663,9 +699,10 @@ def phase_kernels(torch, state, timer) -> None:
                 failures.append(f"paged_attention {arch} {dname}")
 
     # K1 at (f)'s per-rank decode: llama3.2-3b's 12 q heads over 4 kv heads
-    # a rank of the model axis, float32 (the FMA kernel), the pod's table
+    # a rank of the model axis, float32 (the FMA kernel), the pod's table;
+    # and at (i)'s: 4 of the 8 slots a rank of the data axis, every head
     checked = state["k1_checked"] = set()
-    for case in K1_TP:
+    for case in K1_TP + K1_DP:
         sb, skv, sg, shd, sps, smp, dname = case
         shape = dict(B=sb, n_kv=skv, g=sg, hd=shd, ps=sps)
         args, lengths = k1_pod_case(torch, shape, dts[dname])
@@ -680,7 +717,7 @@ def phase_kernels(torch, state, timer) -> None:
         state.setdefault("kernel_dist", {})[
             f"K1 {sb}x{skv * sg}/{skv}x{shd} mp{smp} {dname}"] = dict(
             ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
-        log(f"kernels: paged_attention at an (f) rank's decode (B={sb} "
+        log(f"kernels: paged_attention at a dist rank's decode (B={sb} "
             f"n_kv={skv} g={sg} hd={shd} ps={sps} mp={smp}, kernel "
             f"{pa_ops.kernel_choice(dts[dname], sg, shd)[0]}) {dname}: "
             f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
@@ -689,7 +726,7 @@ def phase_kernels(torch, state, timer) -> None:
         if ok:
             checked.add(case)
         else:
-            failures.append(f"paged_attention (f) {case}")
+            failures.append(f"paged_attention dist {case}")
 
     # -- K2: llama3.2-3b prefill and suffix prefill; recurrentgemma-2b's
     # local-attention prefill of 2304 tokens, window 2048 (query tiles past
@@ -698,7 +735,7 @@ def phase_kernels(torch, state, timer) -> None:
              + [(c, tuple(dts), True) for c in K2_BATCH]
              + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES]
              + [(c[:-1], c[-1:], "dist") for c in
-                (*K2_TP, *K2_FSDP, *_pod_tp_shapes()["k2"])])
+                (*K2_TP, *K2_FSDP, *K2_DP, *_pod_tp_shapes()["k2"])])
     checked = state["k2_checked"] = set()
     for (Bq, Hq, Hkv, d, Sq, Sk, window), dnames, timed in cases:
         for dname in dnames:
@@ -1473,8 +1510,8 @@ def _moe_drop_counter(calls):
     from repro_torch.models import moe as moe_mod
     real = moe_mod.dispatch_positions
 
-    def counting(idx, n_experts, C):
-        pos, keep, slot = real(idx, n_experts, C)
+    def counting(idx, n_experts, C, before=None):
+        pos, keep, slot = real(idx, n_experts, C, before)
         calls.append(keep.reshape(idx.shape))
         return pos, keep, slot
 
@@ -2590,18 +2627,21 @@ SET optimizer={{"lr":0.005,"warmup_steps":2,"total_steps":50}}
 """
 TRAIN_SMOKE_TOL = 1e-3
 
-# (c) llama3.2-3b at full width through ``repro_torch.cli run``
-TRAIN_IMAGEFILE = """\
+# (c) llama3.2-3b at full width through ``repro_torch.cli run``, cut to 8
+# of its 28 layers: at full depth the phase took 161 s of the script's
+# 1200 s, 128 s of it in three 38.5 GB checkpoint writes and reads
+TRAIN_LAYERS = 8
+TRAIN_IMAGEFILE = f"""\
 FROM scratch
-ARCH llama3.2-3b
+ARCH llama3.2-3b n_layers={TRAIN_LAYERS}
 SHAPE train_4k seq_len=2048 global_batch=2
 MESH local
 PRECISION params=float32 compute=bfloat16
 COLLECTIVES generic
-SET remat=full optimizer={"lr":0.0003,"warmup_steps":2,"total_steps":1000}
+SET remat=full optimizer={{"lr":0.0003,"warmup_steps":2,"total_steps":1000}}
 """
 # 2 steps and the run's closing checkpoint, then a resume of 1 step (each
-# 38.5 GB checkpoint write or read costs 20-40 s of the script's time; the
+# 14.4 GB checkpoint write or read costs 10-20 s of the script's time; the
 # periodic cadence is the CPU tests')
 TRAIN_RUN = ("--steps", "2", "--keep", "1")
 TRAIN_RESUME = ("--resume", "--steps", "1", "--keep", "1")
@@ -2807,7 +2847,7 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
     root.mkdir()
     imagefile = root / "Imagefile"
     imagefile.write_text(TRAIN_IMAGEFILE)
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config("llama3.2-3b", n_layers=TRAIN_LAYERS)
     outs = []
     real_main = train_mod.main
 
@@ -3068,6 +3108,108 @@ def fsdp_wire_bytes(cfg, replicas: int, tp: int = 1, remat: str = "none",
     return total
 
 
+def powersgd_wire_bytes(cfg, replicas: int, tp: int, rank: int) -> dict:
+    """The bytes one rank hands to the ABI's collectives in one explicit
+    PowerSGD step (``compression=powersgd rank=R``, float32) on a
+    (``replicas``, ``tp``) (data, model) mesh, by axis, counted as
+    ``CollectiveStats`` counts them (an all-reduce twice its tensor, an
+    all-gather its output). Each leaf of the model bound to ``tp`` is the
+    rank's model-axis shard; a leaf ``_compressible`` as a whole (m, n)
+    matrix, split over the model axis on dim d, moves:
+
+    * ``"model"`` (``tp`` > 1): with d = 0 (the rows) the all-gather of
+      P (m x R) and the all-reduce of Qn (n x R); with d in the rest (the
+      columns) the all-reduce of P (m x R) and the all-gather of Qn (n x
+      R): (m + n) R floats on the wire, (m + 2n) R or (2m + n) R counted;
+      with no such dim, nothing;
+    * ``"batch"`` (``replicas`` > 1): the all-reduces of the rank's P and
+      Qn: (m/tp + n) R with d = 0, (m + n/tp) R with d in the rest,
+      (m + n) R unsplit;
+
+    and every other leaf the all-reduce of its float32 shard over the
+    batch axes. Over one replica the batch means are the identity."""
+    from repro_torch.dist.mesh import PlatformMesh
+    from repro_torch.dist.sharding import ShardingRules, def_shardings
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.compression import _compressible
+    defs = Model(cfg, tp=tp).param_defs()
+    mesh = PlatformMesh(("data", "model"), (replicas, tp))
+    out = {"model": 0, "batch": 0}
+    for d, sh in zip(tree_leaves(defs),
+                     tree_leaves(def_shardings(defs, mesh,
+                                               ShardingRules.default()))):
+        local = math.prod(sh.local_shape(d.shape))
+        dims = [i for i, _ in sh.split_axes(("model",))]
+        if not _compressible(d, rank):
+            out["batch"] += 2 * local * 4 * (replicas > 1)
+            continue
+        m = d.shape[0]
+        n = math.prod(d.shape) // m
+        if not dims:
+            out["batch"] += 2 * (m + n) * rank * 4 * (replicas > 1)
+        elif dims[0] == 0:
+            out["model"] += (m + 2 * n) * rank * 4
+            out["batch"] += 2 * (m // tp + n) * rank * 4 * (replicas > 1)
+        else:
+            out["model"] += (2 * m + n) * rank * 4
+            out["batch"] += 2 * (m + n // tp) * rank * 4 * (replicas > 1)
+    return out
+
+
+def powersgd_splits(cfg, tp: int, rank: int) -> dict:
+    """The leaves of ``cfg``'s model bound to ``tp`` that PowerSGD at
+    ``rank`` compresses (``_compressible`` as whole leaves), by path, each
+    with the dim the ``model`` axis splits (``None``: not split): 0 takes
+    ``powersgd_sync``'s rows branch, any other dim its columns branch --
+    with the rank's Q rows strided where a stacked (L, D, F) leaf is split
+    past its second dim."""
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.dist.mesh import PlatformMesh
+    from repro_torch.dist.sharding import ShardingRules, def_shardings
+    from repro_torch.train.compression import _compressible
+    from repro_torch.models.transformer import Model
+    defs = Model(cfg, tp=tp).param_defs()
+    mesh = PlatformMesh(("data", "model"), (1, tp))
+    shs = dict(_flatten(def_shardings(defs, mesh, ShardingRules.default())))
+    out = {}
+    for path, d in _flatten(defs):
+        if _compressible(d, rank):
+            dims = [i for i, _ in shs[path].split_axes(("model",))]
+            out[path] = dims[0] if dims else None
+    return out
+
+
+def generic_wire_bytes(cfg, tp: int = 1) -> int:
+    """The bytes one rank hands to the ``generic`` ABI's collectives in
+    one implicit training step on a mesh with a ``model`` axis of ``tp``
+    and more than one batch replica, as ``CollectiveStats`` counts them:
+    the float32 all-reduce of its model-axis shard of every gradient
+    (twice the shard, 4 bytes a param)."""
+    from repro_torch.dist.mesh import PlatformMesh
+    from repro_torch.dist.sharding import ShardingRules, def_shardings
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import Model
+    defs = Model(cfg, tp=tp).param_defs()
+    mesh = PlatformMesh(("data", "model"), (2, tp))
+    shs = def_shardings(defs, mesh, ShardingRules.default())
+    return sum(2 * math.prod(sh.local_shape(d.shape, ("model",))) * 4
+               for d, sh in zip(tree_leaves(defs), tree_leaves(shs)))
+
+
+def moe_count_bytes(cfg, replicas: int, recompute: bool = False,
+                    microbatches: int = 1) -> int:
+    """The bytes one rank hands to the MoE's global dispatch (label
+    ``"moe"``) in one training step over ``replicas`` batch replicas, as
+    ``CollectiveStats`` counts an all-gather (its output): each MoE
+    layer's call gathers every replica's per-expert assignment counts,
+    ``replicas`` x E int64, once a microbatch in the forward and once
+    more where the backward recomputes the layer (``recompute``)."""
+    layers = sum(k == "moe" for k in cfg.layer_types())
+    return (replicas * cfg.n_experts * 8 * layers * microbatches
+            * (2 if recompute else 1))
+
+
 def _torchrun(nproc: int, root: Path, imagefile: Path, steps: int,
               extra=(), timeout: float = 900, watch=None) -> tuple:
     """``torchrun --nproc-per-node N -m repro_torch.cli run`` (as
@@ -3160,10 +3302,12 @@ def _add_rank_launches(state, ranks: list) -> None:
             state["launches"][name] = state["launches"].get(name, 0) + n
 
 
-def _dist_reference(torch, workdir: Path, imagefile: str, steps: int):
+def _dist_reference(torch, workdir: Path, imagefile: str, steps: int,
+                    drops: list | None = None):
     """One process on the card, the same image, weights and global
     batches as launch/train's ranks: per step (loss, grad_norm), and the
-    run's peak memory."""
+    run's peak memory; with ``drops`` the MoE assignments each step drops
+    to capacity (its forward's and its recompute's) appended to it."""
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     torch.cuda.empty_cache()
@@ -3178,8 +3322,13 @@ def _dist_reference(torch, workdir: Path, imagefile: str, steps: int):
                                   global_batch=c.cell.global_batch, seed=0))
     rec = []
     for i in range(steps):
-        params, opt, m = step(params, opt, data.batch(i))
+        calls: list = []
+        with (_moe_drop_counter(calls) if drops is not None
+              else nullcontext()):
+            params, opt, m = step(params, opt, data.batch(i))
         rec.append((float(m["loss"]), float(m["grad_norm"])))
+        if drops is not None:
+            drops.append(sum(int((~k).sum()) for k in calls))
     peak = torch.cuda.max_memory_allocated()
     del params, opt, m
     torch.cuda.empty_cache()
@@ -3421,6 +3570,40 @@ POD_TP = {
                     (256, 512, 256, 512)),
 }
 POD_TP_NEW = 32
+# (g) PowerSGD on the model axis: the same two ranks on a (data 1, model
+# 2) mesh, llama3.2-3b at full width cut to 6 layers, both 2048-token rows
+# on each rank, 3 steps of ``host mode=explicit`` with float32 means and
+# rank-1 PowerSGD, against one process's PowerSGD steps at model 1 on the
+# same global batch from the same initial Q (the same draws): loss and
+# grad_norm within 1e-3 relative, the model axis's PowerSGD bytes a step
+# = ``powersgd_wire_bytes``. A stacked (L, D, F) leaf is compressible
+# where L > 4 x rank: at 6 layers and rank 1 every stacked matrix is, so
+# both of ``powersgd_sync``'s splits run -- the embedding's rows, and the
+# columns of the layers' projections, strided Q rows for those split on F
+DIST_G = ("host mode=explicit grad_compression=float32 "
+          "compression=powersgd rank=1")
+DIST_G_RANK = 1
+DIST_G_LAYERS = 6
+# (h) the MoE over data replicas: a (data 2, model 1) mesh, generic,
+# moonshot-v1-16b-a3b at full width cut to (d)'s dense layer and one MoE
+# layer (64 experts whole on each rank), one 2048-token row a rank, 3
+# steps, against (d)'s one process on both rows in ONE microbatch (the
+# global capacity makes two microbatches another computation): loss and
+# grad_norm within 1e-3 relative; the assignments dropped a step (over
+# the forward and the recompute, summed over the ranks) equal at step 1,
+# from the same weights. From step 2 the ranks' params differ from one
+# process's by bf16 rounding (each row's gradient from its own backward,
+# the two summed in float32), and a routing that sits on a bf16 tie can
+# flip: the later steps' drops within DIST_H_DROPS of the assignments
+# routed (in float32 compute they stay equal at every step)
+DIST_H_DROPS = 1e-3
+# (i) a Pod with a batch axis: the two ranks on a (data 2, model 1) mesh
+# serve (f)'s llama3.2-3b Pod (float32, full width and depth, paged, page
+# 16, 8 slots: 4 a rank, prefix cache) on (f)'s 8 requests: every rank's
+# tokens and admit ticks equal (f)'s one float32 process's, K1 = 28 x
+# decode steps at K1_DP and K2 = 28 x prefills a rank, the token gather's
+# bytes a decode step = 8 slots x chunk x 4
+POD_DP = ("llama3.2-3b",)
 
 
 def _pod_tp_image(arch: str) -> str:
@@ -3454,24 +3637,30 @@ def _pod_tp_shapes() -> dict:
     bucket (a recurrent arch's at its exact length), a prompt that finds
     the registered 256-token prefix (every shared one after the first:
     the scheduler admits the requests in order) as its suffix's bucket
-    over the prefix; K1 at llama's 8 slots over a table
-    of 1024 / 16 pages (K1_TP). Keys as ``_shape_gate`` reads them: k1 (B,
+    over the prefix, at a model-axis rank's heads and at all of them (the
+    (i) Pod's prefills, whole on each data replica); K1 at llama's 8
+    slots over a table of 1024 / 16 pages (K1_TP) and at a data
+    replica's 4 of them (K1_DP). Keys as ``_shape_gate`` reads them: k1 (B,
     n_kv, g, hd, ps, mp, dtype), k2 (B, Hq, Hkv, d, Sq, Sk, window, dtype),
     k4 (B, S, R), k5 (b, S, H, P, N, chunk)."""
     from repro_torch.orchestrator import GenRequest
     from repro_torch.orchestrator.scheduler import _PREFILL_BUCKETS
     bucket = lambda n: next(b for b in _PREFILL_BUCKETS if b >= n)  # noqa
-    out = {"k1": set(K1_TP), "k2": set(), "k4": set(), "k5": set()}
+    out = {"k1": set(K1_TP + K1_DP), "k2": set(), "k4": set(),
+           "k5": set()}
     registered = False
     for r in _pod_tp_requests(GenRequest, "llama3.2-3b"):
         n, L = len(r.prompt), r.prefix_len
-        if L and registered:
-            b = min(bucket(n - L), 1024 - L)
-            out["k2"].add((1, 12, 4, 128, b, L + b, 0, "float32"))
-        else:
-            out["k2"].add((1, 12, 4, 128, bucket(n), bucket(n), 0,
-                           "float32"))
-            registered |= bool(L)
+        # a rank of (f)'s model axis: 12 / 4 heads; of (i)'s data axis:
+        # the prefill whole, 24 / 8
+        for hq, hkv in ((12, 4), (24, 8)):
+            if L and registered:
+                b = min(bucket(n - L), 1024 - L)
+                out["k2"].add((1, hq, hkv, 128, b, L + b, 0, "float32"))
+            else:
+                out["k2"].add((1, hq, hkv, 128, bucket(n), bucket(n), 0,
+                               "float32"))
+        registered |= bool(L)
     for n in POD_TP["recurrentgemma-2b"][3]:
         out["k2"].add((1, 5, 1, 256, n, n, 2048, "float32"))
         out["k4"].add((1, n, 1280))
@@ -3491,16 +3680,20 @@ def _dist_launches(arch: str, layers: int) -> dict:
     return {k: n * 2 * DIST_D_STEPS for k, n in per.items() if n}
 
 
-def _ranks_runs(torch, workdir: Path, runs: list, pods=()) -> tuple:
-    """Run the (d) and (e) runs and (f)'s pods in one ``torchrun
-    --nproc-per-node 2 chip_smoke.py --tp-worker`` job: (every rank's
-    records by run name -- a pod's is ``pod {arch}`` --, which ranks held
-    the card's device node, card memory polled, seconds, failure text or
+def _ranks_runs(torch, workdir: Path, runs: list, pods=(),
+                dp_pods=()) -> tuple:
+    """Run the (d), (e), (g) and (h) runs, (f)'s pods and (i)'s in one
+    ``torchrun --nproc-per-node 2 chip_smoke.py --tp-worker`` job: (every
+    rank's records by run name -- a pod's is ``pod {arch}`` on (f)'s
+    (1, 2) mesh, ``pod21 {arch}`` on (i)'s (2, 1) --, which ranks held the
+    card's device node, card memory polled, seconds, failure text or
     None)."""
     root = workdir / "dist_de"
     root.mkdir()
     out, spec = root / "ranks.json", root / "spec.json"
-    spec.write_text(json.dumps({"runs": runs, "pods": list(pods),
+    pod_list = ([[a, [1, 2]] for a in pods]
+                + [[a, [2, 1]] for a in dp_pods])
+    spec.write_text(json.dumps({"runs": runs, "pods": pod_list,
                                 "steps": DIST_D_STEPS,
                                 "root": str(root / "rt"), "out": str(out)}))
     seen: dict[int, bool] = {}
@@ -3522,7 +3715,8 @@ def _ranks_runs(torch, workdir: Path, runs: list, pods=()) -> tuple:
     if rc != 0 or not out.exists():
         return {}, seen, used, wall, f"exit {rc}: {tail}"
     ranks = json.loads(out.read_text())
-    names = [run["name"] for run in runs] + [f"pod {a}" for a in pods]
+    names = ([run["name"] for run in runs] + [f"pod {a}" for a in pods]
+             + [f"pod21 {a}" for a in dp_pods])
     by_run = {name: [r[j] for r in ranks] for j, name in enumerate(names)}
     return by_run, seen, used, wall, None
 
@@ -3547,23 +3741,28 @@ def _dist_d_image(arch: str) -> str:
 
 
 def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
-    """(d) tensor parallelism, (e) FSDP and (f) serving on the model axis
-    on two ranks sharing the card, in one torchrun job: each (d) run
-    against one process on the same global batch (``llama_ref``:
+    """(d) tensor parallelism, (e) FSDP, (f) serving on the model axis,
+    (g) PowerSGD on it, (h) the MoE over data replicas and (i) a Pod with
+    a batch axis on two ranks sharing the card, in one torchrun job: each
+    (d) run against one process on the same global batch (``llama_ref``:
     llama3.2-3b's, computed by the phase), each (e) arm against (b)'s
-    two-microbatch process, (f)'s llama3.2-3b pod against one float32
-    process's pod on the same requests, run here first and released."""
+    two-microbatch process, (f)'s and (i)'s llama3.2-3b pods against one
+    float32 process's pod on the same requests, run here first and
+    released, (g) against one process's PowerSGD steps, (h) against (d)'s
+    moonshot-v1-16b-a3b process."""
     import shutil
     from repro_torch.configs import get_config
     failures, runs, refs = [], [], {"llama3.2-3b": llama_ref}
-    texts = {}
+    texts, moe_drops = {}, []
     pod_ref = _pod_tp_serve(torch, "llama3.2-3b", workdir / "pod_ref")
     for name, n in pod_ref["launches"].items():
         state["launches"][name] = state["launches"].get(name, 0) + n
     for arch, layers in DIST_D.items():
         text = _dist_d_image(arch)
         if arch not in refs:
-            refs[arch] = _dist_reference(torch, workdir, text, DIST_D_STEPS)
+            refs[arch] = _dist_reference(
+                torch, workdir, text, DIST_D_STEPS,
+                drops=moe_drops if arch == "moonshot-v1-16b-a3b" else None)
         runs.append({"name": arch, "mesh": [1, 2], "imagefile": text})
     for name, (coll, remat) in DIST_E.items():
         text = DIST_IMAGEFILE.format(arch="llama3.2-3b",
@@ -3572,11 +3771,20 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
         texts[f"fsdp {name}"] = text + f"SET fsdp=true remat={remat}\n"
         runs.append({"name": f"fsdp {name}", "mesh": [2, 1],
                      "imagefile": texts[f"fsdp {name}"]})
+    g_text = DIST_IMAGEFILE.format(arch="llama3.2-3b",
+                                   layers=f" n_layers={DIST_G_LAYERS}",
+                                   collectives=DIST_G)
+    # one process at model 1: the same initial Q (the whole leaves' draws,
+    # from the same generator)
+    refs["psgd"] = _dist_reference(torch, workdir, g_text, DIST_D_STEPS)
+    runs.append({"name": "psgd", "mesh": [1, 2], "imagefile": g_text})
+    runs.append({"name": "moe_dp", "mesh": [2, 1],
+                 "imagefile": _dist_d_image("moonshot-v1-16b-a3b")})
     by_run, seen, used, wall, err = _ranks_runs(torch, workdir, runs,
-                                                POD_TP)
+                                                POD_TP, POD_DP)
     shutil.rmtree(workdir / "dist_de")
     if err:
-        return [f"(d)/(e): {err}"]
+        return [f"(d)-(i): {err}"]
     for rs in by_run.values():
         for r in rs:
             for name, n in r["launches"].items():
@@ -3692,18 +3900,161 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
         failures += _pod_tp_gate(state, arch, by_run[f"pod {arch}"],
                                  pod_ref if arch == "llama3.2-3b" else None,
                                  seen, mem)
+    failures += _dist_g(state, by_run["psgd"], refs["psgd"], seen, mem)
+    failures += _dist_h(state, by_run["moe_dp"], refs["moonshot-v1-16b-a3b"],
+                        moe_drops, seen, mem)
+    for arch in POD_DP:
+        failures += _pod_tp_gate(state, arch, by_run[f"pod21 {arch}"],
+                                 pod_ref, seen, mem, mesh=(2, 1))
     return failures
 
 
+def _dist_g(state, rs: list, ref: tuple, seen: dict,
+            mem: str) -> list[str]:
+    """(g)'s gates and printout: PowerSGD on the (data 1, model 2) mesh
+    against one process at model 1."""
+    from repro_torch.configs import get_config
+    ref, ref_peak = ref
+    cfg = get_config("llama3.2-3b", n_layers=DIST_G_LAYERS)
+    r0 = rs[0]["steps"]
+    same = all(r["steps"][i]["loss"] == r0[i]["loss"]
+               for r in rs for i in range(DIST_D_STEPS))
+    dl = max(abs(s["loss"] - l) / abs(l) for s, (l, _) in zip(r0, ref))
+    dg = max(abs(s["grad_norm"] - g) / g for s, (_, g) in zip(r0, ref))
+    want = powersgd_wire_bytes(cfg, 1, 2, DIST_G_RANK)
+    splits = powersgd_splits(cfg, 2, DIST_G_RANK)
+    # compressed leaves by the branch they take: rows, columns, and of
+    # the columns those whose Q rows are strided (a stacked leaf split on
+    # its last dim)
+    kinds = {"rows": sum(d == 0 for d in splits.values()),
+             "columns": sum(bool(d) for d in splits.values()),
+             "strided": sum(bool(d) and d >= 2 for d in splits.values())}
+    wire = [s["wire"] for r in rs for s in r["steps"]]
+    want_tp = tp_wire_bytes(cfg, cfg.n_kv_heads, DIST_D_TOKENS, 2, "full")
+    tp = [s["tp"] for r in rs for s in r["steps"]]
+    launches = _dist_launches("llama3.2-3b", DIST_G_LAYERS)
+    counts = [{k: n for k, n in r["launches"].items() if n} for r in rs]
+    shapes, shapes_ok = _shape_gate(rs, state)
+    on_card = [seen.get(r["pid"], False) for r in rs]
+    ok = (same and dl <= DIST_D_TOL and dg <= DIST_D_TOL
+          and min(kinds.values()) > 0
+          and wire == [want["model"]] * len(wire)
+          and tp == [want_tp] * len(tp) and counts == [launches] * 2
+          and shapes_ok and all(on_card))
+    med = [statistics.median(s["seconds"] for s in r["steps"][1:])
+           for r in rs]
+    log(f"dist: (g) PowerSGD (rank {DIST_G_RANK}, float32 means) on the "
+        f"(data 1, model 2) mesh, llama3.2-3b {DIST_G_LAYERS} layers, "
+        f"host mode=explicit: compressed leaves by split {kinds} of "
+        f"{len(splits)}; losses {[round(s['loss'], 6) for s in r0]} "
+        f"vs one process at model 1 {[round(l, 6) for l, _ in ref]}: max "
+        f"loss rel diff {dl:.2e}, max grad_norm rel diff {dg:.2e} (tol "
+        f"{DIST_D_TOL:g}); every rank's loss equal {same}; the model "
+        f"axis's PowerSGD bytes a step a rank {wire} (powersgd_wire_bytes "
+        f"{want['model']}); TP bytes a step {tp} (formula {want_tp}); "
+        f"launches a rank {counts} (expected {launches}); K2 shapes "
+        f"{shapes['k2']} checked {shapes_ok}; ranks hold /dev/nvidia* open "
+        f"{on_card}; step s after the first (median) {med}; peak memory a "
+        f"rank {[round(_gib(r['peak']), 2) for r in rs]} GiB vs one "
+        f"process {_gib(ref_peak):.2f} GiB; {mem} {'ok' if ok else 'FAIL'} "
+        f"[{state['card']}]")
+    state["dist"]["g psgd"] = dict(
+        step_s=[[s["seconds"] for s in r["steps"]] for r in rs],
+        peak_gib=[_gib(r["peak"]) for r in rs], ref_peak_gib=_gib(ref_peak),
+        psgd_model_bytes=want["model"], dloss=dl, dgnorm=dg)
+    if ok:
+        return []
+    return [f"(g): dloss {dl:.2e}, dgnorm {dg:.2e}, equal {same}, "
+            f"compressed by split {kinds}, wire "
+            f"{wire} vs {want['model']}, tp {tp} vs {want_tp}, launches "
+            f"{counts} vs {launches}, shapes {shapes} checked {shapes_ok}, "
+            f"on card {on_card}"]
+
+
+def _dist_h(state, rs: list, ref: tuple, ref_drops: list, seen: dict,
+            mem: str) -> list[str]:
+    """(h)'s gates and printout: moonshot-v1-16b-a3b on the (data 2,
+    model 1) mesh, the MoE dispatched over the global batch, against one
+    process on both rows in one microbatch."""
+    ref, ref_peak = ref
+    arch = "moonshot-v1-16b-a3b"
+    r0 = rs[0]["steps"]
+    same = all(r["steps"][i]["loss"] == r0[i]["loss"]
+               for r in rs for i in range(DIST_D_STEPS))
+    dl = max(abs(s["loss"] - l) / abs(l) for s, (l, _) in zip(r0, ref))
+    dg = max(abs(s["grad_norm"] - g) / g for s, (_, g) in zip(r0, ref))
+    drops = [sum(r["steps"][i]["drops"] for r in rs)
+             for i in range(DIST_D_STEPS)]
+    # the assignments routed a step: both rows' tokens x top-k, a MoE
+    # layer, in the forward and the recompute
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, n_layers=DIST_D[arch])
+    routed = (DIST_D_TOKENS * cfg.top_k * 2
+              * sum(k == "moe" for k in cfg.layer_types()))
+    drops_ok = (drops[:1] == ref_drops[:1] and len(drops) == len(ref_drops)
+                and all(abs(a - b) <= DIST_H_DROPS * routed
+                        for a, b in zip(drops, ref_drops)))
+    launches = _dist_launches(arch, DIST_D[arch])
+    counts = [{k: n for k, n in r["launches"].items() if n} for r in rs]
+    shapes, shapes_ok = _shape_gate(rs, state)
+    on_card = [seen.get(r["pid"], False) for r in rs]
+    # the generic all-reduce of every gradient, and the count gathers of
+    # the MoE layer in the forward and the remat's recompute
+    want_wire = generic_wire_bytes(cfg)
+    wire = [s["wire"] for r in rs for s in r["steps"]]
+    want_moe = moe_count_bytes(cfg, 2, recompute=True)
+    moe = [s["moe"] for r in rs for s in r["steps"]]
+    ok = (same and dl <= DIST_D_TOL and dg <= DIST_D_TOL
+          and drops_ok and wire == [want_wire] * len(wire)
+          and moe == [want_moe] * len(moe) and counts == [launches] * 2
+          and shapes_ok and all(on_card))
+    med = [statistics.median(s["seconds"] for s in r["steps"][1:])
+           for r in rs]
+    log(f"dist: (h) the MoE over data replicas on the (data 2, model 1) "
+        f"mesh, {arch} {DIST_D[arch]} layers (64 experts whole a rank), "
+        f"generic, one 2048-token row a rank: losses "
+        f"{[round(s['loss'], 6) for s in r0]} vs one process on both rows "
+        f"in one microbatch {[round(l, 6) for l, _ in ref]}: max loss rel "
+        f"diff {dl:.2e}, max grad_norm rel diff {dg:.2e} (tol "
+        f"{DIST_D_TOL:g}); every rank's loss equal {same}; assignments "
+        f"dropped a step (forward and recompute, both ranks) {drops} vs one "
+        f"process {ref_drops} of {routed} routed (step 1 equal, later "
+        f"steps within {DIST_H_DROPS:g} of it) {drops_ok}; ABI bytes a "
+        f"step a rank {wire} (generic_wire_bytes {want_wire}); the count "
+        f"gathers' bytes a step a rank {moe} (moe_count_bytes "
+        f"{want_moe}); launches a rank {counts} (expected {launches}); K2 "
+        f"shapes {shapes['k2']} checked {shapes_ok}; ranks hold "
+        f"/dev/nvidia* open {on_card}; step s after the first (median) "
+        f"{med}, collective s "
+        f"{[round(r['collective_seconds'], 3) for r in rs]}; peak memory a "
+        f"rank {[round(_gib(r['peak']), 2) for r in rs]} GiB vs one "
+        f"process {_gib(ref_peak):.2f} GiB; {mem} {'ok' if ok else 'FAIL'} "
+        f"[{state['card']}]")
+    state["dist"]["h moe"] = dict(
+        step_s=[[s["seconds"] for s in r["steps"]] for r in rs],
+        peak_gib=[_gib(r["peak"]) for r in rs], ref_peak_gib=_gib(ref_peak),
+        drops=drops, dloss=dl, dgnorm=dg)
+    if ok:
+        return []
+    return [f"(h): dloss {dl:.2e}, dgnorm {dg:.2e}, equal {same}, drops "
+            f"{drops} vs {ref_drops}, wire {wire} vs {want_wire}, moe "
+            f"{moe} vs {want_moe}, launches {counts} vs {launches}, "
+            f"shapes {shapes} checked {shapes_ok}, on card {on_card}"]
+
+
 def _pod_tp_gate(state, arch: str, rs: list, ref: dict | None, seen: dict,
-                 mem: str) -> list[str]:
-    """(f)'s gates on one pod's rank records: every request done with
-    POD_TP_NEW tokens, tokens and admit ticks equal on every rank (and,
-    given ``ref``, to one process's), launches a rank exactly the layers
-    of each kernel's path times its prefill dispatches or decode steps
-    and nothing else, every K1/K2/K4/K5 shape one the kernels phase held
-    to its plain version, every rank on the card; and its printout."""
-    layers, _, expect, _ = POD_TP[arch]
+                 mem: str, mesh: tuple = (1, 2)) -> list[str]:
+    """(f)'s gates on one pod's rank records (and (i)'s, ``mesh`` (2,
+    1)): every request done with POD_TP_NEW tokens, tokens and admit
+    ticks equal on every rank (and, given ``ref``, to one process's),
+    launches a rank exactly the layers of each kernel's path times its
+    prefill dispatches or decode steps and nothing else, every
+    K1/K2/K4/K5 shape one the kernels phase held to its plain version,
+    every rank on the card; on a batch axis each rank's rows its half of
+    the slot bank, K1 at K1_DP and the token gather's bytes = decode
+    dispatches x slots x chunk x 4 int32; and its printout."""
+    layers, pod_kw, expect, _ = POD_TP[arch]
+    part = "f" if mesh == (1, 2) else "i"
     r0 = rs[0]
     same = all(r["tokens"] == r0["tokens"] and r["admit"] == r0["admit"]
                for r in rs)
@@ -3717,8 +4068,17 @@ def _pod_tp_gate(state, arch: str, rs: list, ref: dict | None, seen: dict,
     counts = [{k: n for k, n in r["launches"].items() if n} for r in rs]
     shapes, shapes_ok = _shape_gate(rs, state)
     on_card = [seen.get(r["pid"], False) for r in rs]
+    slots = pod_kw["n_slots"]
+    gather = [r["gather_bytes"] for r in rs]
+    want_gather = [r["decode_dispatches"] * slots * r["chunk"] * 4
+                   * (mesh[0] > 1) for r in rs]
+    rows = [r["rows"] for r in rs]
+    half = slots // mesh[0]
+    want_rows = [[(i // mesh[1]) * half, (i // mesh[1] + 1) * half]
+                 for i in range(len(rs))]
     ok = (same and done and to_ref and counts == want and shapes_ok
-          and all(on_card))
+          and all(on_card) and gather == want_gather and rows == want_rows
+          and (part == "f" or shapes["k1"] == sorted(K1_DP)))
     tok_s = [r["decode_tokens"] / r["decode_s"] for r in rs]
     steps = r0["decode_steps"]
     tp_b = [r["tp_decode"]["bytes"] for r in rs]
@@ -3729,7 +4089,8 @@ def _pod_tp_gate(state, arch: str, rs: list, ref: dict | None, seen: dict,
                f"{ref['decode_s']:.3f} s = "
                f"{ref['decode_tokens'] / ref['decode_s']:.1f} tokens/s, "
                f"peak memory {_gib(ref['peak']):.2f} GiB)")
-    log(f"dist: (f) Pod on the (data 1, model 2) mesh, {arch}"
+    log(f"dist: ({part}) Pod on the (data {mesh[0]}, model {mesh[1]}) "
+        f"mesh, {arch}"
         f"{f' cut to {layers} layers' if layers else ' full depth'}, "
         f"float32, {len(r0['tokens'])} requests: all done with "
         f"{POD_TP_NEW} tokens {done}; every rank's tokens and admit ticks "
@@ -3748,32 +4109,38 @@ def _pod_tp_gate(state, arch: str, rs: list, ref: dict | None, seen: dict,
         f" bytes a decode token); prefill s a rank "
         f"{[round(r['prefill_s'], 3) for r in rs]}, decode s "
         f"{[round(r['decode_s'], 3) for r in rs]}, wall s "
-        f"{[round(r['wall_s'], 2) for r in rs]}; peak memory a rank "
+        f"{[round(r['wall_s'], 2) for r in rs]}; slot rows a rank {rows}; "
+        f"the token gather over the run {gather} bytes a rank (formula "
+        f"{want_gather}) = "
+        f"{[g // max(r['decode_dispatches'], 1) for g, r in zip(gather, rs)]}"
+        f" bytes a decode dispatch; peak memory a rank "
         f"{[round(_gib(r['peak']), 2) for r in rs]} GiB; {mem} "
         f"{'ok' if ok else 'FAIL'} [{state['card']}]")
-    state["dist"][f"f {arch}"] = dict(
+    state["dist"][f"{part} {arch}"] = dict(
         decode_tok_s=tok_s, tp_decode=[r["tp_decode"] for r in rs],
         decode_steps=steps, peak_gib=[_gib(r["peak"]) for r in rs],
         ref_peak_gib=None if ref is None else _gib(ref["peak"]),
-        wall_s=[r["wall_s"] for r in rs])
+        wall_s=[r["wall_s"] for r in rs], gather_bytes=gather)
     if ok:
         return []
-    return [f"(f) {arch}: done {done}, ranks equal {same}, equal one "
+    return [f"({part}) {arch}: done {done}, ranks equal {same}, equal one "
             f"process {to_ref}, launches {counts} vs {want}, shapes "
-            f"{shapes} checked {shapes_ok}, on card {on_card}"]
+            f"{shapes} checked {shapes_ok}, on card {on_card}, gather "
+            f"{gather} vs {want_gather}, rows {rows} vs {want_rows}"]
 
 
 def tp_worker(spec_path: str) -> int:
-    """One rank of the dist phase's (d), (e) and (f), started by torchrun:
+    """One rank of the dist phase's (d)-(i), started by torchrun:
     joins a gloo group and, for each run of the spec, makes the run's
     (data, model) mesh (each shape once), builds the port's Container on
     it and its train step (``Container.train_step_fn``), takes the steps,
     and records its losses, grad norms, the bytes each step handed to the
     model axis and to the ABI, step seconds, peak memory, kernel launches
-    and the shapes of its K1, K2, K4 and K5 calls; then, for each pod of
-    the spec, serves the pod's requests through a ``Pod`` on the (data 1,
-    model 2) mesh and a ``ContinuousScheduler`` (``_pod_tp_rank``); rank
-    0 writes every rank's records."""
+    and the shapes of its K1, K2, K4 and K5 calls, and an MoE run's
+    dropped assignments a step; then, for each pod of the spec, serves
+    the pod's requests through a ``Pod`` on its mesh ((data 1, model 2)
+    or (data 2, model 1)) and a ``ContinuousScheduler``
+    (``_pod_tp_serve``); rank 0 writes every rank's records."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
@@ -3843,12 +4210,18 @@ def tp_worker(spec_path: str) -> int:
             for i in range(spec["steps"]):
                 tp0, t0 = mesh.stats.wire_bytes("tp"), time.perf_counter()
                 w0 = mesh.stats.wire_bytes(c.abi.name)
-                params, opt, m = step(params, opt, data.batch(i))
+                moe0 = mesh.stats.wire_bytes("moe")
+                calls: list = []
+                with (_moe_drop_counter(calls) if c.arch.n_experts
+                      else nullcontext()):
+                    params, opt, m = step(params, opt, data.batch(i))
                 loss = float(m["loss"])        # waits for the step
                 steps.append({"loss": loss,
                               "grad_norm": float(m["grad_norm"]),
                               "tp": mesh.stats.wire_bytes("tp") - tp0,
                               "wire": mesh.stats.wire_bytes(c.abi.name) - w0,
+                              "moe": mesh.stats.wire_bytes("moe") - moe0,
+                              "drops": sum(int((~k).sum()) for k in calls),
                               "seconds": time.perf_counter() - t0})
             records.append({
                 "name": run["name"], "rank": rank, "pid": os.getpid(),
@@ -3860,14 +4233,16 @@ def tp_worker(spec_path: str) -> int:
                 "collective_seconds": mesh.stats.seconds})
             del params, opt, m, step, c
             torch.cuda.empty_cache()
-        for arch in spec.get("pods", ()):
-            if (1, 2) not in meshes:
-                meshes[(1, 2)] = make_mesh((1, 2), ("data", "model"))
-            mesh = meshes[(1, 2)]
+        for arch, shape in spec.get("pods", ()):
+            shape = tuple(shape)
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape, ("data", "model"))
+            mesh = meshes[shape]
             mesh.stats.reset()
             for seen in shapes.values():
                 seen.clear()
-            records.append({"name": f"pod {arch}", "rank": rank,
+            name = "pod" if shape == (1, 2) else "pod21"
+            records.append({"name": f"{name} {arch}", "rank": rank,
                             "pid": os.getpid(), **_pod_tp_serve(
                                 torch, arch, Path(spec["root"])
                                 / f"pod{rank}", mesh),
@@ -3932,7 +4307,11 @@ def _pod_tp_serve(torch, arch: str, root: Path, mesh=None) -> dict:
            "decode_tokens": eng.tokens_generated - prefills,
            "prefill_s": eng.prefill_s, "decode_s": eng.decode_s,
            "prefix_hits": eng.prefix_hits, "tp_decode": tp, "wall_s": wall,
-           "peak": torch.cuda.max_memory_allocated()}
+           "peak": torch.cuda.max_memory_allocated(),
+           "decode_dispatches": eng._c_decode_disp.value,
+           "chunk": eng.chunk, "rows": [eng.rows.start, eng.rows.stop],
+           "gather_bytes": (mesh.stats.wire_bytes("tokens")
+                            if mesh is not None else 0)}
     for e in pod.engines:
         e.release()
     del pod, eng, sched
@@ -3944,7 +4323,7 @@ def _pod_tp_serve(torch, arch: str, root: Path, mesh=None) -> dict:
 def phase_dist(torch, state, workdir: Path) -> None:
     import shutil
     state["dist"], state["dist_ranks"] = {}, {}
-    shutil.rmtree(workdir / "train", ignore_errors=True)   # 38.5 GB
+    shutil.rmtree(workdir / "train", ignore_errors=True)   # 14.4 GB
     torch.cuda.empty_cache()
     # one process on (a)'s and (d)'s llama3.2-3b image: (a)'s reference
     # (ZeRO-1 on one rank splits nothing: host's step is generic's) and
@@ -4232,7 +4611,8 @@ def _dryrun_real_step(torch, state) -> list[str]:
     want_k2 = {"flash_attention_fwd": full.arch.n_layers * 2}
     ok = (low.counter.kernel_calls == want_k2 and bool(run)
           and fits == (measured <= analysis.HBM_PER_CHIP))
-    log(f"dryrun: (c) llama3.2-3b full width, 2 x 2048 tokens, remat=full: "
+    log(f"dryrun: (c) llama3.2-3b full width, {full.arch.n_layers} layers, "
+        f"2 x 2048 tokens, remat=full: "
         f"bound {rl.bound_s:.4f} s ({rl.dominant}: compute "
         f"{rl.compute_s:.4f}, memory {rl.memory_s:.4f} s at H100 data-sheet "
         f"peaks) beside the train phase's median step "

@@ -79,10 +79,11 @@ from repro_torch.core.abi import CollectiveABI, abi_from_image_config
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.image import EnvImage
 from repro_torch.core.trace import Lowered, trace
-from repro_torch.dist.mesh import (NOT_PORTED, PlatformMesh, batch_axes,
+from repro_torch.dist.mesh import (PlatformMesh, batch_axes,
                                    make_platform_mesh, resolve_device)
 from repro_torch.dist.sharding import (NamedSharding, ShardingRules,
-                                       def_shardings, fsdp_of, model_axis)
+                                       def_shardings, fsdp_of, model_axis,
+                                       replicas_of)
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.params import (materialize, params_from_jax,
                                        tree_leaves, tree_map)
@@ -130,22 +131,6 @@ class Container:
                                      else resolve_device(self.platform))
         self.abi: CollectiveABI = abi_from_image_config(cfg)
         tp = self.mesh.shape.get("model", 1)
-        replicas = self.mesh.axes_size(batch_axes(self.mesh))
-        if self.arch.n_experts and replicas > 1 and (
-                tp == 1 or self.arch.n_experts % tp
-                or self.settings.get("moe_impl", "spmd") != "spmd"):
-            # the JAX package drops MoE tokens by a capacity over the
-            # GLOBAL batch unless the expert-parallel moe_forward_spmd
-            # runs (a model axis dividing the experts): per data shard
-            raise NotImplementedError(
-                f"{self.arch.name} (MoE) on {replicas} batch replicas with "
-                f"no model axis dividing its {self.arch.n_experts} experts "
-                "(the expert-parallel dispatch, ROADMAP.md Queue 1 item "
-                "13): the reference's capacity over the global batch there "
-                "is not ported (ROADMAP.md Queue 3 item 14)")
-        if tp > 1 and self.abi.options.get("compression") == "powersgd":
-            raise NotImplementedError(
-                f"PowerSGD on a model axis of {tp}: {NOT_PORTED}")
 
         explicit = self.abi.options.get("mode") == "explicit"
         self.fsdp = bool(self.settings.get("fsdp", False)) and not explicit
@@ -170,7 +155,9 @@ class Container:
                            act_dtype=_torch_dtype(prec.get("compute",
                                                            "bfloat16")),
                            remat=str(self.settings.get("remat", "none")),
-                           axis=model_axis(self.mesh))
+                           axis=model_axis(self.mesh),
+                           moe_impl=str(self.settings.get("moe_impl",
+                                                          "spmd")))
         self.model.fsdp = fsdp_of(self.mesh, self.param_shardings(),
                                   self.abi.name)
         self.param_dtype = _torch_dtype(prec.get("params", "float32"))
@@ -238,11 +225,18 @@ class Container:
             out["master"] = ps
         if self._powersgd_rank():
             baxes = batch_axes(self.mesh)
-            sh0 = NamedSharding(self.mesh,
-                                (baxes if len(baxes) > 1 else baxes[0],),
-                                self.device)
-            out["comm"] = tree_map(lambda a: None if a is None else sh0,
-                                   self._comm_template())
+            b0 = baxes if len(baxes) > 1 else baxes[0]
+            sh0 = NamedSharding(self.mesh, (b0,), self.device)
+            # q whole over model (the JAX package's spec); err the rank's
+            # part of the whole error, split as its param is
+            comm = self._comm_template()
+            out["comm"] = {
+                "q": tree_map(lambda a: None if a is None else sh0,
+                              comm["q"]),
+                "err": tree_map(lambda a, psh: None if a is None else
+                                NamedSharding(self.mesh, (b0, *psh.spec),
+                                              self.device),
+                                comm["err"], self.param_shardings())}
         return out
 
     def abstract_params(self):
@@ -274,13 +268,19 @@ class Container:
                            with_master=self.param_dtype != torch.float32)
         if self._powersgd_rank():
             from repro_torch.train.compression import powersgd_init
-            comm = powersgd_init(params, self._powersgd_rank())
+            comm = powersgd_init(params, self._powersgd_rank(),
+                                 shardings=self._psgd_shardings())
             # this rank's row of the (replicas, ...) leaves: the error
             # buffer is per-replica state, unlike params
             expand = lambda a: None if a is None else a[None].clone()
             state["comm"] = {"q": tree_map(expand, comm["q"]),
                              "err": tree_map(expand, comm["err"])}
         return state
+
+    def _psgd_shardings(self):
+        """The param shardings PowerSGD reads its leaves' model-axis splits
+        from (``None`` without a model axis: every leaf whole)."""
+        return self.param_shardings() if self.model.axis else None
 
     def _powersgd_rank(self) -> int:
         if self.abi.options.get("compression") == "powersgd":
@@ -317,7 +317,8 @@ class Container:
             microbatches=int(self.settings.get("microbatches", 1)),
             donate=donate, mesh=self.mesh,
             opt_shardings=(self.opt_state_shardings()["m"]
-                           if self.zero1 or self.fsdp else None))
+                           if self.zero1 or self.fsdp else None),
+            param_shardings=self._psgd_shardings())
         return builder.build()
 
     # -- whole-batch serve steps ------------------------------------------------
@@ -325,14 +326,26 @@ class Container:
         """``prefill(params, tokens[, frontend_embeds]) -> (last logits,
         cache)`` into ``cache_len`` positions (the cell's ``seq_len`` when
         None), under no_grad."""
-        b = ServeStepBuilder(self.model)
+        b = self._serve_builder(self.cell.global_batch if self.cell
+                                else None)
         return torch.no_grad()(b.build_prefill(
             cache_len or (self.cell.seq_len if self.cell else 0)))
 
     def decode_fn(self) -> Callable:
         """``decode(params, cache, tokens (B,1), idx) -> (logits (B, Vp),
         cache)`` at a scalar or (B,) position, under no_grad."""
-        return torch.no_grad()(ServeStepBuilder(self.model).build_decode())
+        b = self._serve_builder(self.cell.global_batch if self.cell
+                                else None)
+        return torch.no_grad()(b.build_decode())
+
+    def _serve_builder(self, batch: int | None) -> ServeStepBuilder:
+        """The builder of steps over ``batch`` rows: with the replicas
+        where they split it (``_rows``: the steps take this rank's rows of
+        it); a step of a single request (``batch`` None) is whole on every
+        replica."""
+        split = bool(batch) and self._rows(batch) < batch
+        return ServeStepBuilder(self.model,
+                                replicas_of(self.mesh) if split else None)
 
     # -- serving: slot-granular cache + built serve steps ----------------------
     def cache_leaf_dtype(self, d) -> torch.dtype:
@@ -383,7 +396,7 @@ class Container:
         cache; with ``per_row`` it takes a (batch,) vector of start
         positions, as for mixed-length waves, else one scalar start. Runs
         under no_grad."""
-        b = ServeStepBuilder(self.model)
+        b = self._serve_builder(batch)
         if kind == "prefill":
             fn = b.build_prefill(cache_len)
         elif kind == "prefill_slot":
@@ -410,10 +423,13 @@ class Container:
         """Cache identity for serve steps: only the image config sections
         that determine the computation (arch/mesh/precision/settings), so a
         release that only re-points a tag at an image with new LABEL or
-        COLLECTIVES layers reuses the built steps."""
+        COLLECTIVES layers reuses the built steps; and the job's mesh where
+        it has more than one rank (a step is built for its axes)."""
         cfg = self.image.config()
         rel = {k: cfg.get(k) for k in ("arch", "mesh", "precision",
                                        "settings")}
+        if self.mesh.size > 1:
+            rel["ranks"] = self._mesh_key()
         return hashlib.sha256(
             json.dumps(rel, sort_keys=True, default=str).encode()).hexdigest()
 
@@ -606,9 +622,16 @@ class Container:
             raise ValueError(f"unknown step kind {kind!r}")
         if self.compile_cache is None:
             return builders[kind]()
+        step_kind = (f"{kind}@{self._mesh_key()}" if self.mesh.size > 1
+                     else kind)
         key = self.compile_cache.key(image_digest=self.image.digest,
-                                     step_kind=kind, device=self.device)
+                                     step_kind=step_kind, device=self.device)
         return self.compile_cache.get_or_build(key, builders[kind])
+
+    def _mesh_key(self) -> str:
+        """The job's mesh in a cache key: its axes, sizes and this rank."""
+        return (",".join(f"{a}={n}" for a, n in self.mesh.shape.items())
+                + f"/{self.mesh.rank}")
 
     # -- overlay (writable layer) ----------------------------------------------
     def ensure_overlay(self) -> Path:

@@ -65,9 +65,6 @@ PLATFORMS: dict[str, dict] = {
                  "device": "cuda"},
 }
 
-NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1 item 13: PowerSGD at a "
-              "'model' axis above 1, and an MoE arch on several batch "
-              "replicas with no model axis dividing its experts)")
 _RING = {"all_reduce": 2, "reduce_scatter": 1, "all_gather": 1}
 POD_SIZE = 256          # ranks a pod: the JAX package's 16 x 16
 
@@ -304,6 +301,16 @@ def make_platform_mesh(platform: str = "local") -> PlatformMesh:
 def batch_axes(mesh) -> tuple[str, ...]:
     """The replica (data-parallel) axes of ``mesh``, ordered slow-to-fast."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def batch_index(mesh) -> int:
+    """This rank's coordinate over the mesh's batch axes, row-major: the
+    block of a batch split over them that its rows are (every rank of
+    one data replica has the same)."""
+    c, idx = mesh.coords(), 0
+    for a in batch_axes(mesh):
+        idx = idx * mesh.shape[a] + c[a]
+    return idx
 
 
 def _platform(platform: str) -> dict:

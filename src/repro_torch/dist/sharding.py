@@ -62,7 +62,8 @@ from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.dist.mesh import PlatformMesh, batch_axes, collective
+from repro_torch.dist.mesh import (PlatformMesh, batch_axes, batch_index,
+                                   collective)
 
 Rule = str | tuple[str, ...] | None
 Spec = tuple
@@ -292,6 +293,47 @@ class ModelAxis:
         collective(self.mesh, TP, "all_reduce", out, out,
                    self.mesh.group(("model",)), reduce)
         return out
+
+
+@dataclass(frozen=True, eq=False)
+class Replicas:
+    """This rank's place on its mesh's batch axes (``pod``, ``data``),
+    which hold more than one replica: their number, this rank's replica
+    (row-major over the axes, slow to fast: the block of a batch split
+    over them that its rows are) and an all-gather over their group."""
+
+    mesh: PlatformMesh
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return batch_axes(self.mesh)
+
+    @property
+    def size(self) -> int:
+        return self.mesh.axes_size(self.axes)
+
+    @property
+    def index(self) -> int:
+        return batch_index(self.mesh)
+
+    def all_gather(self, x: torch.Tensor, label: str) -> torch.Tensor:
+        """(size, *x.shape): every replica's ``x``, in replica order,
+        counted under ``label``."""
+        shape = x.shape
+        x = x.detach().contiguous().reshape(-1)
+        out = torch.empty(self.size * x.numel(), dtype=x.dtype,
+                          device=x.device)
+        collective(self.mesh, label, "all_gather", out, x,
+                   self.mesh.group(self.axes))
+        return out.view(self.size, *shape)
+
+
+def replicas_of(mesh: PlatformMesh | None) -> Replicas | None:
+    """The ``Replicas`` of ``mesh``; ``None`` without a mesh or with one
+    replica."""
+    if mesh is None or mesh.axes_size(batch_axes(mesh)) == 1:
+        return None
+    return Replicas(mesh)
 
 
 def model_axis(mesh: PlatformMesh | None) -> ModelAxis | None:

@@ -32,6 +32,26 @@ body ``_moe_local`` run by each rank of a ``model`` axis, on the shards
 capacity from the rank's data-local tokens, the router replicated,
 dropped and non-local assignments sent to an out-of-range slot, the
 shared experts split on F, and one all-reduce over ``model``.
+
+The global-capacity dispatch (``replicas``: a ``dist.sharding.Replicas``,
+given where this call's rows are the rank's block of a batch split over
+the mesh's batch axes): the reference's ``moe_forward`` under GSPMD sees
+the GLOBAL batch -- one cumsum over every replica's tokens in the global
+row order, and capacity from the global T -- wherever its expert-parallel
+region does not run (a ``model`` axis of 1, ``moe_impl`` other than
+``spmd``, or E % tp). A rank holds rows ``[i * B_l, (i + 1) * B_l)`` of
+the batch (replica ``i``), so the global order is the replicas' order:
+each rank all-gathers every replica's per-expert assignment counts (E
+ints, counted under ``MOE``), starts its positions in each expert at the
+sum over the replicas before it, and keeps an assignment whose global
+position is below ``C = capacity(cfg, T * replicas)``. A kept position is
+below C, so each rank's rows take their global slots of the (E, C, D)
+buffer and run through the experts (whole on every rank, or this rank's
+experts on a model axis). ``aux`` is ``E * sum_e(me_e * ce_e)`` with
+``ce`` the global share of assignments and ``me`` the rank's own mean of
+``probs``: the train step's mean over the replicas gives the global
+``me`` -- and, as only ``me`` carries a gradient, linear in each rank's
+tokens, the gradient of the global ``aux``.
 """
 
 from __future__ import annotations
@@ -39,7 +59,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import (ModelAxis, copy_to_model,
+from repro_torch.dist.sharding import (ModelAxis, Replicas, copy_to_model,
                                        reduce_from_model)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, mlp_defs
@@ -70,8 +90,11 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return out.scatter_(-1, idx[..., None], 1)
 
 
-def _router(p, x: torch.Tensor, cfg: ModelConfig):
-    """x: (T, D) -> (idx (T,k) int64, weight (T,k) f32, aux_loss scalar)."""
+MOE = "moe"     # the global dispatch's count gather in CollectiveStats
+
+
+def _route(p, x: torch.Tensor, cfg: ModelConfig):
+    """x: (T, D) -> (idx (T,k) int64, weight (T,k) f32, probs (T,E))."""
     logits = (x @ p["router"].to(x.dtype)).float()              # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # stable descending sort: equal probabilities keep the lower index
@@ -79,14 +102,42 @@ def _router(p, x: torch.Tensor, cfg: ModelConfig):
     weight, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weight, idx = weight[:, :cfg.top_k], idx[:, :cfg.top_k]
     weight = weight / torch.clamp(weight.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balancing auxiliary loss
-    E = cfg.n_experts
+    return idx, weight, probs
+
+
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Assignments an expert, as a one-hot sum: exact, and no host sync on
+    the card (a CUDA bincount reads the max index back first)."""
+    return _one_hot(idx.reshape(-1), n).sum(0)
+
+
+def _aux(probs: torch.Tensor, counts: torch.Tensor, n_assign: int,
+         cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss."""
     me = probs.mean(0)                                           # (E,)
-    # counts as a one-hot sum: exact, and no host sync on the card (a CUDA
-    # bincount reads the max index back first)
-    ce = _one_hot(idx.reshape(-1), E).sum(0).float() / idx.numel()
-    aux = E * torch.sum(me * ce)
-    return idx, weight, aux
+    ce = counts.float() / n_assign
+    return cfg.n_experts * torch.sum(me * ce)
+
+
+def _router(p, x: torch.Tensor, cfg: ModelConfig):
+    """x: (T, D) -> (idx (T,k) int64, weight (T,k) f32, aux_loss scalar)."""
+    idx, weight, probs = _route(p, x, cfg)
+    return idx, weight, _aux(probs, _counts(idx, cfg.n_experts),
+                             idx.numel(), cfg)
+
+
+def _routing(p, x: torch.Tensor, cfg: ModelConfig,
+             replicas: Replicas | None):
+    """``_router`` -> (idx, weight, aux, before): with ``replicas`` the
+    assignments an expert of the replicas before this one (``None``
+    without) and ``aux`` from the global counts (module docstring)."""
+    if replicas is None:
+        return (*_router(p, x, cfg), None)
+    idx, weight, probs = _route(p, x, cfg)
+    table = replicas.all_gather(_counts(idx, cfg.n_experts), MOE)
+    before = table[:replicas.index].sum(0)
+    aux = _aux(probs, table.sum(0), idx.numel() * replicas.size, cfg)
+    return idx, weight, aux, before
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -94,25 +145,31 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)   # round up to 8 for lane alignment
 
 
-def dispatch_positions(idx: torch.Tensor, n_experts: int, C: int):
+def dispatch_positions(idx: torch.Tensor, n_experts: int, C: int,
+                       before: torch.Tensor | None = None):
     """idx (T, k) -> (pos, keep, slot), each (T*k,): the assignment's
-    position in its expert (counted in token-major order), whether it fits
-    the capacity ``C``, and its row of the (E*C, D) buffer (row ``e*C``
-    for a dropped one, as in the reference)."""
+    position in its expert (counted in token-major order, after
+    ``before[e]`` assignments of the replicas ahead of this one where
+    given), whether it fits the capacity ``C``, and its row of the (E*C,
+    D) buffer (row ``e*C`` for a dropped one, as in the reference)."""
     flat_e = idx.reshape(-1)                                     # (T*k,)
     onehot = _one_hot(flat_e, n_experts)                        # (T*k, E)
     pos = torch.cumsum(onehot, dim=0) - onehot                   # from 0
     pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    if before is not None:
+        pos = pos + before[flat_e]
     keep = pos < C
     slot = flat_e * C + torch.where(keep, pos, torch.zeros_like(pos))
     return pos, keep, slot
 
 
-def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                replicas: Replicas | None = None):
     """x: (B,S,D) -> (B,S,D), aux_loss. Capacity comes from T = B*S of
-    this call, so the right-pad rows of a bucketed prefill and the idle
+    this call (times the replicas with ``replicas``: the global-capacity
+    dispatch), so the right-pad rows of a bucketed prefill and the idle
     slots of a decode step route and count exactly as in the reference."""
-    y, aux = _moe_routed(p, x, cfg)
+    y, aux = _moe_routed(p, x, cfg, replicas)
     if cfg.n_shared_experts:
         B, S, D = x.shape
         y = y + apply_mlp(p["shared"], x.reshape(B * S, D),
@@ -120,16 +177,17 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return y, aux
 
 
-def _moe_routed(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _moe_routed(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                replicas: Replicas | None = None):
     """``moe_forward`` without the shared experts."""
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
-    C = capacity(cfg, T)
+    C = capacity(cfg, T * (replicas.size if replicas else 1))
     xt = x.reshape(T, D)
 
-    idx, weight, aux = _router(p, xt, cfg)                       # (T,k)
-    _, keep, slot = dispatch_positions(idx, E, C)
+    idx, weight, aux, before = _routing(p, xt, cfg, replicas)    # (T,k)
+    _, keep, slot = dispatch_positions(idx, E, C, before)
 
     # ---- dispatch: each kept row to its own slot; dropped rows go to the
     # spare row E*C, which is cut off
@@ -176,7 +234,7 @@ def moe_param_specs(cfg: ModelConfig, model_axis: str = "model") -> dict:
 
 
 def moe_forward_spmd(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                     axis: ModelAxis):
+                     axis: ModelAxis, replicas: Replicas | None = None):
     """x: (B_local, S, D) -> (B_local, S, D), aux_loss, on one rank of a
     model axis whose ``p`` holds this rank's shards (``moe_param_specs``).
 
@@ -193,25 +251,29 @@ def moe_forward_spmd(p: dict, x: torch.Tensor, cfg: ModelConfig,
     batch, which the port's rows always split) does not divide: its
     semantics, not a device fallback. Here that is the routed experts
     whole on every rank (the specs leave them replicated) and the shared
-    experts split on F, with capacity from this call's tokens, which are
-    the global batch's only at one data replica (the container refuses
-    the others)."""
+    experts split on F, with capacity over the global batch (``replicas``
+    where this rank's rows are its replica's block of it).
+
+    With ``replicas`` and E % tp == 0 (``moe_impl`` other than ``spmd``,
+    whose reference is GSPMD's ``moe_forward`` over the global batch)
+    the positions and capacity are the global dispatch's and the experts
+    stay split over the axis."""
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
     if E % axis.size:
-        y, aux = _moe_routed(p, x, cfg)
+        y, aux = _moe_routed(p, x, cfg, replicas)
         if cfg.n_shared_experts:
             y = y + apply_mlp(p["shared"], x.reshape(T, D), cfg.mlp,
                               axis).reshape(B, S, D)
         return y, aux
     el = E // axis.size
     off = axis.coord * el
-    C = capacity(cfg, T)                                   # per data shard
+    C = capacity(cfg, T * (replicas.size if replicas else 1))
     xt = x.reshape(T, D)
 
-    idx, weight, aux = _router(p, xt, cfg)                 # replicated math
-    pos, keep, _ = dispatch_positions(idx, E, C)
+    idx, weight, aux, before = _routing(p, xt, cfg, replicas)  # replicated
+    pos, keep, _ = dispatch_positions(idx, E, C, before)
     flat_e = idx.reshape(-1)
     ok = keep & (flat_e >= off) & (flat_e < off + el)
     # out-of-range slot for dropped/non-local assignments

@@ -53,7 +53,7 @@ from functools import partial
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
-from repro_torch.dist.sharding import FSDP, ModelAxis
+from repro_torch.dist.sharding import FSDP, ModelAxis, Replicas
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
@@ -158,7 +158,8 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, tp: int = 1,
                  act_dtype: torch.dtype = torch.bfloat16,
-                 remat: str = "none", axis: ModelAxis | None = None):
+                 remat: str = "none", axis: ModelAxis | None = None,
+                 moe_impl: str = "spmd"):
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}; expected one "
                              f"of {REMAT_MODES}")
@@ -174,6 +175,21 @@ class Model:
         # weight FSDP: the Container sets it from the param shardings,
         # which it reads off this model's param defs
         self.fsdp: FSDP | None = None
+        self.moe_impl = moe_impl
+
+    def moe_replicas(self, replicas: Replicas | None) -> Replicas | None:
+        """The replicas the MoE dispatch of a call runs over when the
+        call's rows are this rank's block of a batch split over
+        ``replicas``: all of them where the reference's ``moe_forward``
+        sees the global batch under GSPMD -- an MoE arch whose
+        expert-parallel region does not run (``model`` at 1, ``moe_impl``
+        not ``spmd``, or a model axis that does not divide the experts);
+        else ``None``, the call's own rows."""
+        if self.cfg.n_experts and replicas is not None and (
+                self.axis is None or self.moe_impl != "spmd"
+                or self.cfg.n_experts % self.axis.size):
+            return replicas
+        return None
 
     # -- params ---------------------------------------------------------
     def param_defs(self) -> dict:
@@ -256,7 +272,7 @@ class Model:
                 collect_cache: bool = False, cache_len: int | None = None,
                 prefix_kv: dict | None = None,
                 prefix_pages: torch.Tensor | None = None,
-                prefix_len: int = 0):
+                prefix_len: int = 0, replicas: Replicas | None = None):
         """tokens: (B, S_tok). Returns (logits (B,S,Vp), aux) or, with
         ``collect_cache``, (logits, cache, aux); ``aux`` sums the MoE
         blocks' load-balancing losses (0 without MoE).
@@ -275,7 +291,11 @@ class Model:
         physical pages ``prefix_pages`` ((ceil(prefix_len / page_size),)
         int; the last page may be only partly covered). Token positions are
         offset past the prefix, every attention block attends over
-        [prefix, suffix], and the collected cache covers the suffix only."""
+        [prefix, suffix], and the collected cache covers the suffix only.
+
+        ``replicas``: the rows are this rank's block of a batch split over
+        them (a train step's or a slot bank's), for the MoE dispatch
+        (``moe_replicas``)."""
         cfg = self.cfg
         if prefix_len:
             if frontend_embeds is not None:
@@ -308,6 +328,7 @@ class Model:
 
         caches = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        moe_reps = self.moe_replicas(replicas)
         unit = self._unit
         if (self.remat != "none" and torch.is_grad_enabled()
                 and not collect_cache):
@@ -327,7 +348,7 @@ class Model:
                 x, aux, entries = unit(
                     st, unit_params, x, aux, positions, collect_cache,
                     cache_len or S, unit_prefix, prefix_pages, prefix_len,
-                    unit_fsdp)
+                    unit_fsdp, moe_reps)
                 layer_entries.append(entries)
             if collect_cache:
                 caches[f"stage{si}"] = tree_map(
@@ -350,7 +371,8 @@ class Model:
 
     def _unit(self, st: Stage, unit_params: dict, x, aux, positions,
               collect_cache: bool, cache_len: int, unit_prefix=None,
-              prefix_pages=None, prefix_len: int = 0, unit_fsdp=None):
+              prefix_pages=None, prefix_len: int = 0, unit_fsdp=None,
+              moe_reps: Replicas | None = None):
         """One stacked unit's blocks (the JAX package's scan body) ->
         (x, aux, the blocks' cache entries). Under FSDP (``unit_fsdp``:
         the layer's shardings) its params are gathered first, inside the
@@ -363,7 +385,7 @@ class Model:
             x, aux_b, entry = self._apply_block(
                 kind, unit_params[f"b{bi}"], x, positions, collect_cache,
                 cache_len, prefix_kv=pkv, prefix_pages=prefix_pages,
-                prefix_len=prefix_len)
+                prefix_len=prefix_len, moe_reps=moe_reps)
             if aux_b is not None:
                 aux = aux + aux_b
             if collect_cache:
@@ -372,7 +394,8 @@ class Model:
 
     def _apply_block(self, kind: str, p: dict, x, positions,
                      collect_cache: bool, cache_len: int,
-                     prefix_kv=None, prefix_pages=None, prefix_len: int = 0):
+                     prefix_kv=None, prefix_pages=None, prefix_len: int = 0,
+                     moe_reps: Replicas | None = None):
         """One block's prefill -> (x, aux or None, cache entry or None);
         ``aux`` is the MoE load-balancing loss of a ``moe`` block."""
         cfg, geom = self.cfg, self.geom
@@ -438,18 +461,20 @@ class Model:
             x = x + out
             h2 = apply_norm(p["ln2"], x, cfg.norm)
             if kind == "moe":
-                moe_out, aux = self._moe(p["moe"], h2)
+                moe_out, aux = self._moe(p["moe"], h2, moe_reps)
                 x = x + moe_out
             else:
                 x = x + apply_mlp(p["mlp"], h2, cfg.mlp, axis)
         return x, aux, entry
 
-    def _moe(self, p_moe, h):
+    def _moe(self, p_moe, h, replicas: Replicas | None = None):
         """The MoE block: expert-parallel on a model axis, as the JAX
-        package's ``_moe`` switches to ``moe_forward_spmd`` with a mesh."""
+        package's ``_moe`` switches to ``moe_forward_spmd`` with a mesh;
+        over the global batch of ``replicas`` (``moe_replicas``)."""
         if self.axis is not None:
-            return moe_mod.moe_forward_spmd(p_moe, h, self.cfg, self.axis)
-        return moe_mod.moe_forward(p_moe, h, self.cfg)
+            return moe_mod.moe_forward_spmd(p_moe, h, self.cfg, self.axis,
+                                            replicas)
+        return moe_mod.moe_forward(p_moe, h, self.cfg, replicas)
 
     def _prefill_cache_entry(self, k, v, window: int, cache_len: int):
         """Store the last ``cache_len`` (or window) positions into the cache,
@@ -472,7 +497,8 @@ class Model:
 
     # -- decode ------------------------------------------------------------
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
-                    idx, page_table: torch.Tensor | None = None):
+                    idx, page_table: torch.Tensor | None = None,
+                    replicas: Replicas | None = None):
         """tokens: (B,1); idx: position -- a Python int or 0-d tensor
         (lockstep batch) or a (B,) tensor of per-row positions
         (slot-granular continuous batching); normalised once, on the
@@ -490,9 +516,10 @@ class Model:
         On a model axis the cache is the rank's part and the logits its
         vocab slice; under FSDP the embedding, ``final_norm`` and each
         layer's parts are gathered where they are read, as in
-        ``forward``."""
+        ``forward``; ``replicas`` as in ``forward``."""
         cfg = self.cfg
         fsdp, axis = self.fsdp, self.axis
+        moe_reps = self.moe_replicas(replicas)
         params = self._outer_whole(params)
         x = embed_tokens(params["embed"], tokens, cfg, self.act_dtype, axis)
         idx = attn_mod.row_positions(idx, tokens.shape[0], x.device,
@@ -504,23 +531,25 @@ class Model:
             for li in range(st.count):
                 x = self._decode_unit(st, tree_map(lambda a: a[li], sp),
                                       tree_map(lambda a: a[li], sc), x, idx,
-                                      page_table, unit_fsdp)
+                                      page_table, unit_fsdp, moe_reps)
         x = apply_norm(params["final_norm"], x, cfg.norm)
         logits = lm_logits(params["embed"], x, cfg, axis)
         return logits, cache
 
     def _decode_unit(self, st: Stage, unit_params: dict, unit_cache: dict,
-                     x, idx, page_table, unit_fsdp=None):
+                     x, idx, page_table, unit_fsdp=None, moe_reps=None):
         """One stacked unit's one-token decode (its params gathered first
         under FSDP), its cache views updated in place -> x."""
         if unit_fsdp is not None:
             unit_params = self.fsdp.gather(unit_params, unit_fsdp)
         for bi, kind in enumerate(st.unit):
             x = self._decode_block(kind, unit_params[f"b{bi}"],
-                                   unit_cache[f"b{bi}"], x, idx, page_table)
+                                   unit_cache[f"b{bi}"], x, idx, page_table,
+                                   moe_reps)
         return x
 
-    def _decode_block(self, kind: str, p: dict, c: dict, x, idx, page_table):
+    def _decode_block(self, kind: str, p: dict, c: dict, x, idx, page_table,
+                      moe_reps=None):
         cfg, axis = self.cfg, self.axis
         h = apply_norm(p["ln1"], x, cfg.norm)
         if kind == "ssm":
@@ -546,7 +575,7 @@ class Model:
         x = x + out
         h2 = apply_norm(p["ln2"], x, cfg.norm)
         if kind == "moe":
-            return x + self._moe(p["moe"], h2)[0]
+            return x + self._moe(p["moe"], h2, moe_reps)[0]
         return x + apply_mlp(p["mlp"], h2, cfg.mlp, axis)
 
 

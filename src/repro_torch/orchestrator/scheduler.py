@@ -20,6 +20,24 @@ runs jitted, donating helpers that return a new cache, the port writes
 the slot bank or page pool IN PLACE with index assignment (``_insert_slot``,
 ``_insert_pages``), and the spill save path copies pages OUT (``.cpu()``)
 because the pool is mutable.
+
+On a mesh whose batch axes hold more than one replica (the reference's
+``("batch",)`` token and position shardings) a rank holds its rows of the
+slot bank (``Container.slot_cache_shardings``; the whole bank where the
+replicas do not divide it) and decodes only them; every decode dispatch
+all-gathers the sampled tokens over the batch axes (n_slots x chunk
+int32, counted under ``TOKENS``), so every rank's scheduler sees every
+row's tokens and the host state -- queue, page pool, prefix registry,
+ticks, preemptions -- stays the same on every rank. A prefill of one
+request runs whole on every rank; its contiguous cache is written only
+on the rank that holds its slot. The page pool is whole on every rank,
+as the reference's spec keeps it: every rank writes every prefill's
+pages and the decode K/V of its own rows. The pages the prefix registry
+shares (and the spill tier saves and restores) are prompt prefixes,
+written by a prefill (``_prefix_tokens`` caps the prefix below the
+prompt), so they hold the same values on every rank; a path that shared
+a page written by a decode would have to write that page's rows on
+every rank first.
 """
 
 from __future__ import annotations
@@ -30,6 +48,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import replicas_of
 from repro_torch.orchestrator.obs.metrics import MetricsRegistry
 from repro_torch.orchestrator.obs.report import (ITL_HIST, TICK_HIST,
                                            observe_completion)
@@ -37,9 +56,10 @@ from repro_torch.orchestrator.obs.tracing import TraceBuffer
 from repro_torch.orchestrator.page_pool import PagePool
 from repro_torch.orchestrator.prefix_registry import PrefixMatch
 from repro_torch.orchestrator.request_queue import GenRequest, RequestQueue
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_leaves, tree_map
 
 _PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+TOKENS = "tokens"   # the decode's token gather in CollectiveStats
 
 
 def _insert_slot(big, small, slot: int):
@@ -160,6 +180,22 @@ class SlotEngine:
                 chunk_kind, gen_steps=self.chunk, **shapes)
         self._prefills: dict[int, object] = {}      # bucket len -> executable
         self._insert = _insert_slot
+        # the slot rows this rank decodes: its replica's block of the bank
+        # where the mesh's replicas divide it, else every row
+        self.replicas = replicas_of(getattr(container, "mesh", None))
+        if self.replicas is not None and self.n_slots % self.replicas.size:
+            if not self.paged and any(
+                    sh.split(self.replicas.axes) for sh in tree_leaves(
+                        container.slot_cache_shardings(self.n_slots,
+                                                       self.max_len))):
+                raise ValueError(
+                    f"a bank of {self.n_slots} slots splits over some of "
+                    f"the batch axes {self.replicas.axes} only; give "
+                    "n_slots divisible by all of them or by none")
+            self.replicas = None
+        n = self.n_slots // (self.replicas.size if self.replicas else 1)
+        lo = self.replicas.index * n if self.replicas else 0
+        self.rows = slice(lo, lo + n)
 
         self.cache = (container.init_paged_cache(self.n_pages, self.page_size)
                       if self.paged
@@ -558,8 +594,9 @@ class SlotEngine:
                 np_ = -(-(bucket + self.fe_len) // self.page_size)
                 row = self._ids(self.pool.table[slot, :np_])
                 self.cache = _insert_pages(self.cache, small, row)
-            else:
-                self.cache = self._insert(self.cache, small, slot)
+            elif self.rows.start <= slot < self.rows.stop:
+                self.cache = self._insert(self.cache, small,
+                                          slot - self.rows.start)
             first = int(first[0])
             self.prefill_s += time.perf_counter() - t0
             self._c_positions.inc(req.frontend_len + P)
@@ -631,12 +668,18 @@ class SlotEngine:
                 self._drain_tier_events(self.active[slot].rid, tick)
             toks, _, _, self.cache = self.decode(
                 self.params, self.cache,
-                self._ids(self.cur_tok[:, None]), self._ids(self.pos),
-                self._ids(self.pool.table))
+                self._ids(self.cur_tok[self.rows, None]),
+                self._ids(self.pos[self.rows]),
+                self._ids(self.pool.table[self.rows]))
         else:
             toks, _, _, self.cache = self.decode(
                 self.params, self.cache,
-                self._ids(self.cur_tok[:, None]), self._ids(self.pos))
+                self._ids(self.cur_tok[self.rows, None]),
+                self._ids(self.pos[self.rows]))
+        if self.replicas is not None:
+            # every replica's rows, in replica order: the whole bank's
+            toks = self.replicas.all_gather(toks.to(torch.int32), TOKENS)
+            toks = toks.reshape(self.n_slots, -1)
         toks = toks.cpu().numpy()                       # (n_slots, chunk)
         self.decode_s += time.perf_counter() - t0
         self._c_decode_ticks.inc(self.chunk)

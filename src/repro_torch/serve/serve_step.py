@@ -38,6 +38,11 @@ the params and its part of the cache, the logits a step returns are its
 vocab slice (the reference's ``("batch", "vocab")`` out-sharding), and
 the greedy sample is an exact argmax over the slices (``greedy_sample``):
 every rank gets the same token, the one a single process picks.
+
+A builder given ``replicas`` builds steps whose rows are this rank's
+block of a batch split over the mesh's batch axes (a slot bank's rows):
+the model's MoE dispatch then runs over the global batch where the
+reference's does (``Model.moe_replicas``).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.dist.sharding import ModelAxis, gather_from_model
+from repro_torch.dist.sharding import ModelAxis, Replicas, gather_from_model
 from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import Model
 
@@ -105,6 +110,7 @@ def _rows_at(logits: torch.Tensor, pos) -> torch.Tensor:
 @dataclass
 class ServeStepBuilder:
     model: Model
+    replicas: Replicas | None = None
 
     def build_prefill(self, cache_len: int) -> Callable:
         """Whole-batch prefill of (B, S) prompts (after a (B, F, D)
@@ -116,7 +122,8 @@ class ServeStepBuilder:
         def prefill(params, tokens, frontend_embeds=None):
             logits, cache, _ = self.model.forward(
                 params, tokens, frontend_embeds=frontend_embeds,
-                collect_cache=True, cache_len=cache_len)
+                collect_cache=True, cache_len=cache_len,
+                replicas=self.replicas)
             return logits[:, -1].clone(), cache
 
         return prefill
@@ -126,7 +133,8 @@ class ServeStepBuilder:
         per-row positions -> (logits (B, Vp), cache); on a model axis the
         rank's (B, Vp/tp) vocab slice."""
         def decode(params, cache, tokens, idx):
-            logits, cache = self.model.decode_step(params, cache, tokens, idx)
+            logits, cache = self.model.decode_step(params, cache, tokens, idx,
+                                                   replicas=self.replicas)
             return logits[:, -1], cache
 
         return decode
@@ -157,7 +165,7 @@ class ServeStepBuilder:
                 logits, cache, _ = self.model.forward(
                     params, tokens, frontend_embeds=frontend_embeds,
                     frontend_len=fe_len, collect_cache=True,
-                    cache_len=cache_len)
+                    cache_len=cache_len, replicas=self.replicas)
                 last_pos = (torch.as_tensor(fe_len, device=logits.device)
                             + torch.as_tensor(length, device=logits.device)
                             - 1)
@@ -169,7 +177,8 @@ class ServeStepBuilder:
 
         def prefill_slot(params, tokens, length):
             logits, cache, _ = self.model.forward(
-                params, tokens, collect_cache=True, cache_len=cache_len)
+                params, tokens, collect_cache=True, cache_len=cache_len,
+                replicas=self.replicas)
             last = _rows_at(logits, torch.as_tensor(length) - 1)
             return greedy_sample(last, vocab, axis), cache
 
@@ -250,7 +259,7 @@ class ServeStepBuilder:
                 logits, cache, _ = self.model.forward(
                     params, tokens, collect_cache=True, cache_len=span,
                     prefix_kv=pool, prefix_pages=prefix_pages,
-                    prefix_len=prefix_len)
+                    prefix_len=prefix_len, replicas=self.replicas)
                 first = greedy_sample(
                     _rows_at(logits, torch.as_tensor(length) - 1), vocab,
                     axis)
@@ -305,7 +314,8 @@ class ServeStepBuilder:
 
         def decode_slots_paged(params, cache, tokens, pos, page_table):
             logits, cache = self.model.decode_step(
-                params, cache, tokens, pos, page_table=page_table)
+                params, cache, tokens, pos, page_table=page_table,
+                replicas=self.replicas)
             return greedy_sample(logits[:, -1], vocab, axis), cache
 
         return decode_slots_paged
@@ -321,7 +331,8 @@ class ServeStepBuilder:
             tok = tokens
             for _ in range(n_steps):
                 logits, cache = self.model.decode_step(
-                    params, cache, tok, pos, page_table=page_table)
+                    params, cache, tok, pos, page_table=page_table,
+                    replicas=self.replicas)
                 tok = greedy_sample(logits[:, -1], vocab, axis)[:, None]
                 toks.append(tok[:, 0])
                 pos = pos + 1

@@ -27,11 +27,21 @@ the given params and optimizer state (``jax.jit(..., donate_argnums=(0,
 Gradient accumulation: ``microbatches > 1`` runs the batch in slices and
 accumulates float32 grads, divided by the count at the end.
 
+With microbatches the implicit path's rank takes its block of each
+global microbatch, as the reference slices the global batch and then
+splits each slice over the replicas: the ranks' microbatch ``i`` is the
+global one. Its model calls get the mesh's replicas, so an MoE layer whose
+dispatch runs over the global batch (``Model.moe_replicas``) takes the
+global batch's positions and capacity, as under the JAX package's GSPMD.
+The explicit path takes its replica's block of the batch and slices that,
+and keeps each replica's capacity over its own rows, as the reference's
+manual region does.
+
 With a ``loss_mask`` the JAX implicit loss is the global masked mean
 (over each global microbatch, then averaged), which no mean of the
 ranks' own masked means gives: each rank weights its microbatches by
 their mask counts over the all-reduced counts of the global microbatches
-that hold them (``_mask_weights``). The explicit path keeps the JAX
+(``_mask_weights``). The explicit path keeps the JAX
 package's per-shard mean, then the mean over replicas.
 
 Weight FSDP (the model carries a ``dist.sharding.FSDP``; implicit path
@@ -60,8 +70,10 @@ import torch
 from repro_torch.core.abi import (CollectiveABI, all_gather,
                                   reduce_scatter_mean, replica_mean)
 from repro_torch.data.pipeline import rank_rows
-from repro_torch.dist.mesh import PlatformMesh, batch_axes, collective
-from repro_torch.dist.sharding import ModelAxis, reduce_from_model
+from repro_torch.dist.mesh import (PlatformMesh, batch_axes, batch_index,
+                                   collective)
+from repro_torch.dist.sharding import (ModelAxis, Replicas,
+                                       reduce_from_model, replicas_of)
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.transformer import Model
 from repro_torch.train.compression import powersgd_sync
@@ -135,13 +147,17 @@ class TrainStepBuilder:
     # ZeRO-1: m/v (and master) NamedShardings, param-shaped; None keeps
     # the optimizer state whole on every rank
     opt_shardings: dict | None = None
+    # PowerSGD on a model axis: the params' NamedShardings, whose model
+    # splits say how each leaf's whole matrix is compressed
+    param_shardings: dict | None = None
 
     # -- loss ------------------------------------------------------------
-    def _loss(self, params, batch):
+    def _loss(self, params, batch, replicas: Replicas | None = None):
         cfg = self.model.cfg
         fe = batch.get("frontend_embeds")
         logits, aux = self.model.forward(params, batch["tokens"],
-                                         frontend_embeds=fe)
+                                         frontend_embeds=fe,
+                                         replicas=replicas)
         labels = batch["labels"]
         if fe is not None:
             # frontend prefix carries no LM loss; labels cover token positions
@@ -150,12 +166,12 @@ class TrainStepBuilder:
                              batch.get("loss_mask"), self.model.axis)
         return loss + AUX_LOSS_WEIGHT * aux, (loss, aux)
 
-    def _value_and_grad(self, params, batch, weight=None):
+    def _value_and_grad(self, params, batch, weight=None, replicas=None):
         """Grads of the loss; with ``weight`` of ``weight * loss`` plus the
         aux loss's share of the microbatches' mean."""
         tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(tracked)
-        total, (loss, aux) = self._loss(tracked, batch)
+        total, (loss, aux) = self._loss(tracked, batch, replicas)
         if weight is not None:
             total = weight * loss + AUX_LOSS_WEIGHT * aux / self.microbatches
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
@@ -164,20 +180,22 @@ class TrainStepBuilder:
         return (tree_map(lambda t: by_leaf[id(t)], tracked), loss.detach(),
                 aux.detach())
 
-    def _grads(self, params, batch, weights=None):
+    def _grads(self, params, batch, weights=None, replicas=None):
         """(possibly microbatched) value-and-grad; with microbatches the
         grads are float32. With ``weights`` (one a microbatch) grads and
-        loss are the weighted sums over the microbatches, not means."""
+        loss are the weighted sums over the microbatches, not means.
+        ``replicas``: the rows are this rank's block of the global batch
+        (``Model.forward``)."""
         n = self.microbatches
         if n == 1 and weights is None:
-            return self._value_and_grad(params, batch)
+            return self._value_and_grad(params, batch, replicas=replicas)
         gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device), params)
         lacc = aacc = 0.0
         for i in range(n):
             mb = {k: _slice(v, i, n) for k, v in batch.items()}
             w = None if weights is None else weights[i]
-            g, loss, aux = self._value_and_grad(params, mb, w)
+            g, loss, aux = self._value_and_grad(params, mb, w, replicas)
             for a, b in zip(tree_leaves(gacc), tree_leaves(g)):
                 a.add_(b.float())
             lacc = lacc + (loss if w is None else w * loss)
@@ -188,9 +206,8 @@ class TrainStepBuilder:
 
     def _mask_weights(self, batch):
         """Replicas x each local microbatch's share of the global masked
-        loss: its mask count over (microbatches x the count of the global
-        microbatch holding it), from one all-reduce of every replica's
-        counts. ``None`` without a mask or without batch replicas."""
+        loss: its mask count over (microbatches x the count of its global
+        microbatch), from one all-reduce of every replica's counts. ``None`` without a mask or without batch replicas."""
         mesh, n = self.mesh, self.microbatches
         if "loss_mask" not in batch or mesh is None:
             return None
@@ -198,25 +215,32 @@ class TrainStepBuilder:
         w = mesh.axes_size(baxes)
         if w == 1:
             return None
-        b = _batch_index(mesh)
+        b = batch_index(mesh)
         counts = batch["loss_mask"].float().reshape(n, -1).sum(1)
         table = torch.zeros((w, n), device=counts.device)
         table[b] = counts
         table = (replica_mean(table, baxes, mesh, METRICS) * w).round()
-        # local microbatch k of replica b is microbatch (b n + k) // w of
-        # the global batch
-        glob = table.reshape(n, w).sum(1)
-        idx = (b * n + torch.arange(n)) // w
-        return w * counts / (n * torch.clamp(glob[idx.to(glob.device)],
-                                             min=1.0))
+        # local microbatch k of every replica is global microbatch k
+        return w * counts / (n * torch.clamp(table.sum(0), min=1.0))
 
     def _device(self, params) -> torch.device:
         return tree_leaves(params)[0].device
 
-    def _local_batch(self, params, batch: dict) -> dict:
+    def _local_batch(self, params, batch: dict,
+                     explicit: bool = False) -> dict:
+        """This rank's rows of the global ``batch``, on the params'
+        device: its block of it on the ``explicit`` path, else its block
+        of each global microbatch."""
         if self.mesh is not None:
-            batch = rank_rows(batch, _batch_index(self.mesh),
-                              self.mesh.axes_size(self._baxes()))
+            w, n = self.mesh.axes_size(self._baxes()), self.microbatches
+            b = batch_index(self.mesh)
+            if explicit or n == 1:
+                batch = rank_rows(batch, b, w)
+            else:
+                # (n, w, rows) -> this replica's rows of each microbatch
+                batch = {k: torch.as_tensor(v).reshape(
+                    n, w, -1, *v.shape[1:])[:, b].reshape(-1, *v.shape[1:])
+                    for k, v in batch.items()}
         return _on_device(batch, self._device(params))
 
     def _baxes(self) -> tuple[str, ...]:
@@ -259,7 +283,8 @@ class TrainStepBuilder:
     def _implicit_distributed(self, params, opt_state, batch):
         mesh, name, baxes = self.mesh, self.abi.name, self._baxes()
         grads, loss, aux = self._grads(params, batch,
-                                       self._mask_weights(batch))
+                                       self._mask_weights(batch),
+                                       replicas_of(mesh))
         loss = replica_mean(loss, baxes, mesh, METRICS)
         aux = replica_mean(aux, baxes, mesh, METRICS)
         none = tree_map(lambda p: None, params)
@@ -307,7 +332,7 @@ class TrainStepBuilder:
 
         def step(params, opt_state, batch):
             baxes = self._baxes()
-            batch = self._local_batch(params, batch)
+            batch = self._local_batch(params, batch, explicit=True)
             comm = opt_state.get("comm")
             opt_core = {k: v for k, v in opt_state.items() if k != "comm"}
             grads, loss, aux = self._grads(params, batch)
@@ -315,7 +340,7 @@ class TrainStepBuilder:
                 local = {"q": _map(lambda a: a[0], comm["q"]),
                          "err": _map(lambda a: a[0], comm["err"])}
                 grads, local = powersgd_sync(grads, local, baxes, rank, mesh,
-                                             name)
+                                             name, self.param_shardings)
                 comm = {"q": _map(lambda a: a[None], local["q"]),
                         "err": _map(lambda a: a[None], local["err"])}
             else:
@@ -341,16 +366,6 @@ class TrainStepBuilder:
         if self.abi.options.get("mode") == "explicit":
             return self.build_explicit()
         return self.build_implicit()
-
-
-def _batch_index(mesh: PlatformMesh) -> int:
-    """This rank's coordinate over the mesh's batch axes, row-major: the
-    block of the global batch its rows are (every rank of one data
-    replica has the same)."""
-    c, idx = mesh.coords(), 0
-    for a in batch_axes(mesh):
-        idx = idx * mesh.shape[a] + c[a]
-    return idx
 
 
 def _slice(x: torch.Tensor, i: int, n: int) -> torch.Tensor:

@@ -62,6 +62,7 @@ from repro_torch.launch.train import main as train_main
 from repro_torch.models.params import ParamDef
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 FP32_TOL = 1e-5
 PARAM_TOL = 3e-5
 BF16_TOL = 2e-3
@@ -103,9 +104,13 @@ PLAN = {
         "generic_mb1": _image("generic"),
         "host_mb2": _image("host", extra=" microbatches=2"),
     },
-    "moe": _image("generic", arch="moonshot-v1-16b-a3b-smoke"),
+    # the MoE's dispatch over the global batch of 4 data replicas, with
+    # capacity low enough to drop
+    "moe": _image("generic",
+                  arch="moonshot-v1-16b-a3b-smoke capacity_factor=0.5"),
 }
-# mask counts of the 8 rows: rank r holds rows 2r, 2r+1; rank 1 holds none
+# mask counts of the 8 rows: rank r holds rows 2r, 2r+1 (rank 1 none); in
+# two microbatches rows r and 4 + r (ranks 2 and 3 none in the first)
 MASK_COUNTS = (16, 3, 0, 0, 9, 16, 1, 5)
 
 
@@ -182,6 +187,8 @@ def runs(tmp_path_factory):
     _save(work / "params.npz", **_flat(jparams))
     q = j_powersgd_init(jparams, 4)["q"]
     _save(work / "jax_q.npz", **_flat(q))
+    jc = jrt.run(jrt.build(PLAN["moe"]))
+    _save(work / "params-moe.npz", **_flat(jc.init_params(0)))
     cfg = jc.arch
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
                                   global_batch=B, seed=5))
@@ -442,8 +449,9 @@ def test_zero1_parts_shared_by_ranks(runs):
 @pytest.mark.parametrize("name", ["generic_mb1", "host_mb2"])
 def test_masked_loss_is_the_global_masked_mean(runs, name):
     """The implicit path's loss and grads are JAX's global masked mean
-    (per global microbatch with ``microbatches=2``), though rank 1 holds
-    no masked token and the others hold 3 to 25."""
+    (per global microbatch with ``microbatches=2``, of which each rank
+    holds its block), though a rank holds no masked token: rank 1 in one
+    microbatch, ranks 2 and 3 in the first of two."""
     _steps_close(runs["jax"]["masked"][name]["steps"],
                  runs["port"]["masked"][name]["steps"], FP32_TOL)
     _params_close(runs, f"masked_{name}", PARAM_TOL)
@@ -510,14 +518,30 @@ def test_checkpoint_of_four_ranks_loads_in_the_jax_package(runs):
 
 
 # ---------------------------------------------------------------------------
-# (g) what is not ported raises, naming its ROADMAP item
+# (g) an MoE arch on several data replicas
 # ---------------------------------------------------------------------------
 
-def test_moe_on_several_ranks_raises(runs):
-    """An MoE arch on 4 data replicas with ``model`` at 1: the reference
-    drops by a capacity over the global batch there."""
-    assert "Queue 3 item 14" in runs["port"]["moe_error"]
-    assert "MoE" in runs["port"]["moe_error"]
+def test_moe_on_four_replicas_matches_jax(runs):
+    """moonshot-v1-16b-a3b-smoke at capacity factor 0.5 on the 4 ranks'
+    (4, 1) mesh, generic: the reference drops by a capacity over the
+    global batch there (its ``moe_forward`` under GSPMD), and so does the
+    port's dispatch over the replicas. Losses and grad norms within
+    FP32_TOL of the JAX step on 4 devices, final params within PARAM_TOL,
+    and the assignments the first step drops, summed over the replicas,
+    equal to the JAX step's (and above 0). A step's bytes: the generic
+    all-reduce of every gradient (``generic_wire_bytes``) and each MoE
+    layer's gather of the replicas' counts (``moe_count_bytes``)."""
+    from chip_smoke import generic_wire_bytes, moe_count_bytes
+    from repro_torch.configs import get_config
+    port, jx = runs["port"]["moe"], runs["jax"]["moe"]
+    _steps_close(jx["steps"], port["steps"], FP32_TOL)
+    _params_close(runs, "moe", PARAM_TOL)
+    assert port["drops_step1"] == jx["drops_step1"] > 0
+    cfg = get_config("moonshot-v1-16b-a3b-smoke", capacity_factor=0.5)
+    assert [s["generic"] for s in port["steps"]] == \
+        [generic_wire_bytes(cfg)] * len(port["steps"])
+    assert [s["moe"] for s in port["steps"]] == \
+        [moe_count_bytes(cfg, 4)] * len(port["steps"])
 
 
 def test_tensor_parallel_specs_raise():

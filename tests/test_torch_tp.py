@@ -88,9 +88,24 @@ LLAMA = "llama3.2-3b-smoke"
 # ``-smoke`` arch takes its overrides before the reduction sets the heads
 PADDED = ("llama3.2-3b n_layers=2 d_model=64 n_heads=6 n_kv_heads=2 "
           "head_dim=16 d_ff=128 vocab_size=256")
+# llama3.2-3b-smoke's reduction at 6 layers: a stacked (L, D, F) leaf is
+# compressible where L > 4 x rank, so at rank 1 PowerSGD compresses the
+# layers' projections -- split on their columns, the rank's Q rows strided
+# where split on F -- beside the embedding split on its rows
+DEEP = ("llama3.2-3b n_layers=6 d_model=64 n_heads=4 n_kv_heads=2 "
+        "head_dim=16 d_ff=128 vocab_size=256")
 MOE = "moonshot-v1-16b-a3b-smoke capacity_factor=0.5"
+# 3 experts: a model axis of 2 does not divide them, so the reference's
+# moe_forward_spmd falls back to moe_forward over the global batch (the
+# smoke reduction keeps min(n, 4) experts: 3 survives it)
+MOE3 = "moonshot-v1-16b-a3b-smoke n_experts=3 capacity_factor=0.5"
 EXPLICIT = "host mode=explicit"
 EXPLICIT_F32 = "host mode=explicit grad_compression=float32"
+PSGD = EXPLICIT_F32 + " compression=powersgd rank=4"
+PSGD_RANK = 4
+PSGD1 = EXPLICIT_F32 + " compression=powersgd rank=1"
+# (q key) -> (arch, tp, PowerSGD rank) of the JAX package's initial Q
+QS = {"l2": (LLAMA, 2, PSGD_RANK), "d2": (DEEP, 2, 1)}
 
 
 def _image(arch, collectives="generic", extra=""):
@@ -107,10 +122,10 @@ RGEMMA = "recurrentgemma-2b-smoke"
 FSDP = " fsdp=true"
 # (weights key) -> (arch, the tp its geometry is padded for)
 WEIGHTS = {"l1": (LLAMA, 1), "l2": (LLAMA, 2), "l4": (LLAMA, 4),
-           "pad": (PADDED, 4), "m2": (MOE, 2), "m4": (MOE, 4),
-           "s2": (MAMBA, 2), "s4": (MAMBA, 4), "r2": (RGEMMA, 2),
-           "r4": (RGEMMA, 4)}
-HELD = [  # held to the JAX step over the same mesh
+           "pad": (PADDED, 4), "m1": (MOE, 1), "m2": (MOE, 2),
+           "m4": (MOE, 4), "m3": (MOE3, 2), "d2": (DEEP, 2), "s2": (MAMBA, 2),
+           "s4": (MAMBA, 4), "r2": (RGEMMA, 2), "r4": (RGEMMA, 4)}
+HELD = [  # held to the JAX step over the same mesh (but psgd_12)
     _sc("llama_generic", LLAMA, (2, 2), "l2", grads=True),
     _sc("llama_host", LLAMA, (2, 2), "l2", "host", ckpt=True),
     _sc("llama_explicit_f32", LLAMA, (2, 2), "l2", EXPLICIT_F32),
@@ -127,17 +142,44 @@ HELD = [  # held to the JAX step over the same mesh
     _sc("fsdp_moe", MOE, (2, 2), "m2", extra=FSDP, grads=True),
     # ssm and rec blocks on a model axis
     _sc("mamba_14", MAMBA, (1, 4), "s4", grads=True),
-    _sc("mamba_22", MAMBA, (2, 2), "s2", grads=True),
-    _sc("rgemma_14", RGEMMA, (1, 4), "r4", grads=True),
-    _sc("rgemma_22", RGEMMA, (2, 2), "r2", grads=True),
+    _sc("mamba_22", MAMBA, (2, 2), "s2", grads=True, jax_part="b"),
+    _sc("rgemma_14", RGEMMA, (1, 4), "r4", grads=True, jax_part="b"),
+    _sc("rgemma_22", RGEMMA, (2, 2), "r2", grads=True, jax_part="b"),
+    # PowerSGD on a model axis: the whole matrix compressed from shards.
+    # XLA refuses the JAX step at (1, 2) (ROADMAP.md Queue 3): psgd_12 is
+    # held to the JAX step at (1, 1), from the same weights and Q (the data
+    # count changes PowerSGD's means only by rounding)
+    _sc("psgd_22", LLAMA, (2, 2), "l2", PSGD, grads=True, q="l2",
+        jax_part="b"),
+    _sc("psgd_12", LLAMA, (1, 2), "l2", PSGD, grads=True, q="l2",
+        jax_shape=[1, 1], jax_part="b"),
+    # at rank 1 and 6 layers: the columns branch, strided Q rows included
+    _sc("psgd_deep_22", DEEP, (2, 2), "d2", PSGD1, grads=True, q="d2",
+        jax_part="b"),
+    _sc("psgd_deep_12", DEEP, (1, 2), "d2", PSGD1, grads=True, q="d2",
+        jax_shape=[1, 1], jax_part="b"),
+    # the MoE's dispatch over the global batch of the data replicas
+    _sc("moe_21", MOE, (2, 1), "m1", grads=True, jax_part="b"),
+    _sc("moe_explicit_21", MOE, (2, 1), "m1", EXPLICIT_F32, grads=True,
+        jax_part="b"),
+    # in two microbatches: a rank takes its block of each global one
+    _sc("moe_21_mb2", MOE, (2, 1), "m1", extra=" microbatches=2",
+        jax_part="b"),
+    _sc("moe_fallback_22", MOE3, (2, 2), "m3", grads=True, jax_part="b"),
 ]
+# the JAX side's two processes, run at once: its scenarios by ``jax_part``
+# (about 135 s of JAX work each on an idle 8-core host)
+JAX_PARTS = ("a", "b")
 CLI_STEPS = 3
+_ON2 = ("psgd_12", "psgd_deep_12", "moe_21", "moe_explicit_21",
+        "moe_21_mb2")
 PLAN = {"tp": {
     "steps": STEPS,
     "cli": CLI_STEPS,
     "jax": HELD,
-    "world4": HELD + [_sc("llama_14", LLAMA, (1, 4), "l4"),
-                      _sc("moe_14", MOE, (1, 4), "m4")],
+    "world4": [sc for sc in HELD if sc["name"] not in _ON2]
+    + [_sc("llama_14", LLAMA, (1, 4), "l4"),
+       _sc("moe_14", MOE, (1, 4), "m4")],
     "world2": [_sc("llama_12", LLAMA, (1, 2), "l2"),
                _sc("llama_12_remat", LLAMA, (1, 2), "l2",
                    extra=" remat=full"),
@@ -151,7 +193,9 @@ PLAN = {"tp": {
                _sc("fsdp_21_full", LLAMA, (2, 1), "l1",
                    extra=FSDP + " remat=full"),
                _sc("fsdp_21_dots", LLAMA, (2, 1), "l1", "host",
-                   FSDP + " remat=dots")],
+                   FSDP + " remat=dots")]
+    # after the others: a mesh's byte counter keeps every label it saw
+    + [sc for sc in HELD if sc["name"] in _ON2],
 }}
 ONE_PROCESS = {"llama_12": ("l2", 2), "llama_14": ("l4", 4),
                "moe_12": ("m2", 2), "moe_14": ("m4", 4),
@@ -171,6 +215,19 @@ def _jax_weights(arch: str, tp: int) -> dict:
     cfg = get_config(name, **overrides)
     return _flat(j_materialize(JModel(cfg, tp=tp).param_defs(),
                                jax.random.key(0), jnp.float32))
+
+
+def _jax_q(arch: str, tp: int, rank: int) -> dict:
+    """The JAX package's initial PowerSGD Q for ``arch``'s seed-0 weights
+    at ``tp``'s geometry (``powersgd_init``'s draws, whole leaves)."""
+    from repro.configs import get_config
+    from repro.train.compression import powersgd_init
+    name, *kv = arch.split()
+    cfg = get_config(name, **{k: json.loads(v) for k, v in
+                              (x.split("=") for x in kv)})
+    params = j_materialize(JModel(cfg, tp=tp).param_defs(),
+                           jax.random.key(0), jnp.float32)
+    return _flat(powersgd_init(params, rank)["q"])
 
 
 def _one_process(work: Path, weights: str, tp: int, batches) -> dict:
@@ -200,6 +257,8 @@ def tp_runs(tmp_path_factory):
     (work / "plan.json").write_text(json.dumps(PLAN))
     for key, (arch, tp) in WEIGHTS.items():
         np.savez(work / f"params-{key}.npz", **_jax_weights(arch, tp))
+    for key, (arch, tp, rank) in QS.items():
+        np.savez(work / f"q-{key}.npz", **_jax_q(arch, tp, rank))
     data = SyntheticLM(DataConfig(vocab_size=256, seq_len=S, global_batch=B,
                                   seed=5))
     batches = [data.batch(i) for i in range(STEPS)]
@@ -213,27 +272,30 @@ def tp_runs(tmp_path_factory):
     jax_env = {**os.environ, "PYTHONPATH": src, "JAX_PLATFORMS": "cpu",
                "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
                             "--xla_disable_hlo_passes=all-reduce-promotion"}
-    jproc = subprocess.Popen(
+    jprocs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "torch_dist_jax.py"),
-         str(work)], env=jax_env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+         str(work), part], env=jax_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for part in JAX_PARTS]
     try:
         _wait(_spawn("tp4", 4, work, port_env), "4 ranks")
         _wait(_spawn("tp2", 2, work, port_env), "2 ranks")
     finally:
-        _wait([jproc], "the JAX side")
+        _wait(jprocs, "the JAX side")
     one = {name: _one_process(work, w, tp, batches)
            for name, (w, tp) in ONE_PROCESS.items()}
-    arrays = {}
-    for f in ("tp4.npz", "tp2.npz", "jax.npz"):
+    arrays, jx = {}, {}
+    for part in JAX_PARTS:
+        jx.update(json.loads((work / f"jax-{part}.json").read_text()))
+    for f in ("tp4.npz", "tp2.npz", *(f"jax-{p}.npz" for p in JAX_PARTS)):
         with np.load(work / f) as z:
             arrays[f] = {k: z[k] for k in z.files}
     return {"work": work, "batches": batches, "one": one,
             "port": {**json.loads((work / "tp4.json").read_text()),
                      **json.loads((work / "tp2.json").read_text())},
-            "jax": json.loads((work / "jax.json").read_text()),
+            "jax": jx,
             "port_arrays": {**arrays["tp4.npz"], **arrays["tp2.npz"]},
-            "jax_arrays": arrays["jax.npz"]}
+            "jax_arrays": {k: v for p in JAX_PARTS
+                           for k, v in arrays[f"jax-{p}.npz"].items()}}
 
 
 def _pick(arrays: dict, prefix: str) -> dict:
@@ -263,14 +325,33 @@ def _pick(arrays: dict, prefix: str) -> dict:
     ("mamba_14", FP32_TOL, PARAM_TOL),
     ("mamba_22", FP32_TOL, PARAM_TOL),
     ("rgemma_14", FP32_TOL, PARAM_TOL),
-    ("rgemma_22", FP32_TOL, PARAM_TOL)])
+    ("rgemma_22", FP32_TOL, PARAM_TOL),
+    ("psgd_22", FP32_TOL, PARAM_TOL),
+    ("psgd_12", FP32_TOL, PARAM_TOL),
+    ("psgd_deep_22", FP32_TOL, PARAM_TOL),
+    ("psgd_deep_12", FP32_TOL, PARAM_TOL),
+    ("moe_21", FP32_TOL, PARAM_TOL),
+    ("moe_explicit_21", FP32_TOL, PARAM_TOL),
+    ("moe_21_mb2", FP32_TOL, PARAM_TOL),
+    ("moe_fallback_22", FP32_TOL, PARAM_TOL)])
 def test_tp_training_matches_jax(tp_runs, name, tol, ptol):
     """Losses and grad norms of 3 steps, and every leaf of the final
     params, against the JAX step over the same (data, model) mesh: under
     ``fsdp=true`` the JAX step's too (its explicit path gathers the params
     at its region's entry and returns them whole, which the port's
     explicit path keeps them), and for mamba2 and recurrentgemma with
-    their ``rnn``/``heads`` dims on the model axis.
+    their ``rnn``/``heads`` dims on the model axis. PowerSGD
+    (``psgd_*``) compresses each leaf's whole matrix from the ranks'
+    shards, from the JAX package's initial Q: at rank 4 and 2 layers the
+    embedding (the rows branch), at rank 1 and 6 layers (``psgd_deep_*``)
+    the layers' projections too (the columns branch, strided Q rows for
+    a leaf split on F); ``psgd_12`` and ``psgd_deep_12`` are held to the
+    JAX step at (1, 1), which XLA compiles where it refuses (1, 2). The
+    MoE runs drop by a capacity over the global batch of the data
+    replicas (``moe_21``; ``moe_21_mb2`` over each of two global
+    microbatches, a rank taking its block of each; ``moe_fallback_22``,
+    whose 3 experts a model axis of 2 does not divide) or over each
+    replica's rows (the explicit ABI's ``moe_explicit_21``).
 
     recurrentgemma's final params are held to the port's one process at
     the same geometry instead: with no model axis at all the port's
@@ -299,7 +380,12 @@ GRAD_LEAVES = {"llama_generic": ("wk",), "padded": ("wk",),
                "mamba_14": ("conv_w", "conv_b", "gate_norm", "wB"),
                "mamba_22": ("conv_w", "conv_b", "gate_norm", "wC"),
                "rgemma_14": ("conv_w", "gate_a_w", "lam", "wk"),
-               "rgemma_22": ("conv_w", "gate_x_w", "wo", "wv")}
+               "rgemma_22": ("conv_w", "gate_x_w", "wo", "wv"),
+               "psgd_22": ("wk", "tokens"), "psgd_12": ("wk", "tokens"),
+               "psgd_deep_22": ("wq", "wd", "tokens"),
+               "psgd_deep_12": ("wq", "wd", "tokens"),
+               "moe_21": ("router", "wg"), "moe_explicit_21": ("router",),
+               "moe_fallback_22": ("router", "wd")}
 
 
 @pytest.mark.parametrize("name", sorted(GRAD_LEAVES))
@@ -343,6 +429,152 @@ def test_tp_ranks_equal_one_process(tp_runs, name):
     _steps_close(one["steps"], tp_runs["port"][name]["steps"], FP32_TOL)
     _leaves_close(one["params"], _pick(tp_runs["port_arrays"], name + "/"),
                   PARAM_TOL)
+
+
+@pytest.mark.parametrize("name", ["moe_21", "moe_explicit_21",
+                                  "moe_21_mb2", "moe_fallback_22"])
+def test_moe_drops_equal_jax(tp_runs, name):
+    """The assignments the first step drops, summed over the data
+    replicas, equal the JAX step's (its ``moe_forward`` counted through a
+    callback): by the global batch's positions and capacity on the
+    implicit ABI (``moe_21``, ``moe_fallback_22``), by each replica's on
+    the explicit one; and some are dropped. The global dispatch moves
+    each replica's E assignment counts a layer over the batch axes."""
+    port, jx = tp_runs["port"][name], tp_runs["jax"][name]
+    assert port["drops_step1"] == jx["drops_step1"] > 0
+
+
+@pytest.mark.parametrize("name,microbatches", [
+    ("moe_21", 1), ("moe_21_mb2", 2), ("moe_fallback_22", 1),
+    ("moe_explicit_21", 0)])
+def test_moe_bytes_equal_the_formula(tp_runs, name, microbatches):
+    """A step's bytes: the ABI's float32 all-reduce of every gradient
+    shard (``chip_smoke.generic_wire_bytes``) and, under the global
+    dispatch, each MoE layer's gather of the replicas' counts once a
+    microbatch (``moe_count_bytes``): none on the explicit ABI, whose
+    capacity is each replica's."""
+    from chip_smoke import generic_wire_bytes, moe_count_bytes
+    sc, cfg, _ = _scenario(name)
+    steps = tp_runs["port"][name]["steps"]
+    assert [s["wire"] for s in steps] == \
+        [generic_wire_bytes(cfg, sc["shape"][1])] * STEPS
+    want = (moe_count_bytes(cfg, sc["shape"][0], microbatches=microbatches)
+            if microbatches else 0)
+    assert [s["moe"] for s in steps] == [want] * STEPS
+
+
+def test_global_capacity_differs_from_per_replica(tp_runs):
+    """moe_21 and moe_explicit_21 take the same weights and batches on the
+    same (2, 1) mesh: the global batch's capacity (twice a replica's
+    tokens) and positions drop other assignments than each replica's own,
+    so the two runs differ from the first step on."""
+    a, b = tp_runs["port"]["moe_21"], tp_runs["port"]["moe_explicit_21"]
+    assert a["drops_step1"] != b["drops_step1"]
+    assert a["steps"][0]["loss"] != b["steps"][0]["loss"]
+
+
+def test_powersgd_on_shards_equals_one_process(tp_runs):
+    """``powersgd_sync`` on the two ranks' shards of a synthetic gradient
+    tree (tests/torch_dist_worker.py ``PSGD_LEAVES``: a leaf split on its
+    rows, on a matrix's columns, on a stacked leaf's last dim -- Q's rows
+    of the rank strided -- and on its middle dim, one unsplit, one
+    vector), from ``powersgd_init`` of the shards, equals one process's
+    ``powersgd_sync`` of the whole leaves over two steps: each rank's
+    synced gradient and error are its part of the whole's, Q is the
+    whole's on every rank (within PARAM_TOL relative L2); and the model
+    axis moves the formula's bytes a step."""
+    from chip_smoke import powersgd_wire_bytes  # noqa: F401  (formula doc)
+    from torch_dist_worker import PSGD_LEAVES
+    arrays = tp_runs["port_arrays"]
+    for i in range(2):
+        for name in ("g", "q", "err"):
+            for leaf, (shape, dim) in PSGD_LEAVES.items():
+                key = f"psgd/one/{i}/{name}/{leaf}"
+                if key not in arrays:
+                    assert name != "g" and leaf == "vec"
+                    continue
+                whole = arrays[key]
+                for r in range(2):
+                    got = arrays[f"psgd/r{r}/{i}/{name}/{leaf}"]
+                    want = whole
+                    if name != "q" and dim is not None:
+                        n = shape[dim] // 2
+                        want = np.take(whole, range(r * n, (r + 1) * n),
+                                       axis=dim)
+                    assert got.shape == want.shape, (key, r)
+                    err = np.linalg.norm(got - want) / np.linalg.norm(want)
+                    assert err <= PARAM_TOL, (key, r, err)
+    r = 4
+    want = 0
+    for shape, dim in PSGD_LEAVES.values():
+        if dim is None:
+            continue
+        m, n = shape[0], int(np.prod(shape)) // shape[0]
+        want += ((m + 2 * n) if dim == 0 else (2 * m + n)) * r * 4
+    assert tp_runs["port"]["psgd_shards"]["wire"] == [want, want]
+
+
+@pytest.mark.parametrize("name,rank", [
+    ("psgd_12", PSGD_RANK), ("psgd_22", PSGD_RANK), ("psgd_deep_12", 1),
+    ("psgd_deep_22", 1)])
+def test_powersgd_wire_bytes_equal_the_formula(tp_runs, name, rank):
+    """The bytes each PowerSGD step hands to the ABI (the model axis's P
+    and Q collectives and, at (2, 2), the batch axes' means) equal
+    ``chip_smoke.powersgd_wire_bytes`` (its docstring states the
+    formula); the model axis's own forward and backward collectives stay
+    ``tp_wire_bytes``."""
+    from chip_smoke import powersgd_wire_bytes
+    sc, cfg, remat = _scenario(name)
+    want = powersgd_wire_bytes(cfg, sc["shape"][0], sc["shape"][1], rank)
+    assert want["model"] > 0
+    steps = tp_runs["port"][name]["steps"]
+    assert [s["wire"] for s in steps] == [sum(want.values())] * STEPS
+    tokens = B * S // sc["shape"][0]
+    assert [s["tp"] for s in steps] == \
+        [tp_wire_bytes(cfg, cfg.n_kv_heads, tokens, 4, remat)] * STEPS
+
+
+@pytest.mark.parametrize("name", ["psgd_deep_12", "psgd_deep_22"])
+def test_powersgd_compresses_split_columns(tp_runs, name):
+    """At rank 1 and 6 layers the port compresses the leaves the JAX step
+    compresses (its comm state's keys), and among them leaves of both of
+    ``powersgd_sync``'s branches on the model axis: the embedding split on
+    its rows, stacked projections split on their columns -- those split
+    on F (``wq``, ``wg``, ``wu``) with the rank's Q rows strided, those
+    split on their middle dim (``wo``, ``wd``) with one block."""
+    from chip_smoke import powersgd_splits
+    _, cfg, _ = _scenario(name)
+    splits = powersgd_splits(cfg, 2, 1)
+    port, jx = tp_runs["port"][name], tp_runs["jax"][name]
+    q = {k[len("['comm']['q']"):] for k in port["opt_specs"]
+         if k.startswith("['comm']['q']")}
+    assert q == set(splits) == {k[len("['comm']['q']"):]
+                                for k in jx["comm_specs"]
+                                if k.startswith("['comm']['q']")}
+    dims = {k.split("['")[-1].rstrip("']"): d for k, d in splits.items()}
+    assert dims["tokens"] == 0
+    assert all(dims[w] == 2 for w in ("wq", "wg", "wu"))
+    assert all(dims[w] == 1 for w in ("wo", "wd"))
+
+
+def test_powersgd_comm_specs(tp_runs):
+    """``opt_state_shardings()["comm"]`` at (2, 2): Q whole over the model
+    axis, as the JAX package's comm spec (its batch axis on the leading
+    replica axis only) keeps it; the error buffer split as its param is
+    as well -- the rank's part of the whole error, where the JAX package
+    keeps it whole over ``model`` -- on the same compressed leaves."""
+    port, jx = tp_runs["port"]["psgd_22"], tp_runs["jax"]["psgd_22"]
+    comm = {k: v for k, v in port["opt_specs"].items()
+            if k.startswith("['comm']")}
+    assert set(comm) == set(jx["comm_specs"])
+    assert any("['embed']['tokens']" in k for k in comm)
+    for k, spec in jx["comm_specs"].items():
+        assert _norm(spec) == ("data",), k
+        if k.startswith("['comm']['q']"):
+            assert _norm(comm[k]) == ("data",), k
+        else:
+            param = port["param_specs"][k[len("['comm']['err']"):]]
+            assert _norm(comm[k]) == ("data", *_norm(param)), k
 
 
 def test_moe_capacity_is_per_data_shard(tp_runs):
@@ -607,7 +839,7 @@ def test_cli_run_under_fsdp_equals_one_process(tp_runs, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# one process: no model axis, no TP operator; what is not ported raises
+# one process: no model axis, no TP operator
 # ---------------------------------------------------------------------------
 
 def test_model_axis_of_one_runs_no_tp_operator(monkeypatch, tmp_path):
@@ -630,34 +862,6 @@ def test_model_axis_of_one_runs_no_tp_operator(monkeypatch, tmp_path):
         _, _, m = c.train_step_fn()(params, c.init_opt_state(params),
                                     data.batch(0))
         assert np.isfinite(float(m["loss"]))
-
-
-def _raises_13(fn):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        fn()
-
-
-@pytest.mark.parametrize("what", ["powersgd", "moe_model_1"])
-def test_unported_raises_naming_item_13(what, tmp_path):
-    """What is left unported raises, naming ROADMAP.md Queue 1 item 13:
-    PowerSGD on a model axis (the reference compresses whole matrices),
-    and an MoE arch on several data replicas with ``model`` at 1 (which
-    also names Queue 3 item 14, the global capacity). Serving on a rank's
-    shards is tests/test_torch_tp_serve.py's."""
-    rt = Runtime(tmp_path / "rt")
-    if what == "powersgd":
-        rt.build(_image(LLAMA, "host mode=explicit compression=powersgd "
-                               "rank=4"), tag="p")
-        _raises_13(lambda: rt.run(
-            "p", platform="cpu",
-            mesh=PlatformMesh(("data", "model"), (1, 2))))
-    else:
-        rt.build(_image(MOE), tag="moe")
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 13") as err:
-            rt.run("moe", platform="cpu",
-                   mesh=PlatformMesh(("data", "model"), (2, 1)))
-        assert "Queue 3 item 14" in str(err.value)
 
 
 def test_moe_param_specs_are_the_containers_shards():

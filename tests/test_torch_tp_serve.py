@@ -20,7 +20,10 @@ musicgen-medium-smoke at (1, 2) and (1, 4): each rank's vocab slice of the
 logits and its part of every cache within STEP_TOL relative L2 of the JAX
 step's shard for that device, and the greedy tokens identical. (b) The
 same steps of llama at (2, 1) and (2, 2) with ``fsdp=true``, on the rank's
-rows. (c) Pods on (1, 2) and (1, 4). (d) A Pod with a batch axis raises.
+rows. (c) Pods on (1, 2) and (1, 4), and (d) with a batch axis: llama and
+moonshot on (2, 1), llama paged with its prefix cache on (2, 2), each data
+replica decoding its row of the slot bank and gathering every row's
+tokens.
 """
 
 import json
@@ -141,24 +144,27 @@ def test_ssm_collected_cache_is_the_reference_shard(serve_runs, name):
 
 
 def _pod_runs(serve_runs, name):
-    world = 2 if name.endswith("12") else 4
+    sc = next(s for s in case.PODS if s["name"] == name)
+    world = sc["mesh"][0] * sc["mesh"][1]
     return [ranks[name] for ranks in serve_runs["jobs"][world]["pods"]]
 
 
 @pytest.mark.parametrize("name", [sc["name"] for sc in case.PODS])
 def test_pod_on_a_model_axis_matches_jax_and_one_process(serve_runs, name,
                                                         tmp_path):
-    """(c) A Pod on a (1, tp) mesh of the port's ranks (every rank running
-    the same scheduler over the same requests) completes every request
-    with tokens, admit ticks and done ticks equal on every rank, equal to
-    the JAX package's Pod on the same mesh and to the port's one-process
-    Pod; each rank holds its part of the cache."""
+    """(c)/(d) A Pod on a (data, model) mesh of the port's ranks (every
+    rank running the same scheduler over the same requests; on a batch
+    axis each data replica decoding its rows of the slot bank) completes
+    every request with tokens, admit ticks, done ticks and prefix hits
+    equal on every rank, equal to the JAX package's Pod on the same mesh
+    and to the port's one-process Pod; each rank holds its part of the
+    cache."""
     from torch_dist_worker import _serve_pod
 
     from repro_torch.core.runtime import Runtime
     sc = next(s for s in case.PODS if s["name"] == name)
     ranks = _pod_runs(serve_runs, name)
-    assert len(ranks) == sc["mesh"][1]
+    assert len(ranks) == sc["mesh"][0] * sc["mesh"][1]
     keys = ("tokens", "admit", "done", "prefix_hits", "tick")
     for r in ranks[1:]:
         assert {k: r[k] for k in keys} == {k: ranks[0][k] for k in keys}
@@ -176,11 +182,23 @@ def test_pod_on_a_model_axis_matches_jax_and_one_process(serve_runs, name,
     assert all(r["cache_numel"] < one["cache_numel"] for r in ranks)
 
 
-def test_pod_with_a_batch_axis_raises_naming_item_13d(serve_runs):
-    """(d) A Pod on a (2, 1) mesh raises, naming ROADMAP.md Queue 1 item
-    13d (the reference splits the slot bank over ``data`` there)."""
-    err = serve_runs["jobs"][2]["batch_axis_error"]
-    assert err and "Queue 1 item 13d" in err
+@pytest.mark.parametrize("name", [sc["name"] for sc in case.PODS])
+def test_pod_token_gather_bytes_equal_the_formula(serve_runs, name):
+    """(d) On a batch axis of d replicas each rank holds rows ``[i * B/d,
+    (i + 1) * B/d)`` of the B-slot bank (its data coordinate i) and every
+    decode dispatch all-gathers the sampled tokens over the batch axes:
+    B x chunk int32, counted as the gather's output, so the bytes of a run
+    are its decode dispatches x B x chunk x 4 on every rank. A Pod with
+    no batch axis holds the whole bank and gathers nothing."""
+    sc = next(s for s in case.PODS if s["name"] == name)
+    d, tp = sc["mesh"]
+    for r, rec in enumerate(_pod_runs(serve_runs, name)):
+        n = case.POD_SLOTS // d
+        assert rec["rows"] == [(r // tp) * n, (r // tp + 1) * n]
+        want = (rec["decode_dispatches"] * case.POD_SLOTS * rec["chunk"] * 4
+                if d > 1 else 0)
+        assert rec["gather_bytes"] == want
+        assert rec["decode_dispatches"] > 0
 
 
 @pytest.mark.parametrize("world", [2, 4])

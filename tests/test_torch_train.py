@@ -293,10 +293,11 @@ def test_world_one_sync_is_identity_and_unported_settings_raise(
     """On one process the ABI's mean is the identity (a cast to the wire
     dtype and back), and FSDP splits nothing: its step equals the step
     without it, bit for bit. Multi-process data and tensor parallelism and
-    FSDP are ported; what is not raises, naming its ROADMAP item: an MoE
-    arch on several batch replicas without a model axis (the global
-    capacity). A mesh (the pod platforms included) needs as many ranks as
-    it has devices, as ``jax.make_mesh`` does."""
+    FSDP are ported, and nothing of them raises any longer: an MoE arch on
+    several batch replicas without a model axis builds with its dispatch
+    over the global batch of the replicas (``Model.moe_replicas``, the
+    reference's capacity there). A mesh (the pod platforms included)
+    needs as many ranks as it has devices, as ``jax.make_mesh`` does."""
     from repro_torch.dist.mesh import make_mesh
     g = {"w": torch.linspace(-1, 1, 7)}
     host = make_abi("host", mode="explicit")
@@ -340,8 +341,15 @@ def test_world_one_sync_is_identity_and_unported_settings_raise(
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
     monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
     monkeypatch.setattr(dist, "get_backend", lambda *a: "gloo")
-    with pytest.raises(NotImplementedError, match="Queue 3 item 14"):
-        rt.run("moe", platform="cpu")
+    from repro_torch.dist.mesh import PlatformMesh
+    # the container id is rank 0's (no rank 1 answers here)
+    monkeypatch.setattr(PlatformMesh, "broadcast_object",
+                        lambda self, obj: obj)
+    from repro_torch.dist.sharding import replicas_of
+    c = rt.run("moe", platform="cpu")
+    reps = replicas_of(c.mesh)
+    assert reps.size == 2 and c.model.moe_replicas(reps) is reps
+    assert rt.run("dense", platform="cpu").model.moe_replicas(reps) is None
 
 
 def test_loss_decreases():

@@ -8,7 +8,9 @@ whose XLA sees 4 host devices):
 It runs the scenarios of ``WORKDIR/plan.json`` with ``TrainStepBuilder``
 over 4-device meshes, from the weights and global batches the test wrote,
 and writes ``WORKDIR/jax.json`` (losses, grad norms, optimizer-state
-specs) and ``WORKDIR/jax.npz`` (final params); for
+specs) and ``WORKDIR/jax.npz`` (final params) -- for
+tests/test_torch_tp.py's plan (``"tp"``) one part of its scenarios a
+process (``torch_dist_jax.py WORKDIR PART``, ``jax-PART.*``); for
 tests/test_torch_tp_serve.py's plan (``"serve"``) the serve steps and
 pods of ``main_serve``.
 """
@@ -55,29 +57,48 @@ def _run(step, params, opt, batches) -> tuple[list, dict]:
     return rec, params
 
 
-def main_tp(work: Path, plan: dict) -> None:
+def main_tp(work: Path, plan: dict, part: str = "a") -> None:
     """tests/test_torch_tp.py's scenarios: ``Model(cfg, tp, constrain,
     moe_mesh)`` and ``TrainStepBuilder`` over a ``jax.make_mesh`` of each
     scenario's (data, model) shape, from the given weights placed by
     their specs; losses, grad norms, the first step's gradients (the
     implicit path's, on the global batch), the optimizer-state specs and
-    the final params."""
+    the final params, of the scenarios whose ``jax_part`` (default "a")
+    is ``part``, into ``jax-{part}.json``/``.npz`` (the test runs the
+    parts in two processes at once). A scenario's ``jax_shape`` replaces
+    its mesh shape
+    here (XLA refuses PowerSGD's step at (1, 2)). A PowerSGD image's step
+    gets its comm state as ``Container.init_opt_state`` builds it (from
+    ``powersgd_init`` of the params). ``moe_forward`` counts the
+    assignments it drops over the first step (``_count_drops``)."""
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from repro.dist.sharding import constrain
-    from repro.models.params import shardings as def_shardings
+    from repro.dist.sharding import constrain, safe_spec
+    from repro.models.params import is_def
     from repro.models.transformer import Model
+    from repro.train.compression import powersgd_init
+
+    def def_shardings(defs, mesh, rules):
+        # the package's own ``shardings`` by ``safe_spec``: the same specs
+        # wherever the mesh divides a dim, and a dim it does not divide
+        # (3 experts at model 2) whole, where the package's would refuse
+        # to place the leaf
+        return jax.tree.map(lambda d: NamedSharding(mesh, safe_spec(
+            d.shape, d.logical, mesh, rules)), defs, is_leaf=is_def)
 
     tp = plan["tp"]
     batches = [_load(work / f"batch{i}.npz") for i in range(tp["steps"])]
-    rt = Runtime(work / "jrt")
-    out, arrays = {}, {}
+    rt = Runtime(work / f"jrt-{part}")
+    out, arrays, drops = {}, {}, _count_drops()
     for sc in tp["jax"]:
+        if sc.get("jax_part", "a") != part:
+            continue
         c = rt.run(rt.build(sc["imagefile"]))
-        shape = tuple(sc["shape"])
+        shape = tuple(sc.get("jax_shape") or sc["shape"])
         mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(
-            jax.sharding.AxisType.Auto,) * 2)
+            jax.sharding.AxisType.Auto,) * 2,
+            devices=jax.devices()[:shape[0] * shape[1]])
         rules = c.rules
         model = Model(
             c.arch, tp=shape[1],
@@ -93,15 +114,43 @@ def main_tp(work: Path, plan: dict) -> None:
         ps = def_shardings(defs, mesh, c.opt_rules)
         opt = jax.jit(adamw_init, out_shardings={
             "m": ps, "v": ps, "step": NamedSharding(mesh, P())})(params)
+        if c._powersgd_rank():
+            comm = powersgd_init(params, c._powersgd_rank())
+            sh0 = NamedSharding(mesh, P("data"))
+            opt["comm"] = {k: jax.tree.map(lambda a: jax.device_put(
+                jnp.broadcast_to(a[None], (shape[0], *a.shape)), sh0),
+                comm[k]) for k in ("q", "err")}
+        comm_specs = {"['comm']" + k: _spec(v.sharding)
+                      for k, v in _flat(opt.get("comm", {})).items()}
         b = TrainStepBuilder(model=model, mesh=mesh, rules=rules,
-                             abi=c.abi, opt=c.opt)
+                             abi=c.abi, opt=c.opt,
+                             microbatches=int(c.settings.get(
+                                 "microbatches", 1)))
         if sc.get("grads"):
             g = jax.jit(lambda p, x: b._grads(p, x)[0])(params, batches[0])
             arrays.update({f"{sc['name']}/grad/{k}": np.asarray(v,
                                                                 np.float32)
                            for k, v in _flat(g).items()})
-        rec, params = _run(jax.jit(b.build()), params, opt, batches)
-        out[sc["name"]] = {"steps": rec,
+        explicit = c.abi.options.get("mode") == "explicit"
+        first = (_replica_drops(c, model, params, batches[0], shape[0],
+                                drops) if explicit and c.arch.n_experts
+                 else None)
+        step, rec = jax.jit(b.build()), []
+        for i, x in enumerate(batches):
+            jax.effects_barrier()
+            del drops[:]
+            # Shardy cannot export a callback inside the explicit path's
+            # manual region: its drops are counted by _replica_drops
+            drops.active = not explicit
+            params, opt, m = step(params, opt, x)
+            rec.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"])})
+            jax.effects_barrier()
+            drops.active = True
+            if i == 0 and first is None:
+                first = sum(drops)
+        out[sc["name"]] = {"steps": rec, "drops_step1": first,
+                           "comm_specs": comm_specs,
                            "opt_specs": {k: _spec(v) for k, v in
                                          _flat(ps).items()},
                            "param_specs": {k: _spec(v) for k, v in _flat(
@@ -110,8 +159,62 @@ def main_tp(work: Path, plan: dict) -> None:
                                             _flat(params).items()}}
         arrays.update({f"{sc['name']}/{k}": np.asarray(v, np.float32)
                        for k, v in _flat(params).items()})
-    (work / "jax.json").write_text(json.dumps(out))
-    np.savez(work / "jax.npz", **arrays)
+    (work / f"jax-{part}.json").write_text(json.dumps(out))
+    np.savez(work / f"jax-{part}.npz", **arrays)
+
+
+class _Sink(list):
+    """The counts ``_count_drops``'s wrapper appends while ``active``."""
+
+    active = True
+
+
+def _replica_drops(c, model, params, batch, replicas: int, sink) -> int:
+    """The assignments the explicit path's first step drops: its manual
+    region runs ``moe_forward`` on each replica's rows, with that
+    replica's capacity, so each replica's forward from the same weights
+    on one device drops the same ones; summed over the replicas."""
+    import jax.numpy as jnp
+    from repro.models.transformer import Model
+    one = Model(c.arch, tp=1, act_dtype=model.act_dtype)
+    host = jax.device_get(params)
+    fwd = jax.jit(lambda p, t: one.forward(p, t)[0].sum())
+    rows = batch["tokens"].shape[0] // replicas
+    total = 0
+    for r in range(replicas):
+        jax.effects_barrier()
+        del sink[:]
+        fwd(host, jnp.asarray(batch["tokens"][r * rows:(r + 1) * rows]))
+        jax.effects_barrier()
+        total += sum(sink)
+    return total
+
+
+def _count_drops() -> list:
+    """``repro.models.moe.moe_forward`` (the module attribute its callers
+    look up) wrapped to append the assignments each call drops to the
+    list returned: its routing and positions recomputed, the count handed
+    out through ``jax.debug.callback`` (once a call under GSPMD, once a
+    shard inside a manual region). The package is not edited."""
+    import jax.numpy as jnp
+
+    from repro.models import moe as jmoe
+    sink, real = _Sink(), jmoe.moe_forward
+
+    def counting(p, x, cfg, constrain_fn=None):
+        if not sink.active:
+            return real(p, x, cfg, constrain_fn)
+        T = x.shape[0] * x.shape[1]
+        idx, _, _ = jmoe._router(p, x.reshape(T, -1), cfg)
+        flat = idx.reshape(-1)
+        onehot = jax.nn.one_hot(flat, cfg.n_experts, dtype=jnp.int32)
+        pos = jnp.take_along_axis(jnp.cumsum(onehot, axis=0) - onehot,
+                                  flat[:, None], axis=1)[:, 0]
+        jax.debug.callback(lambda n: sink.append(int(n)),
+                           jnp.sum(pos >= jmoe.capacity(cfg, T)))
+        return real(p, x, cfg, constrain_fn)
+    jmoe.moe_forward = counting
+    return sink
 
 
 def _rank_parts(tree, mesh, prefix: str, out: dict) -> None:
@@ -240,7 +343,7 @@ def main() -> None:
         return main_serve(work, {k: v if part in (None, k) else []
                                  for k, v in plan["serve"].items()})
     if "tp" in plan:
-        return main_tp(work, plan)
+        return main_tp(work, plan, sys.argv[2])
     weights = _load(work / "params.npz")
     batches = [_load(work / f"batch{i}.npz") for i in range(plan["steps"])]
     rt = Runtime(work / "jrt")
@@ -290,6 +393,26 @@ def main() -> None:
         out["masked"][name] = {"steps": rec}
         arrays.update({f"masked_{name}/{p}": np.asarray(a, np.float32)
                        for p, a in _flat(params).items()})
+
+    # (g) the MoE on the 4 devices' (4, 1) mesh, its first step's drops
+    drops = _count_drops()
+    c = rt.run(rt.build(plan["moe"]))
+    params = jax.device_put(_tree(c.abstract_params(),
+                                  _load(work / "params-moe.npz")),
+                            c.param_shardings())
+    step, opt, rec = jax.jit(c.train_step_fn()), c.init_opt_state(params), []
+    for i, b in enumerate(batches):
+        jax.effects_barrier()
+        del drops[:]
+        params, opt, m = step(params, opt, b)
+        rec.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])})
+        jax.effects_barrier()
+        if i == 0:
+            first = sum(drops)
+    out["moe"] = {"steps": rec, "drops_step1": first}
+    arrays.update({f"moe/{p}": np.asarray(a, np.float32)
+                   for p, a in _flat(params).items()})
 
     (work / "jax.json").write_text(json.dumps(out))
     np.savez(work / "jax.npz", **arrays)

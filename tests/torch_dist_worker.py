@@ -23,7 +23,8 @@ from repro_torch.core.abi import (all_gather, make_abi,
                                   reduce_scatter_mean, replica_mean)
 from repro_torch.core.runtime import Runtime
 from repro_torch.dist.mesh import make_mesh
-from repro_torch.dist.sharding import NamedSharding, ShardingRules, safe_spec
+from repro_torch.dist.sharding import (NamedSharding, ShardingRules,
+                                       replicas_of, safe_spec)
 from repro_torch.launch.train import main as train_main
 from repro_torch.train.compression import powersgd_init, powersgd_sync
 from repro_torch.train.train_step import TrainStepBuilder
@@ -137,12 +138,34 @@ def job_world4(rank: int, world: int, work: Path, plan: dict) -> dict:
     out["wire512"] = {k: c.mesh.stats.wire_bytes(k) for k in ("plain",
                                                          "powersgd")}
 
-    # (g) an MoE arch on more than one rank
+    # (g) an MoE arch on 4 data replicas: the global batch's dispatch,
+    # the first step's drops summed over the replicas
+    from repro_torch.models import moe as moe_mod
+    drops, real = [], moe_mod.dispatch_positions
+
+    def counting(idx, n_experts, C, before=None):
+        pos, keep, slot = real(idx, n_experts, C, before)
+        drops.append(int((~keep).sum()))
+        return pos, keep, slot
+    moe_mod.dispatch_positions = counting
     try:
-        _container(rt, plan["moe"], {})
-        out["moe_error"] = None
-    except NotImplementedError as e:
-        out["moe_error"] = str(e)
+        c, params = _container(rt, plan["moe"],
+                               _load(work / "params-moe.npz"))
+        opt, step, rec = c.init_opt_state(params), c.train_step_fn(), []
+        for i, b in enumerate(batches):
+            before = {k: c.mesh.stats.wire_bytes(k)
+                      for k in (c.abi.name, "moe")}
+            params, opt, m = step(params, opt, b)
+            rec.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        **{k: c.mesh.stats.wire_bytes(k) - n
+                           for k, n in before.items()}})
+            if i == 0:
+                first = sum(c.mesh.gather_objects(sum(drops)))
+    finally:
+        moe_mod.dispatch_positions = real
+    out["moe"] = {"steps": rec, "drops_step1": first}
+    arrays.update({f"moe/{p}": a for p, a in _numpy_tree(params).items()})
 
     # (f) ZeRO-1 through launch/train: a straight 4-step run, and 2 steps
     # checkpointed for the 2-rank and 1-process resumes
@@ -199,7 +222,9 @@ def _tp_grads(c, params, batch, mesh) -> dict:
     the batch axes (an FSDP part arrives meaned from the backward),
     gathered whole."""
     b = TrainStepBuilder(model=c.model, abi=c.abi, opt=c.opt, mesh=mesh)
-    grads, _, _ = b._grads(params, b._local_batch(params, batch))
+    # the rows are the rank's block: the global batch's MoE dispatch
+    grads, _, _ = b._grads(params, b._local_batch(params, batch),
+                           replicas=replicas_of(mesh))
     baxes = ("pod", "data")
     shs = dict(_flatten(c.param_shardings()))
     grads = {p: g.float() if shs[p].split(baxes)
@@ -214,8 +239,11 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
     from the given weights with losses, grad norms and the bytes each
     step handed to the ABI's and the model axis's collectives; the final
     params and (where asked) the first step's gradients, gathered whole;
-    a checkpoint of step 2 (where asked); the MoE's dropped
-    assignments."""
+    a checkpoint of step 2 (where asked); the MoE's dropped assignments
+    of the first step over every data replica. A PowerSGD run starts from
+    the JAX package's initial Q (``q``: its whole leaves). On 2 ranks also
+    ``powersgd_sync`` on the shards of a synthetic gradient tree
+    (``_psgd_shards``)."""
     from repro_torch.checkpoint.elastic import reshard_restore
     from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.models import moe as moe_mod
@@ -225,8 +253,8 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
     meshes, out, arrays = {}, {}, {}
     drops, real = [], moe_mod.dispatch_positions
 
-    def counting(idx, n_experts, C):
-        pos, keep, slot = real(idx, n_experts, C)
+    def counting(idx, n_experts, C, before=None):
+        pos, keep, slot = real(idx, n_experts, C, before)
         drops.append(int((~keep).sum()))
         return pos, keep, slot
     moe_mod.dispatch_positions = counting
@@ -246,10 +274,15 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
             arrays.update({f"{sc['name']}/grad/{p}": a for p, a in
                            _tp_grads(c, params, batches[0], mesh).items()})
         opt = c.init_opt_state(params)
+        if sc.get("q"):
+            q = _load(work / f"q-{sc['q']}.npz")
+            opt["comm"]["q"] = _unflat(opt["comm"]["q"], {
+                p: torch.from_numpy(q[p])[None] for p in q})
         step, steps = c.train_step_fn(), []
         del drops[:]
         for i, b in enumerate(batches):
-            before = {k: mesh.stats.wire_bytes(k) for k in (c.abi.name, "tp")}
+            before = {k: mesh.stats.wire_bytes(k)
+                      for k in (c.abi.name, "tp", "moe")}
             by_op = json.loads(json.dumps(mesh.stats.bytes))
             tp_by_op = dict(mesh.stats.bytes.get("tp", {}))
             params, opt, m = step(params, opt, b)
@@ -259,6 +292,7 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
                           "wire": mesh.stats.wire_bytes(c.abi.name)
                           - before[c.abi.name],
                           "tp": mesh.stats.wire_bytes("tp") - before["tp"],
+                          "moe": mesh.stats.wire_bytes("moe") - before["moe"],
                           "abi_by_op": {
                               op: n - by_op.get(c.abi.name, {}).get(op, 0)
                               for op, n in mesh.stats.bytes.get(
@@ -267,7 +301,10 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
                               op: n - tp_by_op.get(op, 0) for op, n in
                               mesh.stats.bytes.get("tp", {}).items()}})
             if i == 0:
-                rec["drops_step1"] = sum(drops)
+                # each data replica's drops once (its model ranks route
+                # alike)
+                rec["drops_step1"] = sum(mesh.gather_objects(
+                    sum(drops) if mesh.coords()["model"] == 0 else 0))
             if i + 1 == 2 and sc.get("ckpt"):
                 sh = {"params": c.param_shardings(),
                       "opt": c.opt_state_shardings()}
@@ -287,6 +324,9 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
                        _full(params, c.param_shardings(), mesh).items()})
         out[sc["name"]] = rec
     moe_mod.dispatch_positions = real
+    if world == 2:
+        out["psgd_shards"] = _psgd_shards(meshes.setdefault(
+            (1, 2), make_mesh((1, 2), ("data", "model"))), rank, arrays)
     if world == 4 and "cli" in tp:
         # the user's entry point: `cli run` of an FSDP image on the job's
         # local (4, 1) mesh (this process group, as torchrun's would be)
@@ -297,6 +337,52 @@ def job_tp(rank: int, world: int, work: Path, plan: dict) -> dict:
     if rank == 0:
         np.savez(work / f"tp{world}.npz", **arrays)
     return out
+
+
+# a synthetic gradient tree and the dim each leaf is split on over a
+# (1, 2) mesh: rows ("leading"), columns of a matrix, a stacked leaf's
+# last dim (its Q rows strided) and its middle dim, none, and a vector
+PSGD_LEAVES = {"lead": ((64, 48), 0), "cols": ((48, 64), 1),
+               "stack_f": ((32, 8, 16), 2), "stack_d": ((32, 16, 8), 1),
+               "whole": ((40, 40), None), "vec": ((32,), None)}
+
+
+def _psgd_shards(mesh, rank: int, arrays: dict) -> dict:
+    """``powersgd_sync`` at rank 4 over 2 steps on this rank's shards of
+    ``PSGD_LEAVES`` (whole gradients from one seed), from
+    ``powersgd_init`` of the shards: each rank's synced gradient, error
+    and Q into ``arrays`` (``psgd/r{rank}...``), one process's
+    ``powersgd_sync`` of the whole leaves beside them (``psgd/one...``),
+    and the bytes a step on the model axis."""
+    from repro_torch.models.params import tree_map
+    rng = np.random.default_rng(21)
+    specs = {k: NamedSharding(mesh, tuple("model" if i == d else None
+                                          for i in range(len(shape))))
+             for k, (shape, d) in PSGD_LEAVES.items()}
+    steps = [{k: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for k, (shape, _) in PSGD_LEAVES.items()}
+        for _ in range(2)]
+    part = lambda t, sh: sh.local(t).clone()  # noqa: E731
+    state = powersgd_init(tree_map(part, steps[0], specs), 4,
+                          shardings=specs)
+    one = powersgd_init(steps[0], 4)
+    wire, mine = [], {}
+    for i, g in enumerate(steps):
+        before = mesh.stats.wire_bytes("psgd")
+        out, state = powersgd_sync(tree_map(part, g, specs), state,
+                                   ("data",), 4, mesh, "psgd", specs)
+        wire.append(mesh.stats.wire_bytes("psgd") - before)
+        ref, one = powersgd_sync(g, one, ("data",), 4)
+        for name, tree in (("g", out), ("q", state["q"]),
+                           ("err", state["err"])):
+            mine.update({f"psgd/r{rank}/{i}/{name}/{k}": v.numpy()
+                         for k, v in tree.items() if v is not None})
+        for name, tree in (("g", ref), ("q", one["q"]), ("err", one["err"])):
+            arrays.update({f"psgd/one/{i}/{name}/{k}": v.numpy()
+                           for k, v in tree.items() if v is not None})
+    for got in mesh.gather_objects(mine):
+        arrays.update(got)
+    return {"wire": wire}
 
 
 def _serve_steps(c, params, sc, rank: int, arrays: dict) -> None:
@@ -379,20 +465,26 @@ def _serve_pod(rt, sc, mesh, weights: dict) -> dict:
         eng.container.arch.vocab_size, sc["paged"])]
     sched = ContinuousScheduler(pod)
     sched.submit(reqs)
+    before = mesh.stats.wire_bytes("tokens") if mesh is not None else 0
     sched.run(max_ticks=1000)
     return {"tokens": [list(map(int, r.tokens)) for r in reqs],
             "admit": [r.admit_tick for r in reqs],
             "done": [r.done_tick for r in reqs],
             "prefix_hits": eng.prefix_hits, "tick": sched.tick,
-            "cache_numel": sum(t.numel() for _, t in _flatten(eng.cache))}
+            "cache_numel": sum(t.numel() for _, t in _flatten(eng.cache)),
+            "rows": [eng.rows.start, eng.rows.stop],
+            "decode_dispatches": eng._c_decode_disp.value,
+            "chunk": eng.chunk,
+            "gather_bytes": (mesh.stats.wire_bytes("tokens") - before
+                             if mesh is not None else 0)}
 
 
 def job_serve(rank: int, world: int, work: Path, plan: dict) -> dict:
     """tests/test_torch_tp_serve.py: the step and pod cases of
     ``plan["serve"]`` whose mesh has this job's size (one mesh of each
     shape, made once), every rank's step outputs into
-    ``serve{world}-r{rank}.npz`` and every rank's pod records returned;
-    on 2 ranks also a Pod on the (2, 1) mesh, which raises."""
+    ``serve{world}-r{rank}.npz`` and every rank's pod records
+    returned."""
     import torch_serve_case as case
     plan = plan["serve"]
     rt = Runtime(work / f"rt-serve{world}-{rank}")
@@ -426,15 +518,6 @@ def job_serve(rank: int, world: int, work: Path, plan: dict) -> dict:
     out["ties"] = axis.mesh.gather_objects(greedy_sample(
         glob[:, axis.coord * n:(axis.coord + 1) * n], case.TIE_VOCAB,
         axis).tolist())
-    if world == 2:
-        from repro_torch.orchestrator import Pod
-        rt.build(case.imagefile(plan["pods"][0], "local"), tag="batch2")
-        try:
-            Pod(rt, "batch2", replicas=1, platform="cpu",
-                mesh=mesh_of((2, 1)))
-            out["batch_axis_error"] = None
-        except NotImplementedError as e:
-            out["batch_axis_error"] = str(e)
     np.savez(work / f"serve{world}-r{rank}.npz", **arrays)
     return out
 

@@ -22,7 +22,8 @@ steps, from the JAX package's seed-0 weights at the mesh's geometry:
      ``decode_chunk_paged`` of both rows over TABLE -> tokens, pool.
 
 A pod case serves REQUESTS through a ``Pod`` (one replica, POD_SLOTS
-slots of POD_MAX_LEN) and a ``ContinuousScheduler``.
+slots of POD_MAX_LEN) and a ``ContinuousScheduler``; on a (data 2, ...)
+mesh each data replica holds and decodes one row of the slot bank.
 """
 
 import numpy as np
@@ -54,7 +55,8 @@ BANK, SLOT = 2, 1
 WEIGHTS = {"l2": (LLAMA, 2), "l4": (LLAMA, 4), "pad": (PADDED, 4),
            "m2": (MOE, 2), "m4": (MOE, 4), "s2": (MAMBA, 2),
            "s4": (MAMBA, 4), "r2": (RGEMMA, 2), "r4": (RGEMMA, 4),
-           "g2": (MUSIC, 2), "g4": (MUSIC, 4), "l1": (LLAMA, 1)}
+           "g2": (MUSIC, 2), "g4": (MUSIC, 4), "l1": (LLAMA, 1),
+           "m1": (MOE, 1)}
 RECURRENT = (MAMBA, RGEMMA)
 PAGED = (LLAMA, PADDED, MOE)
 
@@ -99,6 +101,10 @@ PODS = [
     _pod("pod_rgemma_14", RGEMMA, (1, 4), "r4"),
     _pod("pod_moe_12", MOE, (1, 2), "m2"),
     _pod("pod_moe_14", MOE, (1, 4), "m4"),
+    # a batch axis: each data replica decodes its row of the 2-slot bank
+    _pod("pod_llama_21", LLAMA, (2, 1), "l1"),
+    _pod("pod_paged_22", LLAMA, (2, 2), "l2", paged=True),
+    _pod("pod_moe_21", MOE, (2, 1), "m1"),
 ]
 POD_SLOTS, POD_MAX_LEN, POD_NEW, POD_PREFIX = 2, 64, 6, 8
 POD_LENGTHS = (9, 16, 12, 12)
