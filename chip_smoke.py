@@ -26,7 +26,10 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             prefill (48 over 8 heads) and musicgen-medium's packed prefill
             of 64 + 512 rows, each beside SDPA; K4 (RG-LRU) at
             the recurrentgemma pod's prefills (S 64, 512, 2304), each
-            call held bit for bit against a second one
+            call held bit for bit against a second one, and its reverse
+            scan (the backward's adjoint recurrence) at each of those
+            shapes against the plain reverse scan, bit for bit against a
+            second call
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
             on the card: the blocked matmul called natively (blocks named:
             platform "h100") and through a container bound from an
@@ -139,12 +142,16 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             x 128 and recurrentgemma-2b's 1 x 10/1 x 2048 x 256 window
             2048, bf16; K4 at 1 x 2048 x 2560; K5 at 1 x 1024 x 80 x 64 x
             128, chunk 256, f32): output and input grads against the plain
-            version under autograd, forward and backward times (K2 beside
-            SDPA's); (b) five smoke reductions (llama, mamba2,
+            version under autograd, K4's Function run with its plain
+            version made to raise (its backward one reverse scan), forward
+            and backward times (K2's backward, the plain version's vjp,
+            beside SDPA's); (b) five smoke reductions (llama, mamba2,
             recurrentgemma, moonshot, musicgen) trained 3 steps on the card
             and on the CPU from the same weights and batches, float32:
             losses and grad norms agree, the card runs their kernels and
-            the CPU none; (c) full-width llama3.2-3b cut to 8 layers
+            the CPU none, K4's reverse scan once a step per rec layer with
+            no plain version of K4 on the card; (c) full-width llama3.2-3b
+            cut to 8 layers
             (float32 params, bf16 compute, remat=full, 2 x 2048 tokens)
             through
             ``repro_torch.cli run --steps 2 --keep 1`` (its closing
@@ -183,7 +190,8 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             the 2 x 2048 global batch on each rank: every rank's loss
             equal, losses and grad norms within 1e-3 relative of one
             process, launches a rank exactly 2 x steps per attention
-            (K2), rec (K4) and ssm (K5) layer and nothing else, each at
+            (K2), rec (K4) and ssm (K5) layer, K4's reverse scan once a
+            step per rec layer, and nothing else, each at
             a per-rank shape the kernels phase held to its plain version
             (K2_TP, K4_TP, K5_TP), the model axis's bytes a step equal
             to ``tp_wire_bytes``, each rank holds the card's device node
@@ -280,7 +288,11 @@ phase, the fig5 calls, each CLI serve, each example, each loopback fleet
 of the fabric phase, each CLI training run, (c) of the dist phase, each run of
 (d) and (e), each pod of (f) and its one-process reference, the dryrun
 phase's real step) and read just
-after; a kernel's launches are their sum. A
+after; a kernel's launches are their sum. K4's reverse scan counts
+apart from its forward (the wrapper's ``bwd_launches``,
+``rglru_scan_bwd`` in the counts and in the kernel records), so every
+forward gate keeps its formula and every gate that wants no kernel also
+wants no reverse scan; it runs once a step per rec layer. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
 Output ends with a JSON line of kernel records, the card line, and
@@ -330,6 +342,15 @@ KERNELS = {
         "replaces": "src/repro/kernels/ssd/kernel.py:89",
     },
     "rglru_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:48",
+    },
+    # K4's reverse scan: the same kernel run backwards in time, the RG-LRU
+    # Function's backward on a card (the JAX package's backward,
+    # ``_bwd_vjp`` at src/repro/kernels/rglru_scan/ops.py:40, runs the
+    # plain scan on flipped inputs)
+    "rglru_scan_bwd": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:48",
@@ -933,6 +954,27 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
         ok = bool(torch.isfinite(h).all()) and err <= tol and same
         if not ok:
             failures.append(f"rglru_scan {case}")
+        # the reverse scan (the backward's dh from a and the cotangent b)
+        # at the same shape against the plain scan on flipped copies
+        def plain_rev():
+            a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
+            return rglru_scan_ref(a_next.flip(1), b.flip(1)).flip(1)
+        ref_rev = plain_rev()
+        rtol = RGLRU_TOL * max(1.0, float(ref_rev.abs().max()))
+        dh = rg_ops.rglru_scan_cuda(a, b, reverse=True)
+        dh_again = rg_ops.rglru_scan_cuda(a, b, reverse=True)
+        torch.cuda.synchronize()
+        rerr = float((dh - ref_rev).abs().max())
+        rsame = bool(torch.equal(dh, dh_again))
+        rok = bool(torch.isfinite(dh).all()) and rerr <= rtol and rsame
+        log(f"kernels: rglru_scan reverse B={case[0]} S={case[1]} "
+            f"R={case[2]} float32: max_abs_err {rerr:.3e} against the plain "
+            f"reverse scan (tol {rtol:.3e}); a second call "
+            f"{'bit-identical' if rsame else 'DIFFERS'} "
+            f"{'ok' if rok else 'FAIL'}")
+        if not rok:
+            failures.append(f"rglru_scan reverse {case}")
+        del dh, dh_again
         tile = (f"tile 32 x {plan.T} ({plan.steps} steps a warp), "
                 f"{plan.n_tiles} tiles; a second call "
                 f"{'bit-identical' if same else 'DIFFERS'}")
@@ -963,6 +1005,15 @@ def _kernels_rglru(torch, state, timer) -> list[str]:
             f"{plain:.4f} ms, bound {bms:.4f} ms ({by}: "
             f"{nbytes / 1e6:.2f} MB), library none; scratch zero-fills so "
             f"far {rg_ops.scratch_fills} [{state['card']}]")
+        # the reverse scan moves the same bytes: the forward's bound
+        rms = timer(lambda: rg_ops.rglru_scan_cuda(a, b, reverse=True))
+        rplain = timer(plain_rev)
+        state["records"]["rglru_scan_bwd"] = dict(
+            max_abs_err=rerr, ms=rms, plain_ms=rplain, bound_ms=bms,
+            bound_by=by, library_ms=None)
+        log(f"kernels: rglru_scan reverse float32 time {rms:.4f} ms, plain "
+            f"(on flipped copies) {rplain:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), library none [{state['card']}]")
     return failures
 
 
@@ -1150,12 +1201,19 @@ def _ops_modules() -> dict:
 
 
 def _launch_counts() -> dict:
-    return {name: m.launches for name, m in _ops_modules().items()}
+    """Kernel name -> launches: each wrapper's forward counter, then the
+    backward ones (``rglru_scan_bwd``: K4's reverse scan), so every gate
+    that wants a kernel nowhere also wants no backward there."""
+    from repro_torch.kernels import bwd_launch_counts
+    return {**{name: m.launches for name, m in _ops_modules().items()},
+            **bwd_launch_counts()}
 
 
 def _reset_counts() -> None:
     for m in _ops_modules().values():
         m.launches = 0
+        if hasattr(m, "bwd_launches"):
+            m.bwd_launches = 0
 
 
 def _main_path_counts(state) -> dict:
@@ -2652,17 +2710,38 @@ TRAIN_STRAIGHT = 3          # the straight run's steps: the resumed one last
 TRAIN_RESUME_TOL = 1e-3
 
 
+@contextmanager
+def _no_plain(*modules):
+    """The named plain versions raise while the block runs: a Function's
+    forward and backward on the card must run its kernels alone."""
+    saved = [(m, n, getattr(m, n)) for m, n in modules]
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card's route")
+    for m, n, _ in saved:
+        setattr(m, n, plain)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
 def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
-               rel: bool, bound: tuple):
+               rel: bool, bound: tuple, bwd: dict):
     """``fn`` (a Function) against ``plain`` under autograd on the card:
     output and every input's grad within ``tol`` (of the reference's max
-    when ``rel``); times of the forward and of the backward, beside the
-    forward's ``bound`` (ms, by). Returns (ok, forward ms, backward
-    ms)."""
+    when ``rel``); ``fn``'s forward and backward run with the plain
+    versions ``bwd["plain"]`` made to raise (its kernels only); times of
+    the forward and of the backward (``bwd["what"]``), beside the
+    forward's ``bound`` and the backward's ``bwd["bound"]`` (ms, by).
+    Returns (ok, forward ms, backward ms)."""
     xs = [t.detach().requires_grad_() for t in inputs]
     rs = [t.detach().requires_grad_() for t in inputs]
-    out, ref = fn(*xs), plain(*rs)
-    gx = torch.autograd.grad(out, xs, cot, retain_graph=True)
+    with _no_plain(*bwd["plain"]):
+        out = fn(*xs)
+        gx = torch.autograd.grad(out, xs, cot, retain_graph=True)
+    ref = plain(*rs)
     gr = torch.autograd.grad(ref, rs, cot)
     torch.cuda.synchronize()
     errs = []
@@ -2674,13 +2753,16 @@ def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
         errs.append(f"{err:.2e}/{lim:.2e}")
     with torch.no_grad():
         fwd = timer(lambda: fn(*inputs))
-    bwd = timer(lambda: torch.autograd.grad(out, xs, cot,
-                                            retain_graph=True))
+    with _no_plain(*bwd["plain"]):
+        bms = timer(lambda: torch.autograd.grad(out, xs, cot,
+                                                retain_graph=True))
     log(f"train: {name}: max_abs_err out, grads (err/tol) "
         f"{', '.join(errs)} {'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms "
-        f"(bound {bound[0]:.4f} ms, {bound[1]}), backward (vjp of the "
-        f"plain version) {bwd:.4f} ms [{state['card']}]")
-    return ok, fwd, bwd
+        f"(bound {bound[0]:.4f} ms, {bound[1]}), backward ({bwd['what']}) "
+        f"{bms:.4f} ms"
+        + (f" (bound {bwd['bound'][0]:.4f} ms, {bwd['bound'][1]})"
+           if bwd["bound"] else "") + f" [{state['card']}]")
+    return ok, fwd, bms
 
 
 def _train_grads(torch, state, timer) -> list[str]:
@@ -2711,7 +2793,8 @@ def _train_grads(torch, state, timer) -> list[str]:
             lambda *x: fa_ops.flash_attention(*x, causal=True, window=w),
             lambda *x: flash_attention_ref(*x, causal=True, window=w),
             (q, k, v), cot, TOL["bfloat16"], rel=False,
-            bound=k2_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16"))
+            bound=k2_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16"),
+            bwd=dict(bound=None, plain=(), what="vjp of the plain version"))
         # the library's fused attention, forward and backward, as yardstick
         kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
         if w:
@@ -2744,9 +2827,13 @@ def _train_grads(torch, state, timer) -> list[str]:
     cot = cuda(rng.standard_normal(GRAD_K4))
     name = "rglru_scan B={} S={} R={} float32".format(*GRAD_K4)
     k4_bound = bound_ms(*reversed(rg_ops.cost(*GRAD_K4)), "float32")
-    ok, fwd, bwd = _grad_case(torch, timer, state, name, rg_ops.rglru_scan,
-                              rglru_scan_ref, (a, b), cot, RGLRU_TOL,
-                              rel=True, bound=k4_bound)
+    # the backward: one reverse launch of K4 (bound: the forward's, the
+    # same bytes) and the two products
+    ok, fwd, bwd = _grad_case(
+        torch, timer, state, name, rg_ops.rglru_scan, rglru_scan_ref, (a, b),
+        cot, RGLRU_TOL, rel=True, bound=k4_bound,
+        bwd=dict(bound=k4_bound, what="kernel, reverse scan",
+                 plain=((rg_ops, "rglru_scan_ref"),)))
     state["train"]["K4 {}x{}x{}".format(*GRAD_K4)] = dict(fwd_ms=fwd,
                                                           bwd_ms=bwd)
     if not ok:
@@ -2766,7 +2853,9 @@ def _train_grads(torch, state, timer) -> list[str]:
         torch, timer, state, name,
         lambda *t: ssd_ops.ssd(*t, Q)[0],
         lambda *t: _ssd_chunked(*t, Q)[0], (x, dt, A, Bm, Cm), cot,
-        SSD_REL_TOL, rel=True, bound=k5_bound)
+        SSD_REL_TOL, rel=True, bound=k5_bound,
+        bwd=dict(bound=None, plain=(),
+                 what="vjp of the plain chunked version, no kernel yet"))
     state["train"][f"K5 {bsz}x{S}x{H}x{P}x{N} c{Q}"] = dict(fwd_ms=fwd,
                                                             bwd_ms=bwd)
     if not ok:
@@ -2778,9 +2867,13 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
     import numpy as np
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
 
     rt = Runtime(workdir / "train_smoke")
     failures = []
+    # on the card K4's backward runs its reverse scan alone, once a step per
+    # rec layer
+    no_plain = ((rg_ops, "rglru_scan_ref"),)
     for arch in TRAIN_SMOKE:
         rt.build(TRAIN_SMOKE_IMAGEFILE.format(arch=arch), tag=arch)
         weights = rt.run(arch, platform="cpu").init_params(0)
@@ -2796,16 +2889,23 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
                 frontend_len=c.arch.frontend_len, d_model=c.arch.d_model))
             before = _launch_counts()
             rec = []
-            for i in range(3):
-                params, opt, m = step(params, opt, data.batch(i))
-                rec.append((float(m["loss"]), float(m["grad_norm"])))
+            with _no_plain(*no_plain) if platform == "cuda" else nullcontext():
+                for i in range(3):
+                    params, opt, m = step(params, opt, data.batch(i))
+                    rec.append((float(m["loss"]), float(m["grad_norm"])))
             after = _launch_counts()
             used = {k: after[k] - before[k] for k in after}
             runs[platform] = rec
             want = TRAIN_SMOKE_KERNELS[arch]
+            kinds = c.arch.layer_types()
+            want_bwd = {"rglru_scan_bwd": 3 * kinds.count("rec")}
             if platform == "cuda" and not all(used[k] for k in want):
                 failures.append(f"{arch}: the card run skipped {want}: "
                                 f"{used}")
+            if platform == "cuda" and any(used[k] != n
+                                          for k, n in want_bwd.items()):
+                failures.append(f"{arch}: the card run's backward launches "
+                                f"{used}, expected {want_bwd}")
             if platform == "cpu" and any(used.values()):
                 failures.append(f"{arch}: the CPU run launched {used}")
         dl = max(abs(a[0] - b[0]) for a, b in zip(runs["cuda"], runs["cpu"]))
@@ -2813,7 +2913,9 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
                  for a, b in zip(runs["cuda"], runs["cpu"]))
         ok = (all(np.isfinite(v) for r in runs.values() for p in r for v in p)
               and dl <= TRAIN_SMOKE_TOL and dg <= TRAIN_SMOKE_TOL)
-        log(f"train: {arch} 3 steps card vs CPU (float32): losses "
+        log(f"train: {arch} 3 steps card vs CPU (float32), backward "
+            f"launches on the card {want_bwd} (K4's reverse scan alone): "
+            f"losses "
             f"{[round(l, 6) for l, _ in runs['cuda']]} / "
             f"{[round(l, 6) for l, _ in runs['cpu']]}, max |dloss| {dl:.2e}, "
             f"max grad_norm rel diff {dg:.2e} (tol {TRAIN_SMOKE_TOL:g}) "
@@ -3296,9 +3398,15 @@ def _gib(nbytes) -> float:
     return float("nan") if nbytes is None else nbytes / 2**30
 
 
+def _rank_launches(r: dict) -> dict:
+    """A launch/train rank's record's launches, forward and backward
+    counters in one dict (as ``_launch_counts``)."""
+    return {**r["kernel_launches"], **r["kernel_bwd_launches"]}
+
+
 def _add_rank_launches(state, ranks: list) -> None:
     for r in ranks:
-        for name, n in r["kernel_launches"].items():
+        for name, n in _rank_launches(r).items():
             state["launches"][name] = state["launches"].get(name, 0) + n
 
 
@@ -3453,7 +3561,7 @@ def _dist_b(torch, state, workdir: Path) -> tuple[list[str], dict]:
             wire=r0["steps"][-1]["wire_bytes"], wall_s=wall)
         state["dist_ranks"][f"b {name}"] = dict(
             text=text, mesh=(2, 1), steps=DIST_B_STEPS,
-            by_op=r0["wire_bytes_by_op"], launches=r0["kernel_launches"])
+            by_op=r0["wire_bytes_by_op"], launches=_rank_launches(r0))
         if name == "host":
             host_steps = {"root": root, "steps": r0["steps"], "tol": tol,
                           "text": text}
@@ -3671,13 +3779,17 @@ def _pod_tp_shapes() -> dict:
 
 def _dist_launches(arch: str, layers: int) -> dict:
     """The kernel launches one rank of (d) or (e) makes in DIST_D_STEPS
-    steps under remat (a forward and the backward's recompute a step):
-    K2 a step per attention layer, K4 per rec layer, K5 per ssm layer."""
+    steps under remat (a forward and the backward's recompute a step, then
+    one backward): K2 per attention layer, K4 per rec layer, K5 per ssm
+    layer, twice a step each; K4's reverse scan once."""
     from repro_torch.configs import get_config
     kinds = get_config(arch, n_layers=layers).layer_types()
-    per = {"flash_attention_fwd": sum(k in ("attn", "moe") for k in kinds),
-           "rglru_scan": kinds.count("rec"), "ssd": kinds.count("ssm")}
-    return {k: n * 2 * DIST_D_STEPS for k, n in per.items() if n}
+    rec = kinds.count("rec")
+    per = {"flash_attention_fwd": 2 * sum(k in ("attn", "moe")
+                                          for k in kinds),
+           "rglru_scan": 2 * rec, "ssd": 2 * kinds.count("ssm"),
+           "rglru_scan_bwd": rec}
+    return {k: n * DIST_D_STEPS for k, n in per.items() if n}
 
 
 def _ranks_runs(torch, workdir: Path, runs: list, pods=(),
@@ -4174,9 +4286,9 @@ def tp_worker(spec_path: str) -> int:
                           str(q.dtype).removeprefix("torch."), bool(causal)))
         return real[0](q, k, v, causal=causal, window=window, scale=scale)
 
-    def k4(a, b):
+    def k4(a, b, reverse=False):
         shapes["k4"].add(tuple(a.shape))
-        return real[1](a, b)
+        return real[1](a, b, reverse)
 
     def k5(x, dt, A, B, C, chunk):
         shapes["k5"].add((*x.shape, B.shape[-1], chunk))

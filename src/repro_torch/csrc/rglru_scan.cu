@@ -4,7 +4,14 @@
 //           (body _rglru_kernel), the Pallas TPU kernel.
 //
 // What it computes: h_t = a_t * h_{t-1} + b_t along axis 1 of (B, S, R)
-// float32 inputs, with h_{-1} = 0, for any S and R.
+// float32 inputs, with h_{-1} = 0, for any S and R. With ``reverse`` it
+// runs the adjoint recurrence of the backward instead, from the last step
+// to the first: h_t = a_{t+1} h_{t+1} + b_t with h_S = 0 (a_S read as 0),
+// which is the forward scan of (a shifted by one step, b) with time
+// flipped. Only the addresses of the loads and stores change: the tiles,
+// the look-back and the arithmetic are the forward's, on time as the scan
+// sees it, so a reversed call equals a forward call on flipped copies bit
+// for bit and the forward's own bits do not move.
 //
 // What bounds it on the H100: bytes. Each step is one FMA per channel, so
 // the least time is reading a and b and writing h once (3 * B*S*R * 4
@@ -122,7 +129,7 @@ template <int U>
 __global__ void __launch_bounds__(kThreads) rglru_scan_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ h, Scratch sc, int S, int R, int n_slabs, int n_cols,
-    unsigned n_tiles) {
+    unsigned n_tiles, int reverse) {
   __shared__ unsigned s_ticket, s_epoch;
   __shared__ float s_a[kWarps][kCols], s_b[kWarps][kCols];
   __shared__ float s_carry[kWarps][kCols];
@@ -145,13 +152,18 @@ __global__ void __launch_bounds__(kThreads) rglru_scan_kernel(
   const bool anchor = k % kWarps == 0;
   uint4* const mine = sc.words + (size_t)tile * kCols + lane;
 
+  // scan step t is time step t, or S - 1 - t with ``reverse``, whose a
+  // is the next step's
   float av[U], bv[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int t = t0 + u;
     if (live && t < S) {
-      av[u] = __ldcs(a + base + (size_t)t * R);   // streamed: read once
-      bv[u] = __ldcs(b + base + (size_t)t * R);
+      const int p = reverse ? S - 1 - t : t;
+      const int pa = reverse ? p + 1 : p;
+      // streamed: read once
+      av[u] = pa < S ? __ldcs(a + base + (size_t)pa * R) : 0.f;
+      bv[u] = __ldcs(b + base + (size_t)p * R);
     } else {
       av[u] = 1.f;                                // the identity pair
       bv[u] = 0.f;
@@ -219,7 +231,8 @@ __global__ void __launch_bounds__(kThreads) rglru_scan_kernel(
   for (int u = 0; u < U; ++u) {
     const int t = t0 + u;
     hc = av[u] * hc + bv[u];
-    if (live && t < S) __stcs(h + base + (size_t)t * R, hc);
+    if (live && t < S)
+      __stcs(h + base + (size_t)(reverse ? S - 1 - t : t) * R, hc);
   }
 
   // the last block to finish has seen every block take its ticket and
@@ -237,9 +250,9 @@ __global__ void __launch_bounds__(kThreads) rglru_scan_kernel(
 template <int U>
 cudaError_t launch(const float* a, const float* b, float* h, Scratch sc,
                    int S, int R, int n_slabs, int n_cols, unsigned n_tiles,
-                   cudaStream_t stream) {
+                   int reverse, cudaStream_t stream) {
   rglru_scan_kernel<U><<<n_tiles, kThreads, 0, stream>>>(
-      a, b, h, sc, S, R, n_slabs, n_cols, n_tiles);
+      a, b, h, sc, S, R, n_slabs, n_cols, n_tiles, reverse);
   return cudaGetLastError();
 }
 
@@ -250,11 +263,13 @@ cudaError_t launch(const float* a, const float* b, float* h, Scratch sc,
 // scratch: 4 + 128 * capacity 32-bit words, 16-byte aligned, zero-filled
 // when allocated and then kept by the caller for every later call on its
 // stream (the kernel leaves it ready for the next launch); capacity >= the
-// call's tiles, B * ceil(R / 32) * ceil(S / (8 U)). Returns a cudaError_t
-// code.
+// call's tiles, B * ceil(R / 32) * ceil(S / (8 U)). reverse: 0 for the
+// forward recurrence, 1 for the backward's adjoint one (above). Returns a
+// cudaError_t code.
 extern "C" int rglru_scan_launch(const void* a, const void* b, void* h,
                                  void* scratch, long long capacity, int B,
-                                 int S, int R, int steps, void* stream) {
+                                 int S, int R, int steps, int reverse,
+                                 void* stream) {
   if (B <= 0 || S <= 0 || R <= 0 || scratch == nullptr ||
       (uintptr_t)scratch % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -274,12 +289,13 @@ extern "C" int rglru_scan_launch(const void* a, const void* b, void* h,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ns = (int)n_slabs, nc = (int)n_cols;
   const unsigned nt = (unsigned)n_tiles;
+  const int rv = reverse != 0;
   switch (steps) {
-    case 1: return (int)launch<1>(af, bf, hf, sc, S, R, ns, nc, nt, s);
-    case 2: return (int)launch<2>(af, bf, hf, sc, S, R, ns, nc, nt, s);
-    case 4: return (int)launch<4>(af, bf, hf, sc, S, R, ns, nc, nt, s);
-    case 8: return (int)launch<8>(af, bf, hf, sc, S, R, ns, nc, nt, s);
-    case 16: return (int)launch<16>(af, bf, hf, sc, S, R, ns, nc, nt, s);
+    case 1: return (int)launch<1>(af, bf, hf, sc, S, R, ns, nc, nt, rv, s);
+    case 2: return (int)launch<2>(af, bf, hf, sc, S, R, ns, nc, nt, rv, s);
+    case 4: return (int)launch<4>(af, bf, hf, sc, S, R, ns, nc, nt, rv, s);
+    case 8: return (int)launch<8>(af, bf, hf, sc, S, R, ns, nc, nt, rv, s);
+    case 16: return (int)launch<16>(af, bf, hf, sc, S, R, ns, nc, nt, rv, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,3 +15,11 @@ def launch_counts() -> dict[str, int]:
     return {"paged_attention": pa_ops.launches,
             "flash_attention_fwd": fa_ops.launches, "ssd": ssd_ops.launches,
             "rglru_scan": rg_ops.launches, "matmul": mm_ops.launches}
+
+
+def bwd_launch_counts() -> dict[str, int]:
+    """Backward kernel name -> its wrapper's ``bwd_launches`` counter: K4's
+    reverse scan (the RG-LRU Function's backward on a card); the forward
+    counts stay apart."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    return {"rglru_scan_bwd": rg_ops.bwd_launches}

@@ -6,9 +6,12 @@ hand-written kernel ``repro_torch/csrc/rglru_scan.cu`` or raises. There is
 no fallback between the two. ``rglru_scan`` is a
 ``torch.autograd.Function``: its backward is the JAX package's
 (``repro.kernels.rglru_scan.ops._bwd_vjp``), the reverse recurrence
-dh_t = g_t + a_{t+1} dh_{t+1} run through the plain scan on the saved a
-and h, then da_t = dh_t h_{t-1} and db_t = dh_t. The JAX package has no
-backward kernel, so neither has the port.
+dh_t = g_t + a_{t+1} dh_{t+1} on the saved a, then da_t = dh_t h_{t-1}
+and db_t = dh_t. The reverse recurrence goes through the forward's own
+dispatch: on a card one launch of the same kernel with ``reverse`` (it
+reads a one step ahead and runs time backwards, so no flipped copies are
+made), on the CPU the plain scan on flipped copies, as the JAX package
+runs it.
 
 The kernel is one launch: a single-pass chained scan with decoupled
 look-back over tiles of 32 channels x 8 ``steps`` time steps, a block a
@@ -20,10 +23,13 @@ on and that the kernel itself leaves ready for the next call;
 ``scratch_fills`` counts the zero-fills that allocating it costs (one per
 stream, and one whenever a larger call grows it).
 
-``launches`` counts forward kernel launches (CPU calls do not count), so a
-run can show that its prefill or training path went through the kernel.
-Inside a ``core.trace.Counter`` the forward adds ``cost()`` there, on
-any device, and on a ``meta`` tensor returns an empty h (the dry run).
+``launches`` counts forward kernel launches and ``bwd_launches`` the
+backward's reverse ones (CPU calls count in neither), so a run can show
+that its prefill or training path went through the kernel and every
+forward launch count keeps its formula. Inside a ``core.trace.Counter``
+the forward adds ``cost()`` there under ``rglru_scan`` and the reverse
+scan the same cost under ``rglru_scan_bwd``, on any device, and on a
+``meta`` tensor each returns an empty result (the dry run).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ SCRATCH_HEADER = 4
 SCRATCH_PER_TILE = 4 * CHANNELS
 
 launches = 0
+bwd_launches = 0
 scratch_fills = 0
 _bound = False
 _scratch: dict[tuple[int, int], torch.Tensor] = {}
@@ -67,7 +74,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rglru_scan_launch.argtypes = [
             p, p, p, p, ctypes.c_longlong,  # a, b, h, scratch, its capacity
-            i, i, i, i, p]                  # B, S, R, steps per warp, stream
+            i, i, i, i, i, p]               # B, S, R, steps, reverse, stream
         lib.rglru_scan_launch.restype = i
         lib.rglru_scan_error_string.argtypes = [i]
         lib.rglru_scan_error_string.restype = ctypes.c_char_p
@@ -112,10 +119,13 @@ def _capacity(buf: torch.Tensor) -> int:
     return (buf.numel() - SCRATCH_HEADER) // SCRATCH_PER_TILE
 
 
-def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    reverse: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel. a, b: (B, S, R) float32, contiguous, on one
-    CUDA device; h0 = 0."""
-    global launches
+    CUDA device; h0 = 0. With ``reverse`` the backward's adjoint
+    recurrence, h_t = a_{t+1} h_{t+1} + b_t from the last step (a_S = 0),
+    counted in ``bwd_launches``."""
+    global launches, bwd_launches
     require(a.dim() == 3 and tuple(b.shape) == tuple(a.shape),
             f"rglru_scan: shapes a {tuple(a.shape)}, b {tuple(b.shape)} "
             "must be one (B, S, R)")
@@ -135,9 +145,13 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     scratch = _scratch_for(a.device, plan.n_tiles)
     rc = lib.rglru_scan_launch(
         a.data_ptr(), b.data_ptr(), h.data_ptr(), scratch.data_ptr(),
-        _capacity(scratch), B, S, R, plan.steps, stream_ptr(a.device))
+        _capacity(scratch), B, S, R, plan.steps, int(bool(reverse)),
+        stream_ptr(a.device))
     raise_on_error(rc, lib, "rglru_scan_error_string", "rglru_scan")
-    launches += 1
+    if reverse:
+        bwd_launches += 1
+    else:
+        launches += 1
     return h
 
 
@@ -148,28 +162,34 @@ def cost(B: int, S: int, R: int) -> tuple[float, int]:
     return 2.0 * n, 3 * n * 4
 
 
-def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _forward(a: torch.Tensor, b: torch.Tensor,
+             reverse: bool = False) -> torch.Tensor:
     counter = active()
     if counter is None:
-        return _run(a, b)
-    with counter.kernel("rglru_scan", *cost(*a.shape)):
+        return _run(a, b, reverse)
+    name = "rglru_scan_bwd" if reverse else "rglru_scan"
+    with counter.kernel(name, *cost(*a.shape)):
         if a.is_meta:
             return torch.empty_like(a)
-        return _run(a, b)
+        return _run(a, b, reverse)
 
 
-def _run(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _run(a: torch.Tensor, b: torch.Tensor,
+         reverse: bool = False) -> torch.Tensor:
     if a.device.type == "cpu":
-        return rglru_scan_ref(a, b)
+        if not reverse:
+            return rglru_scan_ref(a, b)
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        return rglru_scan_ref(a_next.flip(1), b.flip(1)).flip(1)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
-    return rglru_scan_cuda(a, b)
+    return rglru_scan_cuda(a, b, reverse)
 
 
 class _RglruScan(torch.autograd.Function):
     """Forward: the kernel (or, on the CPU, the plain scan). Backward: the
     reverse recurrence of the JAX package's ``_bwd_vjp`` on the saved a
-    and h."""
+    and h, through the same dispatch (one reverse launch on a card)."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -180,8 +200,7 @@ class _RglruScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, h = ctx.saved_tensors
-        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
-        dh = rglru_scan_ref(a_next.flip(1), g.flip(1)).flip(1)
+        dh = _forward(a, g.contiguous(), reverse=True)
         h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
         return dh * h_prev, dh
 

@@ -194,7 +194,7 @@ def _mesh_txt(mesh) -> str:
 
 def _write_ranks(c, per_step: list) -> None:
     """Rank 0 writes every rank's record to ``<overlay>/ranks.json``."""
-    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import bwd_launch_counts, launch_counts
     cuda = c.device.type == "cuda"
     rec = {"rank": c.mesh.rank, "ranks": c.mesh.size,
            "backend": c.mesh.backend, "device": str(c.device),
@@ -202,7 +202,8 @@ def _write_ranks(c, per_step: list) -> None:
            "wire_bytes_by_op": c.mesh.stats.bytes,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated(c.device)
                                  if cuda else None),
-           "kernel_launches": launch_counts()}
+           "kernel_launches": launch_counts(),
+           "kernel_bwd_launches": bwd_launch_counts()}
     records = c.mesh.gather_objects(rec)
     if c.mesh.rank == 0:
         (c.overlay / "ranks.json").write_text(json.dumps(records, indent=1))

@@ -547,14 +547,50 @@ def test_flash_attention_function_grads(case, cuda):
 def test_rglru_scan_function_grads(cuda):
     a, b = _rg_inputs((2, 300, 2560), cuda, seed=8)
     cot = _rg_inputs((2, 300, 2560), cuda, seed=9)[1]
-    before = rg_ops.launches
+    before = rg_ops.launches, rg_ops.bwd_launches
     h, ref, g, gr = _grad_pair(rg_ops.rglru_scan, rglru_scan_ref, (a, b),
                                cot)
     torch.cuda.synchronize()
-    assert rg_ops.launches == before + 1
+    assert (rg_ops.launches, rg_ops.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
     assert _rg_close(h, ref)
     for x, y in zip(g, gr):
         assert _rg_close(x, y)
+
+
+def test_rglru_backward_on_the_card_never_reaches_a_plain_version(
+        cuda, monkeypatch):
+    """K4's Function forward and backward with its plain version made to
+    raise: a forward launch and one reverse launch, nothing else."""
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    monkeypatch.setattr(rg_ops, "rglru_scan_ref", plain)
+    a = torch.rand(1, 64, 256, device=cuda).requires_grad_()
+    b = torch.randn(1, 64, 256, device=cuda).requires_grad_()
+    before = rg_ops.launches, rg_ops.bwd_launches
+    rg_ops.rglru_scan(a, b).sum().backward()
+    torch.cuda.synchronize()
+    assert (rg_ops.launches, rg_ops.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert all(torch.isfinite(x.grad).all() for x in (a, b))
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 2560), (1, 2048, 2560),
+                                   (2, 33, 31), (1, 10, 2563)], ids=str)
+def test_rglru_reverse_scan_vs_plain(shape, cuda):
+    """K4's backward recurrence, one reverse launch: within the scan's
+    tolerance of the plain reverse scan, and bit for bit the forward kernel
+    on flipped copies."""
+    a, g = _rg_inputs(shape, cuda, seed=13)
+    before = rg_ops.launches, rg_ops.bwd_launches
+    dh = rg_ops.rglru_scan_cuda(a, g, reverse=True)
+    torch.cuda.synchronize()
+    assert (rg_ops.launches, rg_ops.bwd_launches) == (before[0],
+                                                      before[1] + 1)
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    assert _rg_close(dh, rglru_scan_ref(a_next.flip(1), g.flip(1)).flip(1))
+    assert torch.equal(dh, rg_ops.rglru_scan_cuda(
+        a_next.flip(1).contiguous(), g.flip(1).contiguous()).flip(1))
 
 
 def test_ssd_function_grads(cuda):

@@ -190,7 +190,8 @@ SET remat=full optimizer={{"lr":0.0003,"warmup_steps":2,"total_steps":1000}}
 """
 # (label, mesh, arch, layers, collectives, extra SET, bytes a step a rank
 # by operation, kernel calls a step): the counts of chip_smoke.py's dist
-# phase on the H100 (PERF.md section 6)
+# phase on the H100 (PERF.md section 6); a step runs each rec layer's scan
+# twice (remat) and its reverse scan once
 DIST_RUNS = [
     ("b generic", (2, 1), "llama3.2-3b", 2, "generic", "",
      {"generic": {"all_reduce": 4_762_755_072}}, {"flash_attention_fwd": 4}),
@@ -206,7 +207,8 @@ DIST_RUNS = [
     ("d mamba2", (1, 2), "mamba2-2.7b", 2, "generic", "",
      {"tp": 269_375_488}, {"ssd": 4}),
     ("d recurrentgemma", (1, 2), "recurrentgemma-2b", 3, "generic", "",
-     {"tp": 805_404_672}, {"rglru_scan": 4, "flash_attention_fwd": 2}),
+     {"tp": 805_404_672}, {"rglru_scan": 4, "rglru_scan_bwd": 2,
+                           "flash_attention_fwd": 2}),
     ("e generic", (2, 1), "llama3.2-3b", 2, "generic",
      "SET fsdp=true remat=full\n", {"generic": 5_568_110_592},
      {"flash_attention_fwd": 4}),
