@@ -29,9 +29,10 @@ Seven measurements, each printed beside the card's name and power limit:
             tokens, ``Container.train_step_fn(donate=True)``), 2 warm-up
             steps, then 2 under torch.profiler: the device's busy and idle
             share, the top device kernels, the flash kernel's (K2 forward
-            and its recompute) share, and the share of the attention
-            backward, the vjp of the plain version (a ``record_function``
-            range around the Function's backward)
+            and its recompute) share and K2's backward kernels' share,
+            each summed over its device kernels by name (``flash_*``,
+            ``fa2_bwd_*``: a ``record_function`` range around the
+            Function's backward did not carry their device time)
   batch     the whole-batch bf16 decode of ``chip_smoke.py``'s batch phase
             (llama3.2-3b, ``Container.prefill_fn`` over 8 prompts of 512
             tokens, then ``decode_fn`` at a scalar position), 2 warm-up steps,
@@ -304,7 +305,6 @@ def profile_train(torch, card: str, workdir: Path) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     rt = Runtime(workdir / "train")
     rt.build(TRAIN_IMAGEFILE, tag="train")
@@ -318,10 +318,8 @@ def profile_train(torch, card: str, workdir: Path) -> None:
     for i in range(2):       # allocator, cuBLAS handles
         params, opt, m = step(params, opt, data.batch(i))
     torch.cuda.synchronize()
-    label = "flash_attention_backward"
-    with labelled(torch, fa_ops._FlashAttention, "backward", label), \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(2, 4):
             params, opt, m = step(params, opt, data.batch(i))
@@ -331,17 +329,11 @@ def profile_train(torch, card: str, workdir: Path) -> None:
     log(f"train: 2 steps of llama3.2-3b ({c.cell.global_batch} x "
         f"{c.cell.seq_len} tokens, remat={c.model.remat}), loss {loss:.4f}, "
         f"{wall_us / 2e6:.3f} s a step under the profiler")
-    device = device_summary(prof, wall_us, card, "train",
-                            (("K2 flash_attention_fwd (forward and "
-                              "recompute)", "flash_"),), ranges=(label,))
-    busy_us = sum(t for t, _, _ in device)
-    bwd = [e for e in prof.key_averages() if e.key == label]
-    check(bool(bwd), "train: no attention backward range in the profile")
-    dev = dev_us(bwd[0], total=True)
-    log(f"train: attention backward (vjp of the plain version) "
-        f"x{bwd[0].count}: its kernels {dev / 1e3:.1f} ms = "
-        f"{100 * dev / busy_us:.1f}% of device busy time, host "
-        f"{bwd[0].cpu_time_total / 1e3:.1f} ms [{card}]")
+    device_summary(prof, wall_us, card, "train",
+                   (("K2 flash_attention_fwd (forward and recompute)",
+                     "flash_"),
+                    ("K2 flash_attention_bwd (its backward kernels)",
+                     "fa2_bwd_")))
     del params, opt, m
 
 

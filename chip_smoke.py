@@ -29,7 +29,11 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             call held bit for bit against a second one, and its reverse
             scan (the backward's adjoint recurrence) at each of those
             shapes against the plain reverse scan, bit for bit against a
-            second call
+            second call; K2's backward kernels, from the forward kernel's
+            out and L, at every shape a training path gives them (float32
+            and bf16) against the dense float32 plain backward, the ranks'
+            shapes timed (a phase, or a rank, that runs the backward at
+            another shape fails)
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
             on the card: the blocked matmul called natively (blocks named:
             platform "h100") and through a container bound from an
@@ -142,15 +146,20 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             x 128 and recurrentgemma-2b's 1 x 10/1 x 2048 x 256 window
             2048, bf16; K4 at 1 x 2048 x 2560; K5 at 1 x 1024 x 80 x 64 x
             128, chunk 256, f32): output and input grads against the plain
-            version under autograd, K4's Function run with its plain
-            version made to raise (its backward one reverse scan), forward
-            and backward times (K2's backward, the plain version's vjp,
-            beside SDPA's); (b) five smoke reductions (llama, mamba2,
+            version under autograd, K2's and K4's Functions run with their
+            plain versions made to raise (K2's backward its backward
+            kernels from the saved L, K4's one reverse scan); K2's grads
+            within 2^-7 of the largest gradient of a dense float32 plain
+            backward and the same bits from two calls; forward and
+            backward times (K2's backward kernels beside their bound
+            (``cost_bwd``), the plain backward and SDPA's backward); (b)
+            five smoke reductions (llama, mamba2,
             recurrentgemma, moonshot, musicgen) trained 3 steps on the card
             and on the CPU from the same weights and batches, float32:
             losses and grad norms agree, the card runs their kernels and
-            the CPU none, K4's reverse scan once a step per rec layer with
-            no plain version of K4 on the card; (c) full-width llama3.2-3b
+            the CPU none, K2's backward kernels once a step per attention
+            layer and K4's reverse scan once a step per rec layer, with no
+            plain version of K2 or K4 on the card; (c) full-width llama3.2-3b
             cut to 8 layers
             (float32 params, bf16 compute, remat=full, 2 x 2048 tokens)
             through
@@ -158,7 +167,8 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             checkpoint), then ``run --resume --steps 1``: finite losses,
             the resumed run starts at step 2 and its step 3 equals a
             straight 3-step run's (``Container.train_step_fn``), K2
-            launches = 8 x 2 x steps and nothing else, peak memory under
+            launches = 8 x 2 x steps, K2's backward 8 x steps and nothing
+            else, peak memory under
             80 GB; step seconds, tokens/s and the model-FLOPs share of 989
             TFLOP/s printed; each kernel's forward beside its bound at
             the training shape
@@ -220,15 +230,16 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             kernels phase held to its plain version (``_pod_tp_shapes``:
             K1 at 12 q over 4 kv heads), each rank on the card; (g)
             PowerSGD on the model axis in the same job: llama3.2-3b at
-            6 layers on the (data 1, model 2) mesh, ``host mode=explicit
+            6 layers in float32 compute on the (data 1, model 2) mesh,
+            ``host mode=explicit
             grad_compression=float32 compression=powersgd rank=1``, both
             rows on each rank, 3 steps: leaves compressed on each of
             ``powersgd_sync``'s branches (rows, columns, strided columns:
             ``powersgd_splits``), losses and grad norms within 1e-3
             relative of one process's PowerSGD steps at model 1 (the same
             initial Q), the model axis's PowerSGD bytes a step =
-            ``powersgd_wire_bytes``, TP bytes = ``tp_wire_bytes``, K2 at
-            K2_TP; (h) the MoE over data replicas: a (data 2, model 1)
+            ``powersgd_wire_bytes``, TP bytes = ``tp_wire_bytes`` (4-byte
+            activations), K2 at K2_G; (h) the MoE over data replicas: a (data 2, model 1)
             mesh, moonshot-v1-16b-a3b at (d)'s 2 layers (64 experts whole
             a rank), generic, one 2048-token row a rank, 3 steps: the
             dispatch's positions and capacity over the global batch,
@@ -288,11 +299,13 @@ phase, the fig5 calls, each CLI serve, each example, each loopback fleet
 of the fabric phase, each CLI training run, (c) of the dist phase, each run of
 (d) and (e), each pod of (f) and its one-process reference, the dryrun
 phase's real step) and read just
-after; a kernel's launches are their sum. K4's reverse scan counts
-apart from its forward (the wrapper's ``bwd_launches``,
-``rglru_scan_bwd`` in the counts and in the kernel records), so every
-forward gate keeps its formula and every gate that wants no kernel also
-wants no reverse scan; it runs once a step per rec layer. A
+after; a kernel's launches are their sum. K2's backward kernels and K4's
+reverse scan count apart from their forwards (the wrappers'
+``bwd_launches``, ``flash_attention_bwd`` and ``rglru_scan_bwd`` in the
+counts and in the kernel records), so every forward gate keeps its
+formula and every gate that wants no kernel also wants no backward; a
+training step runs K2's backward once per attention layer (one call, its
+three or four device kernels) and K4's reverse scan once per rec layer. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
 Output ends with a JSON line of kernel records, the card line, and
@@ -340,6 +353,15 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:89",
+    },
+    # K2's backward kernels (D, dK/dV, dQ from the forward's saved L), the
+    # flash-attention Function's backward on a card (the JAX package's
+    # backward, ``_bwd_vjp`` at src/repro/kernels/flash_attention/ops.py:60,
+    # is the vjp of the plain version: the TPU has no backward kernel)
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
     },
     "rglru_scan": {
         "route": "cuda",
@@ -556,6 +578,9 @@ K2_TP = ((2, 12, 4, 128, 2048, 2048, 0, "bfloat16"),
 # llama3.2-3b a rank, all 24 q heads over 8 kv heads (params gathered
 # whole), bf16. The (d) and (e) shapes are timed, with their bound.
 K2_FSDP = ((1, 24, 8, 128, 2048, 2048, 0, "bfloat16"),)
+# K2 at the dist phase's (g) PowerSGD ranks: (d)'s llama3.2-3b rank shape
+# in float32 compute (the FMA kernel); (g) fails on a K2 call not here
+K2_G = ((2, 12, 4, 128, 2048, 2048, 0, "float32"),)
 # K1 (B, n_kv, g, hd, ps, mp, dtype) at the dist phase's (f) ranks: the
 # llama3.2-3b pod's 8 slots, 12 of 24 q heads over 4 of 8 kv heads a rank,
 # its table of 1024 / 16 pages, float32 (the FMA kernel); (f) fails on a K1
@@ -570,6 +595,31 @@ K1_DP = ((4, 8, 3, 128, 16, K1_POD_MP, "float32"),)
 # one 2048-token row a rank of a (data 2, model 1) mesh, 16 over 16 heads
 # of 128, bf16; (h) fails on a K2 call not here
 K2_DP = ((1, 16, 16, 128, 2048, 2048, 0, "bfloat16"),)
+# K2's backward (B, Hq, Hkv, d, Sq, Sk, window, dtype) at every training
+# call of the script, held in the kernels phase to the dense float32 plain
+# backward (``_kernels_flash_bwd``): llama3.2-3b's full batch (train (a)
+# and (c), dist (a)'s rank, (d)'s one process, dryrun (c)), train (a)'s
+# recurrentgemma-2b local layers, (d)'s one-process moonshot-v1-16b-a3b
+# and recurrentgemma-2b, (g)'s one process (float32), train (b)'s smoke
+# steps (float32: llama3.2-3b, moonshot and musicgen at 4/2 heads of 16,
+# recurrentgemma at 4/1, window 16), the training examples (quickstart and
+# hpc_migration, train_100m), then the ranks' shapes (timed: (d), (e) --
+# also (b)'s ranks and its two-microbatch process --, (g), (h)). A phase,
+# or a rank, that runs the backward at a shape not here fails.
+K2_BWD = ((2, 24, 8, 128, 2048, 2048, 0, "bfloat16"),
+          (1, 10, 1, 256, 2048, 2048, 2048, "bfloat16"),
+          (2, 16, 16, 128, 2048, 2048, 0, "bfloat16"),
+          (2, 10, 1, 256, 2048, 2048, 2048, "bfloat16"),
+          (2, 24, 8, 128, 2048, 2048, 0, "float32"),
+          (4, 4, 2, 16, 64, 64, 0, "float32"),
+          (4, 4, 1, 16, 64, 64, 16, "float32"),
+          K2_EXAMPLES[0], K2_EXAMPLES[3])
+K2_BWD_RANKS = (*K2_TP, *K2_FSDP, *K2_G, *K2_DP)
+# the backward kernels against the dense float32 plain backward, relative
+# to its largest gradient: float32 as the forward's FMA kernel; bfloat16
+# rounds P and dS before their products (as the forward rounds P before
+# P V), 2^-7
+K2_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 
 
 def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
@@ -756,7 +806,8 @@ def phase_kernels(torch, state, timer) -> None:
              + [(c, tuple(dts), True) for c in K2_BATCH]
              + [(c[:-1], c[-1:], False) for c in K2_EXAMPLES]
              + [(c[:-1], c[-1:], "dist") for c in
-                (*K2_TP, *K2_FSDP, *K2_DP, *_pod_tp_shapes()["k2"])])
+                (*K2_TP, *K2_FSDP, *K2_G, *K2_DP,
+                 *_pod_tp_shapes()["k2"])])
     checked = state["k2_checked"] = set()
     for (Bq, Hq, Hkv, d, Sq, Sk, window), dnames, timed in cases:
         for dname in dnames:
@@ -828,10 +879,93 @@ def phase_kernels(torch, state, timer) -> None:
                 f"window={window} bf16 time {ms:.4f} ms, plain {plain:.4f} "
                 f"ms, bound {bms:.4f} ms ({by}), {lib_txt} [{state['card']}]")
 
+    failures += _kernels_flash_bwd(torch, state, timer)
     failures += _kernels_ssd(torch, state, timer)
     failures += _kernels_rglru(torch, state, timer)
     failures += _kernels_matmul(torch, state, timer)
     check(not failures, "kernel mismatches: " + "; ".join(failures))
+
+
+def _k2_key(q, k, window, causal) -> tuple:
+    """A K2 call's shape as the gates compare it: (B, Hq, Hkv, d, Sq, Sk,
+    window, dtype, causal)."""
+    return (q.shape[0], q.shape[1], k.shape[1], q.shape[3], q.shape[2],
+            k.shape[2], int(window), str(q.dtype).removeprefix("torch."),
+            bool(causal))
+
+
+def _kernels_flash_bwd(torch, state, timer) -> list[str]:
+    """K2's backward kernels at every K2_BWD and K2_BWD_RANKS shape, from
+    the forward kernel's out and L, against the dense float32 plain
+    backward fed the float32 plain out and L on the same inputs: dq, dk
+    and dv within K2_BWD_TOL of its largest gradient; the ranks' shapes
+    timed beside their bound (and, in float32, SDPA's backward). Keeps
+    the shapes held in ``state["k2_bwd_checked"]``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref,
+        flash_attention_ref)
+    failures = []
+    checked = state["k2_bwd_checked"] = set()
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for case in (*K2_BWD, *K2_BWD_RANKS):
+        B, Hq, Hkv, d, Sq, Sk, window, dname = case
+        r = np.random.default_rng(3)
+        q, k, v, dout = (torch.from_numpy(r.standard_normal(shape).astype(
+            np.float32)).to("cuda", dts[dname]) for shape in (
+            (B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d), (B, Hq, Sq, d)))
+        kw = dict(causal=True, window=window)
+        out, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, lse=True, **kw)
+        got = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        f = [t.float() for t in (q, k, v)]
+        want = flash_attention_bwd_ref(
+            *f, flash_attention_ref(*f, **kw),
+            flash_attention_lse_ref(*f[:2], **kw), dout.float(), **kw)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b).abs().max()) for a, b in zip(got, want)]
+        lims = [K2_BWD_TOL[dname] * float(b.abs().max()) for b in want]
+        ok = (all(bool(torch.isfinite(a).all()) for a in got)
+              and all(e <= lim for e, lim in zip(errs, lims)))
+        del got, want, f
+        held = ", ".join(f"{e:.2e}/{lim:.2e}" for e, lim in zip(errs, lims))
+        line = (f"kernels: flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} d={d} "
+                f"Sq={Sq} Sk={Sk} causal window={window} {dname} "
+                f"({'tensor cores' if dname == 'bfloat16' else 'fma'}): dq, "
+                f"dk, dv max_abs_err vs the dense float32 plain backward "
+                f"(err/tol) {held} {'ok' if ok else 'FAIL'}")
+        if case in K2_BWD_RANKS:
+            ms = timer(lambda: fa_ops.flash_attention_bwd_cuda(
+                q, k, v, out, lse, dout, **kw))
+            bms, by = k2_bwd_bound(B, Hq, Hkv, d, Sq, Sk, window,
+                                   q.element_size(), dname)
+            rec = dict(ms=ms, bound_ms=bms, bound_by=by,
+                       max_abs_err=max(errs))
+            line += f"; time {ms:.4f} ms, bound {bms:.4f} ms ({by})"
+            if dname == "float32":
+                # the library's attention backward on the same inputs
+                xs = [t.detach().requires_grad_() for t in (
+                    q, k.repeat_interleave(Hq // Hkv, dim=1),
+                    v.repeat_interleave(Hq // Hkv, dim=1))]
+                o = F.scaled_dot_product_attention(*xs, is_causal=True)
+                rec["library_ms"] = timer(lambda: torch.autograd.grad(
+                    o, xs, dout, retain_graph=True))
+                line += (f", library (scaled_dot_product_attention "
+                         f"backward) {rec['library_ms']:.4f} ms")
+                del xs, o
+            state.setdefault("kernel_dist", {})[
+                f"K2 backward {B}x{Hq}/{Hkv}x{Sq}x{d} w{window} "
+                f"{dname}"] = rec
+            line += f" [{state['card']}]"
+        log(line)
+        if ok:
+            checked.add((*case, True))
+        else:
+            failures.append(f"flash_attention_bwd {case}")
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return failures
 
 
 # K5 at mamba2-2.7b's prefill (a 512-token prompt: two 256-step chunks; the
@@ -2059,21 +2193,22 @@ def _examples_lint(workdir: Path) -> None:
 
 def _example_run(torch, state, name: str, fn, argv) -> tuple:
     """``fn(argv)`` with the counters at 0 just before and read just after;
-    returns (result, counts, seconds, peak bytes). Fails if K2 was called
-    at a shape (and dtype) that the kernels phase did not hold against its
-    plain version."""
+    returns (result, counts, seconds, peak bytes). Fails if K2 or its
+    backward was called at a shape (and dtype) that the kernels phase did
+    not hold against its plain version."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"examples: repro_torch.examples.{name}.main({argv})")
     shapes, real = set(), fa_ops.flash_attention_fwd_cuda
 
-    def k2(q, k, v, *, causal=True, window=0, scale=None):
+    def k2(q, k, v, *, causal=True, window=0, **kw):
         shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[3],
                     q.shape[2], k.shape[2], int(window),
                     str(q.dtype).removeprefix("torch."), bool(causal)))
-        return real(q, k, v, causal=causal, window=window, scale=scale)
+        return real(q, k, v, causal=causal, window=window, **kw)
     fa_ops.flash_attention_fwd_cuda = k2
+    n_bwd = len(state["k2_bwd_calls"])
     _reset_counts()
     t0 = time.perf_counter()
     try:
@@ -2088,17 +2223,28 @@ def _example_run(torch, state, name: str, fn, argv) -> tuple:
         f"causal) {sorted(shapes)}")
     check(shapes <= checked, f"examples: {name} called K2 at shapes the "
           f"kernels phase did not check: {sorted(shapes - checked)}")
+    bwd = set(state["k2_bwd_calls"][n_bwd:])
+    if bwd:
+        log(f"examples: {name} K2 backward shapes {sorted(bwd)}")
+    check(bwd <= state.get("k2_bwd_checked", set()),
+          f"examples: {name} called K2's backward at shapes the kernels "
+          f"phase did not check: "
+          f"{sorted(bwd - state.get('k2_bwd_checked', set()))}")
     return res, counts, seconds, torch.cuda.max_memory_allocated()
 
 
 def _example_gate(name: str, counts: dict, want_k2: int, seconds: float,
-                  peak: int, card: str, extra: str = "") -> None:
+                  peak: int, card: str, extra: str = "",
+                  want_bwd: int = 0) -> None:
+    """K2 ``want_k2`` times, its backward ``want_bwd`` times (a training
+    example: once a step per layer), nothing else."""
+    want = {"flash_attention_fwd": want_k2, "flash_attention_bwd": want_bwd}
     log(f"examples: {name}: {seconds:.2f} s, peak memory "
-        f"{peak / 2**30:.2f} GiB{extra}; launches {counts}, expected K2 "
-        f"{want_k2} [{card}]")
+        f"{peak / 2**30:.2f} GiB{extra}; launches {counts}, expected "
+        f"{want} [{card}]")
     for k, n in counts.items():
-        want = want_k2 if k == "flash_attention_fwd" else 0
-        check(n == want, f"examples: {name} {k} launches {n} != {want}")
+        check(n == want.get(k, 0), f"examples: {name} {k} launches {n} != "
+              f"{want.get(k, 0)}")
 
 
 def _finite(xs) -> bool:
@@ -2127,7 +2273,7 @@ def phase_examples(torch, state, workdir: Path) -> None:
     losses = res["losses"]
     _example_gate("quickstart", counts, smoke * len(losses), s, peak, card,
                   f"; losses step 1 {losses[0]:.4f}, step 15 "
-                  f"{losses[-1]:.4f}")
+                  f"{losses[-1]:.4f}", want_bwd=smoke * len(losses))
     check(len(losses) == 15 and _finite(losses) and losses[-1] < losses[0],
           f"examples: quickstart losses {losses}")
     shutil.rmtree(root)
@@ -2139,7 +2285,7 @@ def phase_examples(torch, state, workdir: Path) -> None:
     losses = res["losses"]
     _example_gate("hpc_migration", counts, smoke * len(losses), s, peak,
                   card, f"; losses step 1 {losses[0]:.4f}, step 10 "
-                        f"{losses[-1]:.4f}")
+                        f"{losses[-1]:.4f}", want_bwd=smoke * len(losses))
     check(len(losses) == 10 and _finite(losses) and losses[-1] < losses[0],
           f"examples: hpc_migration losses {losses}")
     pushed = (res["layers_transferred"], res["layers_reused"])
@@ -2188,7 +2334,8 @@ def phase_examples(torch, state, workdir: Path) -> None:
                   f"; {steps} steps, loss {losses[0]:.4f} -> "
                   f"{losses[-1]:.4f}; {tokens / step_s:.1f} tokens/s over "
                   f"the steps' {step_s:.2f} s ({tokens / s:.1f} over the "
-                  f"wall, {steps // 50 + 1} checkpoint writes included)")
+                  f"wall, {steps // 50 + 1} checkpoint writes included)",
+                  want_bwd=8 * steps)
     check(steps == 300 and len(losses) == 300 and _finite(losses)
           and losses[-1] < losses[0],
           f"examples: train_100m losses {losses[:3]} ... {losses[-3:]}")
@@ -2765,11 +2912,86 @@ def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
     return ok, fwd, bms
 
 
+def k2_bwd_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
+    """K2's backward's bound from its ``cost_bwd()``: q, k, v, out and dO
+    read, dq, dk and dv written, L and D in float32; 10 flops a (q, k)
+    pair inside the causal window per head dim."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.analysis import bound_ms
+    flops, nbytes = fa_ops.cost_bwd(B, Hq, Hkv, Sq, Sk, d, isz,
+                                    window=window)
+    return bound_ms(nbytes, flops, dtype)
+
+
+def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
+    """K2's Function on the card with its plain versions made to raise
+    (forward and backward kernels only): the output within TOL of the
+    plain forward, the grads within K2_BWD_TOL of the largest gradient of
+    the dense float32 plain backward, two backward calls the same bits;
+    the forward's time, the backward kernels' (one wrapper call on the
+    forward kernel's out and L) beside their bound, the plain backward's.
+    Returns (ok, forward ms, backward dict)."""
+    from repro_torch.kernels._launch import device_sms
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref,
+        flash_attention_ref)
+    B, Hq, S, d = inputs[0].shape
+    Hkv = inputs[1].shape[1]
+    kw = dict(causal=True, window=window)
+    plain = tuple((fa_ops, n) for n in ("flash_attention_ref",
+                                        "_out_lse_ref",
+                                        "flash_attention_bwd_ref"))
+    xs = [t.detach().requires_grad_() for t in inputs]
+    with _no_plain(*plain):
+        out = fa_ops.flash_attention(*xs, **kw)
+        gx = torch.autograd.grad(out, xs, cot, retain_graph=True)
+        gx2 = torch.autograd.grad(out, xs, cot, retain_graph=True)
+    same = all(torch.equal(a, b) for a, b in zip(gx, gx2))
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(*inputs, **kw)
+    out_err = float((out.detach().float() - ref.float()).abs().max())
+    del ref
+    f = [t.float() for t in inputs]
+    want = flash_attention_bwd_ref(
+        *f, flash_attention_ref(*f, **kw),
+        flash_attention_lse_ref(*f[:2], **kw), cot.float(), **kw)
+    errs, lims = [], []
+    for a, b in zip(gx, want):
+        errs.append(float((a.float() - b).abs().max()))
+        lims.append(K2_BWD_TOL["bfloat16"] * float(b.abs().max()))
+    del want, f
+    ok = (bool(torch.isfinite(out).all()) and out_err <= TOL["bfloat16"]
+          and same and all(e <= l for e, l in zip(errs, lims)))
+    with torch.no_grad():
+        fwd = timer(lambda: fa_ops.flash_attention(*inputs, **kw))
+        o, lse = fa_ops.flash_attention_fwd_cuda(*inputs, lse=True, **kw)
+        ms = timer(lambda: fa_ops.flash_attention_bwd_cuda(
+            *inputs, o, lse, cot, **kw))
+        plain_ms = timer(lambda: flash_attention_bwd_ref(
+            *inputs, o, lse, cot, **kw))
+    del o, lse, out, gx, gx2, xs
+    bwd_bound = k2_bwd_bound(B, Hq, Hkv, d, S, S, window, 2, "bfloat16")
+    fwd_bound = k2_bound(B, Hq, Hkv, d, S, S, window, 2, "bfloat16")
+    parts = fa_ops.group_splits(B, Hkv, S, Hq // Hkv,
+                                fa_ops.bwd_key_block(torch.bfloat16),
+                                device_sms(inputs[0].device))
+    log(f"train: {name}: max_abs_err out {out_err:.2e} (tol "
+        f"{TOL['bfloat16']:g}), grads dq, dk, dv vs the dense float32 "
+        f"plain backward (err/tol) "
+        f"{', '.join(f'{e:.2e}/{l:.2e}' for e, l in zip(errs, lims))}; "
+        f"two backward calls the same bits {same} "
+        f"{'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms (bound "
+        f"{fwd_bound[0]:.4f} ms, {fwd_bound[1]}), backward kernels "
+        f"{ms:.4f} ms (bound {bwd_bound[0]:.4f} ms, {bwd_bound[1]}; the "
+        f"group in {parts} part(s)), plain backward {plain_ms:.4f} ms "
+        f"[{state['card']}]")
+    return ok, fwd, dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(errs))
+
+
 def _train_grads(torch, state, timer) -> list[str]:
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -2788,13 +3010,8 @@ def _train_grads(torch, state, timer) -> list[str]:
         cot = cuda(rng.standard_normal((B, Hq, S, d)), bf)
         name = (f"flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} "
                 f"window={w} bfloat16")
-        ok, fwd, bwd = _grad_case(
-            torch, timer, state, name,
-            lambda *x: fa_ops.flash_attention(*x, causal=True, window=w),
-            lambda *x: flash_attention_ref(*x, causal=True, window=w),
-            (q, k, v), cot, TOL["bfloat16"], rel=False,
-            bound=k2_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16"),
-            bwd=dict(bound=None, plain=(), what="vjp of the plain version"))
+        ok, fwd, bwd = _k2_grad_case(torch, timer, state, name, (q, k, v),
+                                     cot, w)
         # the library's fused attention, forward and backward, as yardstick
         kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
         if w:
@@ -2814,9 +3031,17 @@ def _train_grads(torch, state, timer) -> list[str]:
         log(f"train: {name}: SDPA forward {lib_fwd:.4f} ms, backward "
             f"{lib_bwd:.4f} ms (library, not used by the port) "
             f"[{state['card']}]")
+        bwd_bound = k2_bwd_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16")
         state["train"][f"K2 {B}x{Hq}/{Hkv}x{S}x{d} w{w}"] = dict(
-            fwd_ms=fwd, bwd_ms=bwd, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
-            bound_ms=k2_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16")[0])
+            fwd_ms=fwd, bwd_ms=bwd["ms"], plain_bwd_ms=bwd["plain_ms"],
+            sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+            bound_ms=k2_bound(B, Hq, Hkv, d, S, S, w, 2, "bfloat16")[0],
+            bwd_bound_ms=bwd_bound[0], bwd_max_abs_err=bwd["max_abs_err"])
+        if "flash_attention_bwd" not in state["records"]:
+            state["records"]["flash_attention_bwd"] = dict(
+                max_abs_err=bwd["max_abs_err"], ms=bwd["ms"],
+                plain_ms=bwd["plain_ms"], bound_ms=bwd_bound[0],
+                bound_by=bwd_bound[1], library_ms=lib_bwd)
         if not ok:
             failures.append(name)
         del q, k, v, kr, vr, xs, o
@@ -2867,13 +3092,16 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
     import numpy as np
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
 
     rt = Runtime(workdir / "train_smoke")
     failures = []
-    # on the card K4's backward runs its reverse scan alone, once a step per
-    # rec layer
-    no_plain = ((rg_ops, "rglru_scan_ref"),)
+    # on the card K2's backward runs its kernels alone, once a step per
+    # attention layer, and K4's its reverse scan, once a step per rec layer
+    no_plain = ((rg_ops, "rglru_scan_ref"), (fa_ops, "flash_attention_ref"),
+                (fa_ops, "_out_lse_ref"),
+                (fa_ops, "flash_attention_bwd_ref"))
     for arch in TRAIN_SMOKE:
         rt.build(TRAIN_SMOKE_IMAGEFILE.format(arch=arch), tag=arch)
         weights = rt.run(arch, platform="cpu").init_params(0)
@@ -2898,7 +3126,9 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
             runs[platform] = rec
             want = TRAIN_SMOKE_KERNELS[arch]
             kinds = c.arch.layer_types()
-            want_bwd = {"rglru_scan_bwd": 3 * kinds.count("rec")}
+            want_bwd = {"rglru_scan_bwd": 3 * kinds.count("rec"),
+                        "flash_attention_bwd": 3 * sum(
+                            k in ("attn", "moe") for k in kinds)}
             if platform == "cuda" and not all(used[k] for k in want):
                 failures.append(f"{arch}: the card run skipped {want}: "
                                 f"{used}")
@@ -2914,7 +3144,8 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
         ok = (all(np.isfinite(v) for r in runs.values() for p in r for v in p)
               and dl <= TRAIN_SMOKE_TOL and dg <= TRAIN_SMOKE_TOL)
         log(f"train: {arch} 3 steps card vs CPU (float32), backward "
-            f"launches on the card {want_bwd} (K4's reverse scan alone): "
+            f"launches on the card {want_bwd} (K2's backward kernels and "
+            f"K4's reverse scan alone): "
             f"losses "
             f"{[round(l, 6) for l, _ in runs['cuda']]} / "
             f"{[round(l, 6) for l, _ in runs['cpu']]}, max |dloss| {dl:.2e}, "
@@ -2990,7 +3221,8 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
         secs = [r["step_seconds"] for r in recs]
         med = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
         flops = _train_flops(cfg, tokens, cell.seq_len)
-        want = {"flash_attention_fwd": cfg.n_layers * 2 * steps}
+        want = {"flash_attention_fwd": cfg.n_layers * 2 * steps,
+                "flash_attention_bwd": cfg.n_layers * steps}
         log(f"train: llama3.2-3b run {' '.join(argv)}: steps "
             f"{out['start_step'] + 1}..{out['steps']}, losses "
             f"{[round(out['losses'][s], 5) for s in sorted(out['losses'])]}; "
@@ -2999,8 +3231,8 @@ def _train_cli(torch, state, workdir: Path) -> list[str]:
             f"{flops / 1e12:.1f} T a step = "
             f"{100 * flops / med / PEAK_FLOPS['bfloat16']:.1f}"
             f"% of 989 TFLOP/s; peak memory {pk / 2**30:.2f} GiB; "
-            f"{wl:.1f} s with checkpoints; launches {cnt}, expected K2 "
-            f"{cfg.n_layers} x 2 x {steps} [{state['card']}]")
+            f"{wl:.1f} s with checkpoints; launches {cnt}, expected {want} "
+            f"[{state['card']}]")
         state["train"][f"llama run {' '.join(argv)}"] = dict(
             step_s=med, tokens_per_s=tokens / med, peak_gib=pk / 2**30,
             mfu=flops / med / PEAK_FLOPS["bfloat16"], wall_s=wl)
@@ -3389,7 +3621,8 @@ def _rank_summary(ranks: list) -> str:
             f"wire bytes a step {steps[-1]['wire_bytes']} "
             f"({r['wire_bytes_by_op']}), peak memory "
             f"{_gib(r['peak_memory_bytes']):.2f} GiB, K2 launches "
-            f"{r['kernel_launches']['flash_attention_fwd']}")
+            f"{r['kernel_launches']['flash_attention_fwd']}, its backward's "
+            f"{r['kernel_bwd_launches']['flash_attention_bwd']}")
     return "; ".join(parts)
 
 
@@ -3469,16 +3702,18 @@ def _dist_a(torch, state, workdir: Path, ref: list) -> list[str]:
         losses = [s["loss"] for s in r["steps"]]
         want = [l for l, _ in ref[:len(losses)]]
         diff = max(abs(l - w) for l, w in zip(losses, want))
-        k2 = r["kernel_launches"]["flash_attention_fwd"]
+        k2 = (r["kernel_launches"]["flash_attention_fwd"],
+              r["kernel_bwd_launches"]["flash_attention_bwd"])
         ok = (r["backend"] == "nccl" and diff <= DIST_A_TOL
               and len(want) == DIST_A_STEPS
-              and k2 == n_layers * 2 * DIST_A_STEPS)
+              and k2 == (n_layers * 2 * DIST_A_STEPS, n_layers * DIST_A_STEPS))
         log(f"dist: (a) torchrun --nproc-per-node 1 cli run, llama3.2-3b "
             f"{n_layers} layers, {name}: losses "
             f"{[round(l, 6) for l in losses]} vs one process "
             f"{[round(w, 6) for w in want]}: max |diff| {diff:.2e} (tol "
             f"{DIST_A_TOL:g}); {_rank_summary(ranks)}; expected K2 "
-            f"{n_layers} x 2 x {DIST_A_STEPS}; {wall:.1f} s with the "
+            f"{n_layers} x 2 x {DIST_A_STEPS}, its backward {n_layers} x "
+            f"{DIST_A_STEPS}; {wall:.1f} s with the "
             f"checkpoint {'ok' if ok else 'FAIL'} [{state['card']}]")
         state["dist"][f"a {name}"] = dict(
             step_s=[s["seconds"] for s in r["steps"]],
@@ -3539,18 +3774,22 @@ def _dist_b(torch, state, workdir: Path) -> tuple[list[str], dict]:
                  for s, (_, g) in zip(r0["steps"], ref))
         same = all(r["steps"][i]["loss"] == r0["steps"][i]["loss"]
                    for r in ranks for i in range(DIST_B_STEPS))
-        k2 = [r["kernel_launches"]["flash_attention_fwd"] for r in ranks]
+        k2 = [(r["kernel_launches"]["flash_attention_fwd"],
+               r["kernel_bwd_launches"]["flash_attention_bwd"])
+              for r in ranks]
         on_card = [seen.get(r["pid"], False) for r in ranks]
         ok = (dl <= tol and dg <= tol and same and all(on_card)
               and all(r["backend"] == "gloo" for r in ranks)
-              and k2 == [DIST_B_LAYERS * 2 * DIST_B_STEPS] * 2)
+              and k2 == [(DIST_B_LAYERS * 2 * DIST_B_STEPS,
+                          DIST_B_LAYERS * DIST_B_STEPS)] * 2)
         log(f"dist: (b) torchrun --nproc-per-node 2 cli run, llama3.2-3b "
             f"{DIST_B_LAYERS} layers, {coll}: losses "
             f"{[round(s['loss'], 6) for s in r0['steps']]} vs one process "
             f"{[round(l, 6) for l, _ in ref]}: max |dloss| {dl:.2e}, max "
             f"grad_norm rel diff {dg:.2e} (tol {tol:g}); every rank's loss "
             f"equal {same}; {_rank_summary(ranks)}; expected K2 "
-            f"{DIST_B_LAYERS} x 2 x {DIST_B_STEPS} a rank; ranks hold "
+            f"{DIST_B_LAYERS} x 2 x {DIST_B_STEPS}, its backward "
+            f"{DIST_B_LAYERS} x {DIST_B_STEPS} a rank; ranks hold "
             f"/dev/nvidia* open {on_card}; card memory in use "
             f"{used[0]} MiB before, {max(used)} MiB at most during the "
             f"run; {wall:.1f} s with checkpoints {'ok' if ok else 'FAIL'} "
@@ -3604,7 +3843,8 @@ def _dist_c(torch, state, host: dict) -> list[str]:
     dg = abs(gnorm - want["grad_norm"]) / want["grad_norm"]
     ok = (int(opt["step"]) == DIST_B_CKPT + 1 and dl <= host["tol"]
           and dg <= host["tol"]
-          and counts["flash_attention_fwd"] == DIST_B_LAYERS * 2)
+          and counts["flash_attention_fwd"] == DIST_B_LAYERS * 2
+          and counts["flash_attention_bwd"] == DIST_B_LAYERS)
     log(f"dist: (c) the 2-rank host checkpoint of step {DIST_B_CKPT} "
         f"restored onto one process (reshard_restore: whole m/v from two "
         f"ZeRO-1 halves): step {DIST_B_CKPT + 1} loss {loss:.6f} vs (b)'s "
@@ -3692,6 +3932,22 @@ DIST_G = ("host mode=explicit grad_compression=float32 "
           "compression=powersgd rank=1")
 DIST_G_RANK = 1
 DIST_G_LAYERS = 6
+# (g) runs its model in float32 compute: three Adam steps on rank-1
+# PowerSGD gradients carry the last bits of each step's products into
+# step 3, and in bf16 compute the backward's rounding (2^-9 a product)
+# moves the step-3 grad norm by about its 1e-3 bound, whichever backward
+# computes it; in float32 (TF32 off) both sides round at 2^-24, and what
+# (g) holds -- powersgd_sync compressing each leaf's whole matrix from the
+# model axis's shards as one process does -- is float32 arithmetic
+# already (grad_compression=float32)
+
+
+def _dist_g_image() -> str:
+    """(g)'s image: DIST_IMAGEFILE at 6 layers under DIST_G, in float32
+    compute."""
+    return DIST_IMAGEFILE.format(
+        arch="llama3.2-3b", layers=f" n_layers={DIST_G_LAYERS}",
+        collectives=DIST_G).replace("compute=bfloat16", "compute=float32")
 # (h) the MoE over data replicas: a (data 2, model 1) mesh, generic,
 # moonshot-v1-16b-a3b at full width cut to (d)'s dense layer and one MoE
 # layer (64 experts whole on each rank), one 2048-token row a rank, 3
@@ -3781,12 +4037,12 @@ def _dist_launches(arch: str, layers: int) -> dict:
     """The kernel launches one rank of (d) or (e) makes in DIST_D_STEPS
     steps under remat (a forward and the backward's recompute a step, then
     one backward): K2 per attention layer, K4 per rec layer, K5 per ssm
-    layer, twice a step each; K4's reverse scan once."""
+    layer, twice a step each; K2's backward and K4's reverse scan once."""
     from repro_torch.configs import get_config
     kinds = get_config(arch, n_layers=layers).layer_types()
     rec = kinds.count("rec")
-    per = {"flash_attention_fwd": 2 * sum(k in ("attn", "moe")
-                                          for k in kinds),
+    attn = sum(k in ("attn", "moe") for k in kinds)
+    per = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd": attn,
            "rglru_scan": 2 * rec, "ssd": 2 * kinds.count("ssm"),
            "rglru_scan_bwd": rec}
     return {k: n * DIST_D_STEPS for k, n in per.items() if n}
@@ -3834,11 +4090,12 @@ def _ranks_runs(torch, workdir: Path, runs: list, pods=(),
 
 
 def _shape_gate(rs: list, state) -> tuple[dict, bool]:
-    """Every K1, K2, K4 and K5 shape the ranks called, and whether each is
-    one the kernels phase held to its plain version."""
+    """Every K1, K2, K2 backward, K4 and K5 shape the ranks called, and
+    whether each is one the kernels phase held to its plain version."""
     pod = _pod_tp_shapes()
     checked = {"k1": set(state.get("k1_checked", ())),
                "k2": {(*c, True) for c in state.get("k2_checked", ())},
+               "k2_bwd": set(state.get("k2_bwd_checked", ())),
                "k4": set(K4_TP) | set(pod["k4"]),
                "k5": set(K5_TP) | set(pod["k5"])}
     shapes = {k: sorted({tuple(x) for r in rs for x in r["shapes"][k]})
@@ -3883,9 +4140,7 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
         texts[f"fsdp {name}"] = text + f"SET fsdp=true remat={remat}\n"
         runs.append({"name": f"fsdp {name}", "mesh": [2, 1],
                      "imagefile": texts[f"fsdp {name}"]})
-    g_text = DIST_IMAGEFILE.format(arch="llama3.2-3b",
-                                   layers=f" n_layers={DIST_G_LAYERS}",
-                                   collectives=DIST_G)
+    g_text = _dist_g_image()
     # one process at model 1: the same initial Q (the whole leaves' draws,
     # from the same generator)
     refs["psgd"] = _dist_reference(torch, workdir, g_text, DIST_D_STEPS)
@@ -3932,9 +4187,10 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
             f"rank's loss equal {same}; TP bytes a step a rank {tp} "
             f"(formula {want_tp}); launches a rank {counts} (expected "
             f"{want}); K2 shapes (B, Hq, Hkv, d, Sq, Sk, window, dtype, "
-            f"causal) {shapes['k2']}, K4 (B, S, R) {shapes['k4']}, K5 (b, "
-            f"S, H, P, N, chunk) {shapes['k5']}, all checked by the "
-            f"kernels phase {shapes_ok}; ranks hold /dev/nvidia* open "
+            f"causal) {shapes['k2']}, its backward {shapes['k2_bwd']}, K4 "
+            f"(B, S, R) {shapes['k4']}, K5 (b, S, H, P, N, chunk) "
+            f"{shapes['k5']}, all checked by the kernels phase "
+            f"{shapes_ok}; ranks hold /dev/nvidia* open "
             f"{on_card}; step s after the first (median) {med}, model-axis "
             f"collective s {[round(r['collective_seconds'], 3) for r in rs]}"
             f"; peak memory a rank {[round(_gib(r['peak']), 2) for r in rs]}"
@@ -3989,7 +4245,8 @@ def _dist_de(torch, state, workdir: Path, llama_ref: tuple) -> list[str]:
             f"step a rank {wire} (fsdp_wire_bytes {want_wire}; by "
             f"operation over the run {rs[0]['by_op'].get(coll)}); launches "
             f"a rank {counts} (expected {want}); K2 shapes {shapes['k2']} "
-            f"checked {shapes_ok}; ranks hold /dev/nvidia* open {on_card}; "
+            f"(backward {shapes['k2_bwd']}) checked {shapes_ok}; ranks hold "
+            f"/dev/nvidia* open {on_card}; "
             f"step s after the first (median) {med}, collective s "
             f"{[round(r['collective_seconds'], 3) for r in rs]}; peak "
             f"memory a rank {[round(_gib(p), 2) for p in peaks]} GiB vs "
@@ -4042,7 +4299,8 @@ def _dist_g(state, rs: list, ref: tuple, seen: dict,
              "columns": sum(bool(d) for d in splits.values()),
              "strided": sum(bool(d) and d >= 2 for d in splits.values())}
     wire = [s["wire"] for r in rs for s in r["steps"]]
-    want_tp = tp_wire_bytes(cfg, cfg.n_kv_heads, DIST_D_TOKENS, 2, "full")
+    # float32 compute: 4-byte activations on the model axis
+    want_tp = tp_wire_bytes(cfg, cfg.n_kv_heads, DIST_D_TOKENS, 4, "full")
     tp = [s["tp"] for r in rs for s in r["steps"]]
     launches = _dist_launches("llama3.2-3b", DIST_G_LAYERS)
     counts = [{k: n for k, n in r["launches"].items() if n} for r in rs]
@@ -4056,8 +4314,9 @@ def _dist_g(state, rs: list, ref: tuple, seen: dict,
     med = [statistics.median(s["seconds"] for s in r["steps"][1:])
            for r in rs]
     log(f"dist: (g) PowerSGD (rank {DIST_G_RANK}, float32 means) on the "
-        f"(data 1, model 2) mesh, llama3.2-3b {DIST_G_LAYERS} layers, "
-        f"host mode=explicit: compressed leaves by split {kinds} of "
+        f"(data 1, model 2) mesh, llama3.2-3b {DIST_G_LAYERS} layers in "
+        f"float32 compute, host mode=explicit: compressed leaves by split "
+        f"{kinds} of "
         f"{len(splits)}; losses {[round(s['loss'], 6) for s in r0]} "
         f"vs one process at model 1 {[round(l, 6) for l, _ in ref]}: max "
         f"loss rel diff {dl:.2e}, max grad_norm rel diff {dg:.2e} (tol "
@@ -4065,7 +4324,8 @@ def _dist_g(state, rs: list, ref: tuple, seen: dict,
         f"axis's PowerSGD bytes a step a rank {wire} (powersgd_wire_bytes "
         f"{want['model']}); TP bytes a step {tp} (formula {want_tp}); "
         f"launches a rank {counts} (expected {launches}); K2 shapes "
-        f"{shapes['k2']} checked {shapes_ok}; ranks hold /dev/nvidia* open "
+        f"{shapes['k2']} (backward {shapes['k2_bwd']}) checked {shapes_ok}; "
+        f"ranks hold /dev/nvidia* open "
         f"{on_card}; step s after the first (median) {med}; peak memory a "
         f"rank {[round(_gib(r['peak']), 2) for r in rs]} GiB vs one "
         f"process {_gib(ref_peak):.2f} GiB; {mem} {'ok' if ok else 'FAIL'} "
@@ -4135,7 +4395,8 @@ def _dist_h(state, rs: list, ref: tuple, ref_drops: list, seen: dict,
         f"step a rank {wire} (generic_wire_bytes {want_wire}); the count "
         f"gathers' bytes a step a rank {moe} (moe_count_bytes "
         f"{want_moe}); launches a rank {counts} (expected {launches}); K2 "
-        f"shapes {shapes['k2']} checked {shapes_ok}; ranks hold "
+        f"shapes {shapes['k2']} (backward {shapes['k2_bwd']}) checked "
+        f"{shapes_ok}; ranks hold "
         f"/dev/nvidia* open {on_card}; step s after the first (median) "
         f"{med}, collective s "
         f"{[round(r['collective_seconds'], 3) for r in rs]}; peak memory a "
@@ -4248,7 +4509,8 @@ def tp_worker(spec_path: str) -> int:
     it and its train step (``Container.train_step_fn``), takes the steps,
     and records its losses, grad norms, the bytes each step handed to the
     model axis and to the ABI, step seconds, peak memory, kernel launches
-    and the shapes of its K1, K2, K4 and K5 calls, and an MoE run's
+    and the shapes of its K1, K2, K2 backward, K4 and K5 calls, and an
+    MoE run's
     dropped assignments a step; then, for each pod of the spec, serves
     the pod's requests through a ``Pod`` on its mesh ((data 1, model 2)
     or (data 2, model 1)) and a ``ContinuousScheduler``
@@ -4270,9 +4532,11 @@ def tp_worker(spec_path: str) -> int:
     torch.cuda.set_device(device)
     dist.init_process_group("gloo", init_method="env://", rank=rank,
                             world_size=int(os.environ["WORLD_SIZE"]))
-    shapes = {"k1": set(), "k2": set(), "k4": set(), "k5": set()}
+    shapes = {"k1": set(), "k2": set(), "k2_bwd": set(), "k4": set(),
+              "k5": set()}
     real = (fa_ops.flash_attention_fwd_cuda, rg_ops.rglru_scan_cuda,
-            ssd_ops.ssd_cuda, pa_ops.paged_attention_cuda)
+            ssd_ops.ssd_cuda, pa_ops.paged_attention_cuda,
+            fa_ops.flash_attention_bwd_cuda)
 
     def k1(q, kp, vp, table, lengths, **kw):
         shapes["k1"].add((q.shape[0], kp.shape[0], q.shape[1] // kp.shape[0],
@@ -4280,11 +4544,16 @@ def tp_worker(spec_path: str) -> int:
                           str(q.dtype).removeprefix("torch.")))
         return real[3](q, kp, vp, table, lengths, **kw)
 
-    def k2(q, k, v, *, causal=True, window=0, scale=None):
+    def k2(q, k, v, *, causal=True, window=0, **kw):
         shapes["k2"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[3],
                           q.shape[2], k.shape[2], int(window),
                           str(q.dtype).removeprefix("torch."), bool(causal)))
-        return real[0](q, k, v, causal=causal, window=window, scale=scale)
+        return real[0](q, k, v, causal=causal, window=window, **kw)
+
+    def k2_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, **kw):
+        shapes["k2_bwd"].add(_k2_key(q, k, window, causal))
+        return real[4](q, k, v, out, lse, dout, causal=causal, window=window,
+                       **kw)
 
     def k4(a, b, reverse=False):
         shapes["k4"].add(tuple(a.shape))
@@ -4294,6 +4563,7 @@ def tp_worker(spec_path: str) -> int:
         shapes["k5"].add((*x.shape, B.shape[-1], chunk))
         return real[2](x, dt, A, B, C, chunk)
     fa_ops.flash_attention_fwd_cuda = k2
+    fa_ops.flash_attention_bwd_cuda = k2_bwd
     rg_ops.rglru_scan_cuda = k4
     ssd_ops.ssd_cuda = k5
     pa_ops.paged_attention_cuda = k1
@@ -4365,7 +4635,8 @@ def tp_worker(spec_path: str) -> int:
             Path(spec["out"]).write_text(json.dumps(everything))
     finally:
         (fa_ops.flash_attention_fwd_cuda, rg_ops.rglru_scan_cuda,
-         ssd_ops.ssd_cuda, pa_ops.paged_attention_cuda) = real
+         ssd_ops.ssd_cuda, pa_ops.paged_attention_cuda,
+         fa_ops.flash_attention_bwd_cuda) = real
         dist.destroy_process_group()
     return 0
 
@@ -4692,7 +4963,8 @@ def _dryrun_real_step(torch, state) -> list[str]:
     diffs = _op_diffs(r, m)
     other_path = any(a is None or b is None or a[2] != b[2]
                      for a, b in diffs.values())
-    want_k2 = {"flash_attention_fwd": DIST_B_LAYERS * 2}
+    want_k2 = {"flash_attention_fwd": DIST_B_LAYERS * 2,
+               "flash_attention_bwd": DIST_B_LAYERS}
     launched = {k: n for k, n in launches.items() if n}
     ok = (r.flops == m.flops and r.kernel_calls == m.kernel_calls == want_k2
           and launched == want_k2 and (r.bytes == m.bytes or other_path))
@@ -4720,7 +4992,8 @@ def _dryrun_real_step(torch, state) -> list[str]:
     measured = run.get("peak_gib", float("nan")) * 2**30
     fits = mem["resident_bytes"] <= analysis.HBM_PER_CHIP
     total = torch.cuda.get_device_properties(0).total_memory
-    want_k2 = {"flash_attention_fwd": full.arch.n_layers * 2}
+    want_k2 = {"flash_attention_fwd": full.arch.n_layers * 2,
+               "flash_attention_bwd": full.arch.n_layers}
     ok = (low.counter.kernel_calls == want_k2 and bool(run)
           and fits == (measured <= analysis.HBM_PER_CHIP))
     log(f"dryrun: (c) llama3.2-3b full width, {full.arch.n_layers} layers, "
@@ -4768,6 +5041,20 @@ def phase_dryrun(torch, state, workdir: Path) -> None:
     check(not failures, "dryrun: " + "; ".join(failures))
 
 
+def _record_k2_bwd(state) -> None:
+    """Every in-process call of K2's backward wrapper, for the run: its
+    shape (``_k2_key``) appended to ``state["k2_bwd_calls"]``, which each
+    phase's end reads and clears (a rank records its own: ``tp_worker``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    real = fa_ops.flash_attention_bwd_cuda
+
+    def k2_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, **kw):
+        state["k2_bwd_calls"].append(_k2_key(q, k, window, causal))
+        return real(q, k, v, out, lse, dout, causal=causal, window=window,
+                    **kw)
+    fa_ops.flash_attention_bwd_cuda = k2_bwd
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--tp-worker"]:
         return tp_worker(sys.argv[2])
@@ -4785,7 +5072,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
-    state = {"records": {}, "launches": {}, "card": ""}
+    state = {"records": {}, "launches": {}, "card": "", "k2_bwd_calls": []}
+    _record_k2_bwd(state)
     failed = []
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4829,6 +5117,14 @@ def main() -> int:
                 if not isinstance(e, PhaseError):
                     import traceback
                     traceback.print_exc(file=sys.stdout)
+            unheld = (set(state["k2_bwd_calls"])
+                      - state.get("k2_bwd_checked", set()))
+            state["k2_bwd_calls"].clear()
+            if unheld and phase not in failed:
+                failed.append(phase)
+                log(f"FAIL {phase}: K2's backward ran at shapes the kernels "
+                    f"phase did not hold to its plain version: "
+                    f"{sorted(unheld)}")
             log(f"== {phase} {'failed' if phase in failed else 'passed'} "
                 f"in {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke: {len(PHASES)} phases in "

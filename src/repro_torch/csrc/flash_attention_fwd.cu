@@ -110,8 +110,8 @@ __device__ __forceinline__ bool visible(int kc, int qr, int Sk, int off,
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, int causal, int window,
-    float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Sq,
+    int Sk, int causal, int window, float scale) {
   using TL = Tile<D, BQ, BK>;
   constexpr int RM = TL::RM, CN = TL::CN, DN = TL::DN;
   constexpr int QST = TL::QST, PST = TL::PST;
@@ -243,14 +243,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < DN; ++j)
         store_as(&op[(size_t)qr * D + tx + 8 * j], acc[i][j] / denom);
+      if (lse != nullptr && tx == 0)
+        lse[(size_t)bh * Sq + qr] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
     }
   }
 }
 
 template <typename T, int D, int BQ, int BK>
 cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                        int causal, int window, float scale,
+                        cudaStream_t stream) {
   const size_t smem = Tile<D, BQ, BK>::smem_bytes;
   auto kern = flash_fwd_kernel<T, D, BQ, BK>;
   if (smem > 48 * 1024) {
@@ -261,35 +265,35 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(int d, const void* q, const void* k, const void* v,
-                       void* o, int B, int Hq, int Hkv, int Sq, int Sk,
-                       int causal, int window, float scale,
+                       void* o, float* lse, int B, int Hq, int Hkv, int Sq,
+                       int Sk, int causal, int window, float scale,
                        cudaStream_t stream) {
   using T = float;
   switch (d) {
     case 16:
-      return launch_tile<T, 16, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                        causal, window, scale, stream);
+      return launch_tile<T, 16, 64, 64>(
+          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
     case 32:
-      return launch_tile<T, 32, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                        causal, window, scale, stream);
+      return launch_tile<T, 32, 64, 64>(
+          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
     case 64:
-      return launch_tile<T, 64, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                        causal, window, scale, stream);
+      return launch_tile<T, 64, 64, 64>(
+          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
     case 80:
-      return launch_tile<T, 80, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                        causal, window, scale, stream);
+      return launch_tile<T, 80, 64, 64>(
+          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
     case 128:
-      return launch_tile<T, 128, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                         causal, window, scale, stream);
+      return launch_tile<T, 128, 64, 64>(
+          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
     case 256:
-      return launch_tile<T, 256, 32, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                         causal, window, scale, stream);
+      return launch_tile<T, 256, 32, 32>(
+          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -373,8 +377,8 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int Hq, int Hkv, int Sq, int Sk, int causal, int window,
-    float scale_log2) {
+    float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int causal,
+    int window, float scale_log2) {
   using TL = MmaTile<D>;
   constexpr int BKV = TL::BKV, ST = TL::ST;
   constexpr int NS = BKV / 8;     // score n-blocks a warp holds
@@ -552,6 +556,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int r = r_lo + 8 * i;
     if (r >= Sq) continue;
+    // the row's log-sum-exp in natural units: m_r is in log2 units
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(size_t)bh * Sq + r] =
+          l > 0.f ? m_r[i] * 0.6931471805599453f + logf(l) : -neg_inf();
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + (size_t)r * D + 8 * j +
@@ -562,8 +570,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-                       int window, float scale, cudaStream_t stream) {
+                       float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = MmaTile<D>::smem_bytes;
   static bool attr_set = false;
   if (!attr_set) {
@@ -580,36 +589,36 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hq, Hkv, Sq, Sk, causal, window, scale * 1.4426950408889634f);
+      lse, Hq, Hkv, Sq, Sk, causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(int d, const void* q, const void* k, const void* v,
-                        void* o, int B, int Hq, int Hkv, int Sq, int Sk,
-                        int causal, int window, float scale,
+                        void* o, float* lse, int B, int Hq, int Hkv, int Sq,
+                        int Sk, int causal, int window, float scale,
                         cudaStream_t stream) {
   // 16-byte cp.async rows need 16-byte aligned bases
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
     return cudaErrorMisalignedAddress;
   switch (d) {
     case 16:
-      return launch_mma<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                            scale, stream);
+      return launch_mma<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                            window, scale, stream);
     case 32:
-      return launch_mma<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                            scale, stream);
+      return launch_mma<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                            window, scale, stream);
     case 64:
-      return launch_mma<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                            scale, stream);
+      return launch_mma<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                            window, scale, stream);
     case 80:
-      return launch_mma<80>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                            scale, stream);
+      return launch_mma<80>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                            window, scale, stream);
     case 128:
-      return launch_mma<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                             scale, stream);
+      return launch_mma<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                             window, scale, stream);
     case 256:
-      return launch_mma<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                             scale, stream);
+      return launch_mma<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                             window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -618,23 +627,26 @@ cudaError_t launch_bf16(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16. lse: null, or float32 (B, Hq, Sq) that
+// receives each row's log-sum-exp of its scaled scores (+inf on a row that
+// sees no key), for the backward; out is the same bits either way.
+// Returns a cudaError_t code (0 = ok).
 extern "C" int flash_attention_fwd_launch(int dtype, const void* q,
                                           const void* k, const void* v,
-                                          void* o, int B, int Hq, int Hkv,
-                                          int Sq, int Sk, int d, int causal,
-                                          int window, float scale,
+                                          void* o, float* lse, int B, int Hq,
+                                          int Hkv, int Sq, int Sk, int d,
+                                          int causal, int window, float scale,
                                           void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
       (long long)B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_f32(d, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                           scale, s);
+    return (int)launch_f32(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                           window, scale, s);
   if (dtype == 1)
-    return (int)launch_bf16(d, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                            scale, s);
+    return (int)launch_bf16(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
+                            window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

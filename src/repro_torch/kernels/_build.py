@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "paged_attention": "paged_attention.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "ssd": "ssd.cu",
     "rglru_scan": "rglru_scan.cu",
     "matmul": "matmul.cu",

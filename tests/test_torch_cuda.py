@@ -16,7 +16,12 @@ max (the JAX suite's bound: at mamba2-2.7b's widths each output sums 128
 state and 256 time products, and the two versions round them in other
 orders), the RG-LRU kernel within 1e-5 absolute of the sequential version
 scaled by max(1, max |h|) (its tiles' carries compose the recurrence in
-another order, fixed, so repeated calls agree bit for bit).
+another order, fixed, so repeated calls agree bit for bit). K2's
+backward kernels against the dense float32 plain backward from the same
+out and L, relative to the largest plain gradient: 1e-4 in float32 (FMA
+sums in another order), 2^-7 in bfloat16 (P and dS are rounded to bf16
+before their products, as the forward rounds P); the forward's L within
+1e-4 of max(1, max |L|) of the plain log-sum-exp.
 """
 
 import numpy as np
@@ -24,7 +29,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_lse_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -505,9 +512,12 @@ def test_attend_bf16_scores_on_the_card(cuda, dtype):
 
 # ---------------------------------------------------------------------------
 # gradients: each kernel's torch.autograd.Function on the card against the
-# plain version under autograd (the same vjp, recomputed: grads within the
-# forward's tolerance), a launch a forward
+# plain version under autograd, a launch a forward (and for K2 and K4 one
+# backward launch); K2's backward kernels against its plain backward
 # ---------------------------------------------------------------------------
+
+# the backward kernels' bound, relative to the largest plain gradient
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 
 GRAD_FA_CASES = [  # B, Hq, Hkv, S, d, window, dtype
     (1, 4, 2, 128, 64, 0, "bfloat16"),
@@ -524,24 +534,151 @@ def _grad_pair(fn, plain, inputs, cot):
             torch.autograd.grad(ref, rs, cot))
 
 
+def _bwd_close(got, want, dt):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BWD_TOL[dt] * float(b.float().abs().max()), err
+
+
 @pytest.mark.parametrize("case", GRAD_FA_CASES, ids=str)
 def test_flash_attention_function_grads(case, cuda):
+    """The Function's forward within the forward's tolerance of the plain
+    version, its grads (the backward kernels) within the backward's of
+    the dense float32 plain backward."""
     B, Hq, Hkv, S, d, window, dt = case
     rng = np.random.default_rng(7)
     t = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
     q, k, v, cot = t(B, Hq, S, d), t(B, Hkv, S, d), t(B, Hkv, S, d), \
         t(B, Hq, S, d)
-    before = fa_ops.launches
+    before = fa_ops.launches, fa_ops.bwd_launches
     out, ref, g, gr = _grad_pair(
         lambda *x: fa_ops.flash_attention(*x, causal=True, window=window),
         lambda *x: flash_attention_ref(*x, causal=True, window=window),
         (q, k, v), cot)
     torch.cuda.synchronize()
-    assert fa_ops.launches == before + 1
-    for a, b in ((out, ref), *zip(g, gr)):
-        assert a.dtype == b.dtype
-        assert float((a.float() - b.float()).abs().max()) < _tol(dt)
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert out.dtype == ref.dtype
+    assert float((out.float() - ref.float()).abs().max()) < _tol(dt)
+    f = [x.float() for x in (q, k, v)]
+    want = flash_attention_bwd_ref(
+        *f, flash_attention_ref(*f, causal=True, window=window),
+        flash_attention_lse_ref(*f[:2], causal=True, window=window),
+        cot.float(), causal=True, window=window)
+    _bwd_close(g, [w.to(x.dtype) for w, x in zip(want, gr)], dt)
+
+
+def test_flash_backward_on_the_card_never_reaches_a_plain_version(
+        cuda, monkeypatch):
+    """K2's Function forward and backward with its plain versions made to
+    raise: a forward launch and one backward launch, nothing else."""
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    for name in ("flash_attention_ref", "_out_lse_ref",
+                 "flash_attention_bwd_ref"):
+        monkeypatch.setattr(fa_ops, name, plain)
+    q = torch.randn(1, 4, 64, 32, device=cuda).requires_grad_()
+    kv = torch.randn(1, 2, 64, 32, device=cuda).requires_grad_()
+    before = fa_ops.launches, fa_ops.bwd_launches
+    fa_ops.flash_attention(q, kv, kv).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert all(torch.isfinite(x.grad).all() for x in (q, kv))
+
+
+# B, Hq, Hkv, Sq, Sk, d, causal, window, dtype: every head dim in both
+# dtypes, GQA groups 1-8 and recurrentgemma-2b's 10/1 (the dK/dV grid
+# split over the group, float32 partials summed in order), windows,
+# Sk > Sq suffixes, ragged lengths, a bidirectional case, rows that see no
+# key (Sk < Sq), and the training shapes' widths
+FA_BWD_CASES = [
+    (1, 4, 2, 40, 40, 16, True, 0, "float32"),
+    (1, 4, 2, 40, 40, 16, True, 0, "bfloat16"),
+    (2, 8, 1, 96, 96, 32, True, 0, "float32"),
+    (2, 8, 1, 96, 96, 32, True, 0, "bfloat16"),
+    (1, 4, 4, 128, 256, 64, True, 64, "float32"),
+    (1, 4, 4, 128, 256, 64, True, 64, "bfloat16"),
+    (1, 6, 2, 100, 137, 80, True, 0, "float32"),
+    (1, 6, 2, 100, 137, 80, True, 0, "bfloat16"),
+    (1, 24, 8, 128, 328, 128, True, 0, "float32"),
+    (1, 24, 8, 128, 328, 128, True, 0, "bfloat16"),
+    (2, 10, 1, 100, 137, 256, True, 48, "float32"),
+    (2, 10, 1, 100, 137, 256, True, 48, "bfloat16"),
+    (1, 8, 2, 64, 64, 64, True, 0, "bfloat16"),        # group 4
+    (1, 5, 1, 72, 72, 64, True, 0, "float32"),         # group 5
+    (1, 12, 2, 64, 64, 128, True, 24, "bfloat16"),     # group 6
+    (1, 7, 1, 80, 80, 32, True, 16, "float32"),        # group 7
+    (1, 2, 2, 128, 128, 128, False, 0, "bfloat16"),    # bidirectional
+    (1, 2, 2, 128, 128, 128, False, 0, "float32"),
+    (1, 2, 1, 64, 40, 32, True, 0, "bfloat16"),        # 24 rows see nothing
+    (1, 2, 1, 64, 40, 32, True, 0, "float32"),
+    (2, 24, 8, 512, 512, 128, True, 0, "bfloat16"),    # llama3.2-3b's widths
+    (1, 10, 1, 2048, 2048, 256, True, 2048, "bfloat16"),  # recurrentgemma
+    (1, 10, 1, 2048, 2048, 256, True, 2048, "float32"),
+]
+
+
+def _bwd_inputs(case, cuda, seed=11):
+    B, Hq, Hkv, Sq, Sk, d, causal, window, dt = case
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
+    q, k, v, do = t(B, Hq, Sq, d), t(B, Hkv, Sk, d), t(B, Hkv, Sk, d), \
+        t(B, Hq, Sq, d)
+    out, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, causal=causal,
+                                               window=window, lse=True)
+    return q, k, v, out, lse, do, dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES, ids=str)
+def test_flash_backward_kernel_vs_plain(case, cuda):
+    """The backward kernels against the dense plain backward on the same
+    q, k, v, out, L and dO (the forward kernel's out and L, L itself
+    against the plain log-sum-exp), one backward launch a call."""
+    dt = case[-1]
+    q, k, v, out, lse, do, kw = _bwd_inputs(case, cuda)
+    want_lse = flash_attention_lse_ref(q, k, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-4 * max(
+        1.0, float(want_lse[fin].abs().max()))
+    before = fa_ops.launches, fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (before[0],
+                                                      before[1] + 1)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    _bwd_close(got, want, dt)
+
+
+@pytest.mark.parametrize("case", [FA_BWD_CASES[11], FA_BWD_CASES[10],
+                                  FA_BWD_CASES[20]], ids=str)
+def test_flash_backward_same_bits_twice(case, cuda):
+    """No atomics: two calls give the same bits, with the group split
+    (10/1) and without (24/8)."""
+    q, k, v, out, lse, do, kw = _bwd_inputs(case, cuda)
+    a = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    b = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", [c for c in FA_CASES if c[0] * c[1] < 64],
+                         ids=str)
+def test_flash_forward_out_same_bits_with_and_without_lse(case, cuda):
+    """Writing L changes nothing of the forward's output."""
+    B, Hq, Hkv, Sq, Sk, d, causal, window, dt = case
+    rng = np.random.default_rng(5)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
+    q, k, v = t(B, Hq, Sq, d), t(B, Hkv, Sk, d), t(B, Hkv, Sk, d)
+    kw = dict(causal=causal, window=window)
+    out = fa_ops.flash_attention_fwd_cuda(q, k, v, **kw)
+    out2, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, lse=True, **kw)
+    assert torch.equal(out, out2) and lse.shape == (B, Hq, Sq)
 
 
 def test_rglru_scan_function_grads(cuda):

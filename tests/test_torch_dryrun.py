@@ -168,7 +168,9 @@ def test_depth_difference_is_the_unit_probe(kind, remat):
              for k, v in traces[2].kernel_calls.items()}
     assert calls == {k: 3 * v for k, v in p.kernel_calls.items()}
     if kind == "train":
-        assert p.kernel_calls == {"flash_attention_fwd": 2}  # + recompute
+        # the forward, its recompute and the backward kernels
+        assert p.kernel_calls == {"flash_attention_fwd": 2,
+                                  "flash_attention_bwd": 1}
     diff = traces[5].bytes - traces[2].bytes
     if kind == "decode":
         assert diff == 3 * p.bytes
@@ -190,31 +192,34 @@ SET remat=full optimizer={{"lr":0.0003,"warmup_steps":2,"total_steps":1000}}
 """
 # (label, mesh, arch, layers, collectives, extra SET, bytes a step a rank
 # by operation, kernel calls a step): the counts of chip_smoke.py's dist
-# phase on the H100 (PERF.md section 6); a step runs each rec layer's scan
-# twice (remat) and its reverse scan once
+# phase on the H100 (PERF.md section 6); a step runs each attention
+# layer's forward twice (remat) and its backward kernels once, each rec
+# layer's scan twice and its reverse scan once
+K2_TWO_LAYERS = {"flash_attention_fwd": 4, "flash_attention_bwd": 2}
 DIST_RUNS = [
     ("b generic", (2, 1), "llama3.2-3b", 2, "generic", "",
-     {"generic": {"all_reduce": 4_762_755_072}}, {"flash_attention_fwd": 4}),
+     {"generic": {"all_reduce": 4_762_755_072}}, K2_TWO_LAYERS),
     ("b host", (2, 1), "llama3.2-3b", 2, "host", "",
      {"host": {"reduce_scatter": 2_381_377_536,
-               "all_gather": 2_381_377_536}}, {"flash_attention_fwd": 4}),
+               "all_gather": 2_381_377_536}}, K2_TWO_LAYERS),
     ("b explicit", (2, 1), "llama3.2-3b", 2, "host mode=explicit", "",
-     {"host": {"all_reduce": 2_381_377_536}}, {"flash_attention_fwd": 4}),
+     {"host": {"all_reduce": 2_381_377_536}}, K2_TWO_LAYERS),
     ("d llama", (1, 2), "llama3.2-3b", 2, "generic", "",
-     {"tp": 671_186_944}, {"flash_attention_fwd": 4}),
+     {"tp": 671_186_944}, K2_TWO_LAYERS),
     ("d moonshot", (1, 2), "moonshot-v1-16b-a3b", 2, "generic", "",
-     {"tp": 537_165_824}, {"flash_attention_fwd": 4}),
+     {"tp": 537_165_824}, K2_TWO_LAYERS),
     ("d mamba2", (1, 2), "mamba2-2.7b", 2, "generic", "",
      {"tp": 269_375_488}, {"ssd": 4}),
     ("d recurrentgemma", (1, 2), "recurrentgemma-2b", 3, "generic", "",
      {"tp": 805_404_672}, {"rglru_scan": 4, "rglru_scan_bwd": 2,
-                           "flash_attention_fwd": 2}),
+                           "flash_attention_fwd": 2,
+                           "flash_attention_bwd": 1}),
     ("e generic", (2, 1), "llama3.2-3b", 2, "generic",
      "SET fsdp=true remat=full\n", {"generic": 5_568_110_592},
-     {"flash_attention_fwd": 4}),
+     K2_TWO_LAYERS),
     ("e host", (2, 1), "llama3.2-3b", 2, "host",
      "SET fsdp=true remat=dots\n", {"host": 5_568_110_592},
-     {"flash_attention_fwd": 4}),
+     K2_TWO_LAYERS),
 ]
 
 
@@ -458,7 +463,9 @@ def test_cli_without_jax(tmp_path):
     assert f"[ok " in text and f"[skip-cached] {name}" in text
     rec = json.loads((out / name).read_text())
     assert rec["status"] == "ok" and rec["n_devices"] == 256
-    assert rec["kernel_calls"] == {"flash_attention_fwd": 4}
+    # 2 layers: each forward twice (remat), the backward kernels once
+    assert rec["kernel_calls"] == {"flash_attention_fwd": 4,
+                                   "flash_attention_bwd": 2}
     assert rec["cost"]["collective_bytes_by_label"]["tp"]["all_reduce"] > 0
     table = text.split("== repro_torch.launch.report")[1]
     assert "| llama3.2-3b-smoke | train_4k" in table

@@ -8,8 +8,9 @@ relative to the largest reference gradient of each input: 1e-5 for K2 and
 K4 (the same arithmetic in float32, summed in other orders), 1e-4 for K5
 (its backward runs the chunked algorithm at the JAX wrapper's chunk, the
 port's at the forward's chunk: the same function, summed differently).
-The port's backward recomputes its plain version, so its grads on the CPU
-equal autograd through that version; the Functions' forward launch
+K2's backward on the CPU is its dense plain version from the forward's
+saved output and log-sum-exp (``flash_attention_bwd_ref``), bit for bit;
+K4's and K5's recompute their plain versions. The Functions' launch
 counters stay at zero on the CPU. Also: remat ``full`` and ``dots`` give
 the same loss and grads as no remat.
 """
@@ -25,7 +26,9 @@ from repro.kernels.rglru_scan.ops import rglru_scan as j_rglru
 from repro.kernels.ssd.ops import ssd as j_ssd
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_lse_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -65,16 +68,20 @@ def test_flash_attention_grads_match_jax(case):
                for s in ((B, Hq, S, d), (B, Hkv, S, d), (B, Hkv, S, d)))
     g = rng.standard_normal((B, Hq, S, d)).astype(np.float32)
     _, vjp = jax.vjp(lambda *x: j_flash(*x, True, window), q, k, v)
-    before = fa_ops.launches
+    before = fa_ops.launches, fa_ops.bwd_launches
     tgrads = _torch_vjp(lambda *x: fa_ops.flash_attention(
         *x, causal=True, window=window), (q, k, v), g)
     _grads_close(vjp(jnp.asarray(g)), tgrads, 1e-5)
-    # the backward is autograd through the plain version, exactly
-    ref = _torch_vjp(lambda *x: flash_attention_ref(
-        *x, causal=True, window=window), (q, k, v), g)
+    # the backward is the plain backward from the forward's out and L,
+    # exactly
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    lse = flash_attention_lse_ref(tq, tk, causal=True, window=window)
+    ref = flash_attention_bwd_ref(tq, tk, tv, out, lse, torch.from_numpy(g),
+                                  causal=True, window=window)
     for a, b in zip(tgrads, ref):
         assert torch.equal(a, b)
-    assert fa_ops.launches == before
+    assert (fa_ops.launches, fa_ops.bwd_launches) == before
 
 
 def test_rglru_scan_grads_match_jax():

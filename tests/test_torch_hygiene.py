@@ -327,7 +327,8 @@ def test_build_needs_nvcc_and_writes_under_build(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
     assert set(_build.SOURCES) == {"paged_attention", "flash_attention_fwd",
-                                   "ssd", "rglru_scan", "matmul"}
+                                   "flash_attention_bwd", "ssd",
+                                   "rglru_scan", "matmul"}
     for src in _build.SOURCES.values():
         text = (_build.CSRC / src).read_text()
         assert "Replaces: src/repro/kernels/" in text

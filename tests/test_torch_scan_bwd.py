@@ -51,7 +51,8 @@ def test_meta_step_counts_the_reverse_scan():
     """recurrentgemma-2b-smoke (rec, rec, attn) traced on ``meta``: each rec
     layer's backward is one ``rglru_scan_bwd`` call at ``cost()`` of its
     shape (one reverse launch on a card), each scan forward twice under
-    remat=full, the attention layer's forward twice."""
+    remat=full, the attention layer's forward twice and its backward
+    kernels once."""
     from repro_torch.configs import get_config
     cfg = get_config("recurrentgemma-2b-smoke")
     S, B = 16, 2
@@ -64,7 +65,8 @@ def test_meta_step_counts_the_reverse_scan():
     rec = cfg.layer_types().count("rec")
     assert counter.kernel_calls == {"rglru_scan": 2 * rec,
                                     "rglru_scan_bwd": rec,
-                                    "flash_attention_fwd": 2}
+                                    "flash_attention_fwd": 2,
+                                    "flash_attention_bwd": 1}
     flops, nbytes = rg_ops.cost(B, S, cfg.rnn_width_)
     assert counter.by_op["kernel:rglru_scan_bwd"] == [rec * flops,
                                                       rec * nbytes, rec]
