@@ -31,9 +31,11 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             shapes against the plain reverse scan, bit for bit against a
             second call; K2's backward kernels, from the forward kernel's
             out and L, at every shape a training path gives them (float32
-            and bf16) against the dense float32 plain backward, the ranks'
-            shapes timed (a phase, or a rank, that runs the backward at
-            another shape fails)
+            and bf16) against the dense float32 plain backward, each line
+            naming the route the .cu chose (wgmma, mma.sync or fma; a
+            bf16 call at d 64 or 128 off the wgmma route fails), the
+            ranks' shapes timed beside SDPA's backward (a phase, or a
+            rank, that runs the backward at another shape fails)
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
             on the card: the blocked matmul called natively (blocks named:
             platform "h100") and through a container bound from an
@@ -152,7 +154,8 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             within 2^-7 of the largest gradient of a dense float32 plain
             backward and the same bits from two calls; forward and
             backward times (K2's backward kernels beside their bound
-            (``cost_bwd``), the plain backward and SDPA's backward); (b)
+            (``cost_bwd``), their route, the plain backward and SDPA's
+            backward; K4's and K5's backward beside their bound); (b)
             five smoke reductions (llama, mamba2,
             recurrentgemma, moonshot, musicgen) trained 3 steps on the card
             and on the CPU from the same weights and batches, float32:
@@ -305,7 +308,7 @@ reverse scan count apart from their forwards (the wrappers'
 counts and in the kernel records), so every forward gate keeps its
 formula and every gate that wants no kernel also wants no backward; a
 training step runs K2's backward once per attention layer (one call, its
-three or four device kernels) and K4's reverse scan once per rec layer. A
+two to four device kernels) and K4's reverse scan once per rec layer. A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
 Output ends with a JSON line of kernel records, the card line, and
@@ -620,6 +623,19 @@ K2_BWD_RANKS = (*K2_TP, *K2_FSDP, *K2_G, *K2_DP)
 # rounds P and dS before their products (as the forward rounds P before
 # P V), 2^-7
 K2_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# the head dims whose bfloat16 backward must run the TMA + wgmma kernels:
+# a call at one of them that the .cu's route getter
+# (``ops.bwd_route``) sends elsewhere fails the run
+K2_BWD_WGMMA_DIMS = (64, 128)
+
+
+def k2_bwd_route(torch, dname: str, d: int) -> tuple[str, bool]:
+    """The backward's route at (dtype, d), as the .cu chooses it, and
+    whether it is the one this script requires."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    route = fa_ops.bwd_route(getattr(torch, dname), d)
+    return route, (route == "wgmma" or dname != "bfloat16"
+                   or d not in K2_BWD_WGMMA_DIMS)
 
 
 def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
@@ -898,9 +914,10 @@ def _kernels_flash_bwd(torch, state, timer) -> list[str]:
     """K2's backward kernels at every K2_BWD and K2_BWD_RANKS shape, from
     the forward kernel's out and L, against the dense float32 plain
     backward fed the float32 plain out and L on the same inputs: dq, dk
-    and dv within K2_BWD_TOL of its largest gradient; the ranks' shapes
-    timed beside their bound (and, in float32, SDPA's backward). Keeps
-    the shapes held in ``state["k2_bwd_checked"]``."""
+    and dv within K2_BWD_TOL of its largest gradient, on the route that
+    ``k2_bwd_route`` requires; the ranks' shapes timed beside their bound
+    and SDPA's backward. Keeps the shapes held in
+    ``state["k2_bwd_checked"]``."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -926,14 +943,15 @@ def _kernels_flash_bwd(torch, state, timer) -> list[str]:
         torch.cuda.synchronize()
         errs = [float((a.float() - b).abs().max()) for a, b in zip(got, want)]
         lims = [K2_BWD_TOL[dname] * float(b.abs().max()) for b in want]
-        ok = (all(bool(torch.isfinite(a).all()) for a in got)
+        route, route_ok = k2_bwd_route(torch, dname, d)
+        ok = (route_ok and all(bool(torch.isfinite(a).all()) for a in got)
               and all(e <= lim for e, lim in zip(errs, lims)))
         del got, want, f
         held = ", ".join(f"{e:.2e}/{lim:.2e}" for e, lim in zip(errs, lims))
         line = (f"kernels: flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} d={d} "
-                f"Sq={Sq} Sk={Sk} causal window={window} {dname} "
-                f"({'tensor cores' if dname == 'bfloat16' else 'fma'}): dq, "
-                f"dk, dv max_abs_err vs the dense float32 plain backward "
+                f"Sq={Sq} Sk={Sk} causal window={window} {dname} (route "
+                f"{route}{'' if route_ok else ', not the required wgmma'}): "
+                f"dq, dk, dv max_abs_err vs the dense float32 plain backward "
                 f"(err/tol) {held} {'ok' if ok else 'FAIL'}")
         if case in K2_BWD_RANKS:
             ms = timer(lambda: fa_ops.flash_attention_bwd_cuda(
@@ -943,17 +961,23 @@ def _kernels_flash_bwd(torch, state, timer) -> list[str]:
             rec = dict(ms=ms, bound_ms=bms, bound_by=by,
                        max_abs_err=max(errs))
             line += f"; time {ms:.4f} ms, bound {bms:.4f} ms ({by})"
-            if dname == "float32":
-                # the library's attention backward on the same inputs
-                xs = [t.detach().requires_grad_() for t in (
-                    q, k.repeat_interleave(Hq // Hkv, dim=1),
-                    v.repeat_interleave(Hq // Hkv, dim=1))]
-                o = F.scaled_dot_product_attention(*xs, is_causal=True)
-                rec["library_ms"] = timer(lambda: torch.autograd.grad(
-                    o, xs, dout, retain_graph=True))
-                line += (f", library (scaled_dot_product_attention "
-                         f"backward) {rec['library_ms']:.4f} ms")
-                del xs, o
+            # the library's attention backward on the same inputs (an
+            # explicit mask where the window cuts into the keys)
+            xs = [t.detach().requires_grad_() for t in (
+                q, k.repeat_interleave(Hq // Hkv, dim=1),
+                v.repeat_interleave(Hq // Hkv, dim=1))]
+            mask = None
+            if window and window < Sk:
+                rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+                cols = torch.arange(Sk, device="cuda")[None, :]
+                mask = (cols <= rows) & (cols > rows - window)
+            o = F.scaled_dot_product_attention(
+                *xs, attn_mask=mask, is_causal=mask is None)
+            rec["library_ms"] = timer(lambda: torch.autograd.grad(
+                o, xs, dout, retain_graph=True))
+            line += (f", library (scaled_dot_product_attention "
+                     f"backward) {rec['library_ms']:.4f} ms")
+            del xs, o, mask
             state.setdefault("kernel_dist", {})[
                 f"K2 backward {B}x{Hq}/{Hkv}x{Sq}x{d} w{window} "
                 f"{dname}"] = rec
@@ -2906,9 +2930,8 @@ def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
     log(f"train: {name}: max_abs_err out, grads (err/tol) "
         f"{', '.join(errs)} {'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms "
         f"(bound {bound[0]:.4f} ms, {bound[1]}), backward ({bwd['what']}) "
-        f"{bms:.4f} ms"
-        + (f" (bound {bwd['bound'][0]:.4f} ms, {bwd['bound'][1]})"
-           if bwd["bound"] else "") + f" [{state['card']}]")
+        f"{bms:.4f} ms (bound {bwd['bound'][0]:.4f} ms, {bwd['bound'][1]}) "
+        f"[{state['card']}]")
     return ok, fwd, bms
 
 
@@ -2930,6 +2953,7 @@ def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
     the dense float32 plain backward, two backward calls the same bits;
     the forward's time, the backward kernels' (one wrapper call on the
     forward kernel's out and L) beside their bound, the plain backward's.
+    The backward's route must be the one ``k2_bwd_route`` requires.
     Returns (ok, forward ms, backward dict)."""
     from repro_torch.kernels._launch import device_sms
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2961,8 +2985,9 @@ def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
         errs.append(float((a.float() - b).abs().max()))
         lims.append(K2_BWD_TOL["bfloat16"] * float(b.abs().max()))
     del want, f
+    route, route_ok = k2_bwd_route(torch, "bfloat16", d)
     ok = (bool(torch.isfinite(out).all()) and out_err <= TOL["bfloat16"]
-          and same and all(e <= l for e, l in zip(errs, lims)))
+          and same and route_ok and all(e <= l for e, l in zip(errs, lims)))
     with torch.no_grad():
         fwd = timer(lambda: fa_ops.flash_attention(*inputs, **kw))
         o, lse = fa_ops.flash_attention_fwd_cuda(*inputs, lse=True, **kw)
@@ -2974,7 +2999,7 @@ def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
     bwd_bound = k2_bwd_bound(B, Hq, Hkv, d, S, S, window, 2, "bfloat16")
     fwd_bound = k2_bound(B, Hq, Hkv, d, S, S, window, 2, "bfloat16")
     parts = fa_ops.group_splits(B, Hkv, S, Hq // Hkv,
-                                fa_ops.bwd_key_block(torch.bfloat16),
+                                fa_ops.bwd_key_block(torch.bfloat16, d),
                                 device_sms(inputs[0].device))
     log(f"train: {name}: max_abs_err out {out_err:.2e} (tol "
         f"{TOL['bfloat16']:g}), grads dq, dk, dv vs the dense float32 "
@@ -2983,9 +3008,10 @@ def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
         f"two backward calls the same bits {same} "
         f"{'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms (bound "
         f"{fwd_bound[0]:.4f} ms, {fwd_bound[1]}), backward kernels "
-        f"{ms:.4f} ms (bound {bwd_bound[0]:.4f} ms, {bwd_bound[1]}; the "
-        f"group in {parts} part(s)), plain backward {plain_ms:.4f} ms "
-        f"[{state['card']}]")
+        f"{ms:.4f} ms (route {route}"
+        f"{'' if route_ok else ', not the required wgmma'}; bound "
+        f"{bwd_bound[0]:.4f} ms, {bwd_bound[1]}; the group in {parts} "
+        f"part(s)), plain backward {plain_ms:.4f} ms [{state['card']}]")
     return ok, fwd, dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(errs))
 
 
@@ -3052,15 +3078,16 @@ def _train_grads(torch, state, timer) -> list[str]:
     cot = cuda(rng.standard_normal(GRAD_K4))
     name = "rglru_scan B={} S={} R={} float32".format(*GRAD_K4)
     k4_bound = bound_ms(*reversed(rg_ops.cost(*GRAD_K4)), "float32")
-    # the backward: one reverse launch of K4 (bound: the forward's, the
-    # same bytes) and the two products
+    # the backward: one reverse launch of K4 and the two products (bound:
+    # a, h and the cotangent read, da and db written)
+    k4_bwd_bound = bound_ms(*reversed(rg_ops.cost_bwd(*GRAD_K4)), "float32")
     ok, fwd, bwd = _grad_case(
         torch, timer, state, name, rg_ops.rglru_scan, rglru_scan_ref, (a, b),
         cot, RGLRU_TOL, rel=True, bound=k4_bound,
-        bwd=dict(bound=k4_bound, what="kernel, reverse scan",
+        bwd=dict(bound=k4_bwd_bound, what="kernel, reverse scan",
                  plain=((rg_ops, "rglru_scan_ref"),)))
-    state["train"]["K4 {}x{}x{}".format(*GRAD_K4)] = dict(fwd_ms=fwd,
-                                                          bwd_ms=bwd)
+    state["train"]["K4 {}x{}x{}".format(*GRAD_K4)] = dict(
+        fwd_ms=fwd, bwd_ms=bwd, bwd_bound_ms=k4_bwd_bound[0])
     if not ok:
         failures.append(name)
 
@@ -3074,15 +3101,19 @@ def _train_grads(torch, state, timer) -> list[str]:
     name = f"ssd b={bsz} S={S} H={H} P={P} N={N} chunk={Q} float32 (y)"
     k5_bound = bound_ms(*reversed(ssd_ops.cost(bsz, S, H, P, N, Q)),
                         "float32")
+    # the backward's bound: twice the chunked forward's products (a grad
+    # for each operand) at the f32 FMA rate
+    k5_bwd_bound = bound_ms(*reversed(ssd_ops.cost_bwd(bsz, S, H, P, N, Q)),
+                            "float32")
     ok, fwd, bwd = _grad_case(
         torch, timer, state, name,
         lambda *t: ssd_ops.ssd(*t, Q)[0],
         lambda *t: _ssd_chunked(*t, Q)[0], (x, dt, A, Bm, Cm), cot,
         SSD_REL_TOL, rel=True, bound=k5_bound,
-        bwd=dict(bound=None, plain=(),
+        bwd=dict(bound=k5_bwd_bound, plain=(),
                  what="vjp of the plain chunked version, no kernel yet"))
-    state["train"][f"K5 {bsz}x{S}x{H}x{P}x{N} c{Q}"] = dict(fwd_ms=fwd,
-                                                            bwd_ms=bwd)
+    state["train"][f"K5 {bsz}x{S}x{H}x{P}x{N} c{Q}"] = dict(
+        fwd_ms=fwd, bwd_ms=bwd, bwd_bound_ms=k5_bwd_bound[0])
     if not ok:
         failures.append(name)
     return failures

@@ -22,47 +22,90 @@
 // pair per head dim (S, dP, dV, dK, dQ: 10 flops) against the forward's
 // two; at llama3.2-3b's training shape (2 x 24/8 heads x 2048 x 128) that
 // is 1.29e11 flops, 0.130 ms at the bf16 tensor-core rate, against 0.02
-// ms for its 63 MB of inputs and outputs.
+// ms for its 63 MB of inputs and outputs. The two kernels below recompute
+// S and dP in the dQ pass (seven products, not five: 0.18 ms at that rate),
+// the price of a fixed order of summation without atomics.
 //
-// Three kernels a call (four when the GQA group is split), all in a fixed
-// order of summation: no atomics, so two calls give the same bits.
-//   * D: one warp a row, lanes over the head dim, a butterfly of shuffles.
-//   * dK/dV: one block per (b, kv head, 64 keys; 32 in float32), and per
-//     part of the GQA group when there are too few such blocks to fill
-//     the card (recurrentgemma-2b: one kv head, 32 key blocks a row). The
-//     block keeps its keys' K and V in shared memory and loops over its
-//     group's q heads and over the query tiles that the causal window
-//     lets see its keys, recomputing P from L, with dK and dV in
-//     registers. A split group writes float32 partials that a fourth
-//     kernel adds in split order.
-//   * dQ: one block per (b, q head, 64 query rows; 32 in float32), looping
-//     over the key tiles its rows see, dQ in registers.
+// Routes, by (dtype, head dim); ``flash_attention_bwd_route`` names them:
+//   * bfloat16, d 64 and 128: TMA + wgmma (Hopper), below;
+//   * bfloat16, d 16, 32, 80 and 256: mma.sync (the first kernels);
+//   * float32, every head dim: FMA.
+// Every route sums in a fixed order: no atomics, so two calls give the
+// same bits. The FMA and mma.sync routes run three kernels a call (D,
+// dK/dV, dQ), the wgmma route two (D, then the dK/dV and dQ blocks in one
+// launch); one more when the GQA group is split.
+//   * D: one warp a row, lanes over the head dim (16-byte loads in bf16),
+//     a butterfly of shuffles.
+//   * dK/dV: one block per (b, kv head, key block), and per part of the
+//     GQA group when there are too few such blocks to fill the card
+//     (recurrentgemma-2b: one kv head, 32 key blocks a row). The block keeps
+//     its keys' K and V in shared memory and loops over its group's q heads
+//     and over the query tiles that the causal window lets see its keys,
+//     recomputing P from L, with dK and dV in registers. A split group
+//     writes float32 partials that a fourth kernel adds in split order.
+//   * dQ: one block per (b, q head, query rows), looping over the key tiles
+//     its rows see, dQ in registers, the last row tile first.
+// The two loops share no sum, so the wgmma route launches their blocks as
+// one grid, the dK/dV blocks first: the dQ blocks fill the SMs that the
+// dK/dV blocks' causal tail leaves idle.
 //
-// bfloat16 runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate), with the forward's fragment tricks: an accumulator tile of
-// m16n8 has the A fragment's layout, so P^T and dS^T (dK/dV) and dS (dQ)
-// feed the next product from registers; P and dS are rounded to bf16
-// before their products, as the forward rounds P before P V. In dK/dV a
-// warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T with keys
-// as rows; Q and dO tiles (with L and D) stream through a two-stage
-// cp.async ring. At d 256 one warp's dK and dV accumulators alone would be
-// 256 f32 registers a thread, so eight warps split the work: warps 0-3
-// compute P^T and dV, warps 4-7 P^T again, dP^T, dS^T and dK, each for the
-// same 16 keys (P^T is recomputed rather than passed through shared
-// memory). dQ keeps the forward's shape: four warps of 16 rows, K and V
-// tiles (64 rows, 32 at d 256) in a two-stage ring.
+// TMA + wgmma (bf16, d 64 and 128). Each block is three warpgroups: two
+// consumers and a producer whose first warp issues TMA loads into a ring
+// of three stages in shared memory, each completing on an mbarrier that
+// carries its byte count (the producer drops to 24 registers, the
+// consumers rise to 240). Tensors are read through 3-D maps (d, S, B H)
+// with 128-byte swizzle, so a tile never reaches into the next head's rows
+// and rows past S arrive as zeros (ragged Sq and Sk need no special case;
+// the masks zero P there). Against the mma.sync kernels' limits:
+//   * a warp's 16 keys read the whole Q and dO tiles from shared memory
+//     four times a step (8 multiply-adds a byte): here a warpgroup's 64 keys
+//     run wgmma m64n64k16 for S^T = K Q^T and dP^T = V dO^T (both operands
+//     in shared memory) and m64nDk16 for dV += P^T dO and dK += dS^T Q with
+//     P^T and dS^T from registers (the accumulator's layout is the A
+//     fragment's) and dO and Q read MN-major through the transpose bit;
+//   * 32-row query steps at d 128 (a warp's dK and dV took 128 registers a
+//     thread): a step is 64 rows, dK and dV of 64 keys x d are 128
+//     registers a consumer thread at d 128;
+//   * low occupancy, the compute warps issuing the loads, and a causal
+//     tail: the producer warp alone loads, three stages deep; blocks are
+//     ordered so that under a causal mask those that see the most tiles
+//     start first (key block 0, the last row tile), and the dQ blocks
+//     follow the dK/dV blocks in the same launch.
+// dK/dV: 128 keys a block (64 a consumer), (Q, dO, L log2 e, D) a stage for
+// 64 query rows of one q head; dQ: 128 rows a block (64 a consumer),
+// (K, V) a stage for 64 keys, S = Q K^T and dP = dO V^T as m64n64k16 and
+// dQ += dS K with K read MN-major. P and dS are rounded to bf16 in
+// registers before their products, as in the mma.sync kernels. The
+// consumers' CUDA-core work between the products is kept short: P's
+// exponent is one ex2.approx.ftz, and only the tiles that a mask edge
+// (causal, window, Sq, Sk) crosses test each element.
+//
+// mma.sync (bf16, d 16, 32, 80 and 256): tensor cores through mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), with the forward's fragment tricks:
+// an accumulator tile of m16n8 has the A fragment's layout, so P^T and
+// dS^T (dK/dV) and dS (dQ) feed the next product from registers; P and dS
+// are rounded to bf16 before their products, as the forward rounds P
+// before P V. In dK/dV (64 keys a block) a warp owns 16 keys and computes
+// S^T = K Q^T and dP^T = V dO^T with keys as rows; Q and dO tiles (with L
+// and D) stream through a two-stage cp.async ring. At d 256 one warp's dK
+// and dV accumulators alone would be 256 f32 registers a thread, so eight
+// warps split the work: warps 0-3 compute P^T and dV, warps 4-7 P^T again,
+// dP^T, dS^T and dK, each for the same 16 keys (P^T is recomputed rather
+// than passed through shared memory). dQ keeps the forward's shape: four
+// warps of 16 rows, K and V tiles (64 rows, 32 at d 256) in a two-stage
+// ring.
 //
 // float32 keeps plain FMA (tensor cores would mean TF32): tiles in shared
 // memory as f32 (rows padded by one float), each of 128 threads owning a
 // (2 x 4) patch of the score tile and a (2 x d/8) patch of the
-// accumulators.
+// accumulators; 32 keys a dK/dV block, 32 rows a dQ block.
 //
 // Every device kernel's name starts with fa2_bwd_ (a profile sums them by
 // that). Head dims 16, 32, 64, 80, 128 and 256, one instantiation each.
 // Ragged Sq and Sk are masked in the kernels; tiles that no row sees are
-// never loaded. A simple right kernel first: wgmma, TMA and warp specialisation
-// are later work.
+// never loaded.
 
+#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -122,7 +165,31 @@ __device__ __forceinline__ void key_tiles(int q_lo, int q_hi, int Sk, int off,
 // D = rowsum(dO * O), float32: one warp a row
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// sum of a[i] b[i] over V consecutive elements, in order (V = 8: one
+// 16-byte load of bfloat16 each)
+template <int V, typename T>
+__device__ __forceinline__ float dot_run(const T* a, const T* b) {
+  if constexpr (V == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(a);
+    const uint4 y = *reinterpret_cast<const uint4*>(b);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s += __uint_as_float(xs[i] << 16) * __uint_as_float(ys[i] << 16);
+      s += __uint_as_float(xs[i] & 0xffff0000u) *
+           __uint_as_float(ys[i] & 0xffff0000u);
+    }
+    return s;
+  } else {
+    return to_f32(*a) * to_f32(*b);
+  }
+}
+
+// V elements a load: 8 in bfloat16 (rows are 16-byte aligned: d is a
+// multiple of 8 and the bases are checked), 1 in float32
+template <typename T, int V>
 __global__ void __launch_bounds__(256) fa2_bwd_delta(
     const T* __restrict__ o, const T* __restrict__ dO,
     float* __restrict__ delta, long long rows, int d) {
@@ -132,7 +199,7 @@ __global__ void __launch_bounds__(256) fa2_bwd_delta(
   const T* a = o + row * d;
   const T* b = dO + row * d;
   float s = 0.f;
-  for (int c = lane; c < d; c += 32) s += to_f32(a[c]) * to_f32(b[c]);
+  for (int c = lane * V; c < d; c += 32 * V) s += dot_run<V>(a + c, b + c);
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
   if (lane == 0) delta[row] = s;
@@ -917,6 +984,640 @@ __global__ void __launch_bounds__(MmaTile<D>::kQThreads) fa2_bwd_mma_dq(
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at d 64 and 128: TMA ring + wgmma (Hopper)
+// ---------------------------------------------------------------------------
+
+// 128-byte-swizzled tiles: a (R, D) bf16 tile is D / 64 column chunks of R
+// rows of 128 bytes, chunk c at c R 128 bytes; TMA writes and wgmma reads
+// it through the same swizzle (chunks 1024-byte aligned)
+template <int D>
+struct WgTile {
+  static constexpr int kThreads = 384;   // consumer warpgroups 0-1, producer 2
+  static constexpr int kStages = 3;
+  static constexpr int BKV = 128;        // keys a dK/dV block, 64 a warpgroup
+  static constexpr int BQ = 64;          // queries a dK/dV step
+  static constexpr int BM = 128;         // rows a dQ block, 64 a warpgroup
+  static constexpr int BKQ = 64;         // keys a dQ step
+  static constexpr int kQTile = BQ * D * 2;     // bytes of a (64, D) tile
+  static constexpr int kBigTile = 128 * D * 2;  // bytes of a (128, D) tile
+  // dK/dV: K, V; stages of Q, dO; stages of L log2 e and D; barriers
+  static constexpr int kKvLd = 2 * kBigTile + 2 * kStages * kQTile;
+  static constexpr int kKvBars = kKvLd + 2 * kStages * BQ * 4;
+  static constexpr size_t smem_kv = 1024 + kKvBars + (2 * kStages + 1) * 8;
+  // dQ: Q, dO; stages of K, V; barriers
+  static constexpr int kQBars = 2 * kBigTile + 2 * kStages * kQTile;
+  static constexpr size_t smem_q = 1024 + kQBars + (2 * kStages + 1) * 8;
+};
+
+// d 64 and 128 take the wgmma kernels in bfloat16; every other head dim
+// the mma.sync ones (at d 256 a warpgroup's dK and dV of 64 keys would need
+// 256 accumulator registers a thread; d 16, 32 and 80 rows are not whole
+// 128-byte swizzle chunks)
+__host__ __device__ constexpr bool wgmma_head_dim(int d) {
+  return d == 64 || d == 128;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one (64 columns, 64 rows, 1 head) box of a 3-D map (d, S, B H)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// rows [r0, r0 + R) of head bh into an (R, D) swizzled tile at dst: D / 64
+// x R / 64 boxes of 8 KB; rows past S arrive as zeros
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int r0, int bh) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int rr = 0; rr < R / 64; ++rr)
+      tma_load_3d(dst + c * R * 128 + rr * 64 * 128, map, bar, 64 * c,
+                  r0 + 64 * rr, bh);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+// rows [r, r + 64) of an (R, D) tile as a K-major operand (the head dim
+// the k index), k-step kk: 16 columns, 32 bytes, inside its chunk
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int r,
+                                                int kk) {
+  return wgmma_desc(tile + (kk / 4) * R * 128 + r * 128 + (kk % 4) * 32, 16,
+                    1024);
+}
+// an (R, D) tile as an MN-major B operand (its rows the k index, the head
+// dim the n index), k-step ks: 16 rows; 64-column chunks R 128 bytes apart
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int ks) {
+  return wgmma_desc(tile + ks * 16 * 128, R * 128, 1024);
+}
+
+// 2^x on the special-function unit, results below 2^-126 flushed to 0
+// (P is rounded to bf16 before its products; a flushed P is a term under
+// 2^-126)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators stay put across an asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// d (+)= A (64 x 16, K-major, shared) . B (16 x 64, K-major, shared)
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A (64 x 16, registers) . B (16 x 64, MN-major: transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (64 x 16, registers) . B (16 x 128, MN-major: transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(d, a, db);
+  else
+    wgmma_rs_n64(d, a, db);
+}
+
+// the A fragment of columns [16 ks, 16 ks + 16) of a 64 x 64 wgmma
+// accumulator (element 4 j + 2 h + e: row 16 warp + lane / 4 + 8 h, column
+// 8 j + 2 (lane % 4) + e): the accumulator's layout is the A fragment's
+__device__ __forceinline__ void wg_acc_to_a(uint32_t* a, const float* x,
+                                            int ks) {
+  a[0] = pack_bf16(x[8 * ks + 0], x[8 * ks + 1]);
+  a[1] = pack_bf16(x[8 * ks + 2], x[8 * ks + 3]);
+  a[2] = pack_bf16(x[8 * ks + 4], x[8 * ks + 5]);
+  a[3] = pack_bf16(x[8 * ks + 6], x[8 * ks + 7]);
+}
+
+// dK and dV of block (col, kb): column col = (b Hkv + kv head) splits +
+// split of the GQA group, 128 keys from kb 128. Warpgroups 0 and 1 each own
+// 64 keys; warpgroup 2's first warp streams (Q, dO, L log2 e, D) for each
+// (q head, query tile) step through the stage ring. n_bkv = B Hkv.
+template <int D>
+__device__ __forceinline__ void dkdv_block(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
+    int Hq, int Hkv, int Sq, int Sk, int causal, int window, float scale,
+    float scale_log2, int splits, int col, int kb, int n_bkv) {
+  using TL = WgTile<D>;
+  constexpr int BKV = TL::BKV, BQ = TL::BQ, S = TL::kStages;
+  extern __shared__ __align__(1024) unsigned char wsm[];
+  const uint32_t raw = smem_u32(wsm);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = wsm + (base - raw);
+  const uint32_t k_tile = base, v_tile = base + TL::kBigTile;
+  auto q_tile = [&](int s) { return base + 2 * TL::kBigTile + s * TL::kQTile; };
+  auto do_tile = [&](int s) { return q_tile(S + s); };
+  float* l2s = reinterpret_cast<float*>(gbase + TL::kKvLd);   // S x BQ
+  float* ds = l2s + S * BQ;                                     // S x BQ
+  const uint32_t bars = base + TL::kKvBars;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const uint32_t kv_bar = bars + 8 * 2 * S;
+
+  const int split = col % splits;
+  const int bkv = col / splits;                   // b * Hkv + kv head
+  const int b = bkv / Hkv, hk = bkv % Hkv;
+  const int k_lo = kb * BKV;
+  const int g = Hq / Hkv;
+  const int h_begin = hk * g + split * g / splits;
+  const int n_h = hk * g + (split + 1) * g / splits - h_begin;
+  const int off = Sk - Sq;
+  int qt_begin, n_qt;
+  query_tiles(k_lo, min(k_lo + BKV, Sk) - 1, Sq, off, causal, window, BQ,
+              &qt_begin, &n_qt);
+  const int n_it = n_qt * n_h;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 32);     // the producer warp's lanes
+      mbar_init(empty(s), 8);     // each consumer warp
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x / 32 == 8) {
+      const int lane = threadIdx.x % 32;
+      if (n_it > 0 && lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * TL::kBigTile);
+        tma_tile<D, BKV>(k_tile, &map_k, kv_bar, k_lo, bkv);
+        tma_tile<D, BKV>(v_tile, &map_v, kv_bar, k_lo, bkv);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(empty(s), (it / S - 1) & 1);
+        const int bh = b * Hq + h_begin + it / n_qt;
+        const int q_lo = (qt_begin + it % n_qt) * BQ;
+        const size_t q_base = (size_t)bh * Sq;
+        for (int r = lane; r < BQ; r += 32) {
+          const int qr = q_lo + r;
+          l2s[s * BQ + r] = qr < Sq ? lse[q_base + qr] * kLog2e : pos_inf();
+          ds[s * BQ + r] = qr < Sq ? delta[q_base + qr] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * TL::kQTile);
+          tma_tile<D, BQ>(q_tile(s), &map_q, full(s), q_lo, bh);
+          tma_tile<D, BQ>(do_tile(s), &map_do, full(s), q_lo, bh);
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+    const int kw = k_lo + 64 * wg;                 // this warpgroup's keys
+    const int kr0 = kw + 16 * w + lane / 4;        // + 8 h: this thread's
+    float acc_v[D / 2], acc_k[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+    if (n_it > 0) mbar_wait(kv_bar, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % S;
+      mbar_wait(full(s), (it / S) & 1);
+      const int q_lo = (qt_begin + it % n_qt) * BQ;
+      // none of the tile's rows sees this warpgroup's keys
+      const bool idle = kw >= Sk || (causal && kw > q_lo + BQ - 1 + off) ||
+                        (window > 0 && kw + 63 <= q_lo + off - window);
+      if (!idle) {
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, two groups
+        float st[32], dpt[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(st, kmajor_desc<BKV>(k_tile, 64 * wg, kk),
+                       kmajor_desc<BQ>(q_tile(s), 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dpt, kmajor_desc<BKV>(v_tile, 64 * wg, kk),
+                       kmajor_desc<BQ>(do_tile(s), 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+
+        // P^T = exp2(S^T scale log2 e - L log2 e), 0 where not seen; this
+        // thread's query columns come in pairs: 8 j + 2 (lane % 4) + {0, 1}
+        const float2* l2 =
+            reinterpret_cast<const float2*>(l2s + s * BQ) + lane % 4;
+        const float2* dd =
+            reinterpret_cast<const float2*>(ds + s * BQ) + lane % 4;
+        const bool edge = kw + 64 > Sk || q_lo + BQ > Sq ||
+                          (causal && kw + 63 > q_lo + off) ||
+                          (window > 0 && kw <= q_lo + BQ - 1 + off - window);
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l = l2[4 * j];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qr = q_lo + 8 * j + 2 * (lane % 4) + (e % 2);
+              const float p =
+                  exp2_ftz(st[4 * j + e] * scale_log2 - (e % 2 ? l.y : l.x));
+              st[4 * j + e] = visible(kr0 + 8 * (e / 2), qr, Sq, Sk, off,
+                                      causal, window) ? p : 0.f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l = l2[4 * j];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              st[4 * j + e] =
+                  exp2_ftz(st[4 * j + e] * scale_log2 - (e % 2 ? l.y : l.x));
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        // dS^T = P^T (dP^T - D)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dj = dd[4 * j];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * j + e] =
+                st[4 * j + e] * (dpt[4 * j + e] - (e % 2 ? dj.y : dj.x));
+        }
+        uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          wg_acc_to_a(pa[ks], st, ks);
+          wg_acc_to_a(dsa[ks], dpt, ks);
+        }
+
+        // dV += P^T dO and dK += dS^T Q: A from registers (bf16), B the
+        // tiles read MN-major
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_rs<D>(acc_v, pa[ks], mnmajor_desc<BQ>(do_tile(s), ks));
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_rs<D>(acc_k, dsa[ks], mnmajor_desc<BQ>(q_tile(s), ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));   // this warp is done with s
+    }
+
+    const size_t kv_base = (size_t)bkv * Sk * D;
+    const size_t n = (size_t)n_bkv * Sk * D;      // B Hkv Sk D
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kc = kr0 + 8 * i;
+      if (kc >= Sk) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const size_t at = kv_base + (size_t)kc * D + 8 * j + 2 * (lane % 4);
+        const float v0 = acc_v[4 * j + 2 * i], v1 = acc_v[4 * j + 2 * i + 1];
+        const float k0 = acc_k[4 * j + 2 * i] * scale;
+        const float k1 = acc_k[4 * j + 2 * i + 1] * scale;
+        if (splits == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+              __floats2bfloat162_rn(k0, k1);
+        } else {
+          *reinterpret_cast<float2*>(part + (2 * split + 1) * n + at) =
+              make_float2(v0, v1);
+          *reinterpret_cast<float2*>(part + 2 * split * n + at) =
+              make_float2(k0, k1);
+        }
+      }
+    }
+  }
+}
+
+// dQ of block (bh, qt): b Hq + q head, 128 rows from qt 128; warpgroups 0
+// and 1 each own 64 rows, warpgroup 2's first warp streams (K, V) tiles of
+// 64 keys through the stage ring.
+template <int D>
+__device__ __forceinline__ void dq_block(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk, int causal,
+    int window, float scale, float scale_log2, int bh, int qt) {
+  using TL = WgTile<D>;
+  constexpr int BM = TL::BM, BKQ = TL::BKQ, S = TL::kStages;
+  extern __shared__ __align__(1024) unsigned char wsm[];
+  const uint32_t base = (smem_u32(wsm) + 1023) & ~1023u;
+  const uint32_t q_tile = base, do_tile = base + TL::kBigTile;
+  auto k_tile = [&](int s) { return base + 2 * TL::kBigTile + s * TL::kQTile; };
+  auto v_tile = [&](int s) { return k_tile(S + s); };
+  const uint32_t bars = base + TL::kQBars;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const uint32_t q_bar = bars + 8 * 2 * S;
+
+  const int b = bh / Hq, h = bh % Hq, bkv = b * Hkv + h / (Hq / Hkv);
+  const int q_lo = qt * BM;
+  const int off = Sk - Sq;
+  int kt_begin, kt_end;
+  key_tiles(q_lo, min(q_lo + BM, Sq) - 1, Sk, off, causal, window, BKQ,
+            &kt_begin, &kt_end);
+  const int n_it = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);     // each consumer warp
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256 && n_it > 0) {
+      mbar_expect_tx(q_bar, 2 * TL::kBigTile);
+      tma_tile<D, BM>(q_tile, &map_q, q_bar, q_lo, bh);
+      tma_tile<D, BM>(do_tile, &map_do, q_bar, q_lo, bh);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(empty(s), (it / S - 1) & 1);
+        const int kv_lo = (kt_begin + it) * BKQ;
+        mbar_expect_tx(full(s), 2 * TL::kQTile);
+        tma_tile<D, BKQ>(k_tile(s), &map_k, full(s), kv_lo, bkv);
+        tma_tile<D, BKQ>(v_tile(s), &map_v, full(s), kv_lo, bkv);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+    const int rw = q_lo + 64 * wg;                 // this warpgroup's rows
+    const int r0 = rw + 16 * w + lane / 4;         // + 8 h: this thread's
+    const size_t q_base = (size_t)bh * Sq;
+    float l2[2], dd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      l2[i] = r < Sq ? lse[q_base + r] * kLog2e : pos_inf();
+      dd[i] = r < Sq ? delta[q_base + r] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    if (n_it > 0) mbar_wait(q_bar, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % S;
+      mbar_wait(full(s), (it / S) & 1);
+      const int kv_lo = (kt_begin + it) * BKQ;
+      // none of this warpgroup's rows sees the tile's keys
+      const bool idle = rw >= Sq || (causal && kv_lo > rw + 63 + off) ||
+                        (window > 0 && kv_lo + BKQ - 1 <= rw + off - window);
+      if (!idle) {
+        // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, two groups
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, kmajor_desc<BM>(q_tile, 64 * wg, kk),
+                       kmajor_desc<BKQ>(k_tile(s), 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dp, kmajor_desc<BM>(do_tile, 64 * wg, kk),
+                       kmajor_desc<BKQ>(v_tile(s), 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
+
+        // P; element 4 j + 2 h + e: row r0 + 8 h, key kv_lo + 8 j +
+        // 2 (lane % 4) + e
+        const bool edge = kv_lo + BKQ > Sk ||
+                          (causal && kv_lo + BKQ - 1 > rw + off) ||
+                          (window > 0 && kv_lo <= rw + 63 + off - window);
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p =
+                  exp2_ftz(sc[4 * j + e] * scale_log2 - l2[e / 2]);
+              sc[4 * j + e] =
+                  visible(kv_lo + 8 * j + 2 * (lane % 4) + (e % 2),
+                          r0 + 8 * (e / 2), Sq, Sk, off, causal, window)
+                      ? p
+                      : 0.f;
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * j + e] =
+                  exp2_ftz(sc[4 * j + e] * scale_log2 - l2[e / 2]);
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - D)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dd[e / 2]);
+        uint32_t dsa[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) wg_acc_to_a(dsa[ks], sc, ks);
+
+        // dQ += dS K: A from registers (bf16), K read MN-major
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_rs<D>(acc, dsa[ks], mnmajor_desc<BKQ>(k_tile(s), ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));   // this warp is done with s
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r >= Sq) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (q_base + r) * D + 8 * j +
+                                           2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale,
+                                  acc[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
+// dK/dV and dQ in one launch of n_kv + q_cols n_qt blocks: the dK/dV
+// blocks first, key block 0 first (under a causal mask the blocks that see
+// the most query tiles), then the dQ blocks, the last row tile first; the
+// dQ blocks take the SMs that the dK/dV blocks' tail leaves. kv_cols =
+// B Hkv splits, n_kv = kv_cols x key blocks, q_cols = B Hq.
+template <int D>
+__global__ void __launch_bounds__(WgTile<D>::kThreads, 1) fa2_bwd_wgmma(
+    const __grid_constant__ CUtensorMap map_q,
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v,
+    const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
+    int Hq, int Hkv, int Sq, int Sk, int causal, int window, float scale,
+    float scale_log2, int splits, int kv_cols, int n_kv, int q_cols,
+    int n_qt) {
+  const int blk = blockIdx.x;
+  if (blk < n_kv) {
+    dkdv_block<D>(map_q, map_k, map_v, map_do, lse, delta, dk, dv, part, Hq,
+                  Hkv, Sq, Sk, causal, window, scale, scale_log2, splits,
+                  blk % kv_cols, blk / kv_cols, kv_cols / splits);
+  } else {
+    const int r = blk - n_kv;
+    dq_block<D>(map_q, map_k, map_v, map_do, lse, delta, dq, Hq, Hkv, Sq, Sk,
+                causal, window, scale, scale_log2, r % q_cols,
+                n_qt - 1 - r / q_cols);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -942,7 +1643,8 @@ cudaError_t launch_delta(const Args& a, int d) {
   const long long rows = (long long)a.B * a.Hq * a.Sq;
   const long long blocks = (rows + 7) / 8;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  fa2_bwd_delta<T><<<(unsigned)blocks, 256, 0, a.stream>>>(
+  fa2_bwd_delta<T, sizeof(T) == 2 ? 8 : 1>
+      <<<(unsigned)blocks, 256, 0, a.stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dO), a.delta, rows,
       d);
   return cudaGetLastError();
@@ -1016,6 +1718,81 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library needs no -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a contiguous (BH, S, d) bf16 tensor as a 3-D map (d, S, BH), boxes of 64
+// columns x 64 rows of one head, 128-byte swizzle: a box never reaches into
+// the next head's rows, and rows past S arrive as zeros
+bool encode_heads(CUtensorMap* map, EncodeTiledFn enc, const void* ptr,
+                  int d, int S, int BH) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const Args& a) {
+  using TL = WgTile<D>;
+  cudaError_t e = launch_delta<bf16>(a, D);
+  if (e != cudaSuccess) return e;
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_heads(&mq, enc, a.q, D, a.Sq, a.B * a.Hq) ||
+      !encode_heads(&mk, enc, a.k, D, a.Sk, a.B * a.Hkv) ||
+      !encode_heads(&mv, enc, a.v, D, a.Sk, a.B * a.Hkv) ||
+      !encode_heads(&mdo, enc, a.dO, D, a.Sq, a.B * a.Hq))
+    return cudaErrorInvalidValue;
+  const float scale_log2 = a.scale * kLog2e;
+  auto kern = fa2_bwd_wgmma<D>;
+  constexpr size_t smem =
+      TL::smem_kv > TL::smem_q ? TL::smem_kv : TL::smem_q;
+  if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
+  const long long kv_cols = (long long)a.B * a.Hkv * a.splits;
+  const long long n_kv = kv_cols * ((a.Sk + TL::BKV - 1) / TL::BKV);
+  const long long q_cols = (long long)a.B * a.Hq;
+  const long long n_qt = (a.Sq + TL::BM - 1) / TL::BM;
+  if (n_kv + q_cols * n_qt > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)(n_kv + q_cols * n_qt), TL::kThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<bf16*>(a.dq),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.part, a.Hq,
+      a.Hkv, a.Sq, a.Sk, a.causal, a.window, a.scale, scale_log2, a.splits,
+      (int)kv_cols, (int)n_kv, (int)q_cols, (int)n_qt);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (a.splits > 1) return launch_sum_parts<bf16>(a, D);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_f32(int d, const Args& a) {
   switch (d) {
     case 16: return launch_fma<16>(a);
@@ -1037,9 +1814,9 @@ cudaError_t launch_bf16(int d, const Args& a) {
   switch (d) {
     case 16: return launch_mma<16>(a);
     case 32: return launch_mma<32>(a);
-    case 64: return launch_mma<64>(a);
+    case 64: return launch_wgmma<64>(a);
     case 80: return launch_mma<80>(a);
-    case 128: return launch_mma<128>(a);
+    case 128: return launch_wgmma<128>(a);
     case 256: return launch_mma<256>(a);
     default: return cudaErrorInvalidValue;
   }
@@ -1070,13 +1847,22 @@ extern "C" int flash_attention_bwd_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// Keys a dK/dV block (the grid's x extent is ceil(Sk / it)) by dtype, the
-// same at every head dim; 0 for an unknown dtype. The wrapper sizes its
-// GQA group splits by it.
-extern "C" int flash_attention_bwd_key_block(int dtype) {
+// Keys a dK/dV block (the grid has ceil(Sk / it) key blocks) by dtype and
+// head dim; 0 for an unknown dtype. The wrapper sizes its GQA group splits
+// by it.
+extern "C" int flash_attention_bwd_key_block(int dtype, int d) {
   if (dtype == 0) return FmaTile<128>::BK;
-  if (dtype == 1) return MmaTile<128>::BKV;
+  if (dtype == 1)
+    return wgmma_head_dim(d) ? WgTile<128>::BKV : MmaTile<80>::BKV;
   return 0;
+}
+
+// The kernels a (dtype, d) call runs: 0 FMA, 1 mma.sync, 2 TMA + wgmma;
+// -1 for an unknown dtype.
+extern "C" int flash_attention_bwd_route(int dtype, int d) {
+  if (dtype == 0) return 0;
+  if (dtype == 1) return wgmma_head_dim(d) ? 2 : 1;
+  return -1;
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) {

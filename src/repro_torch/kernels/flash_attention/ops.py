@@ -11,6 +11,10 @@ two. Which kernel runs is decided by the dtype alone:
 - float32: the FMA kernel (tensor cores would mean TF32, outside the
   float32 tolerance).
 
+The backward's route is the dtype's and the head dim's (``bwd_route``):
+bfloat16 at d 64 and 128 runs TMA + ``wgmma`` kernels, at other head dims
+``mma.sync`` ones; float32 FMA ones.
+
 Both take head dims ``HEAD_DIMS``. ``flash_attention`` is a
 ``torch.autograd.Function``. When an input needs a grad, its forward also
 returns each row's log-sum-exp L (the kernel writes it beside the output;
@@ -74,8 +78,10 @@ def _lib(name: str = "flash_attention_fwd"):
                 p, p, p,                    # dq, dk, dv
                 i, i, i, i, i, i, i, i, i,  # B, Hq, Hkv, Sq, Sk, d, causal,
                 f, p]                       # window, splits; scale, stream
-            lib.flash_attention_bwd_key_block.argtypes = [i]
+            lib.flash_attention_bwd_key_block.argtypes = [i, i]
             lib.flash_attention_bwd_key_block.restype = i
+            lib.flash_attention_bwd_route.argtypes = [i, i]
+            lib.flash_attention_bwd_route.restype = i
         getattr(lib, f"{name}_launch").restype = i
         getattr(lib, f"{name}_error_string").argtypes = [i]
         getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
@@ -146,11 +152,23 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return (out, L) if lse else out
 
 
-def bwd_key_block(dtype: torch.dtype) -> int:
-    """Keys a block of the backward's dK/dV kernel for ``dtype``, as
-    ``flash_attention_bwd.cu`` compiles it (builds the library)."""
+def bwd_key_block(dtype: torch.dtype, d: int) -> int:
+    """Keys a block of the backward's dK/dV kernel for ``dtype`` at head
+    dim ``d``, as ``flash_attention_bwd.cu`` compiles it (builds the
+    library)."""
     return _lib("flash_attention_bwd").flash_attention_bwd_key_block(
-        DTYPE_CODES[dtype])
+        DTYPE_CODES[dtype], d)
+
+
+BWD_ROUTES = ("fma", "mma.sync", "wgmma")
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward kernels a ``dtype`` call at head dim ``d`` runs, as
+    ``flash_attention_bwd.cu`` chooses them (builds the library): "fma"
+    (float32), "mma.sync" or "wgmma" (TMA ring + wgmma, bfloat16)."""
+    return BWD_ROUTES[_lib("flash_attention_bwd").flash_attention_bwd_route(
+        DTYPE_CODES[dtype], d)]
 
 
 def group_splits(B: int, Hkv: int, Sk: int, g: int, key_block: int,
@@ -204,7 +222,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     require(Sk > 0, f"{what}: no keys")
     lib = _lib("flash_attention_bwd")
     splits = group_splits(B, Hkv, Sk, Hq // Hkv,
-                          lib.flash_attention_bwd_key_block(code),
+                          lib.flash_attention_bwd_key_block(code, d),
                           device_sms(q.device))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     part = (torch.empty((splits, 2, *k.shape), dtype=torch.float32,

@@ -162,6 +162,15 @@ def cost(B: int, S: int, R: int) -> tuple[float, int]:
     return 2.0 * n, 3 * n * 4
 
 
+def cost_bwd(B: int, S: int, R: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of the Function's whole backward over (B, S, R)
+    float32 (the reverse launch and its two products): a, h and the
+    cotangent read and da, db written once; the reverse recurrence's
+    multiply and add and da's multiply a step and channel."""
+    n = B * S * R
+    return 3.0 * n, 5 * n * 4
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor,
              reverse: bool = False) -> torch.Tensor:
     counter = active()

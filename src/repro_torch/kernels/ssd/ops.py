@@ -147,6 +147,17 @@ def cost(b: int, S: int, H: int, P: int, N: int,
     return flops(b, S, H, P, N, chunk), nbytes
 
 
+def cost_bwd(b: int, S: int, H: int, P: int, N: int,
+             chunk: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of one backward in float32: x, dt, A, B, C and the
+    cotangents of y and the final state read, their grads written once;
+    each of the forward's products has two in the backward (one for each
+    operand's grad), so twice the forward's operations."""
+    nbytes = 4 * (3 * b * S * H * P + 2 * (b * S * H + H + 2 * b * S * N)
+                  + b * H * N * P)
+    return 2.0 * flops(b, S, H, P, N, chunk), nbytes
+
+
 def _forward(x, dt, A, B, C, chunk: int):
     counter = active()
     if counter is None:

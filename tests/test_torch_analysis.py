@@ -217,6 +217,31 @@ def test_kernel_costs_reproduce_perf_rows():
                             + 2 * 512 * 128 + 80 * 128 * 64)
 
 
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_backward_costs_reproduce_perf_rows(kernel):
+    """PERF.md section 6's backward bounds at the train phase's shapes:
+    K4's whole backward at (1, 2048, 2560) moves a, h and the cotangent
+    in and da, db out (104.86 MB, 0.0313 ms by bytes); K5's at (1, 1024,
+    80, 64, 128), chunk 256, does twice the chunked forward's operations
+    (8.131 GFLOP, 0.1214 ms at the float32 FMA rate)."""
+    if kernel == "K4":
+        flops, nbytes = rg_ops.cost_bwd(1, 2048, 2560)
+        assert nbytes == 5 * 2048 * 2560 * 4
+        assert round(nbytes / 1e6, 2) == 104.86
+        assert flops == 1.5 * rg_ops.cost(1, 2048, 2560)[0]
+        want = (0.0313, "bytes")
+    else:
+        flops, nbytes = ssd_ops.cost_bwd(1, 1024, 80, 64, 128, 256)
+        assert flops == 2 * ssd_ops.cost(1, 1024, 80, 64, 128, 256)[0]
+        assert round(flops / 1e9, 3) == 8.131
+        # the forward's inputs and the cotangents in, their grads out
+        assert nbytes == 4 * (3 * 1024 * 80 * 64 + 2 * (1024 * 80 + 80)
+                              + 4 * 1024 * 128 + 80 * 128 * 64)
+        want = (0.1214, "operations")
+    ms, by = analysis.bound_ms(nbytes, flops, "float32")
+    assert (round(ms, 4), by) == want
+
+
 # -- the counter -------------------------------------------------------------------
 
 def test_counter_counts_ops_views_and_kernels():

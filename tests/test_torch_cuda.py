@@ -619,6 +619,13 @@ FA_BWD_CASES = [
     (2, 24, 8, 512, 512, 128, True, 0, "bfloat16"),    # llama3.2-3b's widths
     (1, 10, 1, 2048, 2048, 256, True, 2048, "bfloat16"),  # recurrentgemma
     (1, 10, 1, 2048, 2048, 256, True, 2048, "float32"),
+    # bf16 at d 128 and 64: the TMA + wgmma kernels (128-key blocks, 64-row
+    # query steps, 128-row dQ blocks): Sk - Sq = 37, ragged Sq = 1000, a
+    # window of 300 over GQA 12/4, d 64 over 6/2
+    (1, 8, 2, 219, 256, 128, True, 0, "bfloat16"),
+    (1, 8, 2, 1000, 1000, 128, True, 0, "bfloat16"),
+    (1, 12, 4, 1024, 1024, 128, True, 300, "bfloat16"),
+    (2, 6, 2, 512, 512, 64, True, 0, "bfloat16"),
 ]
 
 
@@ -656,14 +663,28 @@ def test_flash_backward_kernel_vs_plain(case, cuda):
 
 
 @pytest.mark.parametrize("case", [FA_BWD_CASES[11], FA_BWD_CASES[10],
-                                  FA_BWD_CASES[20]], ids=str)
+                                  FA_BWD_CASES[20], FA_BWD_CASES[25]],
+                         ids=str)
 def test_flash_backward_same_bits_twice(case, cuda):
     """No atomics: two calls give the same bits, with the group split
-    (10/1) and without (24/8)."""
+    (10/1) and without (24/8), on the mma.sync, FMA and wgmma routes."""
     q, k, v, out, lse, do, kw = _bwd_inputs(case, cuda)
     a = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     b = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_backward_key_block_and_route(cuda):
+    """The .cu's getters: bf16 at d 64 and 128 runs the wgmma kernels on
+    128-key blocks, at every other head dim mma.sync on 64; float32 the
+    FMA kernels on 32."""
+    for d in fa_ops.HEAD_DIMS:
+        wg = d in (64, 128)
+        assert fa_ops.bwd_key_block(torch.bfloat16, d) == (128 if wg else 64)
+        assert fa_ops.bwd_route(torch.bfloat16, d) == (
+            "wgmma" if wg else "mma.sync")
+        assert fa_ops.bwd_key_block(torch.float32, d) == 32
+        assert fa_ops.bwd_route(torch.float32, d) == "fma"
 
 
 @pytest.mark.parametrize("case", [c for c in FA_CASES if c[0] * c[1] < 64],

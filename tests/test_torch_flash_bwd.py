@@ -13,7 +13,8 @@
   backward as one ``flash_attention_bwd`` call at ``cost_bwd()``;
 * with tensors that claim a card, the backward builds its kernel or
   raises and never reaches a plain version;
-* the GQA group splits of the dK/dV grid at the shapes training gives it.
+* the GQA group splits of the dK/dV grid at the shapes training gives it,
+  at the key blocks of 64 (``mma.sync``) and of 128 (``wgmma``).
 
 The kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
@@ -160,6 +161,10 @@ def test_card_backward_builds_its_kernel_or_raises(monkeypatch):
     ((2, 1, 2048, 5, 64), 5),      # its rank of a (1, 2) mesh
     ((1, 16, 2048, 1, 64), 1),     # moonshot: no group to split
     ((1, 1, 64, 3, 32), 3),        # a short sequence: the whole group
+    # bf16 at d 64 and 128: the wgmma kernels' 128-key blocks
+    ((2, 8, 2048, 3, 128), 1),     # llama3.2-3b training: 256 blocks
+    ((2, 4, 2048, 3, 128), 3),     # its (1, 2) rank: 128 blocks, short
+    ((2, 16, 2048, 1, 128), 1),    # moonshot
 ], ids=str)
 def test_group_splits(shape, want):
     assert fa_ops.group_splits(*shape, sms=132) == want
