@@ -35,7 +35,12 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             naming the route the .cu chose (wgmma, mma.sync or fma; a
             bf16 call at d 64 or 128 off the wgmma route fails), the
             ranks' shapes timed beside SDPA's backward (a phase, or a
-            rank, that runs the backward at another shape fails)
+            rank, that runs the backward at another shape fails); K5's
+            backward kernels at the train phase's 1 x 1024 x 80 x 64 x
+            128 and (d)'s rank shape 2 x 2048 x 40 x 64 x 128 (chunk 256)
+            against the plain backward ``ssd_bwd_ref``: every grad within
+            1e-4 of its largest, the same bits from two calls, timed
+            beside ``cost_bwd``'s bound and the plain backward
   fig5      the fig5 tuned-kernel analog (benchmarks/fig5_tuned_kernel.py)
             on the card: the blocked matmul called natively (blocks named:
             platform "h100") and through a container bound from an
@@ -148,21 +153,25 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             x 128 and recurrentgemma-2b's 1 x 10/1 x 2048 x 256 window
             2048, bf16; K4 at 1 x 2048 x 2560; K5 at 1 x 1024 x 80 x 64 x
             128, chunk 256, f32): output and input grads against the plain
-            version under autograd, K2's and K4's Functions run with their
-            plain versions made to raise (K2's backward its backward
-            kernels from the saved L, K4's one reverse scan); K2's grads
+            version under autograd, the Functions run with their plain
+            versions made to raise (K2's backward its backward kernels
+            from the saved L, K4's one reverse scan, K5's its backward
+            kernels); K2's grads
             within 2^-7 of the largest gradient of a dense float32 plain
             backward and the same bits from two calls; forward and
             backward times (K2's backward kernels beside their bound
             (``cost_bwd``), their route, the plain backward and SDPA's
-            backward; K4's and K5's backward beside their bound); (b)
+            backward; K4's and K5's backward beside their bound, K5's
+            also beside the plain vjp, the backward before K5's kernels,
+            timed in the same run); (b)
             five smoke reductions (llama, mamba2,
             recurrentgemma, moonshot, musicgen) trained 3 steps on the card
             and on the CPU from the same weights and batches, float32:
             losses and grad norms agree, the card runs their kernels and
             the CPU none, K2's backward kernels once a step per attention
-            layer and K4's reverse scan once a step per rec layer, with no
-            plain version of K2 or K4 on the card; (c) full-width llama3.2-3b
+            layer, K4's reverse scan once a step per rec layer and K5's
+            backward kernels once a step per ssm layer, with no plain
+            version of K2, K4 or K5 on the card; (c) full-width llama3.2-3b
             cut to 8 layers
             (float32 params, bf16 compute, remat=full, 2 x 2048 tokens)
             through
@@ -203,8 +212,9 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             the 2 x 2048 global batch on each rank: every rank's loss
             equal, losses and grad norms within 1e-3 relative of one
             process, launches a rank exactly 2 x steps per attention
-            (K2), rec (K4) and ssm (K5) layer, K4's reverse scan once a
-            step per rec layer, and nothing else, each at
+            (K2), rec (K4) and ssm (K5) layer, K4's reverse scan and K5's
+            backward kernels once a step per rec or ssm layer, and nothing
+            else, each at
             a per-rank shape the kernels phase held to its plain version
             (K2_TP, K4_TP, K5_TP), the model axis's bytes a step equal
             to ``tp_wire_bytes``, each rank holds the card's device node
@@ -302,13 +312,15 @@ phase, the fig5 calls, each CLI serve, each example, each loopback fleet
 of the fabric phase, each CLI training run, (c) of the dist phase, each run of
 (d) and (e), each pod of (f) and its one-process reference, the dryrun
 phase's real step) and read just
-after; a kernel's launches are their sum. K2's backward kernels and K4's
-reverse scan count apart from their forwards (the wrappers'
-``bwd_launches``, ``flash_attention_bwd`` and ``rglru_scan_bwd`` in the
-counts and in the kernel records), so every forward gate keeps its
-formula and every gate that wants no kernel also wants no backward; a
-training step runs K2's backward once per attention layer (one call, its
-two to four device kernels) and K4's reverse scan once per rec layer. A
+after; a kernel's launches are their sum. K2's and K5's backward kernels
+and K4's reverse scan count apart from their forwards (the wrappers'
+``bwd_launches``, ``flash_attention_bwd``, ``ssd_bwd`` and
+``rglru_scan_bwd`` in the counts and in the kernel records), so every
+forward gate keeps its formula and every gate that wants no kernel also
+wants no backward; a training step runs K2's backward once per attention
+layer (one call, its two to four device kernels), K4's reverse scan once
+per rec layer and K5's backward once per ssm layer (one call, its eleven
+device kernels). A
 torchrun rank starts with its counters at 0 and reports them at exit
 (``ranks.json`` in the run's overlay); the dist phase adds them in.
 Output ends with a JSON line of kernel records, the card line, and
@@ -365,6 +377,15 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+    },
+    # K5's backward kernels (the chunked algorithm's vjp, from the saved
+    # inputs), the SSD Function's backward on a card (the JAX package's
+    # backward, ``_bwd_vjp`` at src/repro/kernels/ssd/ops.py:39, is the vjp
+    # of the chunked XLA path: the TPU has no backward kernel)
+    "ssd_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:89",
     },
     "rglru_scan": {
         "route": "cuda",
@@ -897,6 +918,7 @@ def phase_kernels(torch, state, timer) -> None:
 
     failures += _kernels_flash_bwd(torch, state, timer)
     failures += _kernels_ssd(torch, state, timer)
+    failures += _kernels_ssd_bwd(torch, state, timer)
     failures += _kernels_rglru(torch, state, timer)
     failures += _kernels_matmul(torch, state, timer)
     check(not failures, "kernel mismatches: " + "; ".join(failures))
@@ -1070,6 +1092,70 @@ def _kernels_ssd(torch, state, timer) -> list[str]:
             f"{flops / 1e9:.3f} GFLOP), 3xTF32 bound {tc_ms:.4f} ms "
             f"({tc_by}: {3 * flops / 1e9:.3f} GFLOP at the TF32 rate), "
             f"library none [{state['card']}]")
+    return failures
+
+
+def _kernels_ssd_bwd(torch, state, timer) -> list[str]:
+    """K5's backward kernels at the train phase's shape GRAD_K5 (the
+    kernel's record) and at (d)'s mamba2-2.7b ranks' (K5_TP: 40 of 80
+    heads, both 2048-token rows), no gradient reaching the final state
+    (as training): every grad within SSD_REL_TOL of the largest of
+    the plain backward ``ssd_bwd_ref`` on the same inputs, the same bits
+    from two calls; times beside ``cost_bwd``'s bound and the plain
+    backward's."""
+    import numpy as np
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_bwd_ref
+    from repro_torch.launch.analysis import bound_ms
+
+    failures = []
+    record = (*GRAD_K5[0], GRAD_K5[1])
+    for case in (record, *K5_TP):
+        b, S, H, P, N, Q = case
+        rng = np.random.default_rng(5)
+        t = lambda a: torch.from_numpy(                    # noqa: E731
+            np.asarray(a, np.float32)).to("cuda")
+        x = t(rng.standard_normal((b, S, H, P)))
+        dt = t(np.log1p(np.exp(rng.standard_normal((b, S, H)) - 1.0)))
+        A = t(-np.exp(0.5 * rng.standard_normal(H)))
+        B = t(rng.standard_normal((b, S, N)))
+        C = t(rng.standard_normal((b, S, N)))
+        gy = t(rng.standard_normal((b, S, H, P)))
+        got = ssd_ops.ssd_bwd_cuda(x, dt, A, B, C, Q, gy)
+        again = ssd_ops.ssd_bwd_cuda(x, dt, A, B, C, Q, gy)
+        want = ssd_bwd_ref(x, dt, A, B, C, Q, gy)
+        torch.cuda.synchronize()
+        errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+        lims = [SSD_REL_TOL * float(w.abs().max()) for w in want]
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        ok = (same and all(bool(torch.isfinite(a).all()) for a in got)
+              and all(e <= lim for e, lim in zip(errs, lims)))
+        del got, again, want
+        ms = timer(lambda: ssd_ops.ssd_bwd_cuda(x, dt, A, B, C, Q, gy))
+        plain = timer(lambda: ssd_bwd_ref(x, dt, A, B, C, Q, gy))
+        flops, nbytes = ssd_ops.cost_bwd(b, S, H, P, N, Q)
+        bms, by = bound_ms(nbytes, flops, "float32")
+        held = ", ".join(f"{n} {e:.2e}/{lim:.2e}" for n, e, lim in zip(
+            ("dx", "ddt", "dA", "dB", "dC"), errs, lims))
+        log(f"kernels: ssd_bwd b={b} S={S} H={H} P={P} N={N} chunk={Q} "
+            f"float32: grads vs the plain backward (err/tol) {held}; a "
+            f"second call {'bit-identical' if same else 'DIFFERS'} "
+            f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bms:.4f} ms ({by}, f32 FMA: "
+            f"{flops / 1e9:.3f} GFLOP), library none [{state['card']}]")
+        if not ok:
+            failures.append(f"ssd_bwd {case}")
+        if case == record:
+            state["records"]["ssd_bwd"] = dict(
+                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None)
+        else:
+            state.setdefault("kernel_dist", {})[
+                "K5 backward {}x{}x{}x{}x{} c{}".format(*case)] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                max_abs_err=max(errs))
+        del x, dt, A, B, C, gy
+        torch.cuda.empty_cache()
     return failures
 
 
@@ -3110,10 +3196,25 @@ def _train_grads(torch, state, timer) -> list[str]:
         lambda *t: ssd_ops.ssd(*t, Q)[0],
         lambda *t: _ssd_chunked(*t, Q)[0], (x, dt, A, Bm, Cm), cot,
         SSD_REL_TOL, rel=True, bound=k5_bound,
-        bwd=dict(bound=k5_bwd_bound, plain=(),
-                 what="vjp of the plain chunked version, no kernel yet"))
+        bwd=dict(bound=k5_bwd_bound, what="kernels",
+                 plain=((ssd_ops, "_ssd_chunked"),
+                        (ssd_ops, "ssd_bwd_ref"))))
+
+    # the backward before K5's kernels: the chunked version recomputed
+    # under autograd and its vjp
+    def plain_vjp():
+        rs = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        with torch.enable_grad():
+            y, _ = _ssd_chunked(*rs, Q)
+        return torch.autograd.grad(y, rs, cot)
+    vjp_ms = timer(plain_vjp)
+    log(f"train: {name}: backward kernels {bwd:.4f} ms, the plain vjp "
+        f"(recomputed chunked version and its autograd) {vjp_ms:.4f} ms, "
+        f"bound {k5_bwd_bound[0]:.4f} ms ({k5_bwd_bound[1]}) "
+        f"[{state['card']}]")
     state["train"][f"K5 {bsz}x{S}x{H}x{P}x{N} c{Q}"] = dict(
-        fwd_ms=fwd, bwd_ms=bwd, bwd_bound_ms=k5_bwd_bound[0])
+        fwd_ms=fwd, bwd_ms=bwd, plain_vjp_ms=vjp_ms,
+        bwd_bound_ms=k5_bwd_bound[0])
     if not ok:
         failures.append(name)
     return failures
@@ -3125,14 +3226,17 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     rt = Runtime(workdir / "train_smoke")
     failures = []
     # on the card K2's backward runs its kernels alone, once a step per
-    # attention layer, and K4's its reverse scan, once a step per rec layer
+    # attention layer, K4's its reverse scan, once a step per rec layer,
+    # and K5's its kernels, once a step per ssm layer
     no_plain = ((rg_ops, "rglru_scan_ref"), (fa_ops, "flash_attention_ref"),
                 (fa_ops, "_out_lse_ref"),
-                (fa_ops, "flash_attention_bwd_ref"))
+                (fa_ops, "flash_attention_bwd_ref"),
+                (ssd_ops, "_ssd_chunked"), (ssd_ops, "ssd_bwd_ref"))
     for arch in TRAIN_SMOKE:
         rt.build(TRAIN_SMOKE_IMAGEFILE.format(arch=arch), tag=arch)
         weights = rt.run(arch, platform="cpu").init_params(0)
@@ -3159,7 +3263,8 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
             kinds = c.arch.layer_types()
             want_bwd = {"rglru_scan_bwd": 3 * kinds.count("rec"),
                         "flash_attention_bwd": 3 * sum(
-                            k in ("attn", "moe") for k in kinds)}
+                            k in ("attn", "moe") for k in kinds),
+                        "ssd_bwd": 3 * kinds.count("ssm")}
             if platform == "cuda" and not all(used[k] for k in want):
                 failures.append(f"{arch}: the card run skipped {want}: "
                                 f"{used}")
@@ -3175,8 +3280,8 @@ def _train_smoke(torch, state, workdir: Path) -> list[str]:
         ok = (all(np.isfinite(v) for r in runs.values() for p in r for v in p)
               and dl <= TRAIN_SMOKE_TOL and dg <= TRAIN_SMOKE_TOL)
         log(f"train: {arch} 3 steps card vs CPU (float32), backward "
-            f"launches on the card {want_bwd} (K2's backward kernels and "
-            f"K4's reverse scan alone): "
+            f"launches on the card {want_bwd} (K2's and K5's backward "
+            f"kernels and K4's reverse scan alone): "
             f"losses "
             f"{[round(l, 6) for l, _ in runs['cuda']]} / "
             f"{[round(l, 6) for l, _ in runs['cpu']]}, max |dloss| {dl:.2e}, "
@@ -4068,14 +4173,15 @@ def _dist_launches(arch: str, layers: int) -> dict:
     """The kernel launches one rank of (d) or (e) makes in DIST_D_STEPS
     steps under remat (a forward and the backward's recompute a step, then
     one backward): K2 per attention layer, K4 per rec layer, K5 per ssm
-    layer, twice a step each; K2's backward and K4's reverse scan once."""
+    layer, twice a step each; K2's and K5's backward and K4's reverse scan
+    once."""
     from repro_torch.configs import get_config
     kinds = get_config(arch, n_layers=layers).layer_types()
     rec = kinds.count("rec")
     attn = sum(k in ("attn", "moe") for k in kinds)
     per = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd": attn,
            "rglru_scan": 2 * rec, "ssd": 2 * kinds.count("ssm"),
-           "rglru_scan_bwd": rec}
+           "rglru_scan_bwd": rec, "ssd_bwd": kinds.count("ssm")}
     return {k: n * DIST_D_STEPS for k, n in per.items() if n}
 
 

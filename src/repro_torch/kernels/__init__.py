@@ -20,9 +20,12 @@ def launch_counts() -> dict[str, int]:
 def bwd_launch_counts() -> dict[str, int]:
     """Backward kernel name -> its wrapper's ``bwd_launches`` counter: K2's
     backward kernels (the flash-attention Function's backward on a card,
-    one a call) and K4's reverse scan (the RG-LRU Function's); the forward
-    counts stay apart."""
+    one a call), K4's reverse scan (the RG-LRU Function's) and K5's
+    backward kernels (the SSD Function's, one a call); the forward counts
+    stay apart."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     return {"flash_attention_bwd": fa_ops.bwd_launches,
-            "rglru_scan_bwd": rg_ops.bwd_launches}
+            "rglru_scan_bwd": rg_ops.bwd_launches,
+            "ssd_bwd": ssd_ops.bwd_launches}

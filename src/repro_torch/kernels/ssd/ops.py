@@ -5,25 +5,31 @@ plain chunked version (``ref._ssd_chunked``, the same algorithm,
 exponents clipped the same way); a CUDA tensor launches the
 hand-written kernel ``repro_torch/csrc/ssd.cu`` or raises. There is no
 fallback between the two. ``ssd`` is a ``torch.autograd.Function``: its
-backward recomputes ``_ssd_chunked`` on the saved inputs and returns its
-vjp, as the JAX package's ``custom_vjp`` does (it has no backward kernel
-either); a final state that nothing uses gets a zero gradient.
+backward is the vjp of the chunked version, the gradient the JAX
+package's ``custom_vjp`` takes (which has no backward kernel). On a CUDA
+tensor it launches the backward kernels of the same source
+(``ssd_bwd_cuda``); on a CPU tensor it runs ``ref.ssd_bwd_ref``, the
+same phases written out in PyTorch. A final state that nothing uses gets
+a zero gradient.
 
 Unlike the TPU kernel, which returns y alone, both paths also return the
 final state: the prefill hands it to decode.
 
-The kernel runs as three device kernels (the chunks' own states and the
+The forward runs as three device kernels (the chunks' own states and the
 head-shared C.B^T, the serial pass over chunk states, the outputs; two
 when S is one chunk, which needs no pass), and its products run on the
 tensor cores in 3xTF32. It takes every shape the
 wrapper accepts; ``p_tile(P)`` is the P slice it is compiled for, a pure
-function of the shape decided before the launch.
+function of the shape decided before the launch. The backward takes the
+same shapes; its head groups (``bwd_head_groups``) are also a function of
+the shape alone.
 
-``launches`` counts wrapper calls that launch the forward kernel (CPU
-calls do not count), so a run can show that its prefill or training path
-went through it. Inside a ``core.trace.Counter`` the forward adds
-``cost()`` there, on any device, and on ``meta`` tensors returns empty
-outputs (the dry run).
+``launches`` counts wrapper calls that launch the forward kernel and
+``bwd_launches`` those that launch the backward kernels (CPU calls count
+in neither), so a run can show that its prefill or training path went
+through them. Inside a ``core.trace.Counter`` the forward adds ``cost()``
+there and the backward ``cost_bwd()`` (as ``ssd_bwd``), on any device,
+and on ``meta`` tensors both return empty outputs (the dry run).
 """
 
 from __future__ import annotations
@@ -35,14 +41,19 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import (active, raise_on_error, require,
                                          stream_ptr)
-from repro_torch.kernels.ssd.ref import _ssd_chunked
+from repro_torch.kernels.ssd.ref import _ssd_chunked, ssd_bwd_ref
 
 MAX_CHUNK = 256        # the kernel's shared-memory arrays of one chunk
 MAX_STATE = 128        # state rows N the kernel takes
 P_TILES = (16, 32, 64, 128)   # compiled P slices (x columns a block owns)
 SCORE_ALIGN = 32       # the score scratch's rows are padded to this
 
+# the backward's blocks of the dP and the dB/dC kernels sum a group of
+# heads each; groups are sized so each kernel has about this many blocks
+BWD_BLOCKS = 264
+
 launches = 0
+bwd_launches = 0
 _bound = False
 
 
@@ -60,6 +71,15 @@ def _lib():
         lib.ssd_launch.restype = i
         lib.ssd_error_string.argtypes = [i]
         lib.ssd_error_string.restype = ctypes.c_char_p
+        lib.ssd_bwd_launch.argtypes = [
+            p, p, p, p, p, p, p,            # x, dt, A, B, C, gy, gstate
+            p, p, p, p, p,                  # dx, ddt, dA, dB, dC
+            p,                              # the scratch pointers
+            i, i, i, i, i, i, i, i, i, p]   # b, S, H, P, N, chunk, pt,
+                                            # hg_dp, hg_dbc, stream
+        lib.ssd_bwd_launch.restype = i
+        lib.ssd_bwd_error_string.argtypes = [i]
+        lib.ssd_bwd_error_string.restype = ctypes.c_char_p
         _bound = True
     return lib
 
@@ -82,6 +102,36 @@ def scratch_shapes(b: int, S: int, H: int, P: int, N: int,
             "states": (bc, H, N, P), "prev": (bc, H, N, P)}
 
 
+def _check(what: str, chunk: int, x, dt, A, B, C, **more) -> int:
+    """Raise on what the kernels do not take (``more``: further tensors
+    checked as the inputs are); returns the P slice."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),
+                    *more.items()):
+        require(t.is_cuda and t.device == x.device,
+                f"{what}: {name} must be on {x.device}, got {t.device}")
+        require(t.is_contiguous(), f"{what}: {name} must be contiguous")
+        require(t.dtype == torch.float32,
+                f"{what}: {name} must be float32, got {t.dtype}")
+    require(tuple(dt.shape) == (b, S, H) and tuple(A.shape) == (H,)
+            and tuple(B.shape) == (b, S, N) and tuple(C.shape) == (b, S, N),
+            f"{what}: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+            f"{tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)} "
+            "disagree")
+    require(0 < chunk <= MAX_CHUNK and S % chunk == 0,
+            f"{what}: chunk {chunk} must divide S={S} and be at most "
+            f"{MAX_CHUNK}")
+    require(0 < N <= MAX_STATE,
+            f"{what}: state size {N} exceeds {MAX_STATE}")
+    require(P > 0 and P % 16 == 0,
+            f"{what}: head dim {P} is not a multiple of 16")
+    pt = p_tile(P)
+    require(b * (S // chunk) <= 65535 and H * -(-P // pt) <= 65535,
+            f"{what}: b * S / chunk or H exceeds the grid")
+    return pt
+
+
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int):
     """Launch the CUDA kernel. x (b,S,H,P), dt (b,S,H), A (H,), B and C
@@ -91,26 +141,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     global launches
     b, S, H, P = x.shape
     N = B.shape[-1]
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
-        require(t.is_cuda and t.device == x.device,
-                f"ssd: {name} must be on {x.device}, got {t.device}")
-        require(t.is_contiguous(), f"ssd: {name} must be contiguous")
-        require(t.dtype == torch.float32,
-                f"ssd: {name} must be float32, got {t.dtype}")
-    require(tuple(dt.shape) == (b, S, H) and tuple(A.shape) == (H,)
-            and tuple(B.shape) == (b, S, N) and tuple(C.shape) == (b, S, N),
-            f"ssd: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
-            f"{tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)} "
-            "disagree")
-    require(0 < chunk <= MAX_CHUNK and S % chunk == 0,
-            f"ssd: chunk {chunk} must divide S={S} and be at most "
-            f"{MAX_CHUNK}")
-    require(0 < N <= MAX_STATE, f"ssd: state size {N} exceeds {MAX_STATE}")
-    require(P > 0 and P % 16 == 0,
-            f"ssd: head dim {P} is not a multiple of 16")
-    pt = p_tile(P)
-    require(b * (S // chunk) <= 65535 and H * -(-P // pt) <= 65535,
-            "ssd: b * S / chunk or H exceeds the grid")
+    pt = _check("ssd", chunk, x, dt, A, B, C)
     lib = _lib()
     y = torch.empty_like(x)
     state = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
@@ -127,6 +158,80 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     raise_on_error(rc, lib, "ssd_error_string", "ssd")
     launches += 1
     return y, state
+
+
+def bwd_head_groups(b: int, S: int, H: int, N: int,
+                    chunk: int) -> tuple[int, int]:
+    """Heads a block sums in the backward's dP kernel (one a 64 x 64 tile
+    of a chunk at or below the diagonal) and in its dB/dC kernel (one a
+    64-row, 64-column tile of dB or dC a chunk): the fewest that give
+    each kernel about ``BWD_BLOCKS`` blocks."""
+    bc, nt = b * (S // chunk), -(-chunk // 64)
+
+    def size(blocks: int) -> int:
+        groups = min(H, max(1, -(-BWD_BLOCKS // max(blocks, 1))))
+        return -(-H // groups)
+    return (size(bc * nt * (nt + 1) // 2),
+            size(bc * 2 * nt * -(-N // 64)))
+
+
+def bwd_scratch_shapes(b: int, S: int, H: int, P: int, N: int,
+                       chunk: int) -> dict[str, tuple[int, ...]]:
+    """Float32 scratch of one backward launch, in the order
+    ``ssd_bwd_launch`` takes it: the forward's (recomputed), the states'
+    gradients lam, and the parts each fixed-order sum adds up."""
+    bc, nt = b * (S // chunk), -(-chunk // 64)
+    qp = -(-chunk // SCORE_ALIGN) * SCORE_ALIGN
+    hg_dp, hg_dbc = bwd_head_groups(b, S, H, N, chunk)
+    n_psl = -(-P // p_tile(P))
+    return {**scratch_shapes(b, S, H, P, N, chunk),
+            "lam": (bc, H, N, P),
+            "dg_part": (bc, H, -(-(N * P // 4) // 256)),
+            "dG_part": (-(-H // hg_dp), bc, chunk, qp),
+            "dG": (bc, chunk, qp),
+            "rsum": (bc, H, nt, chunk), "csum": (bc, H, nt, chunk),
+            "dsum": (bc, H, nt, chunk), "sdiag": (bc, H, chunk),
+            "dw_part": (bc, H, n_psl, chunk),
+            "de_part": (bc, H, n_psl, chunk),
+            "dbc_part": (-(-H // hg_dbc), 2, b * S, N),
+            "dA_part": (bc, H)}
+
+
+def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int,
+                 gy: torch.Tensor, gstate: torch.Tensor | None = None):
+    """Launch the backward kernels: the vjp of ``ssd_cuda``'s function.
+    Inputs as ``ssd_cuda``; gy (b,S,H,P) the cotangent of y, gstate
+    (b,H,N,P) that of the final state or None (no gradient reaches it),
+    float32, contiguous, on x's device. Returns (dx, ddt, dA, dB, dC),
+    float32, counted once in ``bwd_launches``."""
+    global bwd_launches
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    pt = _check("ssd_bwd", chunk, x, dt, A, B, C, gy=gy,
+                **({} if gstate is None else {"gstate": gstate}))
+    require(tuple(gy.shape) == tuple(x.shape)
+            and (gstate is None or tuple(gstate.shape) == (b, H, N, P)),
+            f"ssd_bwd: gy {tuple(gy.shape)} must be x's shape and gstate "
+            f"{None if gstate is None else tuple(gstate.shape)} "
+            f"{(b, H, N, P)}")
+    lib = _lib()
+    if b == 0 or S == 0 or H == 0:
+        return tuple(torch.zeros_like(t) for t in (x, dt, A, B, C))
+    grads = tuple(torch.empty_like(t) for t in (x, dt, A, B, C))
+    hg_dp, hg_dbc = bwd_head_groups(b, S, H, N, chunk)
+    scratch = [torch.empty(v, dtype=torch.float32, device=x.device)
+               for v in bwd_scratch_shapes(b, S, H, P, N, chunk).values()]
+    ptrs = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
+    ptrs = ctypes.cast(ptrs, ctypes.c_void_p)
+    rc = lib.ssd_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        gy.data_ptr(), None if gstate is None else gstate.data_ptr(),
+        *(t.data_ptr() for t in grads), ptrs, b, S, H, P, N, chunk, pt,
+        hg_dp, hg_dbc, stream_ptr(x.device))
+    raise_on_error(rc, lib, "ssd_bwd_error_string", "ssd_bwd")
+    bwd_launches += 1
+    return grads
 
 
 def flops(b: int, S: int, H: int, P: int, N: int, Q: int) -> float:
@@ -180,24 +285,49 @@ def _run(x, dt, A, B, C, chunk: int):
     return ssd_cuda(x, dt, A, B, C, chunk)
 
 
+def _backward(x, dt, A, B, C, chunk: int, gy, gstate):
+    """(dx, ddt, dA, dB, dC), through the counter when one is active."""
+    counter = active()
+    if counter is None:
+        return _run_bwd(x, dt, A, B, C, chunk, gy, gstate)
+    (b, S, H, P), N = x.shape, B.shape[-1]
+    with counter.kernel("ssd_bwd", *cost_bwd(b, S, H, P, N, chunk)):
+        if x.is_meta:
+            return tuple(torch.empty_like(t) for t in (x, dt, A, B, C))
+        return _run_bwd(x, dt, A, B, C, chunk, gy, gstate)
+
+
+def _run_bwd(x, dt, A, B, C, chunk: int, gy, gstate):
+    if x.device.type == "cpu":
+        require(chunk > 0 and x.shape[1] % chunk == 0,
+                f"ssd: chunk {chunk} must divide S={x.shape[1]}")
+        return ssd_bwd_ref(x, dt, A, B, C, chunk, gy, gstate)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no backward kernel for device {x.device}")
+    return ssd_bwd_cuda(x, dt, A, B, C, chunk, gy, gstate)
+
+
 class _Ssd(torch.autograd.Function):
     """Forward: the kernel (or, on the CPU, the plain chunked version).
-    Backward: the vjp of ``_ssd_chunked`` recomputed on the saved inputs
-    (``repro.kernels.ssd.ops._bwd_vjp``), for y and the final state."""
+    Backward: the vjp of ``_ssd_chunked`` for y and the final state (the
+    JAX package's ``_bwd_vjp``), from the saved inputs: the backward
+    kernels on a card, ``ssd_bwd_ref`` on the CPU. A cotangent autograd
+    leaves out (an unused output) is zero: the final state's is not read."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.chunk = chunk
         return _forward(x, dt, A, B, C, chunk)
 
     @staticmethod
     def backward(ctx, gy, gstate):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y, state = _ssd_chunked(*inputs, ctx.chunk)
-        return (*torch.autograd.grad((y, state), inputs, (gy, gstate)),
-                None)
+        x, dt, A, B, C = ctx.saved_tensors
+        gy = torch.zeros_like(x) if gy is None else gy.contiguous()
+        if gstate is not None:
+            gstate = gstate.contiguous()
+        return (*_backward(x, dt, A, B, C, ctx.chunk, gy, gstate), None)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

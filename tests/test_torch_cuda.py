@@ -21,7 +21,10 @@ backward kernels against the dense float32 plain backward from the same
 out and L, relative to the largest plain gradient: 1e-4 in float32 (FMA
 sums in another order), 2^-7 in bfloat16 (P and dS are rounded to bf16
 before their products, as the forward rounds P); the forward's L within
-1e-4 of max(1, max |L|) of the plain log-sum-exp.
+1e-4 of max(1, max |L|) of the plain log-sum-exp. K5's backward kernels
+against the plain backward ``ssd_bwd_ref`` on the same inputs, within
+1e-4 of each input's largest gradient (3xTF32 products and fixed-order
+sums, in another order than the plain version's).
 """
 
 import numpy as np
@@ -39,7 +42,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.kernels.ssd.ref import _ssd_chunked
+from repro_torch.kernels.ssd.ref import _ssd_chunked, ssd_bwd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -760,14 +763,85 @@ def test_ssd_function_grads(cuda):
     A = t(-np.exp(0.5 * rng.standard_normal(H)))
     B, C = t(rng.standard_normal((b, S, N))), t(rng.standard_normal((b, S, N)))
     cot = t(rng.standard_normal((b, S, H, P)))
-    before = ssd_ops.launches
+    before = ssd_ops.launches, ssd_ops.bwd_launches
     y, ref, g, gr = _grad_pair(lambda *z: ssd_ops.ssd(*z, Q)[0],
                                lambda *z: _ssd_chunked(*z, Q)[0],
                                (x, dt, A, B, C), cot)
     torch.cuda.synchronize()
-    assert ssd_ops.launches == before + 1
+    assert (ssd_ops.launches, ssd_ops.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
     for u, w in ((y, ref), *zip(g, gr)):
         assert float((u - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def _ssd_bwd_inputs(case, cuda, seed=12, A=None, tail=0, state=True):
+    """x, dt, A, B, C, gy and gstate on the card; ``A`` fixes every
+    head's decay, ``tail`` zeroes the last positions' x, dt, B, C and gy
+    as ssm_forward pads a sequence, ``state`` draws gstate (else None)."""
+    b, S, H, P, N, _ = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, S, H, P))
+    dt = np.log1p(np.exp(rng.standard_normal((b, S, H))))
+    B, C = rng.standard_normal((b, S, N)), rng.standard_normal((b, S, N))
+    gy = rng.standard_normal((b, S, H, P))
+    for a in (x, dt, B, C, gy):
+        a[:, S - tail:] = 0
+    A = -np.exp(0.5 * rng.standard_normal(H)) if A is None else np.full(H, A)
+    gs = rng.standard_normal((b, H, N, P)) if state else None
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)  # noqa: E731
+    return [t(a) for a in (x, dt, A, B, C, gy)] + [
+        None if gs is None else t(gs)]
+
+
+# SSD_CASES, then a decay that drives exponents past the clip at -60
+# inside a chunk, and a zero tail of 40 and of 100 positions (a padded
+# mamba2 sequence, the final state unused)
+SSD_BWD_CASES = [(case, {}) for case in SSD_CASES] + [
+    ((2, 64, 2, 16, 8, 32), {"A": -8.0}),
+    ((1, 256, 4, 64, 128, 128), {"A": -8.0}),
+    ((1, 256, 8, 64, 128, 64), {"tail": 40}),
+    ((1, 512, 8, 64, 128, 256), {"tail": 100, "state": False})]
+
+
+@pytest.mark.parametrize("case,kw", SSD_BWD_CASES, ids=str)
+def test_ssd_backward_kernel_vs_plain(case, kw, cuda):
+    """K5's backward kernels: every grad within 1e-4 of the largest of
+    the plain backward on the same inputs, one ``bwd_launches`` a call
+    and no forward launch, the same bits from two calls."""
+    *ins, gy, gs = _ssd_bwd_inputs(case, cuda, **kw)
+    Q = case[-1]
+    before = ssd_ops.launches, ssd_ops.bwd_launches
+    got = ssd_ops.ssd_bwd_cuda(*ins, Q, gy, gs)
+    torch.cuda.synchronize()
+    assert (ssd_ops.launches, ssd_ops.bwd_launches) == (before[0],
+                                                        before[1] + 1)
+    again = ssd_ops.ssd_bwd_cuda(*ins, Q, gy, gs)
+    want = ssd_bwd_ref(*ins, Q, gy, gs)
+    for a, c, w in zip(got, again, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all())
+        assert torch.equal(a, c)
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_ssd_backward_on_the_card_never_reaches_a_plain_version(
+        cuda, monkeypatch):
+    """K5's Function forward and backward with its plain versions made
+    to raise: a forward launch and one backward launch, nothing else; a
+    final state that nothing uses gets no cotangent."""
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    monkeypatch.setattr(ssd_ops, "_ssd_chunked", plain)
+    monkeypatch.setattr(ssd_ops, "ssd_bwd_ref", plain)
+    *ins, gy, _ = _ssd_bwd_inputs((1, 256, 8, 64, 128, 64), cuda,
+                                  state=False)
+    xs = [t.requires_grad_() for t in ins]
+    before = ssd_ops.launches, ssd_ops.bwd_launches
+    y, _ = ssd_ops.ssd(*xs, 64)
+    (y * gy).sum().backward()
+    torch.cuda.synchronize()
+    assert (ssd_ops.launches, ssd_ops.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert all(bool(torch.isfinite(x.grad).all()) for x in xs)
 
 
 def test_two_gloo_ranks_on_the_card_equal_the_cpu(cuda, tmp_path):

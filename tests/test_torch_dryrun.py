@@ -194,7 +194,8 @@ SET remat=full optimizer={{"lr":0.0003,"warmup_steps":2,"total_steps":1000}}
 # by operation, kernel calls a step): the counts of chip_smoke.py's dist
 # phase on the H100 (PERF.md section 6); a step runs each attention
 # layer's forward twice (remat) and its backward kernels once, each rec
-# layer's scan twice and its reverse scan once
+# layer's scan twice and its reverse scan once, each ssm layer's scan
+# twice and its backward kernels once
 K2_TWO_LAYERS = {"flash_attention_fwd": 4, "flash_attention_bwd": 2}
 DIST_RUNS = [
     ("b generic", (2, 1), "llama3.2-3b", 2, "generic", "",
@@ -209,7 +210,7 @@ DIST_RUNS = [
     ("d moonshot", (1, 2), "moonshot-v1-16b-a3b", 2, "generic", "",
      {"tp": 537_165_824}, K2_TWO_LAYERS),
     ("d mamba2", (1, 2), "mamba2-2.7b", 2, "generic", "",
-     {"tp": 269_375_488}, {"ssd": 4}),
+     {"tp": 269_375_488}, {"ssd": 4, "ssd_bwd": 2}),
     ("d recurrentgemma", (1, 2), "recurrentgemma-2b", 3, "generic", "",
      {"tp": 805_404_672}, {"rglru_scan": 4, "rglru_scan_bwd": 2,
                            "flash_attention_fwd": 2,
