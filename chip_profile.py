@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Seven measurements, each printed beside the card's name and power limit:
+Eight measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -45,6 +45,14 @@ Seven measurements, each printed beside the card's name and power limit:
             32 pages, with one span a block (no merge kernel), and the FMA
             kernel with the plan, each held against the plain version;
             CUDA-event medians, L2 flushed
+  ssd_bwd   K5's backward (one ``ssd_bwd_cuda`` call) at the train phase's
+            shape GRAD_K5 and at the dist phase's (d) mamba2-2.7b rank
+            shape K5_TP: the call's CUDA-event median (L2 flushed), then
+            10 calls under torch.profiler after 3 warm-up calls, each
+            device kernel's time a call summed by kernel name, with its
+            share of the call's device time, and the call's span from its
+            first kernel's start to its last kernel's end (the gaps
+            between its kernels included); the route the call took
 
     python3 chip_profile.py batch spans   # only the measurements named
 
@@ -59,9 +67,9 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 
-from chip_smoke import (FULL_IMAGEFILE, K1_SHAPE, SRC, TOL, TRAIN_IMAGEFILE,
-                        Timer, check, k1_case, k1_pod_case, log,
-                        phase_device)
+from chip_smoke import (FULL_IMAGEFILE, GRAD_K5, K1_SHAPE, K5_TP, SRC, TOL,
+                        TRAIN_IMAGEFILE, Timer, check, k1_case, k1_pod_case,
+                        log, phase_device)
 
 
 def dev_us(e, total: bool = False) -> float:
@@ -371,6 +379,65 @@ def spans(torch, card: str) -> None:
                 f"{err:.3e} (pool {tuple(k.shape)}) [{card}]")
 
 
+def ssd_bwd_split(torch, card: str) -> None:
+    import re
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    timer = Timer(torch)
+    calls = 10
+    for case in ((*GRAD_K5[0], GRAD_K5[1]), *K5_TP):
+        b, S, H, P, N, Q = case
+        rng = np.random.default_rng(5)
+        t = lambda a: torch.from_numpy(                    # noqa: E731
+            np.asarray(a, np.float32)).to("cuda")
+        x = t(rng.standard_normal((b, S, H, P)))
+        dt = t(np.log1p(np.exp(rng.standard_normal((b, S, H)) - 1.0)))
+        A = t(-np.exp(0.5 * rng.standard_normal(H)))
+        B = t(rng.standard_normal((b, S, N)))
+        C = t(rng.standard_normal((b, S, N)))
+        gy = t(rng.standard_normal((b, S, H, P)))
+        run = lambda: ssd_ops.ssd_bwd_cuda(x, dt, A, B, C, Q, gy)  # noqa: E731
+        ms = timer(run)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        by_name: dict[str, list] = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or dev_us(e) <= 0:
+                continue
+            m = re.search(r"(\w+_kernel\w*)", e.key)
+            name = m.group(1) if m else e.key[:60]
+            acc = by_name.setdefault(name, [0.0, 0])
+            acc[0] += dev_us(e)
+            acc[1] += e.count
+        check(bool(by_name), "ssd_bwd: the profiler recorded no device time")
+        total = sum(us for us, _ in by_name.values())
+        # each call's kernels in launch order: first start to last end
+        runs = sorted((e.time_range.start, e.time_range.end)
+                      for e in prof.events() if e.device_type == DeviceType.CUDA)
+        per = len(runs) // calls
+        span = sum(runs[k * per + per - 1][1] - runs[k * per][0]
+                   for k in range(calls)) / calls
+        tag = "ssd_bwd b={} S={} H={} P={} N={} chunk={}".format(*case)
+        log(f"{tag}: route {ssd_ops.bwd_route(P, N, Q)}; one call {ms:.4f} "
+            f"ms (CUDA events, median, L2 flushed); under the profiler "
+            f"device kernels {total / calls / 1e3:.4f} ms a call, first "
+            f"start to last end {span / 1e3:.4f} ms ({per} kernels) [{card}]")
+        for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+            log(f"{tag}: {name:32s} {us / calls / 1e3:8.4f} ms a call "
+                f"{100 * us / total:5.1f}%  x{n // calls}")
+        del x, dt, A, B, C, gy
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -395,6 +462,7 @@ def main() -> int:
         "batch": profile_batch,
         "train": profile_train,
         "spans": lambda torch, card, wd: spans(torch, card),
+        "ssd_bwd": lambda torch, card, wd: ssd_bwd_split(torch, card),
     }
     chosen = sys.argv[1:] or list(runs)
     unknown = [n for n in chosen if n not in runs]

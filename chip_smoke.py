@@ -1135,13 +1135,14 @@ def _kernels_ssd_bwd(torch, state, timer) -> list[str]:
         plain = timer(lambda: ssd_bwd_ref(x, dt, A, B, C, Q, gy))
         flops, nbytes = ssd_ops.cost_bwd(b, S, H, P, N, Q)
         bms, by = bound_ms(nbytes, flops, "float32")
+        route = ssd_ops.bwd_route(P, N, Q)
         held = ", ".join(f"{n} {e:.2e}/{lim:.2e}" for n, e, lim in zip(
             ("dx", "ddt", "dA", "dB", "dC"), errs, lims))
         log(f"kernels: ssd_bwd b={b} S={S} H={H} P={P} N={N} chunk={Q} "
             f"float32: grads vs the plain backward (err/tol) {held}; a "
             f"second call {'bit-identical' if same else 'DIFFERS'} "
-            f"{'ok' if ok else 'FAIL'}; time {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bms:.4f} ms ({by}, f32 FMA: "
+            f"{'ok' if ok else 'FAIL'}; route {route}: time {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}, f32 FMA: "
             f"{flops / 1e9:.3f} GFLOP), library none [{state['card']}]")
         if not ok:
             failures.append(f"ssd_bwd {case}")
@@ -1153,7 +1154,7 @@ def _kernels_ssd_bwd(torch, state, timer) -> list[str]:
             state.setdefault("kernel_dist", {})[
                 "K5 backward {}x{}x{}x{}x{} c{}".format(*case)] = dict(
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                max_abs_err=max(errs))
+                max_abs_err=max(errs), route=route)
         del x, dt, A, B, C, gy
         torch.cuda.empty_cache()
     return failures

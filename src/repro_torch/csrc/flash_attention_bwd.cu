@@ -111,6 +111,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"   // mbarriers, TMA, wgmma descriptors and fences
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -540,10 +542,6 @@ struct MmaTile {
   static constexpr size_t smem_q =
       sizeof(bf16) * (size_t)ST * (2 * BM + 4 * BKQ);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
@@ -1017,48 +1015,6 @@ __host__ __device__ constexpr bool wgmma_head_dim(int d) {
   return d == 64 || d == 128;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one (64 columns, 64 rows, 1 head) box of a 3-D map (d, S, B H)
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
 // rows [r0, r0 + R) of head bh into an (R, D) swizzled tile at dst: D / 64
 // x R / 64 boxes of 8 KB; rows past S arrive as zeros
 template <int D, int R>
@@ -1072,22 +1028,6 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                   r0 + 64 * rr, bh);
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-// rows [r, r + 64) of an (R, D) tile as a K-major operand (the head dim
-// the k index), k-step kk: 16 columns, 32 bytes, inside its chunk
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int r,
-                                                int kk) {
-  return wgmma_desc(tile + (kk / 4) * R * 128 + r * 128 + (kk % 4) * 32, 16,
-                    1024);
-}
 // an (R, D) tile as an MN-major B operand (its rows the k index, the head
 // dim the n index), k-step ks: 16 rows; 64-column chunks R 128 bytes apart
 template <int R>
@@ -1102,23 +1042,6 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// the accumulators stay put across an asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
 }
 
 // d (+)= A (64 x 16, K-major, shared) . B (16 x 64, K-major, shared)
@@ -1716,33 +1639,6 @@ cudaError_t launch_mma(const Args& a) {
       a.delta, static_cast<bf16*>(a.dq), a.Hq, a.Hkv, a.Sq, a.Sk, a.causal,
       a.window, a.scale, scale_log2);
   return cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library needs no -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // a contiguous (BH, S, d) bf16 tensor as a 3-D map (d, S, BH), boxes of 64

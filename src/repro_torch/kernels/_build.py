@@ -7,7 +7,8 @@ library with a plain ``extern "C"`` interface:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 at first use, into ``build/kernels/`` at the repository root, keyed by a
-hash of the source and the flags (a changed source never loads a stale
+hash of the source, the headers in ``csrc`` (``*.cuh``, which sources
+include) and the flags (a changed source or header never loads a stale
 library). ``build()`` starts one nvcc per missing library, all at once, and
 waits for them together. Nothing here runs at import time: a machine
 without nvcc or a card imports the package and uses the kernels' plain
@@ -58,6 +59,9 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

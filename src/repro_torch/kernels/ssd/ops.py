@@ -21,8 +21,10 @@ when S is one chunk, which needs no pass), and its products run on the
 tensor cores in 3xTF32. It takes every shape the
 wrapper accepts; ``p_tile(P)`` is the P slice it is compiled for, a pure
 function of the shape decided before the launch. The backward takes the
-same shapes; its head groups (``bwd_head_groups``) are also a function of
-the shape alone.
+same shapes; its head groups (``bwd_head_groups``) and its route
+(``bwd_route``: TMA + wgmma product kernels at mamba2's P 64 and N 128
+with a chunk a multiple of 64, the ``mma.sync`` kernels elsewhere) are
+also functions of the shape alone.
 
 ``launches`` counts wrapper calls that launch the forward kernel and
 ``bwd_launches`` those that launch the backward kernels (CPU calls count
@@ -49,8 +51,12 @@ P_TILES = (16, 32, 64, 128)   # compiled P slices (x columns a block owns)
 SCORE_ALIGN = 32       # the score scratch's rows are padded to this
 
 # the backward's blocks of the dP and the dB/dC kernels sum a group of
-# heads each; groups are sized so each kernel has about this many blocks
-BWD_BLOCKS = 264
+# heads each; groups are sized for a card that runs about this many of
+# each kernel's blocks at once (two and three an SM on 132 SMs), and hold
+# at least BWD_MIN_GROUP heads (each group's float32 parts are summed
+# afterwards)
+BWD_BLOCKS = (264, 396)
+BWD_MIN_GROUP = 8
 
 launches = 0
 bwd_launches = 0
@@ -80,6 +86,8 @@ def _lib():
         lib.ssd_bwd_launch.restype = i
         lib.ssd_bwd_error_string.argtypes = [i]
         lib.ssd_bwd_error_string.restype = ctypes.c_char_p
+        lib.ssd_bwd_route.argtypes = [i, i, i]
+        lib.ssd_bwd_route.restype = i
         _bound = True
     return lib
 
@@ -160,19 +168,36 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+BWD_ROUTES = ("mma.sync", "wgmma")
+
+
+def bwd_route(P: int, N: int, chunk: int) -> str:
+    """The kernels ``ssd_bwd_cuda`` runs for head dim P, state size N and
+    ``chunk``, as ``csrc/ssd.cu``'s ``ssd_bwd_route`` names them: "wgmma"
+    (TMA + wgmma product kernels: P 64, N 128, a chunk a multiple of 64,
+    mamba2's widths) or "mma.sync" (the first version's kernels: every
+    other shape). A pure function of the shape; it needs the built
+    library."""
+    return BWD_ROUTES[_lib().ssd_bwd_route(P, N, chunk)]
+
+
 def bwd_head_groups(b: int, S: int, H: int, N: int,
                     chunk: int) -> tuple[int, int]:
     """Heads a block sums in the backward's dP kernel (one a 64 x 64 tile
     of a chunk at or below the diagonal) and in its dB/dC kernel (one a
-    64-row, 64-column tile of dB or dC a chunk): the fewest that give
-    each kernel about ``BWD_BLOCKS`` blocks."""
+    64-row, 64-column tile of dB or dC a chunk): the group size whose waves
+    of the kernel's BWD_BLOCKS blocks times heads a block is least (the
+    fewest groups on a tie), with groups of at least BWD_MIN_GROUP heads
+    where H has that many."""
     bc, nt = b * (S // chunk), -(-chunk // 64)
 
-    def size(blocks: int) -> int:
-        groups = min(H, max(1, -(-BWD_BLOCKS // max(blocks, 1))))
-        return -(-H // groups)
-    return (size(bc * nt * (nt + 1) // 2),
-            size(bc * 2 * nt * -(-N // 64)))
+    def size(blocks: int, at_once: int) -> int:
+        def cost(sz: int) -> tuple[int, int]:
+            groups = -(-H // sz)
+            return -(-blocks * groups // at_once) * sz, groups
+        return min(range(min(H, BWD_MIN_GROUP), H + 1), key=cost)
+    return (size(bc * nt * (nt + 1) // 2, BWD_BLOCKS[0]),
+            size(bc * 2 * nt * -(-N // 64), BWD_BLOCKS[1]))
 
 
 def bwd_scratch_shapes(b: int, S: int, H: int, P: int, N: int,
@@ -186,7 +211,7 @@ def bwd_scratch_shapes(b: int, S: int, H: int, P: int, N: int,
     n_psl = -(-P // p_tile(P))
     return {**scratch_shapes(b, S, H, P, N, chunk),
             "lam": (bc, H, N, P),
-            "dg_part": (bc, H, -(-(N * P // 4) // 256)),
+            "dg_part": (bc, H, -(-(N * P // 4) // 256), 8),
             "dG_part": (-(-H // hg_dp), bc, chunk, qp),
             "dG": (bc, chunk, qp),
             "rsum": (bc, H, nt, chunk), "csum": (bc, H, nt, chunk),

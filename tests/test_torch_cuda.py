@@ -795,12 +795,18 @@ def _ssd_bwd_inputs(case, cuda, seed=12, A=None, tail=0, state=True):
 
 # SSD_CASES, then a decay that drives exponents past the clip at -60
 # inside a chunk, and a zero tail of 40 and of 100 positions (a padded
-# mamba2 sequence, the final state unused)
+# mamba2 sequence, the final state unused); then the routes' boundary: the
+# wgmma route (P 64, N 128, a chunk a multiple of 64) at a chunk of 192 and
+# at 19 heads (groups of uneven size), against the mma.sync route one step
+# off it (a chunk of 96, N 64, P 128)
 SSD_BWD_CASES = [(case, {}) for case in SSD_CASES] + [
     ((2, 64, 2, 16, 8, 32), {"A": -8.0}),
     ((1, 256, 4, 64, 128, 128), {"A": -8.0}),
     ((1, 256, 8, 64, 128, 64), {"tail": 40}),
-    ((1, 512, 8, 64, 128, 256), {"tail": 100, "state": False})]
+    ((1, 512, 8, 64, 128, 256), {"tail": 100, "state": False}),
+    ((2, 384, 4, 64, 128, 192), {}), ((1, 256, 19, 64, 128, 64), {}),
+    ((1, 192, 4, 64, 128, 96), {}), ((1, 256, 4, 64, 64, 64), {}),
+    ((1, 256, 4, 128, 128, 64), {})]
 
 
 @pytest.mark.parametrize("case,kw", SSD_BWD_CASES, ids=str)
@@ -821,6 +827,20 @@ def test_ssd_backward_kernel_vs_plain(case, kw, cuda):
         assert a.shape == w.shape and bool(torch.isfinite(a).all())
         assert torch.equal(a, c)
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_ssd_backward_route(cuda):
+    """The .cu's getter: the wgmma kernels at P 64, N 128 and a chunk a
+    multiple of 64 (mamba2's widths), the mma.sync kernels one step off
+    any of the three; SSD_BWD_CASES reach both routes."""
+    for P, N, chunk, route in ((64, 128, 256, "wgmma"), (64, 128, 64, "wgmma"),
+                               (64, 128, 192, "wgmma"), (64, 128, 32, "mma.sync"),
+                               (64, 128, 100, "mma.sync"), (64, 64, 64, "mma.sync"),
+                               (64, 30, 64, "mma.sync"), (128, 128, 64, "mma.sync"),
+                               (144, 16, 64, "mma.sync"), (16, 128, 64, "mma.sync")):
+        assert ssd_ops.bwd_route(P, N, chunk) == route, (P, N, chunk)
+    routes = {ssd_ops.bwd_route(c[3], c[4], c[5]) for c, _ in SSD_BWD_CASES}
+    assert routes == {"wgmma", "mma.sync"}
 
 
 def test_ssd_backward_on_the_card_never_reaches_a_plain_version(

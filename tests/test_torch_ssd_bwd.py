@@ -20,7 +20,9 @@
   backward as one ``ssd_bwd`` call at ``cost_bwd()``;
 * with tensors that claim a card, the backward builds its kernel or
   raises and never reaches a plain version;
-* the backward's head groups cover every head.
+* the backward's head groups cover every head, and each kernel's group
+  size has the fewest waves times heads a block;
+* a kernel library's build key covers the headers its source includes.
 
 The kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
@@ -196,3 +198,47 @@ def test_backward_head_groups(shape):
     assert shapes["dbc_part"][0] == -(-H // hg_dbc)
     assert list(shapes)[:4] == ["scores", "cum", "states", "prev"]
     assert len(shapes) == 16
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 80, 128, 256),
+                                   (2, 2048, 40, 128, 256),
+                                   (1, 512, 80, 128, 256),
+                                   (8, 512, 80, 128, 256),
+                                   (1, 256, 19, 128, 64), (1, 64, 2, 8, 16),
+                                   (3, 100, 7, 30, 100)], ids=str)
+def test_backward_head_groups_least_waves(shape):
+    """Each kernel's group size is a least one, over every size from
+    BWD_MIN_GROUP heads (H when fewer) to H, of its blocks' waves (of the
+    kernel's BWD_BLOCKS) times heads a block, then of its group count; at
+    mamba2-2.7b's training shape the dP kernel's blocks fit one wave."""
+    b, S, H, N, chunk = shape
+    bc, nt = b * (S // chunk), -(-chunk // 64)
+    blocks = (bc * nt * (nt + 1) // 2, bc * 2 * nt * -(-N // 64))
+    for size, n, at_once in zip(ssd_ops.bwd_head_groups(b, S, H, N, chunk),
+                                blocks, ssd_ops.BWD_BLOCKS):
+        def cost(sz):
+            groups = -(-H // sz)
+            waves = -(-n * groups // at_once)
+            return waves * sz, groups
+        low = min(H, ssd_ops.BWD_MIN_GROUP)
+        assert low <= size <= H
+        assert all(cost(size) <= cost(sz) for sz in range(low, H + 1))
+    if shape == (1, 1024, 80, 128, 256):
+        hg_dp = ssd_ops.bwd_head_groups(*shape)[0]
+        assert blocks[0] * -(-H // hg_dp) <= ssd_ops.BWD_BLOCKS[0]
+
+
+def test_library_key_covers_the_headers(tmp_path, monkeypatch):
+    """A change to a header in csrc (which sources include) gives every
+    library a new build key, as a change to its own source does: a stale
+    library never loads."""
+    (tmp_path / "ssd.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("ssd")
+    (tmp_path / "hopper.cuh").write_text("// v2\n")
+    second = _build.library_path("ssd")
+    (tmp_path / "ssd.cu").write_text('#include "hopper.cuh"\n// more\n')
+    third = _build.library_path("ssd")
+    assert len({first, second, third}) == 3
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("ssd-")
