@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Eight measurements, each printed beside the card's name and power limit:
+Nine measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -53,6 +53,17 @@ Eight measurements, each printed beside the card's name and power limit:
             share of the call's device time, and the call's span from its
             first kernel's start to its last kernel's end (the gaps
             between its kernels included); the route the call took
+  fwd       K2's forward at every bfloat16 shape at head dims 64 and 128
+            that chip_smoke.py runs (K2_CASES, K2_BATCH, the bf16
+            K2_EXAMPLES, the dist ranks' K2_TP, K2_FSDP and K2_DP, the
+            train phase's GRAD_K2): each kernel the launcher can run
+            there -- mma.sync (the first tensor-core kernel), the wgmma
+            kernel with 64- and 128-row blocks -- held against the plain
+            version, then timed in turns (mma.sync, 64, 128, 128, 64,
+            mma.sync; CUDA-event medians, L2 flushed) beside the kernel the
+            shapes choose, the bound and SDPA's forward (GQA through
+            ``enable_gqa``); then SDPA's forward at the dist ranks' (d),
+            (e), (h) shapes and (g)'s float32 one beside the port's kernel
 
     python3 chip_profile.py batch spans   # only the measurements named
 
@@ -67,9 +78,10 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 
-from chip_smoke import (FULL_IMAGEFILE, GRAD_K5, K1_SHAPE, K5_TP, SRC, TOL,
-                        TRAIN_IMAGEFILE, Timer, check, k1_case, k1_pod_case,
-                        log, phase_device)
+from chip_smoke import (FULL_IMAGEFILE, GRAD_K2, GRAD_K5, K1_SHAPE, K2_BATCH,
+                        K2_CASES, K2_DP, K2_EXAMPLES, K2_FSDP, K2_G, K2_TP,
+                        K5_TP, SRC, TOL, TRAIN_IMAGEFILE, Timer, check,
+                        k1_case, k1_pod_case, k2_bound, log, phase_device)
 
 
 def dev_us(e, total: bool = False) -> float:
@@ -438,6 +450,85 @@ def ssd_bwd_split(torch, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def fwd_kernels(torch, card: str) -> None:
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    timer = Timer(torch)
+    shapes = ([(1, *c) for c in K2_CASES] + list(K2_BATCH)
+              + [c[:-1] for c in (*K2_EXAMPLES, *K2_TP, *K2_FSDP, *K2_DP)
+                 if c[-1] == "bfloat16"]
+              + [(B, Hq, Hkv, d, S, S, w) for B, Hq, Hkv, S, d, w in GRAD_K2])
+    shapes = sorted({s for s in shapes if s[3] in (64, 128)},
+                    key=lambda s: (s[3], s[0] * s[1] * s[4]))
+
+    def inputs(B, Hq, Hkv, d, Sq, Sk, dt):
+        r = np.random.default_rng(2)
+        return [torch.from_numpy(r.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt) for shape in (
+            (B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d))]
+
+    def sdpa(q, k, v, Sq, Sk, window):
+        mask = None
+        if window and window < Sk:
+            rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+            cols = torch.arange(Sk, device="cuda")[None, :]
+            mask = (cols <= rows) & (cols > rows - window)
+        elif Sq != Sk:
+            rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+            mask = torch.arange(Sk, device="cuda")[None, :] <= rows
+        return timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True))
+
+    kernels = ("mma.sync", "wgmma-64", "wgmma-128")
+    for B, Hq, Hkv, d, Sq, Sk, window in shapes:
+        q, k, v = inputs(B, Hq, Hkv, d, Sq, Sk, torch.bfloat16)
+        kw = dict(causal=True, window=window)
+        ref = flash_attention_ref(q, k, v, **kw).float()
+        errs = {}
+        for kern in kernels:
+            out = fa_ops.flash_attention_fwd_cuda(q, k, v, kernel=kern, **kw)
+            torch.cuda.synchronize()
+            errs[kern] = float((out.float() - ref).abs().max())
+            check(bool(torch.isfinite(out).all())
+                  and errs[kern] <= TOL["bfloat16"],
+                  f"fwd: {kern} at {(B, Hq, Hkv, d, Sq, Sk, window)} "
+                  f"max_abs_err {errs[kern]:.3e}")
+        del ref
+        times = {kern: [] for kern in kernels}
+        for kern in (*kernels, *reversed(kernels)):
+            times[kern].append(timer(lambda: fa_ops.flash_attention_fwd_cuda(
+                q, k, v, kernel=kern, **kw)))
+        chosen = fa_ops.fwd_kernel(torch.bfloat16, d, B, Hq, Sq)
+        bms, by = k2_bound(B, Hq, Hkv, d, Sq, Sk, window, 2, "bfloat16")
+        lib = sdpa(q, k, v, Sq, Sk, window)
+        log(f"fwd: flash_attention_fwd B={B} Hq={Hq} Hkv={Hkv} d={d} Sq={Sq} "
+            f"Sk={Sk} window={window} bfloat16: "
+            + ", ".join(f"{kern} {t[0]:.4f} / {t[1]:.4f} ms (err "
+                        f"{errs[kern]:.2e})" for kern, t in times.items())
+            + f"; chosen {chosen}; bound {bms:.4f} ms ({by}); SDPA {lib:.4f} "
+            f"ms [{card}]")
+        del q, k, v
+        torch.cuda.empty_cache()
+    # SDPA's forward at the dist ranks' shapes beside the kernel chosen
+    for B, Hq, Hkv, d, Sq, Sk, window, dname in (*K2_TP, *K2_FSDP, *K2_DP,
+                                                 *K2_G):
+        dt = getattr(torch, dname)
+        q, k, v = inputs(B, Hq, Hkv, d, Sq, Sk, dt)
+        ms = timer(lambda: fa_ops.flash_attention_fwd_cuda(
+            q, k, v, causal=True, window=window))
+        lib = sdpa(q, k, v, Sq, Sk, window)
+        log(f"fwd: dist rank B={B} Hq={Hq} Hkv={Hkv} d={d} S={Sq} "
+            f"window={window} {dname}: kernel "
+            f"{fa_ops.fwd_kernel(dt, d, B, Hq, Sq)} {ms:.4f} ms, SDPA "
+            f"{lib:.4f} ms [{card}]")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -463,6 +554,7 @@ def main() -> int:
         "train": profile_train,
         "spans": lambda torch, card, wd: spans(torch, card),
         "ssd_bwd": lambda torch, card, wd: ssd_bwd_split(torch, card),
+        "fwd": lambda torch, card, wd: fwd_kernels(torch, card),
     }
     chosen = sys.argv[1:] or list(runs)
     unknown = [n for n in chosen if n not in runs]

@@ -648,6 +648,23 @@ K2_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # a call at one of them that the .cu's route getter
 # (``ops.bwd_route``) sends elsewhere fails the run
 K2_BWD_WGMMA_DIMS = (64, 128)
+# the same for the forward (``ops.fwd_route``): a bfloat16 forward at one
+# of these head dims on another route fails the run
+K2_FWD_WGMMA_DIMS = (64, 128)
+
+
+def k2_fwd_route(torch, dname: str, d: int, B: int, Hq: int,
+                 Sq: int) -> tuple[str, bool]:
+    """The forward's route at (dtype, d) and its kernel at these shapes
+    (``wgmma-64``/``wgmma-128``: rows a block), as the .cu chooses them,
+    and whether the route is the one this script requires."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    dt = getattr(torch, dname)
+    route = fa_ops.fwd_route(dt, d)
+    kernel = fa_ops.fwd_kernel(dt, d, B, Hq, Sq)
+    label = route if kernel in (route, "fma") else f"{route}, {kernel}"
+    return label, (route == "wgmma" or dname != "bfloat16"
+                   or d not in K2_FWD_WGMMA_DIMS)
 
 
 def k2_bwd_route(torch, dname: str, d: int) -> tuple[str, bool]:
@@ -862,10 +879,11 @@ def phase_kernels(torch, state, timer) -> None:
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             finite = bool(torch.isfinite(out).all())
-            ok = finite and err <= TOL[dname]
-            kind = "tensor cores" if dname == "bfloat16" else "fma"
+            route, route_ok = k2_fwd_route(torch, dname, d, Bq, Hq, Sq)
+            ok = finite and err <= TOL[dname] and route_ok
             log(f"kernels: flash_attention_fwd B={Bq} Hq={Hq} Hkv={Hkv} d={d} "
-                f"Sq={Sq} Sk={Sk} causal window={window} {dname} ({kind}): "
+                f"Sq={Sq} Sk={Sk} causal window={window} {dname} (route "
+                f"{route}{'' if route_ok else ', not the required wgmma'}): "
                 f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -3040,7 +3058,8 @@ def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
     the dense float32 plain backward, two backward calls the same bits;
     the forward's time, the backward kernels' (one wrapper call on the
     forward kernel's out and L) beside their bound, the plain backward's.
-    The backward's route must be the one ``k2_bwd_route`` requires.
+    The routes must be the ones ``k2_fwd_route`` and ``k2_bwd_route``
+    require.
     Returns (ok, forward ms, backward dict)."""
     from repro_torch.kernels._launch import device_sms
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -3073,8 +3092,10 @@ def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
         lims.append(K2_BWD_TOL["bfloat16"] * float(b.abs().max()))
     del want, f
     route, route_ok = k2_bwd_route(torch, "bfloat16", d)
+    froute, froute_ok = k2_fwd_route(torch, "bfloat16", d, B, Hq, S)
     ok = (bool(torch.isfinite(out).all()) and out_err <= TOL["bfloat16"]
-          and same and route_ok and all(e <= l for e, l in zip(errs, lims)))
+          and same and route_ok and froute_ok
+          and all(e <= l for e, l in zip(errs, lims)))
     with torch.no_grad():
         fwd = timer(lambda: fa_ops.flash_attention(*inputs, **kw))
         o, lse = fa_ops.flash_attention_fwd_cuda(*inputs, lse=True, **kw)
@@ -3093,7 +3114,8 @@ def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
         f"plain backward (err/tol) "
         f"{', '.join(f'{e:.2e}/{l:.2e}' for e, l in zip(errs, lims))}; "
         f"two backward calls the same bits {same} "
-        f"{'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms (bound "
+        f"{'ok' if ok else 'FAIL'}; forward {fwd:.4f} ms (route {froute}"
+        f"{'' if froute_ok else ', not the required wgmma'}; bound "
         f"{fwd_bound[0]:.4f} ms, {fwd_bound[1]}), backward kernels "
         f"{ms:.4f} ms (route {route}"
         f"{'' if route_ok else ', not the required wgmma'}; bound "

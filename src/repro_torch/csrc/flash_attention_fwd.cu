@@ -18,10 +18,23 @@
 // recurrentgemma-2b's 2304-token, window-2048 prefill the operations, 27 us
 // at the bf16 tensor-core rate).
 //
-// Two kernels, chosen by dtype:
+// Three routes, by (dtype, head dim); ``flash_attention_fwd_route`` names
+// them:
 //
-// bfloat16 runs on the tensor cores, FlashAttention-2 style, with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate):
+// bfloat16 at d 64 and 128: TMA + wgmma (the FlashAttention-3 shape, below
+// at flash_fwd_wgmma): a producer warp streams K and V tiles by TMA into a
+// two-stage mbarrier ring while one or two consumer warpgroups of 64 query
+// rows each run S = Q K^T and O += P V as wgmma, the online softmax in
+// registers between them. Against the mma.sync kernel's limits (the same
+// warps issued the cp.async copies, the ldmatrix loads, the exponentials
+// and the products, one after another, at 5.3x the bound at llama3.2-3b's
+// training shape): the loads leave the compute warps, a warpgroup's
+// product is one asynchronous instruction a k-step, and a 128-row block
+// reads each K and V tile once for two warpgroups. Blocks of 128 or 64
+// rows by shape (``flash_attention_fwd_kernel``).
+//
+// bfloat16 at d 16, 32, 80 and 256: tensor cores FlashAttention-2 style,
+// with mma.sync.m16n8k16 (bf16 in, f32 accumulate):
 //   * grid (B*Hq, ceil(Sq/64)): four warps per block, each owning 16 rows
 //     of a 64-row query tile; the query tiles of a head are launched last
 //     tile first, so a causal prefill's heaviest tiles start in the first
@@ -42,17 +55,15 @@
 //     fed straight back as the A operand of P V: the accumulator fragment
 //     of m16n8k16 has the A fragment's layout, so P never touches shared
 //     memory.
-// The scores are f32 sums of exact bf16 products, as in the reference.
-// This is the step that puts K2 on the tensor cores at all; wgmma with a
-// warp-specialised ping-pong of softmax and products (the FlashAttention-3
-// shape) is later work.
+// The scores are f32 sums of exact bf16 products, as in the reference, on
+// both bf16 routes.
 //
 // float32 keeps plain FMA (tensor cores would mean TF32, outside the f32
 // tolerance): grid (ceil(Sq/BQ), B*Hq), Q, K and V tiles in shared memory
 // as f32 (rows padded by one float), each of the 128 threads owning a
 // (BQ/16 x BK/8) patch of scores and a (BQ/16 x d/8) patch of the output.
 //
-// Both: KV tiles entirely in the future (causal with the Sk - Sq offset)
+// All: KV tiles entirely in the future (causal with the Sk - Sq offset)
 // or entirely outside the window are never loaded; ragged Sq and Sk are
 // masked in the kernel; head dims 16, 32, 64, 80 (stablelm-3b), 128 and
 // 256, one instantiation each (a dispatch case per head dim, not any
@@ -62,9 +73,14 @@
 // 128 = {0, 48, 96, 16, 64, 112, 32, 80}: distinct 16-byte bank groups, no
 // conflict, with no swizzle to get wrong; global rows stay 160 bytes.
 
+#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "attention.cuh"   // the mask and tile ranges, mma.sync and wgmma
+                            // products, TMA tiles (hopper.cuh beneath)
 
 namespace {
 
@@ -98,14 +114,6 @@ struct Tile {
       sizeof(float) * ((size_t)BQ * QST + (size_t)BK * QST + (size_t)BK * D +
                        (size_t)BQ * PST);
 };
-
-__device__ __forceinline__ bool visible(int kc, int qr, int Sk, int off,
-                                        int causal, int window) {
-  bool ok = kc < Sk;
-  if (causal) ok = ok && kc <= qr + off;
-  if (window > 0) ok = ok && kc > qr + off - window;
-  return ok;
-}
 
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
@@ -196,8 +204,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
         const int kc = k_lo + tx + 8 * j;
-        s[i][j] = visible(kc, qr, Sk, off, causal, window) ? s[i][j] * scale
-                                                            : kNegInf;
+        s[i][j] = visible(kc, qr, Sq, Sk, off, causal, window)
+                      ? s[i][j] * scale
+                      : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = group8_max(mx);
@@ -207,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
         const int kc = k_lo + tx + 8 * j;
-        const float p = visible(kc, qr, Sk, off, causal, window)
+        const float p = visible(kc, qr, Sq, Sk, off, causal, window)
                             ? expf(s[i][j] - m_new)
                             : 0.f;
         Ps[(ty * RM + i) * PST + tx + 8 * j] = p;
@@ -315,48 +324,7 @@ struct MmaTile {
       sizeof(__nv_bfloat16) * (size_t)ST * (kMmaBQ + 4 * BKV);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // rows [r0, r0 + R) of a (rows, D) bf16 matrix into s (row stride ST),
 // zero past the last row; one cp.async group is committed by the caller
@@ -593,13 +561,451 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(int d, const void* q, const void* k, const void* v,
-                        void* o, float* lse, int B, int Hq, int Hkv, int Sq,
-                        int Sk, int causal, int window, float scale,
-                        cudaStream_t stream) {
-  // 16-byte cp.async rows need 16-byte aligned bases
+// ---------------------------------------------------------------------------
+// bfloat16 at d 64 and 128: TMA ring + wgmma (Hopper)
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// d 64 and 128 take the wgmma kernel in bfloat16; every other head dim the
+// mma.sync one (d 16, 32 and 80 rows are not whole 128-byte swizzle chunks;
+// at d 256 a warpgroup's O of 64 rows alone is 128 registers a thread)
+__host__ __device__ constexpr bool wgmma_head_dim(int d) {
+  return d == 64 || d == 128;
+}
+
+// A block is NWG consumer warpgroups of 64 query rows each and one producer
+// warpgroup whose first thread issues the TMA loads: Q once, then K and V
+// tiles of BN keys through a ring of two stages, K and V each completing
+// on its own mbarrier (K's product can start before V lands) and released
+// on its own: a K tile once its S product has completed, a V tile once its
+// P V product has; the producer refills a slot when every consumer warp
+// has arrived on its empty barrier, and loads K a tile ahead of V.
+// 128-byte-swizzled tiles: an (R, D) tile is D / 64 column chunks of R rows
+// of 128 bytes (chunks 1024-byte aligned). Two shapes:
+//   * NWG 2: 128 rows, 384 threads, one block an SM, consumers at 240
+//     registers; BN 128;
+//   * NWG 1: 64 rows, 256 threads, two blocks an SM (launch bounds cap a
+//     thread at 128 registers; the producer gives 104 of them to the
+//     consumer, at 232); BN 64, so that two blocks' rings fit at d 128
+//     (at d 64 too, where short prefills ran faster on 64-key tiles than
+//     on 128-key ones).
+template <int D, int NWG>
+struct FwdWg {
+  static constexpr int kThreads = 128 * (NWG + 1);
+  static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
+  static constexpr int kConsumerRegs = NWG == 1 ? 232 : 240;
+  static constexpr int BM = 64 * NWG;                  // query rows a block
+  static constexpr int BN = 64 * NWG;                  // keys a tile
+  static constexpr int kStages = 2;
+  static constexpr int kQBytes = BM * D * 2;
+  static constexpr int kKvBytes = BN * D * 2;          // one K or V tile
+  static constexpr int kBars = kQBytes + 2 * kStages * kKvBytes;
+  // full and empty barriers of K and V a stage, and Q's
+  static constexpr size_t smem = 1024 + kBars + (4 * kStages + 2) * 8;
+};
+
+// Query rows a block, from the shapes alone: 128 (two consumer warpgroups
+// share each K and V tile, taking turns) for queries of 1024 rows and more
+// whose 128-row tiles give every SM of an H100 (132) a work item; 64
+// (two blocks an SM, 64-key tiles) otherwise: at 512-768 rows the
+// 64-row tiles' finer diagonal and the second block an SM win (llama3.2-3b's
+// 512-token prefill, 96 tiles of 128 rows or 192 of 64), and a grid of
+// fewer 128-row tiles than SMs leaves SMs idle (PERF.md gives the times
+// that set this).
+constexpr int kLongRows = 1024;
+constexpr long long kSms = 132;
+__host__ __device__ constexpr int wgmma_block_rows(long long bhs, int Sq) {
+  return Sq >= kLongRows && bhs * ((Sq + 127) / 128) >= kSms ? 128 : 64;
+}
+
+// named barriers 1 and 2 order the two consumer warpgroups' products
+// (barrier 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Work item i of n_items = bhs n_qt: b Hq + q head = i % bhs, query tile
+// n_qt - 1 - i / bhs (the last tiles, which see the most keys under a
+// causal mask, come first). The grid is persistent: block c of G takes the
+// items of index r G + c in even rounds r and r G + G - 1 - c in odd ones
+// (a snake over the longest-first order evens the blocks' work), so the
+// producer loads the next item's Q, K and V while the consumers finish
+// this one's last products and its output. Each consumer warpgroup keeps
+// its 64 rows' O (64 x D), row max m and partial sum l in registers and
+// walks the item's key tiles (key_tiles of its rows) in a software
+// pipeline, FlashAttention-3's:
+//   * S = Q K^T of tile j+1 (wgmma SS, both K-major) and O += P_j V_j
+//     (wgmma RS: P_j in registers as bf16, the accumulator's layout being
+//     the A fragment's; V MN-major) are issued together; the softmax of
+//     tile j+1 runs while P_j V_j is still on the tensor cores; then O is
+//     rescaled and P_{j+1} packed;
+//   * the two warpgroups of a 128-row block take turns to issue their
+//     products (named barriers), so one's softmax runs under the other's
+//     products;
+//   * the softmax in the log2 domain on raw scores: m is the running max of
+//     Q K^T, p = 2^(scale log2 e (s - m)) one FFMA and one ex2; P is
+//     rounded to bf16 before P V, as the TPU kernel does; the scores of a
+//     tile are tested one by one only where a mask edge crosses it
+//     (edge_tile, a warpgroup's 64 rows at a time), against visible's
+//     rule as a key range a row (visible_keys).
+// O is written as acc / max(l, 1e-30) in bf16 straight from registers, and
+// L (when lse is not null) as m scale + ln l in natural units. No atomics:
+// two calls give the same bits, with or without L, whatever the grid.
+template <int D, int NWG>
+__global__ void __launch_bounds__(FwdWg<D, NWG>::kThreads,
+                                  FwdWg<D, NWG>::kMinBlocks)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    bf16* __restrict__ o, float* __restrict__ lse, int Hq,
+                    int Hkv, int Sq, int Sk, int causal, int window,
+                    float scale_log2, int bhs, int n_qt) {
+  using TL = FwdWg<D, NWG>;
+  constexpr int BM = TL::BM, BN = TL::BN, S = TL::kStages;
+  extern __shared__ __align__(1024) unsigned char fsm[];
+  const uint32_t base = (smem_u32(fsm) + 1023) & ~1023u;
+  const uint32_t q_tile = base;
+  auto k_tile = [&](int s) { return base + TL::kQBytes + s * TL::kKvBytes; };
+  auto v_tile = [&](int s) { return k_tile(S + s); };
+  const uint32_t bars = base + TL::kBars;
+  auto full_k = [&](int s) { return bars + 8 * s; };
+  auto full_v = [&](int s) { return bars + 8 * (S + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (2 * S + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (3 * S + s); };
+  const uint32_t q_full = bars + 8 * 4 * S, q_empty = q_full + 8;
+
+  const int off = Sk - Sq, n_items = bhs * n_qt, G = gridDim.x;
+  // the r-th item of this block (-1 past the last round's end), its head
+  // and rows, and its key tiles
+  auto item = [&](int r) {
+    const int i = r * G + (r % 2 ? G - 1 - (int)blockIdx.x : blockIdx.x);
+    return i < n_items ? i : -1;
+  };
+  auto tiles = [&](int i, int* bh, int* q_lo, int* kt_begin) {
+    *bh = i % bhs;
+    *q_lo = (n_qt - 1 - i / bhs) * BM;
+    int kt_end;
+    key_tiles(*q_lo, imin(*q_lo + BM, Sq) - 1, Sk, off, causal, window, BN,
+              kt_begin, &kt_end);
+    return kt_end - *kt_begin;
+  };
+  const int rounds = (n_items + G - 1) / G;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * NWG);   // each consumer warp
+      mbar_init(empty_v(s), 4 * NWG);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * NWG);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 128 * NWG) return;
+    // tile g of this block's stream of K (is_v 0) or V (1) tiles into its
+    // slot, once the slot's tile g - S has been released
+    auto load = [&](int g, int is_v, int kv_lo, int bkv) {
+      const int s = g % S;
+      if (g >= S) mbar_wait(is_v ? empty_v(s) : empty_k(s), (g / S - 1) & 1);
+      const uint32_t bar = is_v ? full_v(s) : full_k(s);
+      mbar_expect_tx(bar, TL::kKvBytes);
+      tma_tile<D, BN>(is_v ? v_tile(s) : k_tile(s), is_v ? &map_v : &map_k,
+                      bar, kv_lo, bkv);
+    };
+    int g = 0, nq = 0;   // K/V tiles and Q tiles loaded so far
+    for (int r = 0; r < rounds; ++r) {
+      const int i = item(r);
+      if (i < 0) continue;
+      int bh, q_lo, kt_begin;
+      const int n_it = tiles(i, &bh, &q_lo, &kt_begin);
+      if (n_it == 0) continue;
+      const int bkv = bh / Hq * Hkv + bh % Hq / (Hq / Hkv);
+      if (nq > 0) mbar_wait(q_empty, (nq - 1) & 1);
+      mbar_expect_tx(q_full, TL::kQBytes);
+      tma_tile<D, BM>(q_tile, &map_q, q_full, q_lo, bh);
+      ++nq;
+      load(g, 0, kt_begin * BN, bkv);
+      for (int it = 0; it < n_it; ++it) {
+        if (it + 1 < n_it) load(g + it + 1, 0, (kt_begin + it + 1) * BN, bkv);
+        load(g + it, 1, (kt_begin + it) * BN, bkv);
+      }
+      g += n_it;
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      TL::kConsumerRegs));
+  const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+  float acc[D / 2];
+  float m[2], l[2];
+  // S of the tile in flight (element 4 j + 2 h + e: row r0 + 8 h, key
+  // kv_lo + 8 j + 2 (lane % 4) + e), then its P; P of the tile before as
+  // the A fragments of P V
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  int rw, r0, kv_first;   // this warpgroup's and thread's rows, item's keys
+
+  // the products' turns: this warpgroup issues after the other's
+  // named_arrive (NWG 2)
+  auto turn = [&]() {
+    if constexpr (NWG == 2) named_sync(1 + wg);
+  };
+  auto done = [&]() {
+    if constexpr (NWG == 2) named_arrive(2 - wg);
+  };
+  auto issue_s = [&](int s) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN>(sc, kmajor_desc<BM>(q_tile, 64 * wg, kk),
+                   kmajor_desc<BN>(k_tile(s), 0, kk), kk > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int s) {
+#pragma unroll
+    for (int ks = 0; ks < BN / 16; ++ks)
+      wgmma_rs<D>(acc, pa[ks], mnmajor_desc<BN>(v_tile(s), ks));
+    wgmma_commit();
+  };
+  // the online softmax of the scores in sc (the item's key tile it): P
+  // into sc, m and l updated; returns O's rescale factors in alpha
+  auto softmax = [&](int it, float* alpha) {
+    const int kv_lo = kv_first + it * BN;
+    if (edge_tile(rw, 64, kv_lo, BN, Sk, off, causal, window)) {
+      // visible's rule as a key range a row, relative to this thread's
+      // first column: two compares an element
+      int lo[2], hi[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        visible_keys(r0 + 8 * h, Sq, Sk, off, causal, window, &lo[h], &hi[h]);
+        lo[h] -= kv_lo + 2 * (lane % 4);
+        hi[h] -= kv_lo + 2 * (lane % 4);
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + e % 2 < lo[e / 2] || 8 * j + e % 2 > hi[e / 2])
+            sc[4 * j + e] = neg_inf();
+    }
+    float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+    float mb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      const float m_use = m_new == neg_inf() ? 0.f : m_new;   // none yet
+      alpha[h] = exp2_ftz((m[h] - m_use) * scale_log2);
+      mb[h] = m_use * scale_log2;
+      m[h] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -mb[e / 2]));
+        sc[4 * j + e] = p;
+        sum[e / 2] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+  };
+  // after P V of the tile before has completed: O rescaled, P packed
+  auto rescale_pack = [&](const float* alpha) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha[0], acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1], acc[4 * j + 3] *= alpha[1];
+    }
+#pragma unroll
+    for (int ks = 0; ks < BN / 16; ++ks) wg_acc_to_a(pa[ks], sc, ks);
+  };
+  auto release = [&](uint32_t bar) {        // this warp is done with a slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  int g = 0, nq = 0;   // K/V tiles and Q tiles consumed so far
+  for (int r = 0; r < rounds; ++r) {
+    const int i = item(r);
+    if (i < 0) continue;
+    int bh, q_lo, kt_begin;
+    const int n_it = tiles(i, &bh, &q_lo, &kt_begin);
+    rw = q_lo + 64 * wg;
+    r0 = rw + 16 * w + lane / 4;
+    kv_first = kt_begin * BN;
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
+    m[0] = m[1] = neg_inf();
+    l[0] = l[1] = 0.f;
+
+    if (n_it > 0) {
+      float alpha[2];
+      mbar_wait(q_full, nq & 1);
+      if (NWG == 2 && wg == 1) done();       // warpgroup 0 issues first
+      mbar_wait(full_k(g % S), (g / S) & 1);
+      turn();
+      fence_regs(acc);
+      wgmma_fence();
+      issue_s(g % S);
+      done();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(empty_k(g % S));
+      softmax(0, alpha);
+      rescale_pack(alpha);
+      for (int it = 1; it < n_it; ++it) {
+        const int s = (g + it) % S, sp = (g + it - 1) % S;
+        mbar_wait(full_k(s), ((g + it) / S) & 1);
+        mbar_wait(full_v(sp), ((g + it - 1) / S) & 1);
+        turn();
+        fence_regs(acc);
+        wgmma_fence();
+        issue_s(s);
+        issue_pv(sp);
+        done();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        release(empty_k(s));
+        softmax(it, alpha);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(empty_v(sp));
+        rescale_pack(alpha);
+      }
+      release(q_empty);                      // Q's last product is done
+      ++nq;
+      const int sl = (g + n_it - 1) % S;
+      mbar_wait(full_v(sl), ((g + n_it - 1) / S) & 1);
+      turn();
+      fence_regs(acc);
+      wgmma_fence();
+      issue_pv(sl);
+      if (wg == 0) done();                   // warpgroup 1 issues last
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(empty_v(sl));
+      g += n_it;
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lt = l[h];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int row_q = r0 + 8 * h;
+      if (row_q >= Sq) continue;
+      const size_t row = (size_t)bh * Sq + row_q;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[row] = lt > 0.f ? m[h] * scale_log2 * kLn2 + logf(lt)
+                            : -neg_inf();
+      const float inv = 1.f / fmaxf(lt, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(o + row * D + 8 * j +
+                                           2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv,
+                                  acc[4 * j + 2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int D, int NWG>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                         int causal, int window, float scale,
+                         cudaStream_t stream) {
+  using TL = FwdWg<D, NWG>;
+  // cuTensorMapEncodeTiled needs q's context current on this thread (a
+  // recompute under torch.utils.checkpoint runs on autograd's backward
+  // thread, where no runtime call may have bound it yet)
+  cudaPointerAttributes pa;
+  cudaError_t e = cudaPointerGetAttributes(&pa, q);
+  if (e == cudaSuccess) e = cudaSetDevice(pa.device);
+  if (e != cudaSuccess) return e;
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!encode_heads(&mq, enc, q, D, Sq, B * Hq) ||
+      !encode_heads(&mk, enc, k, D, Sk, B * Hkv) ||
+      !encode_heads(&mv, enc, v, D, Sk, B * Hkv))
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma<D, NWG>;
+  static int sms[32] = {0};   // a device's SMs, once its attribute is set
+  if (pa.device < 0 || pa.device >= 32) return cudaErrorInvalidDevice;
+  if (sms[pa.device] == 0) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TL::smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[pa.device],
+                                 cudaDevAttrMultiProcessorCount, pa.device);
+    if (e != cudaSuccess) return e;
+  }
+  const long long bhs = (long long)B * Hq;
+  const long long n_qt = (Sq + TL::BM - 1) / TL::BM;
+  if (bhs * n_qt > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // persistent: as many blocks as fit the card at once, fewer when there
+  // are fewer work items
+  const long long fit = (long long)sms[pa.device] * TL::kMinBlocks;
+  const unsigned grid = (unsigned)(bhs * n_qt < fit ? bhs * n_qt : fit);
+  kern<<<grid, TL::kThreads, TL::smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, Hq, Hkv, Sq, Sk, causal, window,
+      scale * kLog2e, (int)bhs, (int)n_qt);
+  return cudaGetLastError();
+}
+
+// the kernels a bfloat16 call runs, as flash_attention_fwd_launch's
+// ``kernel`` names them: 1 mma.sync, 2 wgmma with 64-row blocks, 3 wgmma
+// with 128-row blocks
+constexpr int kMma = 1, kWg64 = 2, kWg128 = 3;
+
+int bf16_kernel(int d, int B, int Hq, int Sq) {
+  if (!wgmma_head_dim(d)) return kMma;
+  return wgmma_block_rows((long long)B * Hq, Sq) == 128 ? kWg128 : kWg64;
+}
+
+cudaError_t launch_bf16(int d, int kernel, const void* q, const void* k,
+                        const void* v, void* o, float* lse, int B, int Hq,
+                        int Hkv, int Sq, int Sk, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  // 16-byte cp.async rows and TMA need 16-byte aligned bases
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
     return cudaErrorMisalignedAddress;
+  if (kernel == 0) kernel = bf16_kernel(d, B, Hq, Sq);
+  if (kernel != kMma) {
+    if (!wgmma_head_dim(d) || (kernel != kWg64 && kernel != kWg128))
+      return cudaErrorInvalidValue;
+    if (d == 64)
+      return kernel == kWg64
+                 ? launch_wgmma<64, 1>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
+                                       causal, window, scale, stream)
+                 : launch_wgmma<64, 2>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
+                                       causal, window, scale, stream);
+    return kernel == kWg64
+               ? launch_wgmma<128, 1>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
+                                      causal, window, scale, stream)
+               : launch_wgmma<128, 2>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
+                                      causal, window, scale, stream);
+  }
   switch (d) {
     case 16:
       return launch_mma<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
@@ -624,30 +1030,69 @@ cudaError_t launch_bf16(int d, const void* q, const void* k, const void* v,
   }
 }
 
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse: null, or float32 (B, Hq, Sq) that
 // receives each row's log-sum-exp of its scaled scores (+inf on a row that
 // sees no key), for the backward; out is the same bits either way.
-// Returns a cudaError_t code (0 = ok).
-extern "C" int flash_attention_fwd_launch(int dtype, const void* q,
-                                          const void* k, const void* v,
-                                          void* o, float* lse, int B, int Hq,
-                                          int Hkv, int Sq, int Sk, int d,
-                                          int causal, int window, float scale,
+// kernel: 0 = the one flash_attention_fwd_kernel names for these shapes;
+// in bfloat16 1 = mma.sync (any head dim), 2 and 3 = wgmma with 64- and
+// 128-row blocks (d 64 and 128): a given kernel, for timing one against
+// another. Returns a cudaError_t code (0 = ok).
+extern "C" int flash_attention_fwd_launch(int dtype, int kernel,
+                                          const void* q, const void* k,
+                                          const void* v, void* o, float* lse,
+                                          int B, int Hq, int Hkv, int Sq,
+                                          int Sk, int d, int causal,
+                                          int window, float scale,
                                           void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
       (long long)B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_f32(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                           window, scale, s);
+    return kernel != 0 ? (int)cudaErrorInvalidValue
+                       : (int)launch_f32(d, q, k, v, o, lse, B, Hq, Hkv, Sq,
+                                         Sk, causal, window, scale, s);
   if (dtype == 1)
-    return (int)launch_bf16(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                            window, scale, s);
+    return (int)launch_bf16(d, kernel, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
+                            causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The route a (dtype, d) call takes: 0 FMA, 1 mma.sync, 2 TMA + wgmma; -1
+// for an unknown dtype.
+extern "C" int flash_attention_fwd_route(int dtype, int d) {
+  if (dtype == 0) return 0;
+  if (dtype == 1) return wgmma_head_dim(d) ? 2 : 1;
+  return -1;
+}
+
+// The kernel (as flash_attention_fwd_launch's ``kernel``) a call at these
+// shapes runs by default: 0 FMA (float32), 1 mma.sync, 2 and 3 wgmma with
+// 64- and 128-row blocks; -1 for an unknown dtype.
+extern "C" int flash_attention_fwd_kernel(int dtype, int d, int B, int Hq,
+                                          int Sq) {
+  if (dtype == 0) return 0;
+  if (dtype == 1) return bf16_kernel(d, B, Hq, Sq);
+  return -1;
+}
+
+// The wgmma kernel's plan for query tile qt of `rows` rows against key
+// tiles of `keys` keys, as the kernel computes it (key_tiles, edge_tile):
+// *kt_begin and *kt_end bound the key tiles the tile's rows see; bit t of
+// *edges (t < 64) is set when tile kt_begin + t crosses a mask edge.
+extern "C" void flash_attention_fwd_plan(int Sq, int Sk, int causal,
+                                         int window, int rows, int keys,
+                                         int qt, int* kt_begin, int* kt_end,
+                                         unsigned long long* edges) {
+  const int off = Sk - Sq, q_lo = qt * rows;
+  key_tiles(q_lo, imin(q_lo + rows, Sq) - 1, Sk, off, causal, window, keys,
+            kt_begin, kt_end);
+  *edges = 0;
+  for (int t = *kt_begin; t < *kt_end && t - *kt_begin < 64; ++t)
+    if (edge_tile(q_lo, rows, t * keys, keys, Sk, off, causal, window))
+      *edges |= 1ull << (t - *kt_begin);
 }
 
 extern "C" const char* flash_attention_fwd_error_string(int code) {

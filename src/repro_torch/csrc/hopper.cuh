@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
 // with TMA into an mbarrier ring and multiply them with wgmma
-// (flash_attention_bwd.cu, ssd.cu): mbarriers, tensor-map loads, wgmma
-// shared-memory descriptors and fences, and the CUDA tensor-map encoder. Each source that includes it compiles on its own, so every
-// definition lives in an anonymous namespace. kernels/_build.py hashes this
+// (flash_attention_fwd.cu and flash_attention_bwd.cu through attention.cuh,
+// and ssd.cu): mbarriers, tensor-map loads, wgmma shared-memory descriptors
+// and fences, and the CUDA tensor-map encoder. Each source that includes it
+// compiles on its own, so every definition lives in an anonymous namespace. kernels/_build.py hashes this
 // header with each source, so a change here rebuilds every library.
 
 #pragma once

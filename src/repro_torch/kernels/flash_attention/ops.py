@@ -4,16 +4,28 @@ Dispatch is on the tensors' device, nothing else: a CPU tensor runs the
 plain versions (``ref.py``); a CUDA tensor launches the hand-written
 kernels of ``repro_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` or raises. There is no fallback between the
-two. Which kernel runs is decided by the dtype alone:
+two. Which kernel runs is decided by the dtype and the head dim, as the
+``.cu`` files decide it (``fwd_route``, ``fwd_kernel``, ``bwd_route`` read
+their getters):
 
-- bfloat16: the tensor-core kernel (``mma.sync`` m16n8k16, FlashAttention-2
-  schedule, 64-row query tiles, KV tiles of 64 rows, 32 at d 256);
+- bfloat16 at d 64 and 128: TMA + ``wgmma`` (FlashAttention-3 shape: a
+  producer warp and a two-stage mbarrier ring of K and V tiles, consumer
+  warpgroups of 64 query rows taking turns, a persistent grid); blocks of
+  128 rows on 128-key tiles from 1024 query rows up when their tiles give
+  every SM one, else of 64 rows on 64-key tiles, two an SM
+  (``fwd_kernel``);
+- bfloat16 at d 16, 32, 80 and 256: the ``mma.sync`` m16n8k16 kernel
+  (FlashAttention-2 schedule, 64-row query tiles, KV tiles of 64 rows, 32
+  at d 256);
 - float32: the FMA kernel (tensor cores would mean TF32, outside the
   float32 tolerance).
 
-The backward's route is the dtype's and the head dim's (``bwd_route``):
-bfloat16 at d 64 and 128 runs TMA + ``wgmma`` kernels, at other head dims
-``mma.sync`` ones; float32 FMA ones.
+The backward's routes are the forward's: bfloat16 at d 64 and 128 runs
+TMA + ``wgmma`` kernels, at other head dims ``mma.sync`` ones; float32 FMA
+ones. ``fwd_plan`` mirrors the ``wgmma`` forward's tile plan (the key
+tiles a query tile sees, those a mask edge crosses) in Python, so the CPU
+tests hold it to the JAX kernel's mask; ``fwd_plan_cu`` reads the
+``.cu``'s own.
 
 Both take head dims ``HEAD_DIMS``. ``flash_attention`` is a
 ``torch.autograd.Function``. When an input needs a grad, its forward also
@@ -68,9 +80,18 @@ def _lib(name: str = "flash_attention_fwd"):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "flash_attention_fwd":
             lib.flash_attention_fwd_launch.argtypes = [
-                i, p, p, p, p, p,           # dtype, q, k, v, o, lse
+                i, i, p, p, p, p, p,        # dtype, kernel, q, k, v, o, lse
                 i, i, i, i, i, i, i, i,     # B, Hq, Hkv, Sq, Sk, d, causal, window
                 f, p]                       # scale, stream
+            lib.flash_attention_fwd_route.argtypes = [i, i]
+            lib.flash_attention_fwd_route.restype = i
+            lib.flash_attention_fwd_kernel.argtypes = [i, i, i, i, i]
+            lib.flash_attention_fwd_kernel.restype = i
+            lib.flash_attention_fwd_plan.argtypes = [
+                i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_ulonglong)]
+            lib.flash_attention_fwd_plan.restype = None
         else:
             lib.flash_attention_bwd_launch.argtypes = [
                 i, p, p, p, p, p,           # dtype, q, k, v, o, dO
@@ -116,14 +137,91 @@ def _check_shapes(q, k, v, what):
     require(B * Hq <= 65535, f"{what}: B*Hq exceeds the grid")
 
 
+# the routes of both directions (``fwd_route``, ``bwd_route``) and the
+# forward's kernels (``fwd_kernel``, the launcher's ``kernel`` argument), as
+# the .cu files number them
+ROUTES = ("fma", "mma.sync", "wgmma")
+FWD_KERNELS = ("fma", "mma.sync", "wgmma-64", "wgmma-128")
+
+
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel's route for a ``dtype`` call at head dim ``d``,
+    as ``flash_attention_fwd.cu`` chooses it (builds the library): "fma"
+    (float32), "mma.sync" or "wgmma" (TMA ring + wgmma, bfloat16)."""
+    return ROUTES[_lib().flash_attention_fwd_route(DTYPE_CODES[dtype], d)]
+
+
+def fwd_kernel(dtype: torch.dtype, d: int, B: int, Hq: int, Sq: int) -> str:
+    """The forward kernel a call at these shapes runs, as the ``.cu``
+    chooses it from shapes alone (builds the library): "fma", "mma.sync",
+    "wgmma-64" or "wgmma-128" (the ``wgmma`` route's rows a block)."""
+    return FWD_KERNELS[_lib().flash_attention_fwd_kernel(
+        DTYPE_CODES[dtype], d, B, Hq, Sq)]
+
+
+def _key_tiles(Sq, Sk, causal, window, q_lo, rows, keys):
+    """``key_tiles`` of ``csrc/attention.cuh`` for rows [q_lo, q_lo +
+    rows): the key tiles of ``keys`` keys they see, [begin, end)."""
+    off = Sk - Sq
+    k_end = min(Sk, min(q_lo + rows, Sq) - 1 + off + 1) if causal else Sk
+    k_begin = max(0, q_lo + off - window + 1) if window > 0 else 0
+    begin = k_begin // keys
+    return begin, (-(-k_end // keys) if k_end > k_begin else begin)
+
+
+def _edge_tile(Sq, Sk, causal, window, q_lo, rows, k_lo, keys) -> bool:
+    """``edge_tile``: whether a mask edge (Sk, the causal diagonal, the
+    window's start) crosses rows [q_lo, q_lo + rows) x keys [k_lo, k_lo +
+    keys), so that the kernel tests the tile's scores one by one."""
+    off = Sk - Sq
+    return (k_lo + keys > Sk or (causal and k_lo + keys - 1 > q_lo + off)
+            or (window > 0 and k_lo <= q_lo + rows - 1 + off - window))
+
+
+def fwd_plan(Sq: int, Sk: int, causal: bool, window: int, rows: int,
+             keys: int) -> list[tuple[int, int, tuple]]:
+    """The ``wgmma`` forward's plan, in Python: for each query tile of
+    ``rows`` rows, (kt_begin, kt_end, edges) -- the key tiles of ``keys``
+    keys its rows see, and for each of them whether a mask edge crosses
+    it. The kernel walks a block's range at its rows (64 or 128) and tests
+    edges a warpgroup's 64 rows at a time."""
+    plan = []
+    for qt in range(-(-Sq // rows)):
+        q_lo = qt * rows
+        b, e = _key_tiles(Sq, Sk, causal, window, q_lo, rows, keys)
+        plan.append((b, e, tuple(
+            _edge_tile(Sq, Sk, causal, window, q_lo, rows, t * keys, keys)
+            for t in range(b, e))))
+    return plan
+
+
+def fwd_plan_cu(Sq: int, Sk: int, causal: bool, window: int, rows: int,
+                keys: int) -> list[tuple[int, int, tuple]]:
+    """``fwd_plan`` as ``flash_attention_fwd.cu`` computes it (its
+    ``flash_attention_fwd_plan`` getter, the kernel's own functions; at
+    most 64 key tiles a query tile; builds the library)."""
+    lib = _lib()
+    plan = []
+    for qt in range(-(-Sq // rows)):
+        b, e, edges = ctypes.c_int(), ctypes.c_int(), ctypes.c_ulonglong()
+        lib.flash_attention_fwd_plan(Sq, Sk, int(bool(causal)), int(window),
+                                     rows, keys, qt, ctypes.byref(b),
+                                     ctypes.byref(e), ctypes.byref(edges))
+        plan.append((b.value, e.value, tuple(
+            bool(edges.value >> t & 1) for t in range(e.value - b.value))))
+    return plan
+
+
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int = 0, scale: float | None = None,
-                             lse: bool = False):
+                             lse: bool = False, kernel: str | None = None):
     """Launch the CUDA kernel. q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d),
     contiguous, on one CUDA device, one float32 or bfloat16 dtype. Returns
     out, or with ``lse`` (out, L): L float32 (B, Hq, Sq), each row's
-    log-sum-exp (out is the same bits either way)."""
+    log-sum-exp (out is the same bits either way). ``kernel`` (bfloat16
+    only) runs one of ``FWD_KERNELS`` in place of the one ``fwd_kernel``
+    names, to time one against another; it is counted like any launch."""
     global launches
     code = _check((("q", q), ("k", k), ("v", v)), q, "flash_attention")
     _check_shapes(q, k, v, "flash_attention")
@@ -131,8 +229,12 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     Hkv, Sk = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
         require((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0,
-                "flash_attention: the bfloat16 kernel's 16-byte loads need "
-                "16-byte aligned q, k and v")
+                "flash_attention: the bfloat16 kernels' 16-byte loads and "
+                "TMA need 16-byte aligned q, k and v")
+    require(kernel is None or (q.dtype == torch.bfloat16
+                               and kernel in FWD_KERNELS[1:]),
+            f"flash_attention: kernel {kernel!r} is not one of the bfloat16 "
+            f"kernels {FWD_KERNELS[1:]}")
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
@@ -143,7 +245,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     require(Sk > 0, "flash_attention: no keys")
     lib = _lib()
     rc = lib.flash_attention_fwd_launch(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        code, FWD_KERNELS.index(kernel) if kernel else 0, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(),
         L.data_ptr() if lse else None, B, Hq, Hkv, Sq, Sk, d,
         int(bool(causal)), int(window), float(scale), stream_ptr(q.device))
     raise_on_error(rc, lib, "flash_attention_fwd_error_string",
@@ -160,14 +263,11 @@ def bwd_key_block(dtype: torch.dtype, d: int) -> int:
         DTYPE_CODES[dtype], d)
 
 
-BWD_ROUTES = ("fma", "mma.sync", "wgmma")
-
-
 def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward kernels a ``dtype`` call at head dim ``d`` runs, as
     ``flash_attention_bwd.cu`` chooses them (builds the library): "fma"
     (float32), "mma.sync" or "wgmma" (TMA ring + wgmma, bfloat16)."""
-    return BWD_ROUTES[_lib("flash_attention_bwd").flash_attention_bwd_route(
+    return ROUTES[_lib("flash_attention_bwd").flash_attention_bwd_route(
         DTYPE_CODES[dtype], d)]
 
 

@@ -123,6 +123,24 @@ FA_CASES = [
     (1, 24, 24, 364, 364, 64, True, 0, "bfloat16"),
     (1, 24, 24, 364, 364, 64, True, 0, "float32"),
     (1, 16, 8, 768, 768, 128, True, 0, "bfloat16"),
+    # bf16 at d 64 and 128: the TMA + wgmma kernel's edges -- Sq = 1, 63,
+    # 65 and 129 (a 64-row warpgroup's and a 128-row block's), Sk - Sq not
+    # a multiple of the key tile, bidirectional with a ragged Sk, windows
+    # of 48 and 2048, GQA groups 1, 3, 6 and 24 (MQA), B = 2, and
+    # llama3.2-3b's training shape
+    (2, 8, 8, 1, 300, 64, True, 0, "bfloat16"),
+    (1, 6, 2, 1, 257, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 63, 63, 64, True, 0, "bfloat16"),
+    (1, 12, 2, 65, 65, 128, True, 0, "bfloat16"),
+    (2, 4, 4, 129, 129, 128, True, 0, "bfloat16"),
+    (1, 6, 2, 100, 237, 128, True, 0, "bfloat16"),
+    (1, 3, 1, 300, 700, 64, True, 0, "bfloat16"),
+    (1, 4, 2, 70, 137, 64, False, 0, "bfloat16"),
+    (1, 2, 2, 130, 99, 128, False, 0, "bfloat16"),
+    (1, 4, 1, 300, 300, 128, True, 48, "bfloat16"),
+    (1, 8, 2, 2304, 2304, 128, True, 2048, "bfloat16"),
+    (1, 24, 1, 256, 256, 128, True, 0, "bfloat16"),
+    (2, 24, 8, 2048, 2048, 128, True, 0, "bfloat16"),
 ]
 
 
@@ -674,6 +692,72 @@ def test_flash_backward_same_bits_twice(case, cuda):
     q, k, v, out, lse, do, kw = _bwd_inputs(case, cuda)
     a = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     b = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_forward_route(cuda):
+    """The .cu's getters: bf16 at d 64 and 128 runs the TMA + wgmma
+    forward, at every other head dim mma.sync; float32 the FMA kernel.
+    The wgmma route's rows a block follow from the shapes alone."""
+    for d in fa_ops.HEAD_DIMS:
+        wg = d in (64, 128)
+        assert fa_ops.fwd_route(torch.bfloat16, d) == (
+            "wgmma" if wg else "mma.sync")
+        assert fa_ops.fwd_route(torch.float32, d) == "fma"
+        assert fa_ops.fwd_kernel(torch.float32, d, 2, 24, 2048) == "fma"
+        assert (fa_ops.fwd_kernel(torch.bfloat16, d, 2, 24, 2048)
+                in (("wgmma-64", "wgmma-128") if wg else ("mma.sync",)))
+    kernels = {fa_ops.fwd_kernel(torch.bfloat16, c[5], c[0], c[1], c[3])
+               for c in FA_CASES if c[-1] == "bfloat16" and c[5] in (64, 128)}
+    assert kernels == {"wgmma-64", "wgmma-128"}
+
+
+@pytest.mark.parametrize("case", [(300, 300, True, 48, 64, 64),
+                                  (100, 237, True, 0, 128, 128),
+                                  (70, 137, False, 0, 64, 128),
+                                  (1, 257, True, 0, 128, 128),
+                                  (2304, 2304, True, 2048, 128, 128),
+                                  (64, 40, True, 0, 64, 64)], ids=str)
+def test_flash_forward_plan_matches_the_mirror(case, cuda):
+    """The wgmma forward's plan as the .cu computes it (key tile ranges
+    and edge tiles per query tile) equals ``fwd_plan``, the Python mirror
+    that tests/test_torch_kernel_plans.py holds to the JAX kernel's
+    mask."""
+    assert fa_ops.fwd_plan_cu(*case) == fa_ops.fwd_plan(*case)
+
+
+@pytest.mark.parametrize("case", [c for c in FA_CASES
+                                  if c[-1] == "bfloat16" and c[5] in (64, 128)
+                                  and c[0] * c[1] * c[3] <= 8192], ids=str)
+@pytest.mark.parametrize("kernel", ["wgmma-64", "wgmma-128"])
+def test_flash_forward_every_wgmma_block(case, kernel, cuda):
+    """Both of the wgmma route's blocks (64 and 128 rows), whichever the
+    shapes choose, against the plain version."""
+    B, Hq, Hkv, Sq, Sk, d, causal, window, dt = case
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = t(B, Hq, Sq, d), t(B, Hkv, Sk, d), t(B, Hkv, Sk, d)
+    out = fa_ops.flash_attention_fwd_cuda(q, k, v, causal=causal,
+                                          window=window, kernel=kernel)
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert float((out.float() - ref.float()).abs().max()) < _tol(dt)
+
+
+@pytest.mark.parametrize("case", [c for c in FA_CASES
+                                  if c[-1] == "bfloat16" and c[5] in (64, 128)
+                                  and (c[3] <= 2 or c[3] >= 2048 or c[7])],
+                         ids=str)
+def test_flash_forward_same_bits_twice(case, cuda):
+    """No atomics: two forward calls give the same out and L bits."""
+    B, Hq, Hkv, Sq, Sk, d, causal, window, dt = case
+    rng = np.random.default_rng(4)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = t(B, Hq, Sq, d), t(B, Hkv, Sk, d), t(B, Hkv, Sk, d)
+    kw = dict(causal=causal, window=window, lse=True)
+    a = fa_ops.flash_attention_fwd_cuda(q, k, v, **kw)
+    b = fa_ops.flash_attention_fwd_cuda(q, k, v, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

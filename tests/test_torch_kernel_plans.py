@@ -1,15 +1,22 @@
 """The pure functions that plan the port's CUDA launches, held without a
 card: K1's span plan (which block covers which positions) and its kernel
-choice, K4's tile plan (and its look-back algebra, emulated in numpy), and
-K5's P slice and scratch shapes. They decide before a launch, from shapes
-alone, what the kernels in ``repro_torch/csrc`` then do, so a wrong plan
-shows here on the CPU.
+choice, K4's tile plan (and its look-back algebra, emulated in numpy),
+K5's P slice and scratch shapes, and K2's ``wgmma`` forward plan (the key
+tiles each query tile sees and those a mask edge crosses), held by brute
+force to the JAX kernel's own mask. They decide before a launch, from
+shapes alone, what the kernels in ``repro_torch/csrc`` then do, so a wrong
+plan shows here on the CPU.
 """
 
+import functools
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
@@ -267,3 +274,118 @@ def test_k4_lookback_algebra_matches_the_sequential_scan(shape, sms):
     h = _lookback_scan(a, b, plan)
     ref = rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     assert np.abs(h - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max())
+
+
+# K2's forward plan. (Sq, Sk, causal, window): ragged lengths, a suffix
+# over a 200-token prefix, Sk - Sq a multiple of the key tile, tiles of 63,
+# 65 and 129 rows' edges, bidirectional with a ragged Sk (and with Sk < Sq),
+# windows (one wider than the sequence, one without the causal mask, one
+# over a suffix), Sq = 1, rows that see no key (Sk < Sq, causal), and
+# edges on a tile's first or last key: a window's start (63, 66, 127 keys
+# back, with and without the causal mask) and the diagonal (Sk - Sq = 1,
+# 62)
+FWD_PLAN_CASES = [(100, 100, True, 0), (48, 248, True, 0),
+                  (129, 129, True, 0), (63, 191, True, 0),
+                  (65, 65, True, 0), (256, 256, True, 0),
+                  (70, 137, False, 0), (128, 100, False, 0),
+                  (200, 200, True, 48), (37, 300, True, 64),
+                  (90, 150, False, 32), (300, 300, True, 2048),
+                  (1, 257, True, 0), (1, 300, True, 100), (64, 40, True, 0),
+                  (200, 200, True, 63), (200, 200, True, 66),
+                  (130, 195, True, 127), (100, 101, True, 0),
+                  (200, 200, False, 63), (100, 162, True, 0)]
+# the wgmma kernel's blocks: (rows a block, keys a tile)
+FWD_BLOCKS = [(128, 128), (64, 64)]
+
+
+@functools.lru_cache(maxsize=None)
+def _admitted(Sq, Sk, causal, window):
+    """The (query row, key) pairs the JAX Pallas kernel admits
+    (src/repro/kernels/flash_attention/kernel.py: its liveness and mask),
+    read from its interpreted output: q = k = 0 and v the identity, so
+    row r of the output is 1/n on each key r sees and 0 elsewhere."""
+    q = jnp.zeros((1, 1, Sq, Sk), jnp.float32)
+    out = flash_attention_fwd(q, jnp.zeros((1, 1, Sk, Sk), jnp.float32),
+                              jnp.eye(Sk, dtype=jnp.float32)[None, None],
+                              causal=causal, window=window, block_q=Sq,
+                              block_k=Sk, interpret=True)
+    return np.asarray(out)[0, 0] > 0
+
+
+def _visible(Sq, Sk, causal, window):
+    """attention.cuh's ``visible`` over every (row, key) pair."""
+    r = np.arange(Sq)[:, None]
+    c = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= c <= r + Sk - Sq
+    if window > 0:
+        ok &= c > r + Sk - Sq - window
+    return ok
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES, ids=str)
+def test_k2_visible_is_the_jax_kernels_mask(case):
+    assert (_visible(*case) == _admitted(*case)).all()
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES, ids=str)
+@pytest.mark.parametrize("rows,keys", [(64, 64), (64, 128), (128, 64),
+                                       (128, 128)], ids=str)
+def test_k2_fwd_plan_range_is_the_tiles_with_admitted_pairs(case, rows,
+                                                            keys):
+    """Every admitted (row, key) pair of a query tile falls in its key
+    tile range, and every tile in the range holds one."""
+    Sq, Sk, causal, window = case
+    seen = _admitted(*case)
+    plan = fa_ops.fwd_plan(Sq, Sk, causal, window, rows, keys)
+    assert len(plan) == -(-Sq // rows)
+    for qt, (b, e, edges) in enumerate(plan):
+        assert len(edges) == e - b
+        tiles = {int(c) // keys for c in np.nonzero(
+            seen[qt * rows:(qt + 1) * rows].any(axis=0))[0]}
+        assert tiles == set(range(b, e)), (qt, b, e, sorted(tiles))
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES, ids=str)
+@pytest.mark.parametrize("rows,keys", [(64, 64), (64, 128), (128, 64),
+                                       (128, 128)], ids=str)
+def test_k2_fwd_plan_unflagged_tiles_are_admitted_whole(case, rows, keys):
+    """A tile in range that no mask edge crosses is admitted whole by
+    every row of the query tile below Sq (the kernel tests none of its
+    scores)."""
+    Sq, Sk, causal, window = case
+    seen = _admitted(*case)
+    for qt, (b, e, edges) in enumerate(
+            fa_ops.fwd_plan(Sq, Sk, causal, window, rows, keys)):
+        for t, edge in zip(range(b, e), edges):
+            part = seen[qt * rows:(qt + 1) * rows, t * keys:(t + 1) * keys]
+            if not edge:
+                assert part.all() and part.shape[1] == keys, (qt, t)
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES, ids=str)
+@pytest.mark.parametrize("block", FWD_BLOCKS, ids=str)
+def test_k2_fwd_kernel_emulated_admits_the_jax_kernels_pairs(case, block):
+    """The kernel's walk, emulated: each block's key tiles from its rows'
+    range, each consumer warpgroup's 64 rows taking a tile whole off an
+    edge and ``visible`` on one. What it lets through below Sq is exactly
+    the JAX kernel's admitted set."""
+    Sq, Sk, causal, window = case
+    rows, keys = block
+    vis = _visible(*case)
+    got = np.zeros((Sq, Sk), bool)
+    for qt, (b, e, _) in enumerate(
+            fa_ops.fwd_plan(Sq, Sk, causal, window, rows, keys)):
+        for wg in range(rows // 64):
+            rw = qt * rows + 64 * wg
+            for t in range(b, e):
+                k_lo = t * keys
+                r, c = slice(rw, min(rw + 64, Sq)), slice(k_lo, min(
+                    k_lo + keys, Sk))
+                if fa_ops._edge_tile(Sq, Sk, causal, window, rw, 64, k_lo,
+                                     keys):
+                    got[r, c] |= vis[r, c]
+                else:
+                    got[r, c] = True
+    assert (got == _admitted(*case)).all()
