@@ -3,7 +3,7 @@
 
     python3 chip_profile.py
 
-Nine measurements, each printed beside the card's name and power limit:
+Ten measurements, each printed beside the card's name and power limit:
 
   pod       the full-width llama3.2-3b pod of ``chip_smoke.py``'s serve
             phase (bfloat16, random seeded weights, paged, prefix cache on,
@@ -64,6 +64,16 @@ Nine measurements, each printed beside the card's name and power limit:
             shapes choose, the bound and SDPA's forward (GQA through
             ``enable_gqa``); then SDPA's forward at the dist ranks' (d),
             (e), (h) shapes and (g)'s float32 one beside the port's kernel
+  bwd       K2's backward at every K2_BWD and rank shape of the routes
+            redesigned in PR 34 (bfloat16 at d 256, float32 at d 64 and
+            128): the route's kernels and the first version they replaced
+            (mma.sync, FMA), each held against the dense float32 plain
+            backward, then timed in turns (new, old, old, new; CUDA-event
+            medians, L2 flushed) beside the bound (for float32 at the FMA
+            rate and at 3xBF16's) and SDPA's backward (``sdpa_mask``); then
+            the new route's split: its dK/dV blocks alone and its dQ blocks
+            alone (the launcher's ``only``), and under torch.profiler the
+            call's device kernels by name
 
     python3 chip_profile.py batch spans   # only the measurements named
 
@@ -79,9 +89,10 @@ from contextlib import contextmanager
 from pathlib import Path
 
 from chip_smoke import (FULL_IMAGEFILE, GRAD_K2, GRAD_K5, K1_SHAPE, K2_BATCH,
-                        K2_CASES, K2_DP, K2_EXAMPLES, K2_FSDP, K2_G, K2_TP,
-                        K5_TP, SRC, TOL, TRAIN_IMAGEFILE, Timer, check,
-                        k1_case, k1_pod_case, k2_bound, log, phase_device)
+                        K2_BWD, K2_BWD_RANKS, K2_BWD_TOL, K2_CASES, K2_DP,
+                        K2_EXAMPLES, K2_FSDP, K2_G, K2_TP, K5_TP, SRC, TOL,
+                        TRAIN_IMAGEFILE, Timer, check, k1_case, k1_pod_case,
+                        k2_bound, k2_bwd_bound, log, phase_device, sdpa_mask)
 
 
 def dev_us(e, total: bool = False) -> float:
@@ -471,14 +482,7 @@ def fwd_kernels(torch, card: str) -> None:
             (B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d))]
 
     def sdpa(q, k, v, Sq, Sk, window):
-        mask = None
-        if window and window < Sk:
-            rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
-            cols = torch.arange(Sk, device="cuda")[None, :]
-            mask = (cols <= rows) & (cols > rows - window)
-        elif Sq != Sk:
-            rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
-            mask = torch.arange(Sk, device="cuda")[None, :] <= rows
+        mask = sdpa_mask(torch, Sq, Sk, window)
         return timer(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=mask is None,
             enable_gqa=True))
@@ -529,6 +533,116 @@ def fwd_kernels(torch, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def bwd_kernels(torch, card: str) -> None:
+    import re
+
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels._launch import device_sms
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref,
+        flash_attention_ref)
+
+    timer = Timer(torch)
+    shapes = sorted({c for c in (*K2_BWD, *K2_BWD_RANKS)
+                     if (c[7], c[3]) in (("bfloat16", 256), ("float32", 64),
+                                         ("float32", 128))},
+                    key=lambda c: (c[7], c[3], c[0] * c[1]))
+    for B, Hq, Hkv, d, Sq, Sk, window, dname in shapes:
+        dt = getattr(torch, dname)
+        r = np.random.default_rng(3)
+        q, k, v, dout = (torch.from_numpy(r.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt) for shape in (
+            (B, Hq, Sq, d), (B, Hkv, Sk, d), (B, Hkv, Sk, d),
+            (B, Hq, Sq, d)))
+        kw = dict(causal=True, window=window)
+        out, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, lse=True, **kw)
+        f = [t.float() for t in (q, k, v)]
+        want = flash_attention_bwd_ref(
+            *f, flash_attention_ref(*f, **kw),
+            flash_attention_lse_ref(*f[:2], **kw), dout.float(), **kw)
+        new = fa_ops.bwd_route(dt, d)
+        old = "mma.sync" if dname == "bfloat16" else "fma"
+        tag = (f"bwd: B={B} Hq={Hq} Hkv={Hkv} d={d} Sq={Sq} Sk={Sk} "
+               f"window={window} {dname}")
+
+        def call(kern, only=0):
+            return fa_ops.flash_attention_bwd_cuda(
+                q, k, v, out, lse, dout, kernel=kern, only=only, **kw)
+
+        errs = {}
+        for kern in (new, old):
+            got = call(kern)
+            torch.cuda.synchronize()
+            errs[kern] = max(float((a.float() - b).abs().max())
+                             / float(b.abs().max())
+                             for a, b in zip(got, want))
+            check(all(bool(torch.isfinite(a).all()) for a in got)
+                  and errs[kern] <= K2_BWD_TOL[dname],
+                  f"{tag}: {kern} max_abs_err {errs[kern]:.2e} of max")
+        del want, f, got
+        times = {new: [], old: []}
+        for kern in (new, old, old, new):
+            times[kern].append(timer(lambda: call(kern)))
+        split = [timer(lambda: call(new, only)) for only in (1, 2)]
+        bms, by = k2_bwd_bound(B, Hq, Hkv, d, Sq, Sk, window, 2 if
+                               dname == "bfloat16" else 4, dname)
+        bound = f"bound {bms:.4f} ms ({by}"
+        if dname == "float32":
+            tc = k2_bwd_bound(B, Hq, Hkv, d, Sq, Sk, window, 4, "bfloat16",
+                              products=3)[0]
+            bound += f" at the f32 FMA rate; {tc:.4f} ms at 3xBF16's"
+        xs = [t.detach().requires_grad_() for t in (
+            q, k.repeat_interleave(Hq // Hkv, dim=1),
+            v.repeat_interleave(Hq // Hkv, dim=1))]
+        mask = sdpa_mask(torch, Sq, Sk, window)
+        o = F.scaled_dot_product_attention(*xs, attn_mask=mask,
+                                           is_causal=mask is None)
+        lib = timer(lambda: torch.autograd.grad(o, xs, dout,
+                                                retain_graph=True))
+        parts = fa_ops.group_splits(B, Hkv, Sk, Hq // Hkv,
+                                    fa_ops.bwd_key_block(dt, d),
+                                    device_sms(q.device))
+        log(f"{tag}: {new} {times[new][0]:.4f} / {times[new][1]:.4f} ms (max "
+            f"err {errs[new]:.2e} of max), {old} {times[old][0]:.4f} / "
+            f"{times[old][1]:.4f} ms (max err {errs[old]:.2e}); {bound}); "
+            f"SDPA backward {lib:.4f} ms"
+            f"{'' if mask is None else ' (boolean mask)'}; the group in "
+            f"{parts} part(s) [{card}]")
+        log(f"{tag}: {new} dK/dV blocks alone {split[0]:.4f} ms, dQ blocks "
+            f"alone {split[1]:.4f} ms (each with the call's other kernels)")
+        del xs, o, mask
+        calls = 5
+        for _ in range(2):
+            call(new)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call(new)
+            torch.cuda.synchronize()
+        by_name: dict[str, list] = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or dev_us(e) <= 0:
+                continue
+            m = re.search(r"(fa2_bwd_\w+?)(?:<|\(|$)", e.key)
+            name = m.group(1) if m else e.key[:40]
+            acc = by_name.setdefault(name, [0.0, 0])
+            acc[0] += dev_us(e)
+            acc[1] += e.count
+        check(bool(by_name), f"{tag}: the profiler recorded no device time")
+        total = sum(us for us, _ in by_name.values())
+        log(f"{tag}: {new} under the profiler {total / calls / 1e3:.4f} ms "
+            f"of device kernels a call: " + ", ".join(
+                f"{name} {us / calls / 1e3:.4f} ms x{n // calls}"
+                for name, (us, n) in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1][0])))
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -555,6 +669,7 @@ def main() -> int:
         "spans": lambda torch, card, wd: spans(torch, card),
         "ssd_bwd": lambda torch, card, wd: ssd_bwd_split(torch, card),
         "fwd": lambda torch, card, wd: fwd_kernels(torch, card),
+        "bwd": lambda torch, card, wd: bwd_kernels(torch, card),
     }
     chosen = sys.argv[1:] or list(runs)
     unknown = [n for n in chosen if n not in runs]

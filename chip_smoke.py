@@ -32,10 +32,13 @@ Every phase runs, in order; any failure -> exit 1, no result line:
             second call; K2's backward kernels, from the forward kernel's
             out and L, at every shape a training path gives them (float32
             and bf16) against the dense float32 plain backward, each line
-            naming the route the .cu chose (wgmma, mma.sync or fma; a
-            bf16 call at d 64 or 128 off the wgmma route fails), the
-            ranks' shapes timed beside SDPA's backward (a phase, or a
-            rank, that runs the backward at another shape fails); K5's
+            naming the route the .cu chose (wgmma, wgmma-3xbf16,
+            mma.sync or fma; a bf16 call at d 64, 128 or 256 off the wgmma
+            route, or a float32 one at d 64 or 128 off wgmma-3xbf16,
+            fails), the ranks' shapes timed beside their bound (float32's
+            also at 3xBF16's rate) and SDPA's backward (``sdpa_mask``: a
+            boolean mask only where the window cuts or Sq != Sk; a phase,
+            or a rank, that runs the backward at another shape fails); K5's
             backward kernels at the train phase's 1 x 1024 x 80 x 64 x
             128 and (d)'s rank shape 2 x 2048 x 40 x 64 x 128 (chunk 256)
             against the plain backward ``ssd_bwd_ref``: every grad within
@@ -640,14 +643,16 @@ K2_BWD = ((2, 24, 8, 128, 2048, 2048, 0, "bfloat16"),
           K2_EXAMPLES[0], K2_EXAMPLES[3])
 K2_BWD_RANKS = (*K2_TP, *K2_FSDP, *K2_G, *K2_DP)
 # the backward kernels against the dense float32 plain backward, relative
-# to its largest gradient: float32 as the forward's FMA kernel; bfloat16
-# rounds P and dS before their products (as the forward rounds P before
-# P V), 2^-7
+# to its largest gradient: float32 as the forward's FMA kernel (the 3xBF16
+# route keeps each product within 2^-16 of float32's); bfloat16 rounds P
+# and dS before their products (as the forward rounds P before P V), 2^-7
 K2_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
-# the head dims whose bfloat16 backward must run the TMA + wgmma kernels:
-# a call at one of them that the .cu's route getter
-# (``ops.bwd_route``) sends elsewhere fails the run
-K2_BWD_WGMMA_DIMS = (64, 128)
+# the head dims whose bfloat16 backward must run the TMA + wgmma kernels,
+# and those whose float32 backward must run them on 3xBF16: a call at one
+# of them that the .cu's route getter (``ops.bwd_route``) sends elsewhere
+# (the first versions: mma.sync, FMA) fails the run
+K2_BWD_WGMMA_DIMS = (64, 128, 256)
+K2_BWD_3XBF16_DIMS = (64, 128)
 # the same for the forward (``ops.fwd_route``): a bfloat16 forward at one
 # of these head dims on another route fails the run
 K2_FWD_WGMMA_DIMS = (64, 128)
@@ -672,8 +677,26 @@ def k2_bwd_route(torch, dname: str, d: int) -> tuple[str, bool]:
     whether it is the one this script requires."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     route = fa_ops.bwd_route(getattr(torch, dname), d)
-    return route, (route == "wgmma" or dname != "bfloat16"
-                   or d not in K2_BWD_WGMMA_DIMS)
+    if dname == "bfloat16" and d in K2_BWD_WGMMA_DIMS:
+        return route, route == "wgmma"
+    if dname == "float32" and d in K2_BWD_3XBF16_DIMS:
+        return route, route == "wgmma-3xbf16"
+    return route, True
+
+
+def sdpa_mask(torch, Sq: int, Sk: int, window: int):
+    """The mask K2's causal (windowed) attention of Sq rows over Sk keys
+    hands SDPA, the library yardstick: None (``is_causal``) unless the
+    window cuts into a row's keys (0 < window < Sk) or Sq != Sk (SDPA's
+    ``is_causal`` is top-left aligned, K2's offset bottom-right); else the
+    explicit boolean mask, which takes SDPA off its flash backend, so it is
+    built only where the work needs it."""
+    if not 0 < window < Sk and Sq == Sk:
+        return None
+    rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+    cols = torch.arange(Sk, device="cuda")[None, :]
+    mask = cols <= rows
+    return mask & (cols > rows - window) if window else mask
 
 
 def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
@@ -912,13 +935,9 @@ def phase_kernels(torch, state, timer) -> None:
                 q, k, v, causal=True, window=window))
             plain = timer(lambda: flash_attention_ref(q, k, v, causal=True,
                                                       window=window))
-            # SDPA with an explicit mask when windowed (it has no window
-            # argument), with is_causal otherwise
-            mask = None
-            if window:
-                rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
-                cols = torch.arange(Sk, device="cuda")[None, :]
-                mask = (cols <= rows) & (cols > rows - window)
+            # SDPA with an explicit mask where the window cuts (it has no
+            # window argument), with is_causal otherwise
+            mask = sdpa_mask(torch, Sq, Sk, window)
             lib = timer(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True))
@@ -929,7 +948,8 @@ def phase_kernels(torch, state, timer) -> None:
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=lib)
             lib_txt = (f"library (scaled_dot_product_attention"
-                       f"{', boolean mask' if window else ''}) {lib:.4f} ms")
+                       f"{'' if mask is None else ', boolean mask'}) "
+                       f"{lib:.4f} ms")
             log(f"kernels: flash_attention_fwd Hq={Hq} d={d} S={Sq} "
                 f"window={window} bf16 time {ms:.4f} ms, plain {plain:.4f} "
                 f"ms, bound {bms:.4f} ms ({by}), {lib_txt} [{state['card']}]")
@@ -990,7 +1010,7 @@ def _kernels_flash_bwd(torch, state, timer) -> list[str]:
         held = ", ".join(f"{e:.2e}/{lim:.2e}" for e, lim in zip(errs, lims))
         line = (f"kernels: flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} d={d} "
                 f"Sq={Sq} Sk={Sk} causal window={window} {dname} (route "
-                f"{route}{'' if route_ok else ', not the required wgmma'}): "
+                f"{route}{'' if route_ok else ', not the required route'}): "
                 f"dq, dk, dv max_abs_err vs the dense float32 plain backward "
                 f"(err/tol) {held} {'ok' if ok else 'FAIL'}")
         if case in K2_BWD_RANKS:
@@ -1000,17 +1020,22 @@ def _kernels_flash_bwd(torch, state, timer) -> list[str]:
                                    q.element_size(), dname)
             rec = dict(ms=ms, bound_ms=bms, bound_by=by,
                        max_abs_err=max(errs))
-            line += f"; time {ms:.4f} ms, bound {bms:.4f} ms ({by})"
+            line += f"; time {ms:.4f} ms, bound {bms:.4f} ms ({by}"
+            if route == "wgmma-3xbf16":
+                # the bound of the arithmetic the route runs: three bf16
+                # products for each float32 one, on the tensor cores
+                rec["tc_bound_ms"] = k2_bwd_bound(
+                    B, Hq, Hkv, d, Sq, Sk, window, q.element_size(),
+                    "bfloat16", products=3)[0]
+                line += (f" at the f32 FMA rate; {rec['tc_bound_ms']:.4f} "
+                         f"ms at 3xBF16's")
+            line += ")"
             # the library's attention backward on the same inputs (an
             # explicit mask where the window cuts into the keys)
             xs = [t.detach().requires_grad_() for t in (
                 q, k.repeat_interleave(Hq // Hkv, dim=1),
                 v.repeat_interleave(Hq // Hkv, dim=1))]
-            mask = None
-            if window and window < Sk:
-                rows = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
-                cols = torch.arange(Sk, device="cuda")[None, :]
-                mask = (cols <= rows) & (cols > rows - window)
+            mask = sdpa_mask(torch, Sq, Sk, window)
             o = F.scaled_dot_product_attention(
                 *xs, attn_mask=mask, is_causal=mask is None)
             rec["library_ms"] = timer(lambda: torch.autograd.grad(
@@ -3040,15 +3065,16 @@ def _grad_case(torch, timer, state, name, fn, plain, inputs, cot, tol,
     return ok, fwd, bms
 
 
-def k2_bwd_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
+def k2_bwd_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype, products=1):
     """K2's backward's bound from its ``cost_bwd()``: q, k, v, out and dO
     read, dq, dk and dv written, L and D in float32; 10 flops a (q, k)
-    pair inside the causal window per head dim."""
+    pair inside the causal window per head dim, ``products`` times over at
+    ``dtype``'s rate (3 at bfloat16's: the float32 route's 3xBF16)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.analysis import bound_ms
     flops, nbytes = fa_ops.cost_bwd(B, Hq, Hkv, Sq, Sk, d, isz,
                                     window=window)
-    return bound_ms(nbytes, flops, dtype)
+    return bound_ms(nbytes, products * flops, dtype)
 
 
 def _k2_grad_case(torch, timer, state, name, inputs, cot, window):
@@ -3149,14 +3175,9 @@ def _train_grads(torch, state, timer) -> list[str]:
                                      cot, w)
         # the library's fused attention, forward and backward, as yardstick
         kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
-        if w:
-            i = torch.arange(S, device="cuda")
-            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
-            sdpa = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
-                *x, attn_mask=mask)
-        else:
-            sdpa = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
-                *x, is_causal=True)
+        mask = sdpa_mask(torch, S, S, w)
+        sdpa = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
+            *x, attn_mask=mask, is_causal=mask is None)
         with torch.no_grad():
             lib_fwd = timer(lambda: sdpa(q, kr, vr))
         xs = [t.detach().requires_grad_() for t in (q, kr, vr)]

@@ -126,7 +126,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// TMA + wgmma (bf16, head dims 64 and 128)
+// TMA + wgmma (bf16 tiles: the forward at head dims 64 and 128, the
+// backward's bf16 at 64, 128 and 256 and its float32 as bf16 parts)
 // ---------------------------------------------------------------------------
 
 // rows [r0, r0 + R) of head bh into an (R, D) swizzled tile at dst: D / 64

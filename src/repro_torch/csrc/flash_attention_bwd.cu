@@ -27,13 +27,20 @@
 // the price of a fixed order of summation without atomics.
 //
 // Routes, by (dtype, head dim); ``flash_attention_bwd_route`` names them:
-//   * bfloat16, d 64 and 128: TMA + wgmma (Hopper), below;
-//   * bfloat16, d 16, 32, 80 and 256: mma.sync (the first kernels);
-//   * float32, every head dim: FMA.
-// Every route sums in a fixed order: no atomics, so two calls give the
-// same bits. The FMA and mma.sync routes run three kernels a call (D,
-// dK/dV, dQ), the wgmma route two (D, then the dK/dV and dQ blocks in one
-// launch); one more when the GQA group is split.
+//   * bfloat16, d 64 and 128: TMA + wgmma (Hopper), WgTile below;
+//   * bfloat16, d 256: TMA + wgmma, PartTile below (two warpgroups split
+//     dV and dK of the same keys);
+//   * bfloat16, d 16, 32 and 80: mma.sync (the first kernels);
+//   * float32, d 64 and 128: TMA + wgmma on 3xBF16, PartTile below: each
+//     float32 operand as two bf16 parts, each product as three bf16 ones;
+//   * float32, d 16, 32, 80 and 256: FMA (the first kernels).
+// The launcher's `kernel` argument runs the first version (mma.sync at d
+// 256, FMA at any float32 head dim) in place of the route, to time one
+// against the other. Every route sums in a fixed order: no atomics, so two
+// calls give the same bits. The FMA and mma.sync routes run three kernels a
+// call (D, dK/dV, dQ), the wgmma routes two (D, or in float32 D with the
+// operands' bf16 parts; then the dK/dV and dQ blocks in one launch); one
+// more when the GQA group is split.
 //   * D: one warp a row, lanes over the head dim (16-byte loads in bf16),
 //     a butterfly of shuffles.
 //   * dK/dV: one block per (b, kv head, key block), and per part of the
@@ -80,25 +87,42 @@
 // exponent is one ex2.approx.ftz, and only the tiles that a mask edge
 // (causal, window, Sq, Sk) crosses test each element.
 //
-// mma.sync (bf16, d 16, 32, 80 and 256): tensor cores through mma.sync
-// m16n8k16 (bf16 in, f32 accumulate), with the forward's fragment tricks:
-// an accumulator tile of m16n8 has the A fragment's layout, so P^T and
-// dS^T (dK/dV) and dS (dQ) feed the next product from registers; P and dS
-// are rounded to bf16 before their products, as the forward rounds P
-// before P V. In dK/dV (64 keys a block) a warp owns 16 keys and computes
-// S^T = K Q^T and dP^T = V dO^T with keys as rows; Q and dO tiles (with L
-// and D) stream through a two-stage cp.async ring. At d 256 one warp's dK
-// and dV accumulators alone would be 256 f32 registers a thread, so eight
-// warps split the work: warps 0-3 compute P^T and dV, warps 4-7 P^T again,
-// dP^T, dS^T and dK, each for the same 16 keys (P^T is recomputed rather
-// than passed through shared memory). dQ keeps the forward's shape: four
-// warps of 16 rows, K and V tiles (64 rows, 32 at d 256) in a two-stage
-// ring.
+// mma.sync (bf16 d 16, 32 and 80, and 256 on request): tensor cores
+// through mma.sync m16n8k16 (bf16 in, f32 accumulate), with the forward's
+// fragment tricks: an accumulator tile of m16n8 has the A fragment's
+// layout, so P^T and dS^T (dK/dV) and dS (dQ) feed the next product from
+// registers; P and dS are rounded to bf16 before their products, as the
+// forward rounds P before P V. In dK/dV (64 keys a block) a warp owns 16
+// keys and computes S^T = K Q^T and dP^T = V dO^T with keys as rows; Q and
+// dO tiles (with L and D) stream through a two-stage cp.async ring. At d
+// 256 one warp's dK and dV accumulators alone would be 256 f32 registers a
+// thread, so eight warps split the work: warps 0-3 compute P^T and dV,
+// warps 4-7 P^T again, dP^T, dS^T and dK, each for the same 16 keys (P^T
+// is recomputed rather than passed through shared memory). dQ keeps the
+// forward's shape: four warps of 16 rows, K and V tiles (64 rows, 32 at d
+// 256) in a two-stage ring.
 //
-// float32 keeps plain FMA (tensor cores would mean TF32): tiles in shared
-// memory as f32 (rows padded by one float), each of 128 threads owning a
-// (2 x 4) patch of the score tile and a (2 x d/8) patch of the
-// accumulators; 32 keys a dK/dV block, 32 rows a dQ block.
+// FMA (float32 at d 16, 32, 80 and 256, and at 64 and 128 on request):
+// tiles in shared memory as f32 (rows padded by one float), each of 128
+// threads owning a (2 x 4) patch of the score tile and a (2 x d/8) patch of
+// the accumulators; 32 keys a dK/dV block, 32 rows a dQ block.
+//
+// TMA + wgmma on bf16 parts (bf16 d 256, float32 d 64 and 128; PartTile):
+// WgTile's producer warp, ring and consumer warpgroups, with (a) the
+// operands as NP bf16 parts: float32 x = hi + lo, hi = bf16(x), lo =
+// bf16(x - hi), written by a first kernel with D for q, k, v and dO (and
+// split in registers for P and dS), and each product summed as lo hi + hi
+// lo + hi hi in float32 (3xBF16: within 2^-16 of the float32 product, and
+// the transpose bit reads Q, dO and K MN-major as in bf16; tf32's wgmma
+// reads only K-major operands); (b) at 256 bf16 columns a row (bf16 d 256,
+// float32 d 128) the dK/dV block's two consumer warpgroups on the same 64
+// keys, warpgroup 0 computing S^T, P^T and dV, warpgroup 1 dP^T, dS^T and
+// dK with P^T handed across through shared memory (dK and dV of 64 keys x
+// 256 would be 256 accumulator registers a thread), two (Q, dO) stages of
+// 64 rows beside K and V; dQ blocks of 64 rows whose two warpgroups take
+// alternate 64-key steps, K and V in rings of their own. The bound at the
+// arithmetic it runs, for float32: three bf16 products a float32 one at
+// bf16's rate.
 //
 // Every device kernel's name starts with fa2_bwd_ (a profile sums them by
 // that). Head dims 16, 32, 64, 80, 128 and 256, one instantiation each.
@@ -110,6 +134,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention.cuh"   // the mask and tile ranges, mma.sync and wgmma
                             // products, TMA tiles (hopper.cuh beneath)
@@ -939,10 +965,10 @@ struct WgTile {
   static constexpr size_t smem_q = 1024 + kQBars + (2 * kStages + 1) * 8;
 };
 
-// d 64 and 128 take the wgmma kernels in bfloat16; every other head dim
-// the mma.sync ones (at d 256 a warpgroup's dK and dV of 64 keys would need
-// 256 accumulator registers a thread; d 16, 32 and 80 rows are not whole
-// 128-byte swizzle chunks)
+// The head dims of WgTile's kernels in bfloat16 (at d 256 a warpgroup's
+// dK and dV of 64 keys would need 256 accumulator registers a thread: the
+// PartTile kernels below split them; d 16, 32 and 80 rows are not whole
+// 128-byte swizzle chunks and keep mma.sync)
 __host__ __device__ constexpr bool wgmma_head_dim(int d) {
   return d == 64 || d == 128;
 }
@@ -1351,6 +1377,713 @@ __global__ void __launch_bounds__(WgTile<D>::kThreads, 1) fa2_bwd_wgmma(
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at d 256 and float32 at d 64 and 128: TMA ring + wgmma on bf16
+// parts
+// ---------------------------------------------------------------------------
+
+// The operands as NP bf16 parts of D columns each, a row of W = NP D bf16
+// columns: NP = 1 is bfloat16 itself; NP = 2 is float32 x = hi + lo + e,
+// hi = bf16(x) and lo = bf16(x - hi) both rounded to nearest, |e| <=
+// 2^-18 |x| (fa2_bwd_prep_f32 writes q, k, v and dO so, [hi | lo] a row;
+// P and dS are split in registers). A float32 product is then the three
+// bf16 products lo hi + hi lo + hi hi into one float32 accumulator, in that
+// order (3xBF16; lo lo, under 2^-16 of the whole, is dropped): bf16's
+// wgmma reads an MN-major B operand through the transpose bit, which tf32's
+// does not, and three bf16 products cost what 1.5 TF32 ones do.
+//
+// Tiles: W / 64 swizzled chunks of R rows x 128 bytes, as WgTile's
+// (tma_tile's boxes of 64 rows). At W = 256 (bf16 d 256, float32 d 128) a
+// warpgroup's dK and dV of 64 keys would be 256 accumulator registers a
+// thread, so the two consumer warpgroups split them (kWide): both take
+// the same 64 keys, warpgroup 0 computing S^T, P^T and dV += P^T dO,
+// warpgroup 1 dP^T, then dS^T and dK += dS^T Q with P^T handed across in
+// float32 through two 16 KB buffers in shared memory under named barriers
+// (two products each a step; recomputing S^T in warpgroup 1 instead makes
+// five a step); K and V take 64 KB, a (Q, dO) stage of 64 rows 64 KB, so
+// two stages. Its dQ blocks take 64 rows (Q and dO: 64 KB); warpgroup w
+// takes key steps w, w + 2, ... of 64 keys into its own dQ accumulator,
+// and the two are added in that order at the end (kWide; 128-row blocks
+// would leave room only for 32-key steps, whose S and dP read Q and dO
+// from shared memory twice as often a product). K and V come through rings
+// of their own, three K tiles and two V tiles (V is released after dP, K
+// only after dQ += dS K), so the next step's tiles load while a warpgroup
+// computes. At W = 128 (float32 d 64) the tiles are WgTile<128>'s: 128
+// keys a dK/dV block, each warpgroup both dK and dV of its 64; 128 rows a
+// dQ block, 64 each.
+template <int D, int NP>
+struct PartTile {
+  static constexpr int W = D * NP;          // bf16 columns a row
+  // the two consumer warpgroups share a block's 64 keys (dK/dV: dV in
+  // one, dK in the other) and its 64 rows (dQ: alternate key steps)
+  static constexpr bool kWide = W == 256;
+  static constexpr int kThreads = 384;   // consumers: warpgroups 0-1
+  static constexpr int BKV = kWide ? 64 : 128;    // keys a dK/dV block
+  static constexpr int BQ = 64;             // queries a dK/dV step
+  static constexpr int kKvStages = kWide ? 2 : 3;
+  static constexpr int BM = kWide ? 64 : 128;     // rows a dQ block
+  static constexpr int BKQ = 64;                  // keys a dQ step
+  static constexpr int kKStages = kWide ? 3 : 4;  // K tiles in flight
+  static constexpr int kVStages = kWide ? 2 : 4;  // V tiles
+  static constexpr int kPairs = NP == 1 ? 1 : 3;  // products a product
+  static constexpr int kKvTile = BKV * W * 2;     // bytes of K or V
+  static constexpr int kQTile = BQ * W * 2;       // of Q or dO, a step
+  static constexpr int kKvLd = 2 * kKvTile + 2 * kKvStages * kQTile;
+  static constexpr int kPBuf = kKvLd + 2 * kKvStages * BQ * 4;
+  // with kWide two buffers of a 64 x 64 float32 P^T tile
+  static constexpr int kKvBars = kPBuf + (kWide ? 2 * 64 * 64 * 4 : 0);
+  static constexpr size_t smem_kv = 1024 + kKvBars + (2 * kKvStages + 1) * 8;
+  static constexpr int kMTile = BM * W * 2;       // of Q or dO, a dQ block
+  static constexpr int kKTile = BKQ * W * 2;      // of K or V, a dQ step
+  static constexpr int kQBars = 2 * kMTile + (kKStages + kVStages) * kKTile;
+  static constexpr size_t smem_q =
+      1024 + kQBars + (2 * (kKStages + kVStages) + 1) * 8;
+  static constexpr size_t smem = smem_kv > smem_q ? smem_kv : smem_q;
+  static_assert(smem <= 232448, "PartTile: over 227 KB of shared memory");
+  // product p of a pair: A's part and B's part (lo hi, hi lo, hi hi)
+  static __device__ __forceinline__ int part_a(int p) {
+    return NP == 1 ? 0 : p == 0;
+  }
+  static __device__ __forceinline__ int part_b(int p) {
+    return NP == 1 ? 0 : p == 1;
+  }
+  // the byte offset of part i's chunks in an R-row tile
+  template <int R>
+  static __device__ __forceinline__ uint32_t part(int i) {
+    return i * (D / 64) * R * 128;
+  }
+};
+
+// named barrier `id` over `n` threads: wait for all n, or arrive only
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// acc (64 x D) += A (64 x 16, registers) . B (16 x D), B rows [16 ks, 16 ks
+// + 16) of the R-row tile at `tile` read MN-major (the transpose bit)
+template <int D, int R>
+__device__ __forceinline__ void rs_mn(float* acc, const uint32_t* a,
+                                      uint32_t tile, int ks) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(acc, a, mnmajor_desc<R>(tile, ks));
+  } else {
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      wgmma_rs_n128(acc + 64 * h, a, mnmajor_desc<R>(tile + h * 2 * R * 128,
+                                                     ks));
+  }
+}
+
+// the A fragments of columns [16 ks, 16 ks + 16) of a 64-row accumulator
+// as NP bf16 parts (wg_acc_to_a's layout): part 0 x rounded to bf16, part 1
+// the remainder rounded
+template <int NP>
+__device__ __forceinline__ void acc_to_a_parts(uint32_t (&a)[NP][4],
+                                               const float* x, int ks) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = x[8 * ks + 2 * i], x1 = x[8 * ks + 2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    a[0][i] = *reinterpret_cast<const uint32_t*>(&h);
+    if constexpr (NP == 2) {
+      const float2 hf = __bfloat1622float2(h);
+      a[1][i] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+
+// dK and dV of block (col, kb), as dkdv_block's: column col = (b Hkv + kv
+// head) splits + split of the GQA group, BKV keys from kb BKV; T the
+// outputs' type (bf16, or float for NP = 2).
+template <int D, int NP, typename T>
+__device__ __forceinline__ void dkdv_parts(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part, int Hq,
+    int Hkv, int Sq, int Sk, int causal, int window, float scale,
+    float scale_log2, int splits, int col, int kb, int n_bkv) {
+  using TL = PartTile<D, NP>;
+  constexpr int BKV = TL::BKV, BQ = TL::BQ, S = TL::kKvStages, W = TL::W;
+  constexpr bool kWide = TL::kWide;
+  constexpr int NACC = kWide ? 1 : 2;    // dV in acc[0], dK in acc[NACC - 1]
+  extern __shared__ __align__(1024) unsigned char wsm[];
+  const uint32_t raw = smem_u32(wsm);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = wsm + (base - raw);
+  const uint32_t k_tile = base, v_tile = base + TL::kKvTile;
+  auto q_tile = [&](int s) { return base + 2 * TL::kKvTile + s * TL::kQTile; };
+  auto do_tile = [&](int s) { return q_tile(S + s); };
+  float* l2s = reinterpret_cast<float*>(gbase + TL::kKvLd);   // S x BQ
+  float* ds = l2s + S * BQ;                                     // S x BQ
+  float* pbuf = reinterpret_cast<float*>(gbase + TL::kPBuf);  // 2 x 64 x 64
+  const uint32_t bars = base + TL::kKvBars;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const uint32_t kv_bar = bars + 8 * 2 * S;
+
+  const int split = col % splits;
+  const int bkv = col / splits;                   // b * Hkv + kv head
+  const int b = bkv / Hkv, hk = bkv % Hkv;
+  const int k_lo = kb * BKV;
+  const int g = Hq / Hkv;
+  const int h_begin = hk * g + split * g / splits;
+  const int n_h = hk * g + (split + 1) * g / splits - h_begin;
+  const int off = Sk - Sq;
+  int qt_begin, n_qt;
+  query_tiles(k_lo, min(k_lo + BKV, Sk) - 1, Sq, off, causal, window, BQ,
+              &qt_begin, &n_qt);
+  const int n_it = n_qt * n_h;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 32);     // the producer warp's lanes
+      mbar_init(empty(s), 8);     // each consumer warp
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x / 32 == 8) {
+      const int lane = threadIdx.x % 32;
+      if (n_it > 0 && lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * TL::kKvTile);
+        tma_tile<W, BKV>(k_tile, &map_k, kv_bar, k_lo, bkv);
+        tma_tile<W, BKV>(v_tile, &map_v, kv_bar, k_lo, bkv);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(empty(s), (it / S - 1) & 1);
+        const int bh = b * Hq + h_begin + it / n_qt;
+        const int q_lo = (qt_begin + it % n_qt) * BQ;
+        const size_t q_base = (size_t)bh * Sq;
+        for (int r = lane; r < BQ; r += 32) {
+          const int qr = q_lo + r;
+          l2s[s * BQ + r] = qr < Sq ? lse[q_base + qr] * kLog2e : pos_inf();
+          ds[s * BQ + r] = qr < Sq ? delta[q_base + qr] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * TL::kQTile);
+          tma_tile<W, BQ>(q_tile(s), &map_q, full(s), q_lo, bh);
+          tma_tile<W, BQ>(do_tile(s), &map_do, full(s), q_lo, bh);
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+    // warpgroup-uniform roles: with kWide both warpgroups take the same 64
+    // keys, 0 computing S^T, P^T and dV, 1 dP^T, dS^T and dK with P^T
+    // handed across; else each its own 64 keys, all of it
+    const int kr = kWide ? 0 : 64 * wg;           // its keys in the tile
+    const bool do_dv = !kWide || wg == 0;
+    const bool do_dk = !kWide || wg == 1;
+    const int kw = k_lo + kr;                      // this warpgroup's keys
+    const int kr0 = kw + 16 * w + lane / 4;        // + 8 h: this thread's
+    float acc[NACC][D / 2];
+#pragma unroll
+    for (int a = 0; a < NACC; ++a)
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[a][i] = 0.f;
+    if (n_it > 0) mbar_wait(kv_bar, 0);
+    // part i's chunks of the (K, V) and (Q, dO) tiles
+    auto kpart = [](uint32_t tile, int i) {
+      return tile + TL::template part<BKV>(i);
+    };
+    auto qpart = [](uint32_t tile, int i) {
+      return tile + TL::template part<BQ>(i);
+    };
+    int handed = 0;   // P^T tiles handed across (kWide), alternate buffers
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % S;
+      mbar_wait(full(s), (it / S) & 1);
+      const int q_lo = (qt_begin + it % n_qt) * BQ;
+      // none of the tile's rows sees this warpgroup's keys
+      const bool idle = kw >= Sk || (causal && kw > q_lo + BQ - 1 + off) ||
+                        (window > 0 && kw + 63 <= q_lo + off - window);
+      if (!idle) {
+        // S^T = K Q^T (dV's warpgroup) and dP^T = V dO^T (dK's): 64 keys x
+        // 64 queries, over the parts
+        float st[32], dpt[32];
+        wgmma_fence();
+        if (do_dv) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+            for (int p = 0; p < TL::kPairs; ++p)
+              wgmma_ss_n64(st, kmajor_desc<BKV>(kpart(k_tile, TL::part_a(p)),
+                                                kr, kk),
+                           kmajor_desc<BQ>(qpart(q_tile(s), TL::part_b(p)), 0,
+                                           kk),
+                           kk > 0 || p > 0);
+          wgmma_commit();
+        }
+        if (do_dk) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+            for (int p = 0; p < TL::kPairs; ++p)
+              wgmma_ss_n64(dpt, kmajor_desc<BKV>(kpart(v_tile, TL::part_a(p)),
+                                                 kr, kk),
+                           kmajor_desc<BQ>(qpart(do_tile(s), TL::part_b(p)), 0,
+                                           kk),
+                           kk > 0 || p > 0);
+          wgmma_commit();
+        }
+        const float2* dd =
+            reinterpret_cast<const float2*>(ds + s * BQ) + lane % 4;
+        if (do_dv) {
+          if (do_dk)
+            wgmma_wait<1>();
+          else
+            wgmma_wait<0>();
+          fence_regs(st);
+          // P^T = exp2(S^T scale log2 e - L log2 e), 0 where not seen; this
+          // thread's query columns: 8 j + 2 (lane % 4) + {0, 1}
+          const float2* l2 =
+              reinterpret_cast<const float2*>(l2s + s * BQ) + lane % 4;
+          const bool edge = kw + 64 > Sk || q_lo + BQ > Sq ||
+                            (causal && kw + 63 > q_lo + off) ||
+                            (window > 0 && kw <= q_lo + BQ - 1 + off - window);
+          if (edge) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 l = l2[4 * j];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qr = q_lo + 8 * j + 2 * (lane % 4) + (e % 2);
+                const float p = exp2_ftz(st[4 * j + e] * scale_log2 -
+                                         (e % 2 ? l.y : l.x));
+                st[4 * j + e] = visible(kr0 + 8 * (e / 2), qr, Sq, Sk, off,
+                                        causal, window) ? p : 0.f;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 l = l2[4 * j];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                st[4 * j + e] = exp2_ftz(st[4 * j + e] * scale_log2 -
+                                         (e % 2 ? l.y : l.x));
+            }
+          }
+        }
+        if constexpr (kWide) {
+          // P^T from warpgroup 0 to 1 through buffer buf (its layout the
+          // accumulators': thread t's 32 at [i 128 + t]): named barriers
+          // 1 + buf (full: 0 arrives, 1 waits) and 3 + buf (empty: 1
+          // arrives, 0 waits before reusing it)
+          const int buf = handed & 1;
+          float* pb = pbuf + buf * 32 * 128;
+          if (wg == 0) {
+            if (handed >= 2) named_sync(3 + buf, 256);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) pb[i * 128 + tid] = st[i];
+            named_arrive(1 + buf, 256);
+          } else {
+            wgmma_wait<0>();
+            fence_regs(dpt);
+            named_sync(1 + buf, 256);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) st[i] = pb[i * 128 + tid];
+            named_arrive(3 + buf, 256);
+          }
+          ++handed;
+        } else {
+          wgmma_wait<0>();
+          fence_regs(dpt);
+        }
+        uint32_t pa[4][NP][4], dsa[4][NP][4];
+        if (do_dk) {
+          // dS^T = P^T (dP^T - D)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 dj = dd[4 * j];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dpt[4 * j + e] =
+                  st[4 * j + e] * (dpt[4 * j + e] - (e % 2 ? dj.y : dj.x));
+          }
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) acc_to_a_parts<NP>(dsa[ks], dpt, ks);
+        }
+        if (do_dv) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) acc_to_a_parts<NP>(pa[ks], st, ks);
+        }
+
+        // dV += P^T dO and dK += dS^T Q: A from registers, B the tiles read
+        // MN-major, over the parts
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) fence_regs(acc[a]);
+        wgmma_fence();
+        if (do_dv) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+            for (int p = 0; p < TL::kPairs; ++p)
+              rs_mn<D, BQ>(acc[0], pa[ks][TL::part_a(p)],
+                           qpart(do_tile(s), TL::part_b(p)), ks);
+        }
+        if (do_dk) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+            for (int p = 0; p < TL::kPairs; ++p)
+              rs_mn<D, BQ>(acc[NACC - 1], dsa[ks][TL::part_a(p)],
+                           qpart(q_tile(s), TL::part_b(p)), ks);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) fence_regs(acc[a]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));   // this warp is done with s
+    }
+    if constexpr (kWide) {
+      // the last two buffers' empty arrivals, which no later hand waited on
+      if (wg == 0)
+        for (int u = handed < 2 ? 0 : handed - 2; u < handed; ++u)
+          named_sync(3 + (u & 1), 256);
+    }
+
+    const size_t kv_base = (size_t)bkv * Sk * D;
+    const size_t n = (size_t)n_bkv * Sk * D;      // B Hkv Sk D
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kc = kr0 + 8 * i;
+      if (kc >= Sk) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const size_t at = kv_base + (size_t)kc * D + 8 * j + 2 * (lane % 4);
+        if (do_dv) {
+          const float v0 = acc[0][4 * j + 2 * i];
+          const float v1 = acc[0][4 * j + 2 * i + 1];
+          if (splits == 1)
+            store2(dv + at, v0, v1);
+          else
+            store2(part + (2 * split + 1) * n + at, v0, v1);
+        }
+        if (do_dk) {
+          const float k0 = acc[NACC - 1][4 * j + 2 * i] * scale;
+          const float k1 = acc[NACC - 1][4 * j + 2 * i + 1] * scale;
+          if (splits == 1)
+            store2(dk + at, k0, k1);
+          else
+            store2(part + 2 * split * n + at, k0, k1);
+        }
+      }
+    }
+  }
+}
+
+// dQ of block (bh, qt), as dq_block's: BM rows from qt BM, 64 a consumer
+// warpgroup (with kWide both warpgroups on the same 64 rows, taking
+// alternate key steps); K and V tiles of BKQ keys through rings of their
+// own, V released after dP, K after dQ += dS K.
+template <int D, int NP, typename T>
+__device__ __forceinline__ void dq_parts(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk, int causal,
+    int window, float scale, float scale_log2, int bh, int qt) {
+  using TL = PartTile<D, NP>;
+  constexpr int BM = TL::BM, BKQ = TL::BKQ, W = TL::W;
+  constexpr int SK = TL::kKStages, SV = TL::kVStages;
+  constexpr bool kWide = TL::kWide;
+  constexpr int NS = BKQ / 2;     // score registers a thread
+  extern __shared__ __align__(1024) unsigned char wsm[];
+  const uint32_t base = (smem_u32(wsm) + 1023) & ~1023u;
+  const uint32_t q_tile = base, do_tile = base + TL::kMTile;
+  auto k_tile = [&](int s) { return base + 2 * TL::kMTile + s * TL::kKTile; };
+  auto v_tile = [&](int s) { return k_tile(SK + s); };
+  const uint32_t bars = base + TL::kQBars;
+  auto full_k = [&](int s) { return bars + 8 * s; };
+  auto empty_k = [&](int s) { return bars + 8 * (SK + s); };
+  auto full_v = [&](int s) { return bars + 8 * (2 * SK + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (2 * SK + SV + s); };
+  const uint32_t q_bar = bars + 8 * (2 * SK + 2 * SV);
+
+  const int b = bh / Hq, h = bh % Hq, bkv = b * Hkv + h / (Hq / Hkv);
+  const int q_lo = qt * BM;
+  const int off = Sk - Sq;
+  int kt_begin, kt_end;
+  key_tiles(q_lo, min(q_lo + BM, Sq) - 1, Sk, off, causal, window, BKQ,
+            &kt_begin, &kt_end);
+  const int n_it = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    constexpr int consumers = kWide ? 4 : 8;   // the warps that read a tile
+    for (int s = 0; s < SK; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(empty_k(s), consumers);
+    }
+    for (int s = 0; s < SV; ++s) {
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_v(s), consumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256 && n_it > 0) {
+      mbar_expect_tx(q_bar, 2 * TL::kMTile);
+      tma_tile<W, BM>(q_tile, &map_q, q_bar, q_lo, bh);
+      tma_tile<W, BM>(do_tile, &map_do, q_bar, q_lo, bh);
+      for (int it = 0; it < n_it; ++it) {
+        const int kv_lo = (kt_begin + it) * BKQ;
+        const int sk = it % SK, sv = it % SV;
+        if (it >= SK) mbar_wait(empty_k(sk), (it / SK - 1) & 1);
+        mbar_expect_tx(full_k(sk), TL::kKTile);
+        tma_tile<W, BKQ>(k_tile(sk), &map_k, full_k(sk), kv_lo, bkv);
+        if (it >= SV) mbar_wait(empty_v(sv), (it / SV - 1) & 1);
+        mbar_expect_tx(full_v(sv), TL::kKTile);
+        tma_tile<W, BKQ>(v_tile(sv), &map_v, full_v(sv), kv_lo, bkv);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+    const int rr = kWide ? 0 : 64 * wg;             // its rows in the tile
+    const int rw = q_lo + rr;                      // this warpgroup's rows
+    const int r0 = rw + 16 * w + lane / 4;         // + 8 h: this thread's
+    const size_t q_base = (size_t)bh * Sq;
+    float l2[2], dd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      l2[i] = r < Sq ? lse[q_base + r] * kLog2e : pos_inf();
+      dd[i] = r < Sq ? delta[q_base + r] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    if (n_it > 0) mbar_wait(q_bar, 0);
+    // part i's chunks of the (Q, dO) and (K, V) tiles
+    auto mpart = [](uint32_t tile, int i) {
+      return tile + TL::template part<BM>(i);
+    };
+    auto kpart = [](uint32_t tile, int i) {
+      return tile + TL::template part<BKQ>(i);
+    };
+
+    for (int it = kWide ? wg : 0; it < n_it; it += kWide ? 2 : 1) {
+      const int sk = it % SK, sv = it % SV;
+      mbar_wait(full_k(sk), (it / SK) & 1);
+      mbar_wait(full_v(sv), (it / SV) & 1);
+      const int kv_lo = (kt_begin + it) * BKQ;
+      // none of this warpgroup's rows sees the tile's keys
+      const bool idle = rw >= Sq || (causal && kv_lo > rw + 63 + off) ||
+                        (window > 0 && kv_lo + BKQ - 1 <= rw + off - window);
+      float sc[NS], dp[NS];
+      if (!idle) {
+        // S = Q K^T and dP = dO V^T: 64 rows x BKQ keys, over the parts
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < TL::kPairs; ++p)
+            wgmma_ss<BKQ>(sc,
+                          kmajor_desc<BM>(mpart(q_tile, TL::part_a(p)), rr, kk),
+                          kmajor_desc<BKQ>(kpart(k_tile(sk), TL::part_b(p)),
+                                           0, kk),
+                          kk > 0 || p > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < TL::kPairs; ++p)
+            wgmma_ss<BKQ>(dp,
+                          kmajor_desc<BM>(mpart(do_tile, TL::part_a(p)), rr,
+                                          kk),
+                          kmajor_desc<BKQ>(kpart(v_tile(sv), TL::part_b(p)),
+                                           0, kk),
+                          kk > 0 || p > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
+
+        // P; element 4 j + 2 h + e: row r0 + 8 h, key kv_lo + 8 j +
+        // 2 (lane % 4) + e
+        if (edge_tile(rw, 64, kv_lo, BKQ, Sk, off, causal, window)) {
+#pragma unroll
+          for (int j = 0; j < BKQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p =
+                  exp2_ftz(sc[4 * j + e] * scale_log2 - l2[e / 2]);
+              sc[4 * j + e] =
+                  visible(kv_lo + 8 * j + 2 * (lane % 4) + (e % 2),
+                          r0 + 8 * (e / 2), Sq, Sk, off, causal, window)
+                      ? p
+                      : 0.f;
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < BKQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * j + e] =
+                  exp2_ftz(sc[4 * j + e] * scale_log2 - l2[e / 2]);
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v(sv));   // this warp is done with V
+      if (!idle) {
+        // dS = P (dP - D)
+#pragma unroll
+        for (int j = 0; j < BKQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dd[e / 2]);
+        uint32_t dsa[BKQ / 16][NP][4];
+#pragma unroll
+        for (int ks = 0; ks < BKQ / 16; ++ks)
+          acc_to_a_parts<NP>(dsa[ks], sc, ks);
+
+        // dQ += dS K: A from registers, K read MN-major, over the parts
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BKQ / 16; ++ks)
+#pragma unroll
+          for (int p = 0; p < TL::kPairs; ++p)
+            rs_mn<D, BKQ>(acc, dsa[ks][TL::part_a(p)],
+                          kpart(k_tile(sk), TL::part_b(p)), ks);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k(sk));   // and with K
+    }
+
+    if constexpr (kWide) {
+      // warpgroup 1's dQ handed to warpgroup 0 through the K and V rings,
+      // which every load has reached and every product left (named barrier
+      // 1 over the 256 consumer threads), and added after its own
+      float* red = reinterpret_cast<float*>(wsm + (k_tile(0) - smem_u32(wsm)));
+      named_sync(1, 256);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) red[i * 128 + tid] = acc[i];
+      }
+      named_sync(1, 256);
+      if (wg == 1) return;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += red[i * 128 + tid];
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r >= Sq) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(dq + (q_base + r) * D + 8 * j + 2 * (lane % 4),
+               acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
+// dK/dV and dQ in one launch, ordered as fa2_bwd_wgmma's: the dK/dV blocks
+// first (key block 0 first), then the dQ blocks (the last row tile first).
+// Blocks restricted by `only` (1: the dK/dV blocks, 2: the dQ blocks) skip
+// the others' work, for chip_profile.py's split of a call; 0 runs both.
+template <int D, int NP, typename T>
+__global__ void __launch_bounds__(PartTile<D, NP>::kThreads, 1)
+    fa2_bwd_wgmma_parts(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        T* __restrict__ dk, T* __restrict__ dv,
+                        float* __restrict__ part, int Hq, int Hkv, int Sq,
+                        int Sk, int causal, int window, float scale,
+                        float scale_log2, int splits, int kv_cols, int n_kv,
+                        int q_cols, int n_qt, int only) {
+  const int blk = blockIdx.x;
+  if (blk < n_kv) {
+    if (only == 2) return;
+    dkdv_parts<D, NP, T>(map_q, map_k, map_v, map_do, lse, delta, dk, dv,
+                         part, Hq, Hkv, Sq, Sk, causal, window, scale,
+                         scale_log2, splits, blk % kv_cols, blk / kv_cols,
+                         kv_cols / splits);
+  } else {
+    if (only == 1) return;
+    const int r = blk - n_kv;
+    dq_parts<D, NP, T>(map_q, map_k, map_v, map_do, lse, delta, dq, Hq, Hkv,
+                       Sq, Sk, causal, window, scale, scale_log2, r % q_cols,
+                       n_qt - 1 - r / q_cols);
+  }
+}
+
+// float32 at d 64 and 128: D = rowsum(dO O) (as fa2_bwd_delta<float, 1>
+// sums it) and q and dO split into their two bf16 parts, one warp a row of
+// (B Hq Sq); then k and v split, one warp a row of (B Hkv Sk). A row of d
+// floats becomes a row of 2 d bf16: hi's d, then lo's.
+__device__ __forceinline__ void split_row(const float* x, bf16* y, int d,
+                                          int lane) {
+  for (int c = lane; c < d; c += 32) {
+    const float v = x[c];
+    const bf16 hi = __float2bfloat16_rn(v);
+    y[c] = hi;
+    y[d + c] = __float2bfloat16_rn(v - __bfloat162float(hi));
+  }
+}
+
+__global__ void __launch_bounds__(256) fa2_bwd_prep_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ o,
+    const float* __restrict__ dO, float* __restrict__ delta,
+    bf16* __restrict__ qs, bf16* __restrict__ ks, bf16* __restrict__ vs,
+    bf16* __restrict__ dos, long long q_rows, long long kv_rows, int d) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row < q_rows) {
+    const float* a = o + row * d;
+    const float* b = dO + row * d;
+    float s = 0.f;
+    for (int c = lane; c < d; c += 32) s += a[c] * b[c];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == 0) delta[row] = s;
+    split_row(q + row * d, qs + row * 2 * d, d, lane);
+    split_row(b, dos + row * 2 * d, d, lane);
+  } else if (row < q_rows + kv_rows) {
+    const long long r = row - q_rows;
+    split_row(k + r * d, ks + r * 2 * d, d, lane);
+    split_row(v + r * d, vs + r * 2 * d, d, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1358,8 +2091,9 @@ struct Args {
   const void *q, *k, *v, *o, *dO;
   const float* lse;
   float *delta, *part;
+  bf16* split;
   void *dq, *dk, *dv;
-  int B, Hq, Hkv, Sq, Sk, causal, window, splits;
+  int B, Hq, Hkv, Sq, Sk, causal, window, splits, only;
   float scale;
   cudaStream_t stream;
 };
@@ -1484,76 +2218,202 @@ cudaError_t launch_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(int d, const Args& a) {
-  switch (d) {
-    case 16: return launch_fma<16>(a);
-    case 32: return launch_fma<32>(a);
-    case 64: return launch_fma<64>(a);
-    case 80: return launch_fma<80>(a);
-    case 128: return launch_fma<128>(a);
-    case 256: return launch_fma<256>(a);
-    default: return cudaErrorInvalidValue;
+// TMA + wgmma on NP bf16 parts: bfloat16 at d 256 (NP 1), float32 at d 64
+// and 128 (NP 2: fa2_bwd_prep_f32 first writes q, k, v and dO's parts into
+// `split`, with D)
+template <int D, int NP>
+cudaError_t launch_parts(const Args& a) {
+  using TL = PartTile<D, NP>;
+  using T = typename std::conditional<NP == 2, float, bf16>::type;
+  // cuTensorMapEncodeTiled needs q's context current on this thread (the
+  // backward runs on autograd's thread, where no runtime call may have
+  // bound it yet)
+  cudaPointerAttributes pa;
+  cudaError_t e = cudaPointerGetAttributes(&pa, a.q);
+  if (e == cudaSuccess) e = cudaSetDevice(pa.device);
+  if (e != cudaSuccess) return e;
+  const void *tq = a.q, *tk = a.k, *tv = a.v, *tdo = a.dO;
+  if constexpr (NP == 2) {
+    if (a.split == nullptr || (uintptr_t)a.split % 16 != 0)
+      return cudaErrorInvalidValue;
+    const long long q_rows = (long long)a.B * a.Hq * a.Sq;
+    const long long kv_rows = (long long)a.B * a.Hkv * a.Sk;
+    const long long blocks = (q_rows + kv_rows + 7) / 8;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    bf16* qs = a.split;
+    bf16* dos = qs + q_rows * 2 * D;
+    bf16* ks = dos + q_rows * 2 * D;
+    bf16* vs = ks + kv_rows * 2 * D;
+    fa2_bwd_prep_f32<<<(unsigned)blocks, 256, 0, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+        static_cast<const float*>(a.dO), a.delta, qs, ks, vs, dos, q_rows,
+        kv_rows, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    tq = qs;
+    tk = ks;
+    tv = vs;
+    tdo = dos;
+  } else {
+    if ((e = launch_delta<bf16>(a, D)) != cudaSuccess) return e;
+  }
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_heads(&mq, enc, tq, TL::W, a.Sq, a.B * a.Hq) ||
+      !encode_heads(&mk, enc, tk, TL::W, a.Sk, a.B * a.Hkv) ||
+      !encode_heads(&mv, enc, tv, TL::W, a.Sk, a.B * a.Hkv) ||
+      !encode_heads(&mdo, enc, tdo, TL::W, a.Sq, a.B * a.Hq))
+    return cudaErrorInvalidValue;
+  const float scale_log2 = a.scale * kLog2e;
+  auto kern = fa2_bwd_wgmma_parts<D, NP, T>;
+  if ((e = allow_smem(kern, TL::smem)) != cudaSuccess) return e;
+  const long long kv_cols = (long long)a.B * a.Hkv * a.splits;
+  const long long n_kv = kv_cols * ((a.Sk + TL::BKV - 1) / TL::BKV);
+  const long long q_cols = (long long)a.B * a.Hq;
+  const long long n_qt = (a.Sq + TL::BM - 1) / TL::BM;
+  if (n_kv + q_cols * n_qt > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)(n_kv + q_cols * n_qt), TL::kThreads, TL::smem,
+         a.stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<T*>(a.dq),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.part, a.Hq, a.Hkv,
+      a.Sq, a.Sk, a.causal, a.window, a.scale, scale_log2, a.splits,
+      (int)kv_cols, (int)n_kv, (int)q_cols, (int)n_qt, a.only);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (a.splits > 1) return launch_sum_parts<T>(a, D);
+  return cudaSuccess;
+}
+
+// The routes, as the getters number them
+enum Route { kFma = 0, kMma = 1, kWgmma = 2, kWgmma3xBf16 = 3 };
+
+bool head_dim(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 80 || d == 128 || d == 256;
+}
+
+// The route a (dtype, d) call runs: bfloat16 TMA + wgmma at d 64, 128 and
+// 256, mma.sync at 16, 32 and 80; float32 TMA + wgmma on 3xBF16 at d 64
+// and 128, FMA at 16, 32, 80 and 256; -1 for an unknown dtype or head dim
+int route_of(int dtype, int d) {
+  if (!head_dim(d)) return -1;
+  if (dtype == 0) return d == 64 || d == 128 ? kWgmma3xBf16 : kFma;
+  if (dtype == 1) return wgmma_head_dim(d) || d == 256 ? kWgmma : kMma;
+  return -1;
+}
+
+// Whether `route` runs a (dtype, d) call: the one route_of names, or the
+// first version of its dtype where that was the route before the wgmma
+// kernels took it (FMA at every head dim, mma.sync at d 256), which
+// chip_profile.py and the card tests time and hold beside it
+bool route_runs(int route, int dtype, int d) {
+  if (route_of(dtype, d) < 0) return false;
+  return route == route_of(dtype, d) || (dtype == 0 && route == kFma) ||
+         (dtype == 1 && route == kMma && !wgmma_head_dim(d));
+}
+
+// Keys a dK/dV block of the route at head dim d
+int key_block(int route, int d) {
+  switch (route) {
+    case kFma: return FmaTile<128>::BK;
+    case kMma: return MmaTile<80>::BKV;
+    case kWgmma: return d == 256 ? PartTile<256, 1>::BKV : WgTile<128>::BKV;
+    case kWgmma3xBf16:
+      return d == 64 ? PartTile<64, 2>::BKV : PartTile<128, 2>::BKV;
+    default: return 0;
   }
 }
 
-cudaError_t launch_bf16(int d, const Args& a) {
-  // 16-byte cp.async rows need 16-byte aligned bases
-  if (((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.o |
-       (uintptr_t)a.dO | (uintptr_t)a.dq | (uintptr_t)a.dk |
-       (uintptr_t)a.dv) % 16 != 0)
-    return cudaErrorMisalignedAddress;
-  switch (d) {
-    case 16: return launch_mma<16>(a);
-    case 32: return launch_mma<32>(a);
-    case 64: return launch_wgmma<64>(a);
-    case 80: return launch_mma<80>(a);
-    case 128: return launch_wgmma<128>(a);
-    case 256: return launch_mma<256>(a);
+cudaError_t launch_route(int route, int d, const Args& a) {
+  if (route == kMma || route == kWgmma) {
+    // 16-byte cp.async rows and TMA need 16-byte aligned bases
+    if (((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.o |
+         (uintptr_t)a.dO | (uintptr_t)a.dq | (uintptr_t)a.dk |
+         (uintptr_t)a.dv) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  }
+  switch (route) {
+    case kFma:
+      switch (d) {
+        case 16: return launch_fma<16>(a);
+        case 32: return launch_fma<32>(a);
+        case 64: return launch_fma<64>(a);
+        case 80: return launch_fma<80>(a);
+        case 128: return launch_fma<128>(a);
+        case 256: return launch_fma<256>(a);
+        default: return cudaErrorInvalidValue;
+      }
+    case kMma:
+      switch (d) {
+        case 16: return launch_mma<16>(a);
+        case 32: return launch_mma<32>(a);
+        case 80: return launch_mma<80>(a);
+        case 256: return launch_mma<256>(a);
+        default: return cudaErrorInvalidValue;
+      }
+    case kWgmma:
+      switch (d) {
+        case 64: return launch_wgmma<64>(a);
+        case 128: return launch_wgmma<128>(a);
+        case 256: return launch_parts<256, 1>(a);
+        default: return cudaErrorInvalidValue;
+      }
+    case kWgmma3xBf16:
+      switch (d) {
+        case 64: return launch_parts<64, 2>(a);
+        case 128: return launch_parts<128, 2>(a);
+        default: return cudaErrorInvalidValue;
+      }
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, dq: (B, Hq, Sq, d); k, v, dk, dv:
-// (B, Hkv, Sk, d); o, dO: q's shape and dtype; lse: float32 (B, Hq, Sq);
-// delta: float32 scratch of (B, Hq, Sq); part: float32 scratch of
-// (splits, 2, B, Hkv, Sk, d), unused (may be null) when splits == 1.
-// Returns a cudaError_t code (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16. kernel: 0 = the route
+// flash_attention_bwd_route names, else that route + 1 (the first version
+// of the dtype, FMA or mma.sync, at any head dim: to time one against the
+// other). q, dq: (B, Hq, Sq, d); k, v, dk, dv: (B, Hkv, Sk, d); o, dO: q's
+// shape and dtype; lse: float32 (B, Hq, Sq); delta: float32 scratch of (B,
+// Hq, Sq); part: float32 scratch of (splits, 2, B, Hkv, Sk, d), unused (may
+// be null) when splits == 1; split: bfloat16 scratch of 2 B (2 Hq Sq + 2
+// Hkv Sk) d on the 3xBF16 route (q, dO, k and v's parts), else unused.
+// only: 0, or on the routes that run dK/dV and dQ blocks in one launch
+// (TMA + wgmma at d 256 and 3xBF16) 1 to run only the dK/dV blocks, 2 only
+// the dQ blocks (chip_profile.py's split of a call; the outputs of the
+// others are left undefined). Returns a cudaError_t code (0 = ok).
 extern "C" int flash_attention_bwd_launch(
-    int dtype, const void* q, const void* k, const void* v, const void* o,
-    const void* dO, const float* lse, float* delta, float* part, void* dq,
-    void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int d,
-    int causal, int window, int splits, float scale, void* stream) {
+    int dtype, int kernel, const void* q, const void* k, const void* v,
+    const void* o, const void* dO, const float* lse, float* delta,
+    float* part, void* split, void* dq, void* dk, void* dv, int B, int Hq,
+    int Hkv, int Sq, int Sk, int d, int causal, int window, int splits,
+    int only, float scale, void* stream) {
+  const int route = kernel == 0 ? route_of(dtype, d) : kernel - 1;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
       (long long)B * Hq > 65535 || splits < 1 || splits > Hq / Hkv ||
-      (splits > 1 && part == nullptr))
+      (splits > 1 && part == nullptr) || !route_runs(route, dtype, d) ||
+      only < 0 || only > 2 ||
+      (only != 0 && route != kWgmma3xBf16 && !(route == kWgmma && d == 256)))
     return (int)cudaErrorInvalidValue;
-  const Args a{q,  k,  v,      o,      dO,     lse,   delta,
-               part, dq, dk, dv,     B,      Hq,     Hkv,   Sq,
-               Sk,   causal, window, splits, scale,
+  const Args a{q,     k,    v,  o,  dO,     lse,    delta, part,
+               static_cast<bf16*>(split), dq, dk, dv, B, Hq, Hkv, Sq,
+               Sk,    causal, window, splits, only, scale,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_f32(d, a);
-  if (dtype == 1) return (int)launch_bf16(d, a);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_route(route, d, a);
 }
 
-// Keys a dK/dV block (the grid has ceil(Sk / it) key blocks) by dtype and
-// head dim; 0 for an unknown dtype. The wrapper sizes its GQA group splits
-// by it.
-extern "C" int flash_attention_bwd_key_block(int dtype, int d) {
-  if (dtype == 0) return FmaTile<128>::BK;
-  if (dtype == 1)
-    return wgmma_head_dim(d) ? WgTile<128>::BKV : MmaTile<80>::BKV;
-  return 0;
+// Keys a dK/dV block (the grid has ceil(Sk / it) key blocks) of the
+// kernels a (dtype, d, kernel) call runs, kernel as the launcher takes it;
+// 0 for a call it refuses. The wrapper sizes its GQA group splits by it.
+extern "C" int flash_attention_bwd_key_block(int dtype, int d, int kernel) {
+  const int route = kernel == 0 ? route_of(dtype, d) : kernel - 1;
+  return route_runs(route, dtype, d) ? key_block(route, d) : 0;
 }
 
-// The kernels a (dtype, d) call runs: 0 FMA, 1 mma.sync, 2 TMA + wgmma;
-// -1 for an unknown dtype.
+// The kernels a (dtype, d) call runs: 0 FMA, 1 mma.sync, 2 TMA + wgmma
+// (bfloat16), 3 TMA + wgmma on 3xBF16 (float32); -1 for an unknown dtype
+// or head dim.
 extern "C" int flash_attention_bwd_route(int dtype, int d) {
-  if (dtype == 0) return 0;
-  if (dtype == 1) return wgmma_head_dim(d) ? 2 : 1;
-  return -1;
+  return route_of(dtype, d);
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) {

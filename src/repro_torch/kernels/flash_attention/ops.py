@@ -17,15 +17,20 @@ their getters):
 - bfloat16 at d 16, 32, 80 and 256: the ``mma.sync`` m16n8k16 kernel
   (FlashAttention-2 schedule, 64-row query tiles, KV tiles of 64 rows, 32
   at d 256);
-- float32: the FMA kernel (tensor cores would mean TF32, outside the
-  float32 tolerance).
+- float32: the FMA kernel (the first version: the backward's 3xBF16
+  route below is not yet written for the forward).
 
-The backward's routes are the forward's: bfloat16 at d 64 and 128 runs
-TMA + ``wgmma`` kernels, at other head dims ``mma.sync`` ones; float32 FMA
-ones. ``fwd_plan`` mirrors the ``wgmma`` forward's tile plan (the key
-tiles a query tile sees, those a mask edge crosses) in Python, so the CPU
-tests hold it to the JAX kernel's mask; ``fwd_plan_cu`` reads the
-``.cu``'s own.
+The backward's routes (``bwd_route``): bfloat16 at d 64, 128 and 256 runs
+TMA + ``wgmma`` kernels (at d 256 on 64-key blocks whose two consumer
+warpgroups split dV and dK), at d 16, 32 and 80 ``mma.sync`` ones;
+float32 at d 64 and 128 runs the same kind of ``wgmma`` kernels on
+3xBF16 ("wgmma-3xbf16": each float32 operand as two bf16 parts, each
+product as three bf16 ones summed in float32, within 1e-4 of the largest
+gradient where one TF32 or bf16 pass is not), at d 16, 32, 80 and 256
+FMA ones. ``fwd_plan`` and ``bwd_plan`` mirror the ``wgmma`` kernels' tile
+plans (the tiles each block walks, those a mask edge crosses) in Python,
+so the CPU tests hold them to the JAX kernel's mask; ``fwd_plan_cu``
+reads the forward ``.cu``'s own.
 
 Both take head dims ``HEAD_DIMS``. ``flash_attention`` is a
 ``torch.autograd.Function``. When an input needs a grad, its forward also
@@ -33,8 +38,8 @@ returns each row's log-sum-exp L (the kernel writes it beside the output;
 on the CPU ``flash_attention_lse_ref``'s, from the same pass over the
 scores as the output) and saves q, k, v, out and L; its
 backward computes the grads from them: on a card the kernels of
-``flash_attention_bwd.cu`` (D = rowsum(dO O), dK/dV, dQ; bf16 on the
-tensor cores, float32 on FMA), on the CPU the dense float32
+``flash_attention_bwd.cu`` (D = rowsum(dO O), dK/dV, dQ; on the tensor
+cores but float32 at d 16, 32, 80 and 256), on the CPU the dense float32
 ``flash_attention_bwd_ref``. The JAX package's ``custom_vjp`` instead
 takes the vjp of its plain version (``_bwd_vjp``); the gradient is the
 same function.
@@ -94,12 +99,13 @@ def _lib(name: str = "flash_attention_fwd"):
             lib.flash_attention_fwd_plan.restype = None
         else:
             lib.flash_attention_bwd_launch.argtypes = [
-                i, p, p, p, p, p,           # dtype, q, k, v, o, dO
-                p, p, p,                    # lse, delta, part
+                i, i, p, p, p, p, p,        # dtype, kernel, q, k, v, o, dO
+                p, p, p, p,                 # lse, delta, part, split
                 p, p, p,                    # dq, dk, dv
                 i, i, i, i, i, i, i, i, i,  # B, Hq, Hkv, Sq, Sk, d, causal,
-                f, p]                       # window, splits; scale, stream
-            lib.flash_attention_bwd_key_block.argtypes = [i, i]
+                                            # window, splits
+                i, f, p]                    # only, scale, stream
+            lib.flash_attention_bwd_key_block.argtypes = [i, i, i]
             lib.flash_attention_bwd_key_block.restype = i
             lib.flash_attention_bwd_route.argtypes = [i, i]
             lib.flash_attention_bwd_route.restype = i
@@ -137,10 +143,11 @@ def _check_shapes(q, k, v, what):
     require(B * Hq <= 65535, f"{what}: B*Hq exceeds the grid")
 
 
-# the routes of both directions (``fwd_route``, ``bwd_route``) and the
-# forward's kernels (``fwd_kernel``, the launcher's ``kernel`` argument), as
-# the .cu files number them
-ROUTES = ("fma", "mma.sync", "wgmma")
+# the routes of both directions (``fwd_route``, ``bwd_route``; the
+# backward's ``kernel`` argument) and the forward's kernels (``fwd_kernel``,
+# its launcher's ``kernel`` argument), as the .cu files number them; only
+# the backward runs "wgmma-3xbf16" (float32 on bf16 parts)
+ROUTES = ("fma", "mma.sync", "wgmma", "wgmma-3xbf16")
 FWD_KERNELS = ("fma", "mma.sync", "wgmma-64", "wgmma-128")
 
 
@@ -212,6 +219,87 @@ def fwd_plan_cu(Sq: int, Sk: int, causal: bool, window: int, rows: int,
     return plan
 
 
+def _query_tiles(Sq, Sk, causal, window, k_lo, k_hi, rows):
+    """``query_tiles`` of ``csrc/attention.cuh``: the query tiles of
+    ``rows`` rows that keys [k_lo, k_hi] can be seen by, (begin, count)."""
+    off = Sk - Sq
+    r_begin = max(0, k_lo - off) if causal else 0
+    r_end = min(Sq, k_hi - off + window) if window > 0 else Sq
+    begin = r_begin // rows
+    return begin, (-(-r_end // rows) - begin if r_end > r_begin else 0)
+
+
+def _bwd_step(Sq, Sk, causal, window, q_lo, rows, kw) -> str:
+    """What a dK/dV consumer warpgroup does with its 64 keys [kw, kw + 64)
+    at the query step of rows [q_lo, q_lo + rows): "idle" (no row sees
+    them), "edge" (a mask edge, Sq or Sk crosses the tile: each score is
+    tested) or "whole", as ``dkdv_block`` and ``dkdv_parts`` decide it."""
+    off = Sk - Sq
+    if (kw >= Sk or (causal and kw > q_lo + rows - 1 + off)
+            or (window > 0 and kw + 63 <= q_lo + off - window)):
+        return "idle"
+    if (kw + 64 > Sk or q_lo + rows > Sq or (causal and kw + 63 > q_lo + off)
+            or (window > 0 and kw <= q_lo + rows - 1 + off - window)):
+        return "edge"
+    return "whole"
+
+
+def _dq_step(Sq, Sk, causal, window, rw, k_lo, keys) -> str:
+    """The same for a dQ consumer warpgroup's 64 rows [rw, rw + 64) at the
+    key step [k_lo, k_lo + keys), as ``dq_block`` and ``dq_parts``
+    decide it."""
+    off = Sk - Sq
+    if (rw >= Sq or (causal and k_lo > rw + 63 + off)
+            or (window > 0 and k_lo + keys - 1 <= rw + off - window)):
+        return "idle"
+    return ("edge" if _edge_tile(Sq, Sk, causal, window, rw, 64, k_lo, keys)
+            else "whole")
+
+
+def bwd_plan(Sq: int, Sk: int, causal: bool, window: int, kv_keys: int,
+             q_rows: int, dq_rows: int, dq_keys: int, shared: bool):
+    """The ``wgmma`` backward's plan, in Python, as its kernels walk it:
+    (dkdv, dq). ``dkdv``: for each key block of ``kv_keys`` keys, the
+    query steps of ``q_rows`` rows it takes, each as (q_lo, steps), one
+    ``_bwd_step`` a consumer warpgroup: both on the block's 64 keys when
+    ``shared`` (the d-256 and 3xBF16-d-128 kernels, whose warpgroups split
+    dV and dK), else each on its own 64. ``dq``: for each dQ block of
+    ``dq_rows`` rows, its key steps of ``dq_keys`` keys as (k_lo, steps),
+    one ``_dq_step`` for each 64 rows (with ``shared`` blocks of 64 rows,
+    each step taken by the warpgroup whose turn it is)."""
+    dkdv = []
+    for kb in range(-(-Sk // kv_keys)):
+        k_lo = kb * kv_keys
+        b, n = _query_tiles(Sq, Sk, causal, window, k_lo,
+                            min(k_lo + kv_keys, Sk) - 1, q_rows)
+        kws = [k_lo] * 2 if shared else range(k_lo, k_lo + kv_keys, 64)
+        dkdv.append([(t * q_rows, tuple(
+            _bwd_step(Sq, Sk, causal, window, t * q_rows, q_rows, kw)
+            for kw in kws)) for t in range(b, b + n)])
+    dq = []
+    for qt in range(-(-Sq // dq_rows)):
+        q_lo = qt * dq_rows
+        b, e = _key_tiles(Sq, Sk, causal, window, q_lo, dq_rows, dq_keys)
+        dq.append([(t * dq_keys, tuple(
+            _dq_step(Sq, Sk, causal, window, rw, t * dq_keys, dq_keys)
+            for rw in range(q_lo, q_lo + dq_rows, 64))) for t in range(b, e)])
+    return dkdv, dq
+
+
+# keys a dK/dV block of the d-256 kernel (bfloat16 at d 256, float32 at
+# d 128), ``flash_attention_bwd_key_block``'s figure there (the CPU tests
+# size group splits with it; the card tests hold the two equal)
+PART_KEY_BLOCK = 64
+
+
+def split_heads(g: int, splits: int) -> list[range]:
+    """The q heads (offsets in a GQA group of ``g``) that each of the
+    ``splits`` parts of a dK/dV column takes, as the kernels cut them:
+    part s takes [s g / splits, (s + 1) g / splits)."""
+    return [range(s * g // splits, (s + 1) * g // splits)
+            for s in range(splits)]
+
+
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int = 0, scale: float | None = None,
@@ -255,18 +343,30 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return (out, L) if lse else out
 
 
-def bwd_key_block(dtype: torch.dtype, d: int) -> int:
+def _bwd_kernel_code(kernel: str | None) -> int:
+    """The backward launcher's ``kernel`` argument: 0 for the route the
+    .cu chooses, else the route's number + 1."""
+    require(kernel is None or kernel in ROUTES,
+            f"flash_attention_bwd: kernel {kernel!r} is not one of {ROUTES}")
+    return 0 if kernel is None else ROUTES.index(kernel) + 1
+
+
+def bwd_key_block(dtype: torch.dtype, d: int,
+                  kernel: str | None = None) -> int:
     """Keys a block of the backward's dK/dV kernel for ``dtype`` at head
-    dim ``d``, as ``flash_attention_bwd.cu`` compiles it (builds the
-    library)."""
+    dim ``d`` (on ``kernel``'s route, else the chosen one), as
+    ``flash_attention_bwd.cu`` compiles it (builds the library); 0 where
+    the route does not run that call."""
     return _lib("flash_attention_bwd").flash_attention_bwd_key_block(
-        DTYPE_CODES[dtype], d)
+        DTYPE_CODES[dtype], d, _bwd_kernel_code(kernel))
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward kernels a ``dtype`` call at head dim ``d`` runs, as
-    ``flash_attention_bwd.cu`` chooses them (builds the library): "fma"
-    (float32), "mma.sync" or "wgmma" (TMA ring + wgmma, bfloat16)."""
+    ``flash_attention_bwd.cu`` chooses them (builds the library): "wgmma"
+    (TMA ring + wgmma, bfloat16 at d 64, 128 and 256), "mma.sync"
+    (bfloat16 elsewhere), "wgmma-3xbf16" (float32 at d 64 and 128 as bf16
+    parts on the same kind of kernel) or "fma" (float32 elsewhere)."""
     return ROUTES[_lib("flash_attention_bwd").flash_attention_bwd_route(
         DTYPE_CODES[dtype], d)]
 
@@ -288,13 +388,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
-                             scale: float | None = None):
+                             scale: float | None = None,
+                             kernel: str | None = None, only: int = 0):
     """Launch the backward kernels. q, out, dout: (B, Hq, Sq, d); k, v: (B,
     Hkv, Sk, d), one float32 or bfloat16 dtype; lse: float32 (B, Hq, Sq),
     the forward's L; all contiguous on one CUDA device. Returns (dq, dk,
-    dv), counted once in ``bwd_launches``."""
+    dv), counted once in ``bwd_launches``. ``kernel`` runs one of
+    ``ROUTES`` in place of the one ``bwd_route`` names (the first version
+    of the dtype, "fma" or "mma.sync", where it ran before), to time one
+    against the other; ``only`` (1: the dK/dV blocks, 2: the dQ blocks)
+    restricts the one-launch routes' main kernel to half its blocks,
+    leaving the other half's outputs undefined: ``chip_profile.py bwd``'s
+    split of a call."""
     global bwd_launches
     what = "flash_attention_bwd"
+    code_k = _bwd_kernel_code(kernel)
+    require(only in (0, 1, 2), f"{what}: only={only!r} is not 0, 1 or 2")
     code = _check((("q", q), ("k", k), ("v", v), ("out", out),
                    ("dout", dout)), q, what)
     _check_shapes(q, k, v, what)
@@ -321,18 +430,26 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     require(Sk > 0, f"{what}: no keys")
     lib = _lib("flash_attention_bwd")
-    splits = group_splits(B, Hkv, Sk, Hq // Hkv,
-                          lib.flash_attention_bwd_key_block(code, d),
+    key_block = lib.flash_attention_bwd_key_block(code, d, code_k)
+    require(key_block > 0, f"{what}: kernel {kernel!r} does not run "
+            f"{q.dtype} at head dim {d}")
+    splits = group_splits(B, Hkv, Sk, Hq // Hkv, key_block,
                           device_sms(q.device))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     part = (torch.empty((splits, 2, *k.shape), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
+    # the 3xBF16 route's bf16 parts of q, dO, k and v: [hi | lo] a row
+    split = (torch.empty(2 * B * (2 * Hq * Sq + 2 * Hkv * Sk) * d,
+                         dtype=torch.bfloat16, device=q.device)
+             if (kernel or bwd_route(q.dtype, d)) == "wgmma-3xbf16"
+             else None)
     rc = lib.flash_attention_bwd_launch(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        part.data_ptr() if part is not None else None, dq.data_ptr(),
+        code, code_k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        split.data_ptr() if split is not None else None, dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, d,
-        int(bool(causal)), int(window), splits, float(scale),
+        int(bool(causal)), int(window), splits, only, float(scale),
         stream_ptr(q.device))
     raise_on_error(rc, lib, "flash_attention_bwd_error_string", what)
     bwd_launches += 1

@@ -647,6 +647,20 @@ FA_BWD_CASES = [
     (1, 8, 2, 1000, 1000, 128, True, 0, "bfloat16"),
     (1, 12, 4, 1024, 1024, 128, True, 300, "bfloat16"),
     (2, 6, 2, 512, 512, 64, True, 0, "bfloat16"),
+    # bf16 at d 256: the TMA + wgmma kernel on 64-key blocks whose two
+    # consumer warpgroups split dV and dK: bidirectional, a window that cuts
+    # over a GQA group of 4, Sk > Sq ragged, groups 5/1 and 10/1 (the dK/dV
+    # grid split over the group, partials summed in order)
+    (1, 4, 2, 200, 200, 256, False, 0, "bfloat16"),
+    (1, 4, 1, 300, 300, 256, True, 100, "bfloat16"),
+    (1, 4, 2, 150, 237, 256, True, 0, "bfloat16"),
+    (2, 5, 1, 512, 512, 256, True, 512, "bfloat16"),
+    (1, 10, 1, 640, 640, 256, True, 200, "bfloat16"),
+    # float32 at d 128 and 64 on the tensor cores (3xBF16): 2048 rows over
+    # GQA 8/2, ragged Sq = 1000 with Sk - Sq = 37, a window of 300
+    (1, 8, 2, 2048, 2048, 128, True, 0, "float32"),
+    (1, 6, 2, 1000, 1037, 64, True, 0, "float32"),
+    (1, 4, 2, 700, 700, 128, True, 300, "float32"),
 ]
 
 
@@ -684,11 +698,13 @@ def test_flash_backward_kernel_vs_plain(case, cuda):
 
 
 @pytest.mark.parametrize("case", [FA_BWD_CASES[11], FA_BWD_CASES[10],
-                                  FA_BWD_CASES[20], FA_BWD_CASES[25]],
+                                  FA_BWD_CASES[20], FA_BWD_CASES[25],
+                                  FA_BWD_CASES[30], FA_BWD_CASES[32]],
                          ids=str)
 def test_flash_backward_same_bits_twice(case, cuda):
     """No atomics: two calls give the same bits, with the group split
-    (10/1) and without (24/8), on the mma.sync, FMA and wgmma routes."""
+    (10/1, 5/1) and without (24/8), on the wgmma routes of bf16 at d 256
+    and 128 and of float32 (3xBF16) at d 128, and on the FMA route."""
     q, k, v, out, lse, do, kw = _bwd_inputs(case, cuda)
     a = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     b = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
@@ -763,15 +779,39 @@ def test_flash_forward_same_bits_twice(case, cuda):
 
 def test_flash_backward_key_block_and_route(cuda):
     """The .cu's getters: bf16 at d 64 and 128 runs the wgmma kernels on
-    128-key blocks, at every other head dim mma.sync on 64; float32 the
-    FMA kernels on 32."""
+    128-key blocks, at d 256 on 64, at every other head dim mma.sync on 64;
+    float32 at d 64 and 128 the 3xBF16 wgmma kernels (128 and 64 keys), at
+    every other head dim the FMA kernels on 32. The first versions still
+    run where they were the route."""
+    part = fa_ops.PART_KEY_BLOCK    # what the CPU tests size splits by
     for d in fa_ops.HEAD_DIMS:
-        wg = d in (64, 128)
-        assert fa_ops.bwd_key_block(torch.bfloat16, d) == (128 if wg else 64)
+        assert fa_ops.bwd_key_block(torch.bfloat16, d) == (
+            128 if d in (64, 128) else part if d == 256 else 64)
         assert fa_ops.bwd_route(torch.bfloat16, d) == (
-            "wgmma" if wg else "mma.sync")
-        assert fa_ops.bwd_key_block(torch.float32, d) == 32
-        assert fa_ops.bwd_route(torch.float32, d) == "fma"
+            "wgmma" if d in (64, 128, 256) else "mma.sync")
+        assert fa_ops.bwd_key_block(torch.float32, d) == {
+            64: 128, 128: part}.get(d, 32)
+        assert fa_ops.bwd_route(torch.float32, d) == (
+            "wgmma-3xbf16" if d in (64, 128) else "fma")
+        assert fa_ops.bwd_key_block(torch.float32, d, "fma") == 32
+    assert fa_ops.bwd_key_block(torch.bfloat16, 256, "mma.sync") == 64
+    assert fa_ops.bwd_key_block(torch.bfloat16, 128, "mma.sync") == 0
+    assert fa_ops.bwd_key_block(torch.float32, 256, "wgmma-3xbf16") == 0
+
+
+@pytest.mark.parametrize("case", [FA_BWD_CASES[11], FA_BWD_CASES[8],
+                                  FA_BWD_CASES[4]], ids=str)
+def test_flash_backward_first_versions_on_request(case, cuda):
+    """The first kernels (mma.sync at bf16 d 256, FMA in float32), which
+    ``kernel`` runs in place of the route for timing, against the plain
+    backward, as the route's kernels are held."""
+    dt = case[-1]
+    q, k, v, out, lse, do, kw = _bwd_inputs(case, cuda)
+    kernel = "fma" if dt == "float32" else "mma.sync"
+    got = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                          kernel=kernel, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    _bwd_close(got, want, dt)
 
 
 @pytest.mark.parametrize("case", [c for c in FA_CASES if c[0] * c[1] < 64],

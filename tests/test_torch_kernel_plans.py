@@ -389,3 +389,194 @@ def test_k2_fwd_kernel_emulated_admits_the_jax_kernels_pairs(case, block):
                 else:
                     got[r, c] = True
     assert (got == _admitted(*case)).all()
+
+
+# K2's backward on TMA + wgmma: (keys a dK/dV block, rows a query step, rows
+# a dQ block, keys a dQ step, the two warpgroups on the same keys or rows)
+# of the d-256 kernel (bf16 d 256 and float32 d 128 on 3xBF16: the dK/dV
+# warpgroups split dV and dK, the dQ warpgroups alternate key steps) and
+# of the 128-key kernels (bf16 d 64 and 128, float32 d 64)
+BWD_BLOCKS = [(64, 64, 64, 64, True), (128, 64, 128, 64, False)]
+
+
+def _bwd_tiles_seen(seen, lo, n, axis, size):
+    """The tiles of ``size`` along ``axis`` (0 rows, 1 keys) that hold an
+    admitted pair of ``seen`` restricted to [lo, lo + n) on the other."""
+    part = seen[:, lo:lo + n] if axis == 0 else seen[lo:lo + n]
+    return {int(i) // size for i in np.nonzero(part.any(axis=1 - axis))[0]}
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES, ids=str)
+@pytest.mark.parametrize("block", BWD_BLOCKS, ids=str)
+def test_k2_bwd_plan_steps_are_the_tiles_with_admitted_pairs(case, block):
+    """Each dK/dV block's query steps are exactly the query tiles whose
+    rows see one of its keys, and each dQ block's key steps exactly the
+    key tiles its rows see."""
+    Sq, Sk, causal, window = case
+    kv_keys, q_rows, dq_rows, dq_keys, shared = block
+    seen = _admitted(*case)
+    dkdv, dq = fa_ops.bwd_plan(Sq, Sk, causal, window, *block)
+    assert len(dkdv) == -(-Sk // kv_keys) and len(dq) == -(-Sq // dq_rows)
+    for kb, steps in enumerate(dkdv):
+        assert {q_lo // q_rows for q_lo, _ in steps} == _bwd_tiles_seen(
+            seen, kb * kv_keys, kv_keys, 0, q_rows), kb
+    for qt, steps in enumerate(dq):
+        assert {k_lo // dq_keys for k_lo, _ in steps} == _bwd_tiles_seen(
+            seen, qt * dq_rows, dq_rows, 1, dq_keys), qt
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES, ids=str)
+@pytest.mark.parametrize("block", BWD_BLOCKS, ids=str)
+def test_k2_bwd_plan_whole_and_idle_steps(case, block):
+    """A warpgroup's step that the kernel takes whole (no score tested) is
+    admitted whole, and one it skips as idle holds no admitted pair: the
+    dK/dV warpgroups' 64 keys over a query step, the dQ warpgroups' 64
+    rows over a key step."""
+    Sq, Sk, causal, window = case
+    kv_keys, q_rows, dq_rows, dq_keys, shared = block
+    seen = _admitted(*case)
+    dkdv, dq = fa_ops.bwd_plan(Sq, Sk, causal, window, *block)
+    for kb, steps in enumerate(dkdv):
+        kws = [kb * kv_keys] * 2 if shared else [kb * kv_keys, kb * kv_keys
+                                                 + 64]
+        for q_lo, what in steps:
+            for kw, w in zip(kws, what):
+                part = seen[q_lo:q_lo + q_rows, kw:kw + 64]
+                if w == "whole":
+                    assert part.shape == (q_rows, 64) and part.all()
+                if w == "idle":
+                    assert not part.any()
+    for qt, steps in enumerate(dq):
+        for k_lo, what in steps:
+            for i, w in enumerate(what):
+                rw = qt * dq_rows + 64 * i
+                part = seen[rw:rw + 64, k_lo:k_lo + dq_keys]
+                if w == "whole":
+                    assert part.shape[1] == dq_keys and part.all()
+                if w == "idle":
+                    assert not part.any()
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES, ids=str)
+@pytest.mark.parametrize("block", BWD_BLOCKS, ids=str)
+def test_k2_bwd_kernels_emulated_admit_the_jax_kernels_pairs(case, block):
+    """The two kernels' walks, emulated: each warpgroup's steps, a whole
+    step taken whole and an edge step through ``visible``. The pairs that
+    reach dV, dK (each warpgroup of a shared block apart) and dQ are
+    exactly the JAX kernel's admitted set, each once."""
+    Sq, Sk, causal, window = case
+    kv_keys, q_rows, dq_rows, dq_keys, shared = block
+    vis = _visible(*case)
+    dkdv, dq = fa_ops.bwd_plan(Sq, Sk, causal, window, *block)
+    got = [np.zeros((Sq, Sk), int) for _ in range(3)]
+    for kb, steps in enumerate(dkdv):
+        kws = [kb * kv_keys] * 2 if shared else [kb * kv_keys, kb * kv_keys
+                                                 + 64]
+        for q_lo, what in steps:
+            for i, (kw, w) in enumerate(zip(kws, what)):
+                r = slice(q_lo, min(q_lo + q_rows, Sq))
+                c = slice(kw, min(kw + 64, Sk))
+                hit = (vis[r, c] if w == "edge" else
+                       np.full(vis[r, c].shape, w == "whole"))
+                # shared: warpgroup 0 takes dV, 1 dK; else each both
+                for out in ((got[i],) if shared else got[:2]):
+                    out[r, c] += hit
+    for qt, steps in enumerate(dq):
+        for k_lo, what in steps:
+            for i, w in enumerate(what):
+                r = slice(qt * dq_rows + 64 * i, min(qt * dq_rows + 64 * i
+                                                     + 64, Sq))
+                c = slice(k_lo, min(k_lo + dq_keys, Sk))
+                got[2][r, c] += (vis[r, c] if w == "edge" else
+                                 np.full(vis[r, c].shape, w == "whole"))
+    want = _admitted(*case).astype(int)
+    assert all((g == want).all() for g in got)
+
+
+@pytest.mark.parametrize("B,Hkv,g,splits", [(1, 1, 10, 5), (2, 1, 5, 5),
+                                            (2, 4, 3, 1), (2, 8, 3, 1),
+                                            (1, 1, 4, 4), (1, 2, 6, 3)],
+                         ids=str)
+def test_k2_bwd_group_splits_at_the_d256_key_block(B, Hkv, g, splits):
+    """recurrentgemma-2b's one kv head leaves 32 key blocks of 64 a row:
+    its group of 10 (5 a rank on the model axis) is split in 5 so the
+    dK/dV blocks fill 132 SMs; llama's 24/8 and 12/4 are not. The parts
+    take the group's heads in order, each at least one."""
+    kb = fa_ops.PART_KEY_BLOCK
+    assert fa_ops.group_splits(B, Hkv, 2048, g, kb, H100_SMS) == splits
+    heads = fa_ops.split_heads(g, splits)
+    assert [h for part in heads for h in part] == list(range(g))
+    assert all(len(part) >= 1 for part in heads)
+    assert B * Hkv * -(-2048 // kb) * splits >= H100_SMS or splits == g
+
+
+def _bf16(x):
+    """float32 rounded to the nearest bfloat16 (ties to even), as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _product(a, b, parts):
+    """a @ b as the 3xBF16 route computes it (parts 2): each float32
+    operand split into hi = bf16(x) and lo = bf16(x - hi), then lo hi + hi
+    lo + hi hi summed in float32 (products of two bf16 are exact in
+    float32); with parts 1 a single bf16 product."""
+    def split(x):
+        hi = _bf16(x)
+        return hi, _bf16(x - hi)
+    (ah, al), (bh, bl) = split(a), split(b)
+    if parts == 1:
+        return ah @ bh
+    return ((al @ bh).astype(np.float32) + (ah @ bl).astype(np.float32)
+            + (ah @ bh).astype(np.float32)).astype(np.float32)
+
+
+def _bwd_route_emulated(q, k, v, do, causal, window, parts):
+    """(dq, dk, dv) of one head as the float32 route computes them: the
+    forward's out and L in float32, D = rowsum(dO O) in float32, every
+    product through ``_product``, P and dS in float32 between them; and
+    the same backward dense in float64."""
+    Sq, Sk, d = q.shape[0], k.shape[0], q.shape[1]
+    scale = d ** -0.5
+    vis = _visible(Sq, Sk, causal, window)
+    s64 = np.where(vis, (q.astype(np.float64) @ k.T) * scale, -np.inf)
+    m = s64.max(1, keepdims=True)
+    L64 = np.log(np.exp(s64 - m).sum(1, keepdims=True)) + m
+    p64 = np.exp(s64 - L64)
+    D64 = (do * (p64 @ v)).sum(1, keepdims=True)
+    ds64 = p64 * (do.astype(np.float64) @ v.T - D64)
+    want = (ds64 @ k * scale, ds64.T @ q * scale, p64.T @ do)
+    L, D = L64.astype(np.float32), D64.astype(np.float32)
+    sc = np.float32(scale)
+    p = np.where(vis, np.exp(_product(q, k.T, parts) * sc - L), 0)
+    p = p.astype(np.float32)
+    ds = (p * (_product(do, v.T, parts) - D)).astype(np.float32)
+    got = (_product(ds, k, parts) * sc, _product(ds.T, q, parts) * sc,
+           _product(p.T, do, parts))
+    return got, want
+
+
+# one head: a small ragged case with a window, and 256 rows over 2048 keys
+# (the sums over 2048 keys of the training shapes) at d 128
+BWD_EMU_CASES = [(40, 72, 64, True, 24), (256, 2048, 128, True, 0)]
+
+
+@pytest.mark.parametrize("case", BWD_EMU_CASES, ids=str)
+def test_k2_bwd_3xbf16_route_within_the_float32_tolerance(case):
+    """The float32 route's arithmetic (two bf16 parts, three products)
+    keeps dq, dk and dv within 1e-4 x max of the float64 backward, the
+    tolerance the card holds float32 to; one bf16 product misses it."""
+    Sq, Sk, d, causal, window = case
+    rng = np.random.default_rng(12)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((Sq, d), (Sk, d), (Sk, d), (Sq, d)))
+    for parts, within in ((2, True), (1, False)):
+        got, want = _bwd_route_emulated(q, k, v, do, causal, window, parts)
+        rel = [np.abs(a - b).max() / np.abs(b).max()
+               for a, b in zip(got, want)]
+        assert all(r <= 1e-4 for r in rel) == within, (parts, rel)
+        if within:
+            assert max(rel) <= 5e-5, rel      # a margin of 2x at least
+        else:
+            assert min(rel) > 1e-3, rel
