@@ -53,17 +53,20 @@ Ten measurements, each printed beside the card's name and power limit:
             share of the call's device time, and the call's span from its
             first kernel's start to its last kernel's end (the gaps
             between its kernels included); the route the call took
-  fwd       K2's forward at every bfloat16 shape at head dims 64 and 128
-            that chip_smoke.py runs (K2_CASES, K2_BATCH, the bf16
-            K2_EXAMPLES, the dist ranks' K2_TP, K2_FSDP and K2_DP, the
-            train phase's GRAD_K2): each kernel the launcher can run
-            there -- mma.sync (the first tensor-core kernel), the wgmma
-            kernel with 64- and 128-row blocks -- held against the plain
-            version, then timed in turns (mma.sync, 64, 128, 128, 64,
-            mma.sync; CUDA-event medians, L2 flushed) beside the kernel the
-            shapes choose, the bound and SDPA's forward (GQA through
-            ``enable_gqa``); then SDPA's forward at the dist ranks' (d),
-            (e), (h) shapes and (g)'s float32 one beside the port's kernel
+  fwd       K2's forward at every shape that chip_smoke.py runs on the
+            wgmma kernels: bfloat16 at head dims 64, 128 and 256 (K2_CASES,
+            K2_BATCH, the bf16 K2_EXAMPLES, the dist ranks' K2_TP, K2_FSDP
+            and K2_DP, the train phase's GRAD_K2, the recurrentgemma pod's
+            prefills) and float32 at 64 and 128 (K2_BATCH, (g)'s K2_G, the
+            float32 K2_BWD, (f)'s and (i)'s prefills): each kernel the
+            launcher can run there -- the first version (mma.sync in bf16,
+            FMA in float32), the wgmma kernel with 64- and 128-row blocks --
+            held against the plain version, then timed in turns (first, 64,
+            128, 128, 64, first; CUDA-event medians, L2 flushed) beside the
+            kernel the shapes choose, the bound (for float32 at the FMA rate
+            and at 3xBF16's) and SDPA's forward (``sdpa_mask``, GQA through
+            ``enable_gqa``); for float32 the chosen kernel's two device
+            kernels (the parts, the attention) apart under torch.profiler
   bwd       K2's backward at every K2_BWD and rank shape of the routes
             redesigned in PR 34 (bfloat16 at d 256, float32 at d 64 and
             128): the route's kernels and the first version they replaced
@@ -91,8 +94,9 @@ from pathlib import Path
 from chip_smoke import (FULL_IMAGEFILE, GRAD_K2, GRAD_K5, K1_SHAPE, K2_BATCH,
                         K2_BWD, K2_BWD_RANKS, K2_BWD_TOL, K2_CASES, K2_DP,
                         K2_EXAMPLES, K2_FSDP, K2_G, K2_TP, K5_TP, SRC, TOL,
-                        TRAIN_IMAGEFILE, Timer, check, k1_case, k1_pod_case,
-                        k2_bound, k2_bwd_bound, log, phase_device, sdpa_mask)
+                        TRAIN_IMAGEFILE, Timer, _pod_tp_shapes, check, k1_case,
+                        k1_pod_case, k2_bound, k2_bwd_bound, log,
+                        phase_device, sdpa_mask)
 
 
 def dev_us(e, total: bool = False) -> float:
@@ -461,19 +465,34 @@ def ssd_bwd_split(torch, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# K2 at the recurrentgemma-2b pod's prefills (bf16, exact prompt lengths
+# of 64-512 tokens, one kv head of 256, window 2048): where 64-row blocks
+# give the card more work items than 128-row ones
+RGEMMA_POD_K2 = tuple((1, 10, 1, 256, S, S, 2048) for S in (64, 256, 512))
+
+
 def fwd_kernels(torch, card: str) -> None:
+    import re
+
     import numpy as np
     import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     timer = Timer(torch)
-    shapes = ([(1, *c) for c in K2_CASES] + list(K2_BATCH)
-              + [c[:-1] for c in (*K2_EXAMPLES, *K2_TP, *K2_FSDP, *K2_DP)
-                 if c[-1] == "bfloat16"]
-              + [(B, Hq, Hkv, d, S, S, w) for B, Hq, Hkv, S, d, w in GRAD_K2])
-    shapes = sorted({s for s in shapes if s[3] in (64, 128)},
-                    key=lambda s: (s[3], s[0] * s[1] * s[4]))
+    bf16 = ([(1, *c) for c in K2_CASES] + list(K2_BATCH)
+            + [c[:-1] for c in (*K2_EXAMPLES, *K2_TP, *K2_FSDP, *K2_DP)
+               if c[-1] == "bfloat16"]
+            + [(B, Hq, Hkv, d, S, S, w) for B, Hq, Hkv, S, d, w in GRAD_K2]
+            + list(RGEMMA_POD_K2))
+    f32 = ([(*c, "float32") for c in K2_BATCH]
+           + [c for c in (*K2_G, *K2_BWD, *_pod_tp_shapes()["k2"])
+              if c[-1] == "float32"])
+    shapes = sorted({(*s, "bfloat16") for s in bf16 if s[3] in (64, 128, 256)}
+                    | {s for s in f32 if s[3] in (64, 128)},
+                    key=lambda s: (s[7], s[3], s[0] * s[1] * s[4], s))
 
     def inputs(B, Hq, Hkv, d, Sq, Sk, dt):
         r = np.random.default_rng(2)
@@ -487,48 +506,64 @@ def fwd_kernels(torch, card: str) -> None:
             q, k, v, attn_mask=mask, is_causal=mask is None,
             enable_gqa=True))
 
-    kernels = ("mma.sync", "wgmma-64", "wgmma-128")
-    for B, Hq, Hkv, d, Sq, Sk, window in shapes:
-        q, k, v = inputs(B, Hq, Hkv, d, Sq, Sk, torch.bfloat16)
+    for B, Hq, Hkv, d, Sq, Sk, window, dname in shapes:
+        dt = getattr(torch, dname)
+        q, k, v = inputs(B, Hq, Hkv, d, Sq, Sk, dt)
         kw = dict(causal=True, window=window)
         ref = flash_attention_ref(q, k, v, **kw).float()
+        first = "fma" if dname == "float32" else "mma.sync"
+        kernels = (first, "wgmma-64", "wgmma-128")
         errs = {}
         for kern in kernels:
             out = fa_ops.flash_attention_fwd_cuda(q, k, v, kernel=kern, **kw)
             torch.cuda.synchronize()
             errs[kern] = float((out.float() - ref).abs().max())
-            check(bool(torch.isfinite(out).all())
-                  and errs[kern] <= TOL["bfloat16"],
-                  f"fwd: {kern} at {(B, Hq, Hkv, d, Sq, Sk, window)} "
+            check(bool(torch.isfinite(out).all()) and errs[kern] <= TOL[dname],
+                  f"fwd: {kern} at {(B, Hq, Hkv, d, Sq, Sk, window, dname)} "
                   f"max_abs_err {errs[kern]:.3e}")
-        del ref
+        del ref, out
         times = {kern: [] for kern in kernels}
         for kern in (*kernels, *reversed(kernels)):
             times[kern].append(timer(lambda: fa_ops.flash_attention_fwd_cuda(
                 q, k, v, kernel=kern, **kw)))
-        chosen = fa_ops.fwd_kernel(torch.bfloat16, d, B, Hq, Sq)
-        bms, by = k2_bound(B, Hq, Hkv, d, Sq, Sk, window, 2, "bfloat16")
+        chosen = fa_ops.fwd_kernel(dt, d, B, Hq, Sq)
+        bms, by = k2_bound(B, Hq, Hkv, d, Sq, Sk, window, q.element_size(),
+                           dname)
+        bound = f"bound {bms:.4f} ms ({by}"
+        if dname == "float32":
+            tc = k2_bound(B, Hq, Hkv, d, Sq, Sk, window, 4, "bfloat16",
+                          products=3)[0]
+            bound += f" at the f32 FMA rate; {tc:.4f} ms at 3xBF16's"
         lib = sdpa(q, k, v, Sq, Sk, window)
         log(f"fwd: flash_attention_fwd B={B} Hq={Hq} Hkv={Hkv} d={d} Sq={Sq} "
-            f"Sk={Sk} window={window} bfloat16: "
+            f"Sk={Sk} window={window} {dname} (route "
+            f"{fa_ops.fwd_route(dt, d)}): "
             + ", ".join(f"{kern} {t[0]:.4f} / {t[1]:.4f} ms (err "
                         f"{errs[kern]:.2e})" for kern, t in times.items())
-            + f"; chosen {chosen}; bound {bms:.4f} ms ({by}); SDPA {lib:.4f} "
-            f"ms [{card}]")
-        del q, k, v
-        torch.cuda.empty_cache()
-    # SDPA's forward at the dist ranks' shapes beside the kernel chosen
-    for B, Hq, Hkv, d, Sq, Sk, window, dname in (*K2_TP, *K2_FSDP, *K2_DP,
-                                                 *K2_G):
-        dt = getattr(torch, dname)
-        q, k, v = inputs(B, Hq, Hkv, d, Sq, Sk, dt)
-        ms = timer(lambda: fa_ops.flash_attention_fwd_cuda(
-            q, k, v, causal=True, window=window))
-        lib = sdpa(q, k, v, Sq, Sk, window)
-        log(f"fwd: dist rank B={B} Hq={Hq} Hkv={Hkv} d={d} S={Sq} "
-            f"window={window} {dname}: kernel "
-            f"{fa_ops.fwd_kernel(dt, d, B, Hq, Sq)} {ms:.4f} ms, SDPA "
-            f"{lib:.4f} ms [{card}]")
+            + f"; chosen {chosen}; {bound}); SDPA {lib:.4f} ms [{card}]")
+        if dname == "float32":
+            # the 3xBF16 route's two device kernels (the parts, then the
+            # attention) apart, under the profiler
+            calls = 5
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fa_ops.flash_attention_fwd_cuda(q, k, v, **kw)
+                torch.cuda.synchronize()
+            by_name: dict[str, list] = {}
+            for e in prof.key_averages():
+                if e.device_type != DeviceType.CUDA or dev_us(e) <= 0:
+                    continue
+                m = re.search(r"(flash_\w+?)(?:<|\(|$)", e.key)
+                acc = by_name.setdefault(m.group(1) if m else e.key[:40],
+                                         [0.0, 0])
+                acc[0] += dev_us(e)
+                acc[1] += e.count
+            check(bool(by_name), "fwd: the profiler recorded no device time")
+            log(f"fwd: B={B} Hq={Hq} Hkv={Hkv} d={d} Sq={Sq} {dname} "
+                f"{chosen} under the profiler, device kernels a call: "
+                + ", ".join(f"{name} {us / calls / 1e3:.4f} ms x{n // calls}"
+                            for name, (us, n) in sorted(
+                                by_name.items(), key=lambda kv: -kv[1][0])))
         del q, k, v
         torch.cuda.empty_cache()
 

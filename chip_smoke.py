@@ -606,7 +606,8 @@ K2_TP = ((2, 12, 4, 128, 2048, 2048, 0, "bfloat16"),
 # whole), bf16. The (d) and (e) shapes are timed, with their bound.
 K2_FSDP = ((1, 24, 8, 128, 2048, 2048, 0, "bfloat16"),)
 # K2 at the dist phase's (g) PowerSGD ranks: (d)'s llama3.2-3b rank shape
-# in float32 compute (the FMA kernel); (g) fails on a K2 call not here
+# in float32 compute (the 3xBF16 wgmma kernel); (g) fails on a K2 call not
+# here
 K2_G = ((2, 12, 4, 128, 2048, 2048, 0, "float32"),)
 # K1 (B, n_kv, g, hd, ps, mp, dtype) at the dist phase's (f) ranks: the
 # llama3.2-3b pod's 8 slots, 12 of 24 q heads over 4 of 8 kv heads a rank,
@@ -643,8 +644,8 @@ K2_BWD = ((2, 24, 8, 128, 2048, 2048, 0, "bfloat16"),
           K2_EXAMPLES[0], K2_EXAMPLES[3])
 K2_BWD_RANKS = (*K2_TP, *K2_FSDP, *K2_G, *K2_DP)
 # the backward kernels against the dense float32 plain backward, relative
-# to its largest gradient: float32 as the forward's FMA kernel (the 3xBF16
-# route keeps each product within 2^-16 of float32's); bfloat16 rounds P
+# to its largest gradient: float32 as the forward (the 3xBF16 routes keep
+# each product within 2^-16 of float32's); bfloat16 rounds P
 # and dS before their products (as the forward rounds P before P V), 2^-7
 K2_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # the head dims whose bfloat16 backward must run the TMA + wgmma kernels,
@@ -654,8 +655,10 @@ K2_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 K2_BWD_WGMMA_DIMS = (64, 128, 256)
 K2_BWD_3XBF16_DIMS = (64, 128)
 # the same for the forward (``ops.fwd_route``): a bfloat16 forward at one
-# of these head dims on another route fails the run
-K2_FWD_WGMMA_DIMS = (64, 128)
+# of the first head dims, or a float32 one at one of the second, on
+# another route fails the run
+K2_FWD_WGMMA_DIMS = (64, 128, 256)
+K2_FWD_3XBF16_DIMS = (64, 128)
 
 
 def k2_fwd_route(torch, dname: str, d: int, B: int, Hq: int,
@@ -667,9 +670,12 @@ def k2_fwd_route(torch, dname: str, d: int, B: int, Hq: int,
     dt = getattr(torch, dname)
     route = fa_ops.fwd_route(dt, d)
     kernel = fa_ops.fwd_kernel(dt, d, B, Hq, Sq)
-    label = route if kernel in (route, "fma") else f"{route}, {kernel}"
-    return label, (route == "wgmma" or dname != "bfloat16"
-                   or d not in K2_FWD_WGMMA_DIMS)
+    label = route if kernel == route else f"{route}, {kernel}"
+    if dname == "bfloat16" and d in K2_FWD_WGMMA_DIMS:
+        return label, route == "wgmma"
+    if dname == "float32" and d in K2_FWD_3XBF16_DIMS:
+        return label, route == "wgmma-3xbf16"
+    return label, True
 
 
 def k2_bwd_route(torch, dname: str, d: int) -> tuple[str, bool]:
@@ -699,13 +705,15 @@ def sdpa_mask(torch, Sq: int, Sk: int, window: int):
     return mask & (cols > rows - window) if window else mask
 
 
-def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype):
+def k2_bound(B, Hq, Hkv, d, Sq, Sk, window, isz, dtype, products=1):
     """K2's bound from its ``cost()``: q, k, v read and out written once,
-    and 4 flops a (q, k) pair inside the causal window per head dim."""
+    and 4 flops a (q, k) pair inside the causal window per head dim,
+    ``products`` times over at ``dtype``'s rate (3 at bfloat16's: the
+    float32 route's 3xBF16)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.analysis import bound_ms
     flops, nbytes = fa_ops.cost(B, Hq, Hkv, Sq, Sk, d, isz, window=window)
-    return bound_ms(nbytes, flops, dtype)
+    return bound_ms(nbytes, products * flops, dtype)
 
 
 def k1_case(torch, dtype):
@@ -906,7 +914,7 @@ def phase_kernels(torch, state, timer) -> None:
             ok = finite and err <= TOL[dname] and route_ok
             log(f"kernels: flash_attention_fwd B={Bq} Hq={Hq} Hkv={Hkv} d={d} "
                 f"Sq={Sq} Sk={Sk} causal window={window} {dname} (route "
-                f"{route}{'' if route_ok else ', not the required wgmma'}): "
+                f"{route}{'' if route_ok else ', not the required route'}): "
                 f"max_abs_err {err:.3e} (tol {TOL[dname]:g}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -919,15 +927,24 @@ def phase_kernels(torch, state, timer) -> None:
                     q, k, v, causal=True, window=window))
                 bms, by = k2_bound(Bq, Hq, Hkv, d, Sq, Sk, window,
                                    out.element_size(), dname)
+                rec = dict(ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+                tc = ""
+                if route.startswith("wgmma-3xbf16"):
+                    # the bound of the arithmetic the route runs: three
+                    # bf16 products for each float32 one
+                    rec["tc_bound_ms"] = k2_bound(
+                        Bq, Hq, Hkv, d, Sq, Sk, window, out.element_size(),
+                        "bfloat16", products=3)[0]
+                    tc = (f" at the f32 FMA rate; {rec['tc_bound_ms']:.4f} "
+                          f"ms at 3xBF16's")
                 over = f"/{Sk}" if Sk != Sq else ""
                 state.setdefault("kernel_dist", {})[
                     f"K2 {Bq}x{Hq}/{Hkv}x{Sq}{over}x{d} w{window} "
-                    f"{dname}"] = dict(ms=ms, bound_ms=bms, bound_by=by,
-                                       max_abs_err=err)
+                    f"{dname}"] = rec
                 log(f"kernels: flash_attention_fwd at a dist rank's shape "
                     f"B={Bq} Hq={Hq} Hkv={Hkv} d={d} Sq={Sq} Sk={Sk} "
                     f"window={window} {dname}: time {ms:.4f} ms, bound "
-                    f"{bms:.4f} ms ({by}) [{state['card']}]")
+                    f"{bms:.4f} ms ({by}{tc}) [{state['card']}]")
                 continue
             if not timed or Sq != Sk or dname != "bfloat16" or Bq > 1:
                 continue

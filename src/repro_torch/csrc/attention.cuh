@@ -2,9 +2,11 @@
 // backward (flash_attention_fwd.cu, flash_attention_bwd.cu): the causal /
 // window rule and the tile ranges it gives, the mma.sync fragments of the
 // first kernels, and the TMA tiles, descriptors and bf16 wgmma products of
-// the Hopper kernels. Each source that includes it compiles on its own, so
-// every definition lives in an anonymous namespace; kernels/_build.py
-// hashes this header with each source.
+// the Hopper kernels, their named barriers, and the bf16 parts (3xBF16) of
+// the kernels that run float32 and 256-column rows on them. Each source
+// that includes it compiles on its own, so every definition lives in an
+// anonymous namespace; kernels/_build.py hashes this header with each
+// source.
 
 #pragma once
 
@@ -126,8 +128,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// TMA + wgmma (bf16 tiles: the forward at head dims 64 and 128, the
-// backward's bf16 at 64, 128 and 256 and its float32 as bf16 parts)
+// TMA + wgmma (bf16 tiles: both directions' bf16 at head dims 64, 128 and
+// 256 and their float32 at 64 and 128 as bf16 parts)
 // ---------------------------------------------------------------------------
 
 // rows [r0, r0 + R) of head bh into an (R, D) swizzled tile at dst: D / 64
@@ -285,6 +287,102 @@ __device__ __forceinline__ void wg_acc_to_a(uint32_t* a, const float* x,
   a[1] = pack_bf16(x[8 * ks + 2], x[8 * ks + 3]);
   a[2] = pack_bf16(x[8 * ks + 4], x[8 * ks + 5]);
   a[3] = pack_bf16(x[8 * ks + 6], x[8 * ks + 7]);
+}
+
+// named barrier `id` over `n` threads: wait for all n, or arrive only
+// (barrier 0 is __syncthreads'; the kernels whose consumer warpgroups take
+// turns or hand tiles across use ids from 1)
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bf16 parts: float32 on the bf16 tensor cores (3xBF16), and bf16 rows of
+// 256 columns, in one tile plan (both directions' wgmma kernels on parts)
+// ---------------------------------------------------------------------------
+
+// The operands as NP bf16 parts of D columns each, a row of W = NP D bf16
+// columns: NP = 1 is bfloat16 itself; NP = 2 is float32 x = hi + lo + e,
+// hi = bf16(x) and lo = bf16(x - hi) both rounded to nearest, |e| <=
+// 2^-18 |x| (a first kernel writes the inputs so, [hi | lo] a row, with
+// split_row; P and dS are split in registers, acc_to_a_parts). A float32
+// product is then the three bf16 products lo hi + hi lo + hi hi into one
+// float32 accumulator, in that order (3xBF16; lo lo, under 2^-16 of the
+// whole, is dropped): bf16's wgmma reads an MN-major B operand through the
+// transpose bit, which tf32's does not, and three bf16 products cost what
+// 1.5 TF32 ones do. A tile of R rows is W / 64 swizzled chunks of R rows x
+// 128 bytes (tma_tile's boxes), part i's chunks after part i - 1's.
+template <int D, int NP>
+struct PartLayout {
+  static constexpr int W = D * NP;          // bf16 columns a row
+  static constexpr int kPairs = NP == 1 ? 1 : 3;  // products a product
+  // product p of a pair: A's part and B's part (lo hi, hi lo, hi hi)
+  static __device__ __forceinline__ int part_a(int p) {
+    return NP == 1 ? 0 : p == 0;
+  }
+  static __device__ __forceinline__ int part_b(int p) {
+    return NP == 1 ? 0 : p == 1;
+  }
+  // the byte offset of part i's chunks in an R-row tile
+  template <int R>
+  static __device__ __forceinline__ uint32_t part(int i) {
+    return i * (D / 64) * R * 128;
+  }
+};
+
+// acc (64 x D) += A (64 x 16, registers) . B (16 x D), B rows [16 ks, 16 ks
+// + 16) of the R-row tile at `tile` read MN-major (the transpose bit)
+template <int D, int R>
+__device__ __forceinline__ void rs_mn(float* acc, const uint32_t* a,
+                                      uint32_t tile, int ks) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(acc, a, mnmajor_desc<R>(tile, ks));
+  } else {
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      wgmma_rs_n128(acc + 64 * h, a, mnmajor_desc<R>(tile + h * 2 * R * 128,
+                                                     ks));
+  }
+}
+
+// the A fragments of columns [16 ks, 16 ks + 16) of a 64-row accumulator
+// as NP bf16 parts (wg_acc_to_a's layout): part 0 x rounded to bf16, part 1
+// the remainder rounded
+template <int NP>
+__device__ __forceinline__ void acc_to_a_parts(uint32_t (&a)[NP][4],
+                                               const float* x, int ks) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = x[8 * ks + 2 * i], x1 = x[8 * ks + 2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    a[0][i] = *reinterpret_cast<const uint32_t*>(&h);
+    if constexpr (NP == 2) {
+      const float2 hf = __bfloat1622float2(h);
+      a[1][i] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+
+// a row of d floats as its two bf16 parts, a row of 2 d: hi's d, then lo's
+// (one warp a row)
+__device__ __forceinline__ void split_row(const float* x, __nv_bfloat16* y,
+                                          int d, int lane) {
+  for (int c = lane; c < d; c += 32) {
+    const float v = x[c];
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    y[c] = hi;
+    y[d + c] = __float2bfloat16_rn(v - __bfloat162float(hi));
+  }
 }
 
 // a contiguous (BH, S, d) bf16 tensor as a 3-D map (d, S, BH), boxes of 64

@@ -1381,15 +1381,10 @@ __global__ void __launch_bounds__(WgTile<D>::kThreads, 1) fa2_bwd_wgmma(
 // parts
 // ---------------------------------------------------------------------------
 
-// The operands as NP bf16 parts of D columns each, a row of W = NP D bf16
-// columns: NP = 1 is bfloat16 itself; NP = 2 is float32 x = hi + lo + e,
-// hi = bf16(x) and lo = bf16(x - hi) both rounded to nearest, |e| <=
-// 2^-18 |x| (fa2_bwd_prep_f32 writes q, k, v and dO so, [hi | lo] a row;
-// P and dS are split in registers). A float32 product is then the three
-// bf16 products lo hi + hi lo + hi hi into one float32 accumulator, in that
-// order (3xBF16; lo lo, under 2^-16 of the whole, is dropped): bf16's
-// wgmma reads an MN-major B operand through the transpose bit, which tf32's
-// does not, and three bf16 products cost what 1.5 TF32 ones do.
+// The operands as NP bf16 parts (PartLayout, attention.cuh): NP = 1 is
+// bfloat16 itself, NP = 2 float32 as [hi | lo] rows (fa2_bwd_prep_f32
+// writes q, k, v and dO so; P and dS are split in registers), each product
+// three bf16 ones.
 //
 // Tiles: W / 64 swizzled chunks of R rows x 128 bytes, as WgTile's
 // (tma_tile's boxes of 64 rows). At W = 256 (bf16 d 256, float32 d 128) a
@@ -1411,8 +1406,8 @@ __global__ void __launch_bounds__(WgTile<D>::kThreads, 1) fa2_bwd_wgmma(
 // keys a dK/dV block, each warpgroup both dK and dV of its 64; 128 rows a
 // dQ block, 64 each.
 template <int D, int NP>
-struct PartTile {
-  static constexpr int W = D * NP;          // bf16 columns a row
+struct PartTile : PartLayout<D, NP> {
+  static constexpr int W = PartLayout<D, NP>::W;   // bf16 columns a row
   // the two consumer warpgroups share a block's 64 keys (dK/dV: dV in
   // one, dK in the other) and its 64 rows (dQ: alternate key steps)
   static constexpr bool kWide = W == 256;
@@ -1424,7 +1419,6 @@ struct PartTile {
   static constexpr int BKQ = 64;                  // keys a dQ step
   static constexpr int kKStages = kWide ? 3 : 4;  // K tiles in flight
   static constexpr int kVStages = kWide ? 2 : 4;  // V tiles
-  static constexpr int kPairs = NP == 1 ? 1 : 3;  // products a product
   static constexpr int kKvTile = BKV * W * 2;     // bytes of K or V
   static constexpr int kQTile = BQ * W * 2;       // of Q or dO, a step
   static constexpr int kKvLd = 2 * kKvTile + 2 * kKvStages * kQTile;
@@ -1439,67 +1433,7 @@ struct PartTile {
       1024 + kQBars + (2 * (kKStages + kVStages) + 1) * 8;
   static constexpr size_t smem = smem_kv > smem_q ? smem_kv : smem_q;
   static_assert(smem <= 232448, "PartTile: over 227 KB of shared memory");
-  // product p of a pair: A's part and B's part (lo hi, hi lo, hi hi)
-  static __device__ __forceinline__ int part_a(int p) {
-    return NP == 1 ? 0 : p == 0;
-  }
-  static __device__ __forceinline__ int part_b(int p) {
-    return NP == 1 ? 0 : p == 1;
-  }
-  // the byte offset of part i's chunks in an R-row tile
-  template <int R>
-  static __device__ __forceinline__ uint32_t part(int i) {
-    return i * (D / 64) * R * 128;
-  }
 };
-
-// named barrier `id` over `n` threads: wait for all n, or arrive only
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// acc (64 x D) += A (64 x 16, registers) . B (16 x D), B rows [16 ks, 16 ks
-// + 16) of the R-row tile at `tile` read MN-major (the transpose bit)
-template <int D, int R>
-__device__ __forceinline__ void rs_mn(float* acc, const uint32_t* a,
-                                      uint32_t tile, int ks) {
-  if constexpr (D == 64) {
-    wgmma_rs_n64(acc, a, mnmajor_desc<R>(tile, ks));
-  } else {
-#pragma unroll
-    for (int h = 0; h < D / 128; ++h)
-      wgmma_rs_n128(acc + 64 * h, a, mnmajor_desc<R>(tile + h * 2 * R * 128,
-                                                     ks));
-  }
-}
-
-// the A fragments of columns [16 ks, 16 ks + 16) of a 64-row accumulator
-// as NP bf16 parts (wg_acc_to_a's layout): part 0 x rounded to bf16, part 1
-// the remainder rounded
-template <int NP>
-__device__ __forceinline__ void acc_to_a_parts(uint32_t (&a)[NP][4],
-                                               const float* x, int ks) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x0 = x[8 * ks + 2 * i], x1 = x[8 * ks + 2 * i + 1];
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    a[0][i] = *reinterpret_cast<const uint32_t*>(&h);
-    if constexpr (NP == 2) {
-      const float2 hf = __bfloat1622float2(h);
-      a[1][i] = pack_bf16(x0 - hf.x, x1 - hf.y);
-    }
-  }
-}
-
-__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-__device__ __forceinline__ void store2(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
 
 // dK and dV of block (col, kb), as dkdv_block's: column col = (b Hkv + kv
 // head) splits + split of the GQA group, BKV keys from kb BKV; T the
@@ -2048,16 +1982,6 @@ __global__ void __launch_bounds__(PartTile<D, NP>::kThreads, 1)
 // sums it) and q and dO split into their two bf16 parts, one warp a row of
 // (B Hq Sq); then k and v split, one warp a row of (B Hkv Sk). A row of d
 // floats becomes a row of 2 d bf16: hi's d, then lo's.
-__device__ __forceinline__ void split_row(const float* x, bf16* y, int d,
-                                          int lane) {
-  for (int c = lane; c < d; c += 32) {
-    const float v = x[c];
-    const bf16 hi = __float2bfloat16_rn(v);
-    y[c] = hi;
-    y[d + c] = __float2bfloat16_rn(v - __bfloat162float(hi));
-  }
-}
-
 __global__ void __launch_bounds__(256) fa2_bwd_prep_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ o,

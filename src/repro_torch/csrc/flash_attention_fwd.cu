@@ -18,23 +18,41 @@
 // recurrentgemma-2b's 2304-token, window-2048 prefill the operations, 27 us
 // at the bf16 tensor-core rate).
 //
-// Three routes, by (dtype, head dim); ``flash_attention_fwd_route`` names
+// Four routes, by (dtype, head dim); ``flash_attention_fwd_route`` names
 // them:
 //
-// bfloat16 at d 64 and 128: TMA + wgmma (the FlashAttention-3 shape, below
-// at flash_fwd_wgmma): a producer warp streams K and V tiles by TMA into a
-// two-stage mbarrier ring while one or two consumer warpgroups of 64 query
-// rows each run S = Q K^T and O += P V as wgmma, the online softmax in
-// registers between them. Against the mma.sync kernel's limits (the same
-// warps issued the cp.async copies, the ldmatrix loads, the exponentials
-// and the products, one after another, at 5.3x the bound at llama3.2-3b's
-// training shape): the loads leave the compute warps, a warpgroup's
-// product is one asynchronous instruction a k-step, and a 128-row block
-// reads each K and V tile once for two warpgroups. Blocks of 128 or 64
-// rows by shape (``flash_attention_fwd_kernel``).
+// bfloat16 at d 64, 128 and 256 ("wgmma"): TMA + wgmma (the
+// FlashAttention-3 shape, below at flash_fwd_wgmma): a producer warp
+// streams K and V tiles by TMA into a two-stage mbarrier ring while one or
+// two consumer warpgroups of 64 query rows each run S = Q K^T and O += P V
+// as wgmma, the online softmax in registers between them. Against the
+// mma.sync kernel's limits (the same warps issued the cp.async copies, the
+// ldmatrix loads, the exponentials and the products, one after another, at
+// 5.3x the bound at llama3.2-3b's training shape; at d 256 Q re-read from
+// shared memory every 32-key tile, 7.3x the bound at recurrentgemma-2b's):
+// the loads leave the compute warps, a warpgroup's product is one
+// asynchronous instruction a k-step, and a 128-row block reads each K and
+// V tile once for two warpgroups. At d 256 a warpgroup's O of 64 rows is
+// 128 registers a thread and a row 512 bytes, so the key tiles are 64 rows
+// (a 128-row block's Q and two stages of K and V: 192 KB) and a 64-row
+// block holds its SM alone. Blocks of 128 or 64 rows by shape
+// (``flash_attention_fwd_kernel``).
 //
-// bfloat16 at d 16, 32, 80 and 256: tensor cores FlashAttention-2 style,
-// with mma.sync.m16n8k16 (bf16 in, f32 accumulate):
+// float32 at d 64 and 128 ("wgmma-3xbf16"): the same kernel on bf16 parts
+// (attention.cuh's PartLayout): a first kernel writes q, k and v as [hi |
+// lo] rows of 2 d bf16 (hi = bf16(x), lo = bf16(x - hi)), each product is
+// the three bf16 products lo hi + hi lo + hi hi into one float32
+// accumulator, and P is split into its two parts in registers, not rounded
+// (within 1e-4 of the float32 output where one bf16 pass is not; tf32's
+// wgmma would read V only K-major). A row of parts at d 128 is 256 bf16
+// columns, a bf16 row at d 256: both run one tile plan. Against the FMA
+// kernel (4.4x its FMA-rate bound at dist (g)'s shape, never on the tensor
+// cores): three bf16 products at the tensor cores' 989 TFLOP/s take a fifth
+// of the time one product takes at the FMA rate's 67 (3/989 against 1/67).
+//
+// bfloat16 at d 16, 32 and 80 ("mma.sync"; the first version, and at any
+// head dim on request): tensor cores FlashAttention-2 style, with
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate):
 //   * grid (B*Hq, ceil(Sq/64)): four warps per block, each owning 16 rows
 //     of a 64-row query tile; the query tiles of a head are launched last
 //     tile first, so a causal prefill's heaviest tiles start in the first
@@ -56,12 +74,15 @@
 //     of m16n8k16 has the A fragment's layout, so P never touches shared
 //     memory.
 // The scores are f32 sums of exact bf16 products, as in the reference, on
-// both bf16 routes.
+// both bf16 routes. Every route runs one device kernel a call but
+// "wgmma-3xbf16", which runs two (the parts, then the attention); all are
+// named flash_*.
 //
-// float32 keeps plain FMA (tensor cores would mean TF32, outside the f32
-// tolerance): grid (ceil(Sq/BQ), B*Hq), Q, K and V tiles in shared memory
-// as f32 (rows padded by one float), each of the 128 threads owning a
-// (BQ/16 x BK/8) patch of scores and a (BQ/16 x d/8) patch of the output.
+// float32 at d 16, 32, 80 and 256 keeps plain FMA (the first version, and
+// at any head dim on request): grid (ceil(Sq/BQ), B*Hq), Q, K and V tiles
+// in shared memory as f32 (rows padded by one float), each of the 128
+// threads owning a (BQ/16 x BK/8) patch of scores and a (BQ/16 x d/8)
+// patch of the output.
 //
 // All: KV tiles entirely in the future (causal with the Sk - Sq offset)
 // or entirely outside the window are never loaded; ragged Sq and Sk are
@@ -79,10 +100,25 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention.cuh"   // the mask and tile ranges, mma.sync and wgmma
                             // products, TMA tiles (hopper.cuh beneath)
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// A call's arguments, as flash_attention_fwd_launch takes them
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  bf16* split;
+  int B, Hq, Hkv, Sq, Sk, causal, window;
+  float scale;
+  cudaStream_t stream;
+};
 
 constexpr int kThreads = 128;   // 16 row groups x 8 column lanes
 constexpr float kNegInf = -1e30f;
@@ -260,10 +296,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 template <typename T, int D, int BQ, int BK>
-cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
-                        int causal, int window, float scale,
-                        cudaStream_t stream) {
+cudaError_t launch_tile(const Args& a) {
   const size_t smem = Tile<D, BQ, BK>::smem_bytes;
   auto kern = flash_fwd_kernel<T, D, BQ, BK>;
   if (smem > 48 * 1024) {
@@ -271,40 +304,24 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk,
-      causal, window, scale);
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.Hq);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
+      a.Sq, a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(int d, const void* q, const void* k, const void* v,
-                       void* o, float* lse, int B, int Hq, int Hkv, int Sq,
-                       int Sk, int causal, int window, float scale,
-                       cudaStream_t stream) {
+cudaError_t launch_f32(int d, const Args& a) {
   using T = float;
   switch (d) {
-    case 16:
-      return launch_tile<T, 16, 64, 64>(
-          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
-    case 32:
-      return launch_tile<T, 32, 64, 64>(
-          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
-    case 64:
-      return launch_tile<T, 64, 64, 64>(
-          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
-    case 80:
-      return launch_tile<T, 80, 64, 64>(
-          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
-    case 128:
-      return launch_tile<T, 128, 64, 64>(
-          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
-    case 256:
-      return launch_tile<T, 256, 32, 32>(
-          q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch_tile<T, 16, 64, 64>(a);
+    case 32: return launch_tile<T, 32, 64, 64>(a);
+    case 64: return launch_tile<T, 64, 64, 64>(a);
+    case 80: return launch_tile<T, 80, 64, 64>(a);
+    case 128: return launch_tile<T, 128, 64, 64>(a);
+    case 256: return launch_tile<T, 256, 32, 32>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -537,10 +554,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
-                       int causal, int window, float scale,
-                       cudaStream_t stream) {
+cudaError_t launch_mma(const Args& a) {
   constexpr size_t smem = MmaTile<D>::smem_bytes;
   static bool attr_set = false;
   if (!attr_set) {
@@ -550,31 +564,39 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const int n_qt = (Sq + kMmaBQ - 1) / kMmaBQ;
+  const int n_qt = (a.Sq + kMmaBQ - 1) / kMmaBQ;
   if (n_qt > 65535) return cudaErrorInvalidValue;
-  dim3 grid(B * Hq, n_qt);
-  flash_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, Hq, Hkv, Sq, Sk, causal, window, scale * 1.4426950408889634f);
+  dim3 grid(a.B * a.Hq, n_qt);
+  flash_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.Hq,
+      a.Hkv, a.Sq, a.Sk, a.causal, a.window, a.scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at d 64 and 128: TMA ring + wgmma (Hopper)
+// TMA ring + wgmma (Hopper): bfloat16 at d 64, 128 and 256, float32 at d 64
+// and 128 on bf16 parts (3xBF16)
 // ---------------------------------------------------------------------------
-
-typedef __nv_bfloat16 bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// d 64 and 128 take the wgmma kernel in bfloat16; every other head dim the
-// mma.sync one (d 16, 32 and 80 rows are not whole 128-byte swizzle chunks;
-// at d 256 a warpgroup's O of 64 rows alone is 128 registers a thread)
-__host__ __device__ constexpr bool wgmma_head_dim(int d) {
-  return d == 64 || d == 128;
+// flash_attention_fwd_launch's dtype codes
+constexpr int kF32 = 0, kBf16 = 1;
+
+// The (dtype, d) calls the wgmma kernels take: bfloat16 at d 64, 128 and
+// 256, float32 at d 64 and 128 as two bf16 parts a value (PartLayout), a
+// row of W = 128 or 256 bf16 columns either way. Every other call takes a
+// first kernel: d 16, 32 and 80 rows are not whole 128-byte swizzle
+// chunks, and a float32 row at d 256 would be 512 bf16 columns, whose O
+// and tiles fit no block.
+__host__ __device__ constexpr bool wgmma_call(int dtype, int d) {
+  return d == 64 || d == 128 || (dtype == kBf16 && d == 256);
+}
+// bf16 columns a row of the wgmma kernels' tiles
+__host__ __device__ constexpr int wgmma_width(int dtype, int d) {
+  return dtype == kF32 ? 2 * d : d;
 }
 
 // A block is NWG consumer warpgroups of 64 query rows each and one producer
@@ -583,52 +605,76 @@ __host__ __device__ constexpr bool wgmma_head_dim(int d) {
 // on its own mbarrier (K's product can start before V lands) and released
 // on its own: a K tile once its S product has completed, a V tile once its
 // P V product has; the producer refills a slot when every consumer warp
-// has arrived on its empty barrier, and loads K a tile ahead of V.
-// 128-byte-swizzled tiles: an (R, D) tile is D / 64 column chunks of R rows
-// of 128 bytes (chunks 1024-byte aligned). Two shapes:
+// has arrived on its empty barrier, and loads K a tile ahead of V. Rows
+// are W = NP D bf16 columns (PartLayout: NP 2 is float32 as [hi | lo]);
+// an (R, W) tile is W / 64 swizzled column chunks of R rows of 128 bytes
+// (chunks 1024-byte aligned). Two shapes:
 //   * NWG 2: 128 rows, 384 threads, one block an SM, consumers at 240
-//     registers; BN 128;
-//   * NWG 1: 64 rows, 256 threads, two blocks an SM (launch bounds cap a
-//     thread at 128 registers; the producer gives 104 of them to the
-//     consumer, at 232); BN 64, so that two blocks' rings fit at d 128
-//     (at d 64 too, where short prefills ran faster on 64-key tiles than
-//     on 128-key ones).
-template <int D, int NWG>
-struct FwdWg {
+//     registers; BN 128, or 64 at W 256 (Q 64 KB and two stages of K and
+//     V 128 KB: 192 KB);
+//   * NWG 1: 64 rows, 256 threads (launch bounds cap a thread at 128
+//     registers; the producer gives 104 of them to the consumer, at 232);
+//     BN 64; two blocks an SM below W 256, so that two blocks' rings fit at
+//     W 128 (at d 64 too, where short prefills ran faster on 64-key tiles
+//     than on 128-key ones), one at W 256 (160 KB).
+template <int D, int NWG, int NP = 1>
+struct FwdWg : PartLayout<D, NP> {
+  static constexpr int W = PartLayout<D, NP>::W;       // bf16 columns a row
+  static constexpr bool kWide = W == 256;
   static constexpr int kThreads = 128 * (NWG + 1);
-  static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
+  static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;  // launch bounds
+  static constexpr int kSmBlocks = NWG == 1 && !kWide ? 2 : 1;  // resident
   static constexpr int kConsumerRegs = NWG == 1 ? 232 : 240;
   static constexpr int BM = 64 * NWG;                  // query rows a block
-  static constexpr int BN = 64 * NWG;                  // keys a tile
+  static constexpr int BN = kWide ? 64 : 64 * NWG;     // keys a tile
   static constexpr int kStages = 2;
-  static constexpr int kQBytes = BM * D * 2;
-  static constexpr int kKvBytes = BN * D * 2;          // one K or V tile
+  static constexpr int kQBytes = BM * W * 2;
+  static constexpr int kKvBytes = BN * W * 2;          // one K or V tile
   static constexpr int kBars = kQBytes + 2 * kStages * kKvBytes;
   // full and empty barriers of K and V a stage, and Q's
   static constexpr size_t smem = 1024 + kBars + (4 * kStages + 2) * 8;
+  // 227 KB a block, 228 KB an SM with 1 KB of each block's reserved
+  static_assert(smem <= 232448 && kSmBlocks * (smem + 1024) <= 233472,
+                "FwdWg: over the SM's shared memory");
 };
 
-// Query rows a block, from the shapes alone: 128 (two consumer warpgroups
-// share each K and V tile, taking turns) for queries of 1024 rows and more
-// whose 128-row tiles give every SM of an H100 (132) a work item; 64
-// (two blocks an SM, 64-key tiles) otherwise: at 512-768 rows the
-// 64-row tiles' finer diagonal and the second block an SM win (llama3.2-3b's
-// 512-token prefill, 96 tiles of 128 rows or 192 of 64), and a grid of
-// fewer 128-row tiles than SMs leaves SMs idle (PERF.md gives the times
-// that set this).
+// Query rows a block, from the shapes alone (W: bf16 columns a row).
+// Below W 256: 128 (two consumer warpgroups share each K and V tile,
+// taking turns) for queries of 1024 rows and more whose 128-row tiles give
+// every SM of an H100 (132) a work item; 64 (two blocks an SM, 64-key
+// tiles) otherwise: at 512-768 rows the 64-row tiles' finer diagonal and
+// the second block an SM win (llama3.2-3b's 512-token prefill, 96 tiles of
+// 128 rows or 192 of 64), and a grid of fewer 128-row tiles than SMs
+// leaves SMs idle. At W 256 a 64-row block holds its SM alone, so the
+// second block's reason is gone: 128 wherever the 128-row tiles give every
+// SM a work item, 64 only where they would leave SMs idle (recurrentgemma's
+// short prefills). PERF.md gives the times that set this.
 constexpr int kLongRows = 1024;
 constexpr long long kSms = 132;
-__host__ __device__ constexpr int wgmma_block_rows(long long bhs, int Sq) {
-  return Sq >= kLongRows && bhs * ((Sq + 127) / 128) >= kSms ? 128 : 64;
+__host__ __device__ constexpr int wgmma_block_rows(long long bhs, int Sq,
+                                                   int W) {
+  return (W == 256 || Sq >= kLongRows) && bhs * ((Sq + 127) / 128) >= kSms
+             ? 128
+             : 64;
 }
 
-// named barriers 1 and 2 order the two consumer warpgroups' products
-// (barrier 0 is __syncthreads')
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+// float32 at d 64 and 128: q, k and v as their two bf16 parts, [hi | lo] a
+// row (split_row), one warp a row of (B Hq Sq) for q, then of (B Hkv Sk)
+// for k and v
+__global__ void __launch_bounds__(256) flash_fwd_prep_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, bf16* __restrict__ qs,
+    bf16* __restrict__ ks, bf16* __restrict__ vs, long long q_rows,
+    long long kv_rows, int d) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row < q_rows) {
+    split_row(q + row * d, qs + row * 2 * d, d, lane);
+  } else if (row < q_rows + kv_rows) {
+    const long long r = row - q_rows;
+    split_row(k + r * d, ks + r * 2 * d, d, lane);
+    split_row(v + r * d, vs + r * 2 * d, d, lane);
+  }
 }
 
 // Work item i of n_items = bhs n_qt: b Hq + q head = i % bhs, query tile
@@ -642,33 +688,39 @@ __device__ __forceinline__ void named_arrive(int id) {
 // walks the item's key tiles (key_tiles of its rows) in a software
 // pipeline, FlashAttention-3's:
 //   * S = Q K^T of tile j+1 (wgmma SS, both K-major) and O += P_j V_j
-//     (wgmma RS: P_j in registers as bf16, the accumulator's layout being
-//     the A fragment's; V MN-major) are issued together; the softmax of
-//     tile j+1 runs while P_j V_j is still on the tensor cores; then O is
+//     (wgmma RS: P_j in registers, the accumulator's layout being the A
+//     fragment's; V MN-major) are issued together; the softmax of tile
+//     j+1 runs while P_j V_j is still on the tensor cores; then O is
 //     rescaled and P_{j+1} packed;
+//   * each product is kPairs bf16 products over the parts (float32: lo hi
+//     + hi lo + hi hi into one float32 accumulator, P split into its two
+//     parts in registers; bfloat16: the one product, P rounded to bf16
+//     before P V, as the TPU kernel does);
 //   * the two warpgroups of a 128-row block take turns to issue their
-//     products (named barriers), so one's softmax runs under the other's
-//     products;
+//     products (named barriers 1 and 2), so one's softmax runs under the
+//     other's products;
 //   * the softmax in the log2 domain on raw scores: m is the running max of
-//     Q K^T, p = 2^(scale log2 e (s - m)) one FFMA and one ex2; P is
-//     rounded to bf16 before P V, as the TPU kernel does; the scores of a
-//     tile are tested one by one only where a mask edge crosses it
+//     Q K^T, p = 2^(scale log2 e (s - m)) one FFMA and one ex2; the scores
+//     of a tile are tested one by one only where a mask edge crosses it
 //     (edge_tile, a warpgroup's 64 rows at a time), against visible's
 //     rule as a key range a row (visible_keys).
-// O is written as acc / max(l, 1e-30) in bf16 straight from registers, and
-// L (when lse is not null) as m scale + ln l in natural units. No atomics:
-// two calls give the same bits, with or without L, whatever the grid.
-template <int D, int NWG>
-__global__ void __launch_bounds__(FwdWg<D, NWG>::kThreads,
-                                  FwdWg<D, NWG>::kMinBlocks)
+// O is written as acc / max(l, 1e-30) in the inputs' dtype straight from
+// registers, and L (when lse is not null) as m scale + ln l in natural
+// units. No atomics: two calls give the same bits, with or without L,
+// whatever the grid; at W 256 every block shape walks 64-key tiles, so the
+// block's rows change no bit either.
+template <int D, int NWG, int NP>
+__global__ void __launch_bounds__(FwdWg<D, NWG, NP>::kThreads,
+                                  FwdWg<D, NWG, NP>::kMinBlocks)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
-                    bf16* __restrict__ o, float* __restrict__ lse, int Hq,
-                    int Hkv, int Sq, int Sk, int causal, int window,
-                    float scale_log2, int bhs, int n_qt) {
-  using TL = FwdWg<D, NWG>;
-  constexpr int BM = TL::BM, BN = TL::BN, S = TL::kStages;
+                    std::conditional_t<NP == 2, float, bf16>* __restrict__ o,
+                    float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                    int causal, int window, float scale_log2, int bhs,
+                    int n_qt) {
+  using TL = FwdWg<D, NWG, NP>;
+  constexpr int BM = TL::BM, BN = TL::BN, S = TL::kStages, W = TL::W;
   extern __shared__ __align__(1024) unsigned char fsm[];
   const uint32_t base = (smem_u32(fsm) + 1023) & ~1023u;
   const uint32_t q_tile = base;
@@ -722,7 +774,7 @@ __global__ void __launch_bounds__(FwdWg<D, NWG>::kThreads,
       if (g >= S) mbar_wait(is_v ? empty_v(s) : empty_k(s), (g / S - 1) & 1);
       const uint32_t bar = is_v ? full_v(s) : full_k(s);
       mbar_expect_tx(bar, TL::kKvBytes);
-      tma_tile<D, BN>(is_v ? v_tile(s) : k_tile(s), is_v ? &map_v : &map_k,
+      tma_tile<W, BN>(is_v ? v_tile(s) : k_tile(s), is_v ? &map_v : &map_k,
                       bar, kv_lo, bkv);
     };
     int g = 0, nq = 0;   // K/V tiles and Q tiles loaded so far
@@ -735,7 +787,7 @@ __global__ void __launch_bounds__(FwdWg<D, NWG>::kThreads,
       const int bkv = bh / Hq * Hkv + bh % Hq / (Hq / Hkv);
       if (nq > 0) mbar_wait(q_empty, (nq - 1) & 1);
       mbar_expect_tx(q_full, TL::kQBytes);
-      tma_tile<D, BM>(q_tile, &map_q, q_full, q_lo, bh);
+      tma_tile<W, BM>(q_tile, &map_q, q_full, q_lo, bh);
       ++nq;
       load(g, 0, kt_begin * BN, bkv);
       for (int it = 0; it < n_it; ++it) {
@@ -754,30 +806,41 @@ __global__ void __launch_bounds__(FwdWg<D, NWG>::kThreads,
   float m[2], l[2];
   // S of the tile in flight (element 4 j + 2 h + e: row r0 + 8 h, key
   // kv_lo + 8 j + 2 (lane % 4) + e), then its P; P of the tile before as
-  // the A fragments of P V
+  // the A fragments of P V, in its NP parts
   float sc[BN / 2];
-  uint32_t pa[BN / 16][4];
+  uint32_t pa[BN / 16][NP][4];
   int rw, r0, kv_first;   // this warpgroup's and thread's rows, item's keys
 
   // the products' turns: this warpgroup issues after the other's
   // named_arrive (NWG 2)
   auto turn = [&]() {
-    if constexpr (NWG == 2) named_sync(1 + wg);
+    if constexpr (NWG == 2) named_sync(1 + wg, 256);
   };
   auto done = [&]() {
-    if constexpr (NWG == 2) named_arrive(2 - wg);
+    if constexpr (NWG == 2) named_arrive(2 - wg, 256);
+  };
+  // part i's chunks of the Q tile and of a K or V tile
+  auto qpart = [&](int i) { return q_tile + TL::template part<BM>(i); };
+  auto kvpart = [](uint32_t tile, int i) {
+    return tile + TL::template part<BN>(i);
   };
   auto issue_s = [&](int s) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BN>(sc, kmajor_desc<BM>(q_tile, 64 * wg, kk),
-                   kmajor_desc<BN>(k_tile(s), 0, kk), kk > 0);
+#pragma unroll
+      for (int p = 0; p < TL::kPairs; ++p)
+        wgmma_ss<BN>(sc, kmajor_desc<BM>(qpart(TL::part_a(p)), 64 * wg, kk),
+                     kmajor_desc<BN>(kvpart(k_tile(s), TL::part_b(p)), 0, kk),
+                     kk > 0 || p > 0);
     wgmma_commit();
   };
   auto issue_pv = [&](int s) {
 #pragma unroll
     for (int ks = 0; ks < BN / 16; ++ks)
-      wgmma_rs<D>(acc, pa[ks], mnmajor_desc<BN>(v_tile(s), ks));
+#pragma unroll
+      for (int p = 0; p < TL::kPairs; ++p)
+        rs_mn<D, BN>(acc, pa[ks][TL::part_a(p)],
+                     kvpart(v_tile(s), TL::part_b(p)), ks);
     wgmma_commit();
   };
   // the online softmax of the scores in sc (the item's key tile it): P
@@ -837,7 +900,7 @@ __global__ void __launch_bounds__(FwdWg<D, NWG>::kThreads,
       acc[4 * j + 2] *= alpha[1], acc[4 * j + 3] *= alpha[1];
     }
 #pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) wg_acc_to_a(pa[ks], sc, ks);
+    for (int ks = 0; ks < BN / 16; ++ks) acc_to_a_parts<NP>(pa[ks], sc, ks);
   };
   auto release = [&](uint32_t bar) {        // this warp is done with a slot
     __syncwarp();
@@ -921,37 +984,55 @@ __global__ void __launch_bounds__(FwdWg<D, NWG>::kThreads,
       const float inv = 1.f / fmaxf(lt, 1e-30f);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(o + row * D + 8 * j +
-                                           2 * (lane % 4)) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv,
-                                  acc[4 * j + 2 * h + 1] * inv);
+        store2(o + row * D + 8 * j + 2 * (lane % 4), acc[4 * j + 2 * h] * inv,
+               acc[4 * j + 2 * h + 1] * inv);
     }
   }
 }
 
-template <int D, int NWG>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
-                         int causal, int window, float scale,
-                         cudaStream_t stream) {
-  using TL = FwdWg<D, NWG>;
+// The wgmma kernel with NWG consumer warpgroups on NP bf16 parts a value:
+// for NP 2 flash_fwd_prep_f32 first writes q, k and v's parts into
+// a.split, which the tensor maps then read
+template <int D, int NWG, int NP>
+cudaError_t launch_wgmma(const Args& a) {
+  using TL = FwdWg<D, NWG, NP>;
+  using T = std::conditional_t<NP == 2, float, bf16>;
   // cuTensorMapEncodeTiled needs q's context current on this thread (a
   // recompute under torch.utils.checkpoint runs on autograd's backward
   // thread, where no runtime call may have bound it yet)
   cudaPointerAttributes pa;
-  cudaError_t e = cudaPointerGetAttributes(&pa, q);
+  cudaError_t e = cudaPointerGetAttributes(&pa, a.q);
   if (e == cudaSuccess) e = cudaSetDevice(pa.device);
   if (e != cudaSuccess) return e;
+  if (pa.device < 0 || pa.device >= 32) return cudaErrorInvalidDevice;
+  const void *tq = a.q, *tk = a.k, *tv = a.v;
+  if constexpr (NP == 2) {
+    if (a.split == nullptr || (uintptr_t)a.split % 16 != 0)
+      return cudaErrorInvalidValue;
+    const long long q_rows = (long long)a.B * a.Hq * a.Sq;
+    const long long kv_rows = (long long)a.B * a.Hkv * a.Sk;
+    const long long blocks = (q_rows + kv_rows + 7) / 8;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    bf16* qs = a.split;
+    bf16* ks = qs + q_rows * 2 * D;
+    bf16* vs = ks + kv_rows * 2 * D;
+    flash_fwd_prep_f32<<<(unsigned)blocks, 256, 0, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), qs, ks, vs, q_rows, kv_rows, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    tq = qs;
+    tk = ks;
+    tv = vs;
+  }
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode_heads(&mq, enc, q, D, Sq, B * Hq) ||
-      !encode_heads(&mk, enc, k, D, Sk, B * Hkv) ||
-      !encode_heads(&mv, enc, v, D, Sk, B * Hkv))
+  if (!encode_heads(&mq, enc, tq, TL::W, a.Sq, a.B * a.Hq) ||
+      !encode_heads(&mk, enc, tk, TL::W, a.Sk, a.B * a.Hkv) ||
+      !encode_heads(&mv, enc, tv, TL::W, a.Sk, a.B * a.Hkv))
     return cudaErrorInvalidValue;
-  auto kern = flash_fwd_wgmma<D, NWG>;
+  auto kern = flash_fwd_wgmma<D, NWG, NP>;
   static int sms[32] = {0};   // a device's SMs, once its attribute is set
-  if (pa.device < 0 || pa.device >= 32) return cudaErrorInvalidDevice;
   if (sms[pa.device] == 0) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)TL::smem);
@@ -960,73 +1041,80 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                                  cudaDevAttrMultiProcessorCount, pa.device);
     if (e != cudaSuccess) return e;
   }
-  const long long bhs = (long long)B * Hq;
-  const long long n_qt = (Sq + TL::BM - 1) / TL::BM;
+  const long long bhs = (long long)a.B * a.Hq;
+  const long long n_qt = (a.Sq + TL::BM - 1) / TL::BM;
   if (bhs * n_qt > 0x7fffffffLL) return cudaErrorInvalidValue;
   // persistent: as many blocks as fit the card at once, fewer when there
   // are fewer work items
-  const long long fit = (long long)sms[pa.device] * TL::kMinBlocks;
+  const long long fit = (long long)sms[pa.device] * TL::kSmBlocks;
   const unsigned grid = (unsigned)(bhs * n_qt < fit ? bhs * n_qt : fit);
-  kern<<<grid, TL::kThreads, TL::smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), lse, Hq, Hkv, Sq, Sk, causal, window,
-      scale * kLog2e, (int)bhs, (int)n_qt);
+  kern<<<grid, TL::kThreads, TL::smem, a.stream>>>(
+      mq, mk, mv, static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv, a.Sq, a.Sk,
+      a.causal, a.window, a.scale * kLog2e, (int)bhs, (int)n_qt);
   return cudaGetLastError();
 }
 
-// the kernels a bfloat16 call runs, as flash_attention_fwd_launch's
-// ``kernel`` names them: 1 mma.sync, 2 wgmma with 64-row blocks, 3 wgmma
-// with 128-row blocks
-constexpr int kMma = 1, kWg64 = 2, kWg128 = 3;
+// The kernels, as flash_attention_fwd_kernel numbers them (and
+// flash_attention_fwd_launch's `kernel`, that number + 1, asks for one):
+// FMA (float32), mma.sync (bfloat16), wgmma with 64- and 128-row blocks
+constexpr int kFma = 0, kMma = 1, kWg64 = 2, kWg128 = 3;
 
-int bf16_kernel(int d, int B, int Hq, int Sq) {
-  if (!wgmma_head_dim(d)) return kMma;
-  return wgmma_block_rows((long long)B * Hq, Sq) == 128 ? kWg128 : kWg64;
+int default_kernel(int dtype, int d, int B, int Hq, int Sq) {
+  if (!wgmma_call(dtype, d)) return dtype == kF32 ? kFma : kMma;
+  return wgmma_block_rows((long long)B * Hq, Sq, wgmma_width(dtype, d)) == 128
+             ? kWg128
+             : kWg64;
 }
 
-cudaError_t launch_bf16(int d, int kernel, const void* q, const void* k,
-                        const void* v, void* o, float* lse, int B, int Hq,
-                        int Hkv, int Sq, int Sk, int causal, int window,
-                        float scale, cudaStream_t stream) {
-  // 16-byte cp.async rows and TMA need 16-byte aligned bases
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
-    return cudaErrorMisalignedAddress;
-  if (kernel == 0) kernel = bf16_kernel(d, B, Hq, Sq);
-  if (kernel != kMma) {
-    if (!wgmma_head_dim(d) || (kernel != kWg64 && kernel != kWg128))
-      return cudaErrorInvalidValue;
-    if (d == 64)
-      return kernel == kWg64
-                 ? launch_wgmma<64, 1>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
-                                       causal, window, scale, stream)
-                 : launch_wgmma<64, 2>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
-                                       causal, window, scale, stream);
-    return kernel == kWg64
-               ? launch_wgmma<128, 1>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
-                                      causal, window, scale, stream)
-               : launch_wgmma<128, 2>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
-                                      causal, window, scale, stream);
+// Whether `kernel` runs a (dtype, d) call: the first version of each dtype
+// (FMA, mma.sync) at every head dim, which chip_profile.py and the card
+// tests time and hold beside the wgmma kernels, and those where
+// wgmma_call says
+bool kernel_runs(int kernel, int dtype, int d) {
+  switch (kernel) {
+    case kFma: return dtype == kF32;
+    case kMma: return dtype == kBf16;
+    case kWg64:
+    case kWg128: return wgmma_call(dtype, d);
+    default: return false;
   }
+}
+
+template <int D, int NP>
+cudaError_t launch_wgmma_rows(int kernel, const Args& a) {
+  return kernel == kWg64 ? launch_wgmma<D, 1, NP>(a)
+                         : launch_wgmma<D, 2, NP>(a);
+}
+
+cudaError_t launch_kernel(int kernel, int dtype, int d, const Args& a) {
+  if (kernel == kFma) return launch_f32(d, a);
+  // bfloat16: 16-byte cp.async rows and TMA need 16-byte aligned bases;
+  // float32 on the wgmma kernels: 8-byte output stores (the prep kernel
+  // reads q, k and v a float at a time)
+  if (dtype == kBf16 &&
+      ((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.o) %
+              16 != 0)
+    return cudaErrorMisalignedAddress;
+  if (dtype == kF32 && (uintptr_t)a.o % 8 != 0)
+    return cudaErrorMisalignedAddress;
+  if (kernel == kMma) {
+    switch (d) {
+      case 16: return launch_mma<16>(a);
+      case 32: return launch_mma<32>(a);
+      case 64: return launch_mma<64>(a);
+      case 80: return launch_mma<80>(a);
+      case 128: return launch_mma<128>(a);
+      case 256: return launch_mma<256>(a);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == kF32)
+    return d == 64 ? launch_wgmma_rows<64, 2>(kernel, a)
+                   : launch_wgmma_rows<128, 2>(kernel, a);
   switch (d) {
-    case 16:
-      return launch_mma<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                            window, scale, stream);
-    case 32:
-      return launch_mma<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                            window, scale, stream);
-    case 64:
-      return launch_mma<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                            window, scale, stream);
-    case 80:
-      return launch_mma<80>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                            window, scale, stream);
-    case 128:
-      return launch_mma<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                             window, scale, stream);
-    case 256:
-      return launch_mma<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                             window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 64: return launch_wgmma_rows<64, 1>(kernel, a);
+    case 128: return launch_wgmma_rows<128, 1>(kernel, a);
+    default: return launch_wgmma_rows<256, 1>(kernel, a);
   }
 }
 
@@ -1035,47 +1123,46 @@ cudaError_t launch_bf16(int d, int kernel, const void* q, const void* k,
 // dtype: 0 = float32, 1 = bfloat16. lse: null, or float32 (B, Hq, Sq) that
 // receives each row's log-sum-exp of its scaled scores (+inf on a row that
 // sees no key), for the backward; out is the same bits either way.
-// kernel: 0 = the one flash_attention_fwd_kernel names for these shapes;
-// in bfloat16 1 = mma.sync (any head dim), 2 and 3 = wgmma with 64- and
-// 128-row blocks (d 64 and 128): a given kernel, for timing one against
-// another. Returns a cudaError_t code (0 = ok).
+// kernel: 0 = the one flash_attention_fwd_kernel names for these shapes,
+// else that number + 1 (1 FMA, float32; 2 mma.sync, bfloat16; 3 and 4 the
+// wgmma kernel with 64- and 128-row blocks, where flash_attention_fwd_route
+// names TMA + wgmma): a given kernel, to time one against another. split:
+// bfloat16 scratch of 2 B (Hq Sq + 2 Hkv Sk) d for float32 on the wgmma
+// kernels (q, k and v's parts), else unused (may be null). Returns a
+// cudaError_t code (0 = ok).
 extern "C" int flash_attention_fwd_launch(int dtype, int kernel,
                                           const void* q, const void* k,
                                           const void* v, void* o, float* lse,
-                                          int B, int Hq, int Hkv, int Sq,
-                                          int Sk, int d, int causal,
-                                          int window, float scale,
+                                          void* split, int B, int Hq,
+                                          int Hkv, int Sq, int Sk, int d,
+                                          int causal, int window, float scale,
                                           void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
-      (long long)B * Hq > 65535)
+      (long long)B * Hq > 65535 || (dtype != kF32 && dtype != kBf16))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return kernel != 0 ? (int)cudaErrorInvalidValue
-                       : (int)launch_f32(d, q, k, v, o, lse, B, Hq, Hkv, Sq,
-                                         Sk, causal, window, scale, s);
-  if (dtype == 1)
-    return (int)launch_bf16(d, kernel, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk,
-                            causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const int kern =
+      kernel == 0 ? default_kernel(dtype, d, B, Hq, Sq) : kernel - 1;
+  if (!kernel_runs(kern, dtype, d)) return (int)cudaErrorInvalidValue;
+  const Args a{q,  k,  v,      o,     lse, static_cast<bf16*>(split),
+               B,  Hq, Hkv,    Sq,    Sk,  causal,
+               window, scale, static_cast<cudaStream_t>(stream)};
+  return (int)launch_kernel(kern, dtype, d, a);
 }
 
-// The route a (dtype, d) call takes: 0 FMA, 1 mma.sync, 2 TMA + wgmma; -1
-// for an unknown dtype.
+// The route a (dtype, d) call takes: 0 FMA, 1 mma.sync, 2 TMA + wgmma
+// (bfloat16), 3 TMA + wgmma on 3xBF16 (float32); -1 for an unknown dtype.
 extern "C" int flash_attention_fwd_route(int dtype, int d) {
-  if (dtype == 0) return 0;
-  if (dtype == 1) return wgmma_head_dim(d) ? 2 : 1;
-  return -1;
+  if (dtype != kF32 && dtype != kBf16) return -1;
+  if (wgmma_call(dtype, d)) return dtype == kF32 ? 3 : 2;
+  return dtype == kF32 ? 0 : 1;
 }
 
-// The kernel (as flash_attention_fwd_launch's ``kernel``) a call at these
-// shapes runs by default: 0 FMA (float32), 1 mma.sync, 2 and 3 wgmma with
-// 64- and 128-row blocks; -1 for an unknown dtype.
+// The kernel a call at these shapes runs by default: 0 FMA, 1 mma.sync, 2
+// and 3 wgmma with 64- and 128-row blocks; -1 for an unknown dtype.
 extern "C" int flash_attention_fwd_kernel(int dtype, int d, int B, int Hq,
                                           int Sq) {
-  if (dtype == 0) return 0;
-  if (dtype == 1) return bf16_kernel(d, B, Hq, Sq);
-  return -1;
+  if (dtype != kF32 && dtype != kBf16) return -1;
+  return default_kernel(dtype, d, B, Hq, Sq);
 }
 
 // The wgmma kernel's plan for query tile qt of `rows` rows against key

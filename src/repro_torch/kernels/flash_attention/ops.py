@@ -8,17 +8,26 @@ two. Which kernel runs is decided by the dtype and the head dim, as the
 ``.cu`` files decide it (``fwd_route``, ``fwd_kernel``, ``bwd_route`` read
 their getters):
 
-- bfloat16 at d 64 and 128: TMA + ``wgmma`` (FlashAttention-3 shape: a
-  producer warp and a two-stage mbarrier ring of K and V tiles, consumer
-  warpgroups of 64 query rows taking turns, a persistent grid); blocks of
-  128 rows on 128-key tiles from 1024 query rows up when their tiles give
-  every SM one, else of 64 rows on 64-key tiles, two an SM
-  (``fwd_kernel``);
-- bfloat16 at d 16, 32, 80 and 256: the ``mma.sync`` m16n8k16 kernel
-  (FlashAttention-2 schedule, 64-row query tiles, KV tiles of 64 rows, 32
-  at d 256);
-- float32: the FMA kernel (the first version: the backward's 3xBF16
-  route below is not yet written for the forward).
+- bfloat16 at d 64, 128 and 256 ("wgmma"): TMA + ``wgmma``
+  (FlashAttention-3 shape: a producer warp and a two-stage mbarrier ring
+  of K and V tiles, consumer warpgroups of 64 query rows taking turns, a
+  persistent grid); blocks of 128 or 64 rows by shape (``fwd_kernel``):
+  at d 64 and 128, 128 rows on 128-key tiles from 1024 query rows up when
+  their tiles give every SM one, else 64 rows on 64-key tiles, two an SM;
+  at d 256, 64-key tiles either way, 128 rows wherever their tiles give
+  every SM one;
+- float32 at d 64 and 128 ("wgmma-3xbf16"): the same kernel on bf16 parts
+  (each float32 operand as hi = bf16(x) and lo = bf16(x - hi), written by
+  a first kernel for q, k and v into a scratch buffer the wrapper
+  allocates; each product as lo hi + hi lo + hi hi summed in float32; P
+  split into its two parts, not rounded), at d 128 on d 256's tile plan;
+- bfloat16 at d 16, 32 and 80: the ``mma.sync`` m16n8k16 kernel
+  (FlashAttention-2 schedule, 64-row query tiles, KV tiles of 64 rows);
+- float32 at d 16, 32, 80 and 256: the FMA kernel.
+
+The first versions (``mma.sync`` for bfloat16, FMA for float32) still run
+at any head dim through ``flash_attention_fwd_cuda(..., kernel=)``, for
+timing one against the other.
 
 The backward's routes (``bwd_route``): bfloat16 at d 64, 128 and 256 runs
 TMA + ``wgmma`` kernels (at d 256 on 64-key blocks whose two consumer
@@ -44,10 +53,12 @@ cores but float32 at d 16, 32, 80 and 256), on the CPU the dense float32
 takes the vjp of its plain version (``_bwd_vjp``); the gradient is the
 same function.
 
-``launches`` counts forward kernel launches and ``bwd_launches`` the
-backward's (one a backward call; CPU calls count in neither), so a run
-can show that its prefill or training path went through the kernels;
-under ``torch.utils.checkpoint`` the recomputed forward launches again.
+``launches`` counts forward calls that launched and ``bwd_launches`` the
+backward's (one a call, whatever device kernels it runs: two on the
+forward's "wgmma-3xbf16", the parts and then the attention; CPU calls
+count in neither), so a run can show that its prefill or training path
+went through the kernels; under ``torch.utils.checkpoint`` the
+recomputed forward launches again.
 
 Inside a ``core.trace.Counter`` the forward adds ``cost()`` there under
 ``flash_attention_fwd`` and the backward ``cost_bwd()`` under
@@ -86,6 +97,7 @@ def _lib(name: str = "flash_attention_fwd"):
         if name == "flash_attention_fwd":
             lib.flash_attention_fwd_launch.argtypes = [
                 i, i, p, p, p, p, p,        # dtype, kernel, q, k, v, o, lse
+                p,                          # split
                 i, i, i, i, i, i, i, i,     # B, Hq, Hkv, Sq, Sk, d, causal, window
                 f, p]                       # scale, stream
             lib.flash_attention_fwd_route.argtypes = [i, i]
@@ -145,23 +157,25 @@ def _check_shapes(q, k, v, what):
 
 # the routes of both directions (``fwd_route``, ``bwd_route``; the
 # backward's ``kernel`` argument) and the forward's kernels (``fwd_kernel``,
-# its launcher's ``kernel`` argument), as the .cu files number them; only
-# the backward runs "wgmma-3xbf16" (float32 on bf16 parts)
+# its launcher's ``kernel`` argument: the index + 1), as the .cu files
+# number them; "wgmma-3xbf16" is float32 on bf16 parts
 ROUTES = ("fma", "mma.sync", "wgmma", "wgmma-3xbf16")
 FWD_KERNELS = ("fma", "mma.sync", "wgmma-64", "wgmma-128")
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
     """The forward kernel's route for a ``dtype`` call at head dim ``d``,
-    as ``flash_attention_fwd.cu`` chooses it (builds the library): "fma"
-    (float32), "mma.sync" or "wgmma" (TMA ring + wgmma, bfloat16)."""
+    as ``flash_attention_fwd.cu`` chooses it (builds the library): "wgmma"
+    (TMA ring + wgmma: bfloat16 at d 64, 128 and 256), "wgmma-3xbf16" (the
+    same kernel on bf16 parts: float32 at d 64 and 128), "mma.sync"
+    (bfloat16 elsewhere) or "fma" (float32 elsewhere)."""
     return ROUTES[_lib().flash_attention_fwd_route(DTYPE_CODES[dtype], d)]
 
 
 def fwd_kernel(dtype: torch.dtype, d: int, B: int, Hq: int, Sq: int) -> str:
     """The forward kernel a call at these shapes runs, as the ``.cu``
     chooses it from shapes alone (builds the library): "fma", "mma.sync",
-    "wgmma-64" or "wgmma-128" (the ``wgmma`` route's rows a block)."""
+    "wgmma-64" or "wgmma-128" (the ``wgmma`` routes' rows a block)."""
     return FWD_KERNELS[_lib().flash_attention_fwd_kernel(
         DTYPE_CODES[dtype], d, B, Hq, Sq)]
 
@@ -307,9 +321,12 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch the CUDA kernel. q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d),
     contiguous, on one CUDA device, one float32 or bfloat16 dtype. Returns
     out, or with ``lse`` (out, L): L float32 (B, Hq, Sq), each row's
-    log-sum-exp (out is the same bits either way). ``kernel`` (bfloat16
-    only) runs one of ``FWD_KERNELS`` in place of the one ``fwd_kernel``
-    names, to time one against another; it is counted like any launch."""
+    log-sum-exp (out is the same bits either way). ``kernel`` runs one of
+    ``FWD_KERNELS`` in place of the one ``fwd_kernel`` names (the first
+    version of the dtype, "fma" or "mma.sync", at any head dim; the
+    ``wgmma`` kernels where ``fwd_route`` names them; the launcher refuses
+    any other), to time one against another; it is counted like any
+    launch."""
     global launches
     code = _check((("q", q), ("k", k), ("v", v)), q, "flash_attention")
     _check_shapes(q, k, v, "flash_attention")
@@ -319,10 +336,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         require((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0,
                 "flash_attention: the bfloat16 kernels' 16-byte loads and "
                 "TMA need 16-byte aligned q, k and v")
-    require(kernel is None or (q.dtype == torch.bfloat16
-                               and kernel in FWD_KERNELS[1:]),
-            f"flash_attention: kernel {kernel!r} is not one of the bfloat16 "
-            f"kernels {FWD_KERNELS[1:]}")
+    require(kernel is None or kernel in FWD_KERNELS,
+            f"flash_attention: kernel {kernel!r} is not one of "
+            f"{FWD_KERNELS}")
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
@@ -332,11 +348,19 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         return (out, L) if lse else out
     require(Sk > 0, "flash_attention: no keys")
     lib = _lib()
+    # the 3xBF16 kernels' bf16 parts of q, k and v: [hi | lo] a row
+    split = (torch.empty(2 * B * (Hq * Sq + 2 * Hkv * Sk) * d,
+                         dtype=torch.bfloat16, device=q.device)
+             if q.dtype == torch.float32 and (
+                 kernel or fwd_kernel(q.dtype, d, B, Hq, Sq)).startswith(
+                     "wgmma") else None)
     rc = lib.flash_attention_fwd_launch(
-        code, FWD_KERNELS.index(kernel) if kernel else 0, q.data_ptr(),
+        code, FWD_KERNELS.index(kernel) + 1 if kernel else 0, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        L.data_ptr() if lse else None, B, Hq, Hkv, Sq, Sk, d,
-        int(bool(causal)), int(window), float(scale), stream_ptr(q.device))
+        L.data_ptr() if lse else None,
+        split.data_ptr() if split is not None else None, B, Hq, Hkv, Sq, Sk,
+        d, int(bool(causal)), int(window), float(scale),
+        stream_ptr(q.device))
     raise_on_error(rc, lib, "flash_attention_fwd_error_string",
                    "flash_attention")
     launches += 1

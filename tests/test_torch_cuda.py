@@ -141,7 +141,33 @@ FA_CASES = [
     (1, 8, 2, 2304, 2304, 128, True, 2048, "bfloat16"),
     (1, 24, 1, 256, 256, 128, True, 0, "bfloat16"),
     (2, 24, 8, 2048, 2048, 128, True, 0, "bfloat16"),
+    # the wgmma kernels at 256 bf16 columns a row (bf16 d 256, float32 d
+    # 128) and float32 at d 64 on 3xBF16: ragged Sq and Sk (Sq 1, 65 and
+    # 129 over Sk - Sq not a multiple of 64), windows of 100 and 2048 over
+    # GQA groups 4, 5 and 10, bidirectional, rows that see no key (Sk <
+    # Sq), recurrentgemma-2b's rank shape and dist (g)'s float32 one
+    (1, 8, 2, 129, 237, 256, True, 0, "bfloat16"),
+    (1, 10, 1, 65, 65, 256, True, 0, "bfloat16"),
+    (2, 5, 1, 640, 640, 256, True, 100, "bfloat16"),
+    (1, 4, 2, 130, 99, 256, False, 0, "bfloat16"),
+    (1, 2, 1, 64, 40, 256, True, 0, "bfloat16"),
+    (2, 5, 1, 2048, 2048, 256, True, 2048, "bfloat16"),
+    (1, 8, 2, 129, 237, 128, True, 0, "float32"),
+    (2, 5, 1, 300, 300, 128, True, 100, "float32"),
+    (1, 2, 1, 64, 40, 128, True, 0, "float32"),
+    (2, 12, 4, 2048, 2048, 128, True, 0, "float32"),
+    (1, 6, 2, 1, 257, 64, True, 0, "float32"),
+    (1, 8, 2, 1000, 1037, 64, True, 0, "float32"),
+    (1, 4, 2, 70, 137, 64, False, 0, "float32"),
+    (1, 10, 1, 300, 300, 64, True, 2048, "float32"),
 ]
+
+
+def _fwd_wgmma(case) -> bool:
+    """Whether a FA_CASES call runs on the wgmma kernels: bfloat16 at d 64,
+    128 and 256, float32 (on 3xBF16) at d 64 and 128."""
+    d, dt = case[5], case[-1]
+    return d in ((64, 128, 256) if dt == "bfloat16" else (64, 128))
 
 
 # tests/test_kernels.py:93 (B, S, R), plus recurrentgemma-2b's prefill
@@ -712,20 +738,28 @@ def test_flash_backward_same_bits_twice(case, cuda):
 
 
 def test_flash_forward_route(cuda):
-    """The .cu's getters: bf16 at d 64 and 128 runs the TMA + wgmma
-    forward, at every other head dim mma.sync; float32 the FMA kernel.
-    The wgmma route's rows a block follow from the shapes alone."""
+    """The .cu's getters: bf16 at d 64, 128 and 256 runs the TMA + wgmma
+    forward, at every other head dim mma.sync; float32 at d 64 and 128 the
+    same kernel on 3xBF16, at every other head dim the FMA kernel. The
+    wgmma routes' rows a block follow from the shapes alone, and the
+    cases reach both at every row width."""
     for d in fa_ops.HEAD_DIMS:
-        wg = d in (64, 128)
+        wg, wg32 = d in (64, 128, 256), d in (64, 128)
         assert fa_ops.fwd_route(torch.bfloat16, d) == (
             "wgmma" if wg else "mma.sync")
-        assert fa_ops.fwd_route(torch.float32, d) == "fma"
-        assert fa_ops.fwd_kernel(torch.float32, d, 2, 24, 2048) == "fma"
+        assert fa_ops.fwd_route(torch.float32, d) == (
+            "wgmma-3xbf16" if wg32 else "fma")
+        blocks = ("wgmma-64", "wgmma-128")
+        assert (fa_ops.fwd_kernel(torch.float32, d, 2, 24, 2048)
+                in (blocks if wg32 else ("fma",)))
         assert (fa_ops.fwd_kernel(torch.bfloat16, d, 2, 24, 2048)
-                in (("wgmma-64", "wgmma-128") if wg else ("mma.sync",)))
-    kernels = {fa_ops.fwd_kernel(torch.bfloat16, c[5], c[0], c[1], c[3])
-               for c in FA_CASES if c[-1] == "bfloat16" and c[5] in (64, 128)}
-    assert kernels == {"wgmma-64", "wgmma-128"}
+                in (blocks if wg else ("mma.sync",)))
+    for width in (128, 256):     # bf16 columns a row
+        kernels = {fa_ops.fwd_kernel(getattr(torch, c[-1]), c[5], c[0], c[1],
+                                     c[3]) for c in FA_CASES
+                   if _fwd_wgmma(c) and c[5] * (2 if c[-1] == "float32"
+                                                else 1) == width}
+        assert kernels == {"wgmma-64", "wgmma-128"}, width
 
 
 @pytest.mark.parametrize("case", [(300, 300, True, 48, 64, 64),
@@ -742,26 +776,64 @@ def test_flash_forward_plan_matches_the_mirror(case, cuda):
     assert fa_ops.fwd_plan_cu(*case) == fa_ops.fwd_plan(*case)
 
 
-@pytest.mark.parametrize("case", [c for c in FA_CASES
-                                  if c[-1] == "bfloat16" and c[5] in (64, 128)
+@pytest.mark.parametrize("case", [c for c in FA_CASES if _fwd_wgmma(c)
                                   and c[0] * c[1] * c[3] <= 8192], ids=str)
 @pytest.mark.parametrize("kernel", ["wgmma-64", "wgmma-128"])
 def test_flash_forward_every_wgmma_block(case, kernel, cuda):
-    """Both of the wgmma route's blocks (64 and 128 rows), whichever the
-    shapes choose, against the plain version."""
+    """Both of the wgmma routes' blocks (64 and 128 rows), whichever the
+    shapes choose, against the plain version: out, and L within 1e-4 x
+    max(1, max |L|) of the plain log-sum-exp (+inf on the same rows); two
+    calls, and calls with and without L, give the same bits."""
     B, Hq, Hkv, Sq, Sk, d, causal, window, dt = case
     rng = np.random.default_rng(1)
     t = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32)).to(cuda, torch.bfloat16)
+        rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
     q, k, v = t(B, Hq, Sq, d), t(B, Hkv, Sk, d), t(B, Hkv, Sk, d)
-    out = fa_ops.flash_attention_fwd_cuda(q, k, v, causal=causal,
-                                          window=window, kernel=kernel)
+    kw = dict(causal=causal, window=window, kernel=kernel)
+    out, lse = fa_ops.flash_attention_fwd_cuda(q, k, v, lse=True, **kw)
+    again, lse2 = fa_ops.flash_attention_fwd_cuda(q, k, v, lse=True, **kw)
+    alone = fa_ops.flash_attention_fwd_cuda(q, k, v, **kw)
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     assert float((out.float() - ref.float()).abs().max()) < _tol(dt)
+    want = flash_attention_lse_ref(q, k, causal=causal, window=window)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    if fin.any():
+        assert float((lse[fin] - want[fin]).abs().max()) <= 1e-4 * max(
+            1.0, float(want[fin].abs().max()))
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    assert torch.equal(out, alone)
 
 
-@pytest.mark.parametrize("case", [c for c in FA_CASES
-                                  if c[-1] == "bfloat16" and c[5] in (64, 128)
+@pytest.mark.parametrize("case", [
+    (1, 10, 1, 2304, 2304, 256, True, 2048, "bfloat16"),
+    (2, 10, 1, 100, 137, 256, True, 48, "bfloat16"),
+    (1, 24, 8, 128, 328, 128, True, 0, "float32"),
+    (2, 4, 4, 128, 256, 64, True, 64, "float32")], ids=str)
+def test_flash_forward_first_versions_on_request(case, cuda):
+    """The first kernels (mma.sync at bf16 d 256, FMA in float32 at d 64
+    and 128), which ``kernel`` runs in place of the route for timing,
+    against the plain version, as the route's kernels are held."""
+    B, Hq, Hkv, Sq, Sk, d, causal, window, dt = case
+    rng = np.random.default_rng(6)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
+    q, k, v = t(B, Hq, Sq, d), t(B, Hkv, Sk, d), t(B, Hkv, Sk, d)
+    kernel = "fma" if dt == "float32" else "mma.sync"
+    before = fa_ops.launches
+    out = fa_ops.flash_attention_fwd_cuda(q, k, v, causal=causal,
+                                          window=window, kernel=kernel)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert float((out.float() - ref.float()).abs().max()) < _tol(dt)
+    with pytest.raises(RuntimeError):   # the launcher refuses the other
+        fa_ops.flash_attention_fwd_cuda(
+            q, k, v, causal=causal, window=window,
+            kernel="mma.sync" if dt == "float32" else "fma")
+
+
+@pytest.mark.parametrize("case", [c for c in FA_CASES if _fwd_wgmma(c)
                                   and (c[3] <= 2 or c[3] >= 2048 or c[7])],
                          ids=str)
 def test_flash_forward_same_bits_twice(case, cuda):
@@ -769,7 +841,7 @@ def test_flash_forward_same_bits_twice(case, cuda):
     B, Hq, Hkv, Sq, Sk, d, causal, window, dt = case
     rng = np.random.default_rng(4)
     t = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32)).to(cuda, torch.bfloat16)
+        rng.standard_normal(s).astype(np.float32)).to(cuda, getattr(torch, dt))
     q, k, v = t(B, Hq, Sq, d), t(B, Hkv, Sk, d), t(B, Hkv, Sk, d)
     kw = dict(causal=causal, window=window, lse=True)
     a = fa_ops.flash_attention_fwd_cuda(q, k, v, **kw)

@@ -294,8 +294,10 @@ FWD_PLAN_CASES = [(100, 100, True, 0), (48, 248, True, 0),
                   (200, 200, True, 63), (200, 200, True, 66),
                   (130, 195, True, 127), (100, 101, True, 0),
                   (200, 200, False, 63), (100, 162, True, 0)]
-# the wgmma kernel's blocks: (rows a block, keys a tile)
-FWD_BLOCKS = [(128, 128), (64, 64)]
+# the wgmma kernel's blocks: (rows a block, keys a tile) -- at 128 bf16
+# columns a row (bf16 d 64 and 128, float32 d 64) 128 rows on 128 keys or
+# 64 on 64; at 256 (bf16 d 256, float32 d 128) 128 or 64 rows on 64 keys
+FWD_BLOCKS = [(128, 128), (64, 64), (128, 64)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -580,3 +582,48 @@ def test_k2_bwd_3xbf16_route_within_the_float32_tolerance(case):
             assert max(rel) <= 5e-5, rel      # a margin of 2x at least
         else:
             assert min(rel) > 1e-3, rel
+
+
+def _fwd_route_emulated(q, k, v, causal, window, parts):
+    """out and L of one head as the float32 forward route computes them:
+    S = Q K^T through ``_product``, the softmax in float32, P kept in
+    float32 and split into its two parts for P V (``_product``; with parts
+    1 rounded to bf16, as the bf16 route rounds it); and the same forward
+    dense in float64."""
+    d = q.shape[1]
+    scale = d ** -0.5
+    vis = _visible(q.shape[0], k.shape[0], causal, window)
+    s64 = np.where(vis, (q.astype(np.float64) @ k.T) * scale, -np.inf)
+    m64 = s64.max(1, keepdims=True)
+    e64 = np.exp(s64 - m64)
+    l64 = e64.sum(1, keepdims=True)
+    want = (e64 @ v / l64, (np.log(l64) + m64)[:, 0])
+    sc = np.float32(scale)
+    s = _product(q, k.T, parts)            # raw scores, float32
+    m = np.where(vis, s, -np.inf).max(1, keepdims=True)
+    p = np.where(vis, np.exp((s - m) * sc), 0).astype(np.float32)
+    lsum = p.sum(1, keepdims=True, dtype=np.float32)
+    got = (_product(p, v, parts) / lsum, (m * sc + np.log(lsum))[:, 0])
+    return got, want
+
+
+@pytest.mark.parametrize("case", BWD_EMU_CASES, ids=str)
+def test_k2_fwd_3xbf16_route_within_the_float32_tolerance(case):
+    """The float32 forward route's arithmetic (two bf16 parts, three
+    products a product, P's two parts) keeps out within 1e-4 and L within
+    1e-4 x max(1, max |L|) of the float64 forward, the tolerances the
+    card holds float32 to, with a margin of 2x; one bf16 pass misses."""
+    Sq, Sk, d, causal, window = case
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((Sq, d), (Sk, d), (Sk, d)))
+    for parts, within in ((2, True), (1, False)):
+        (out, L), (want_out, want_L) = _fwd_route_emulated(
+            q, k, v, causal, window, parts)
+        err = (float(np.abs(out - want_out).max()),
+               float(np.abs(L - want_L).max())
+               / max(1.0, float(np.abs(want_L).max())))
+        if within:
+            assert max(err) <= 5e-5, (parts, err)     # 1e-4 with 2x margin
+        else:
+            assert err[0] > 1e-4, (parts, err)
